@@ -7,21 +7,40 @@ Phases, each raising (and so exiting non-zero) on any failure:
 
   1. setup — TF32 off for matmuls and cuDNN; build the CUDA kernels from
      ggnn_tpu_torch/csrc into build/kernels/ and report the build time;
-  2. kernels — every kernel of the serving path against its plain
-     PyTorch version on the card, at the shapes the serving path gives
-     it and at edge cases (rtol = atol = 1e-5: f32 sums in another
-     order), with its device time (CUDA events around each call, median
-     of 50 after warm-up, see `time_ms`), its byte bound, the plain
-     version's time and, as a yardstick the port never calls,
-     `torch.sparse.mm` of the CSR count matrix;
+  2. kernels — every kernel of the serving and training paths against
+     its plain PyTorch version on the card, at the shapes those paths
+     give it and at edge cases (rtol = atol = 1e-5: f32 sums in another
+     order; the hub cases sum multiples of 1/8 and must match exactly),
+     with its device time (CUDA events around each call, median of 50
+     after warm-up, see `time_ms`), its byte bound, the plain version's
+     time and, as a yardstick the port never calls, `torch.sparse.mm` of
+     the CSR count matrix (B1) or of its transpose (B2);
   3. serving — a default sparse model (hidden 100, layer_timesteps
      [2,2,1,2,1], random weights from torch.Generator seed 0) written as
      a pickle checkpoint and loaded by `Predictor.from_checkpoint` with
      the default device and envelope; a 1-graph, a 300-graph and a
-     3,000-graph request, with the kernel's launch counter read around
-     them, each answer held against the same checkpoint served on the
+     3,000-graph request, with both kernels' launch counters read around
+     them (8 B1 launches per forward, no B2), each answer held against the same checkpoint served on the
      CPU (rtol = atol = 1e-4: 8 GRU steps with f32 products in another
-     order), graphs/s of the large request and the 1-graph latency.
+     order), graphs/s of the large request and the 1-graph latency;
+  4. training — `Runner("sparse", cfg)` with the default sparse config
+     plus configs/sparse_tpu.json (20,000-node batches, edge-weight
+     dropout 0.8) on the default device, 3 epochs of
+     synthetic_molecules(6000, seed=40), validated on
+     synthetic_molecules(600, seed=41): both kernels' counters set to 0
+     before `train()` and read after it (8 B1 launches per train step
+     and per validation batch, 7 B2 launches per train step), every loss
+     finite, the last validation loss below that of the initial
+     weights; per epoch the losses, MAE, error_ratio, graphs/s and the
+     median synchronised train-step time;
+  5. card against CPU — one train step on one 20k-node batch, every keep
+     probability 1.0, from the same initial weights on the card and on
+     the CPU: loss at rtol 1e-5, every parameter's gradient at a
+     relative L2 error <= 1e-4 (f32 sums in another order over 8 GRU
+     steps);
+  6. profile — `torch.profiler` over train steps on a 20k-node batch:
+     wall ms, device-busy ms, the device's idle share, the kernel count
+     and the top device operations.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -44,6 +63,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12          # f32 outside the tensor cores, same source
 TOL_KERNEL = 1e-5
 TOL_SERVING = 1e-4
+TOL_STEP_LOSS = 1e-5       # card vs CPU train step: loss, rtol
+TOL_STEP_GRAD = 1e-4       # ... and each gradient, relative L2 error
 HIDDEN = 100
 EDGE_TYPES = 4
 
@@ -121,35 +142,16 @@ def csr_count_matrix(src, offsets, num_segments, num_nodes):
         size=(num_segments, num_nodes))
 
 
-def check_gather_segment_sum(ell_spmm, label, h, src, offsets,
-                             num_segments):
-    """Kernel vs plain version on the card; returns the shape's record."""
-    got = ell_spmm.gather_segment_sum(h, src, offsets, num_segments)
-    want = ell_spmm.gather_segment_sum_reference(h, src, offsets,
-                                                 num_segments)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max().item()) if got.numel() else 0.0
-    torch.testing.assert_close(got, want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
-    n_nodes, h_dim = h.shape
-    used = int(offsets[-1].item() - offsets[0].item())
-    bytes_moved = 4 * (n_nodes * h_dim + used + (num_segments + 1)
-                       + num_segments * h_dim)
-    ops = used * h_dim
+def measure(kernel, plain, library, bytes_moved, ops):
+    """Times of a kernel call, its plain version and the library call
+    (see `time_ms`), and the call's bound from the bytes it must move and
+    the operations it must do."""
+    ms, host_ms = time_ms(kernel)
+    plain_ms, plain_host_ms = time_ms(plain)
+    library_ms, library_host_ms = time_ms(library)
     byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     op_ms = ops / F32_OPS_PER_S * 1e3
-    matrix = csr_count_matrix(src, offsets, num_segments, n_nodes)
-    lib_out = torch.sparse.mm(matrix, h)
-    torch.testing.assert_close(lib_out, want, rtol=TOL_KERNEL,
-                               atol=TOL_KERNEL)
-    ms, host_ms = time_ms(lambda: ell_spmm.gather_segment_sum(
-        h, src, offsets, num_segments))
-    plain_ms, plain_host_ms = time_ms(
-        lambda: ell_spmm.gather_segment_sum_reference(
-            h, src, offsets, num_segments))
-    library_ms, library_host_ms = time_ms(lambda: torch.sparse.mm(matrix, h))
-    rec = {
-        "shape": label, "N": n_nodes, "H": h_dim, "S": num_segments,
-        "E": int(src.shape[0]), "edges_used": used, "max_abs_err": err,
+    return {
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "host_ms": host_ms, "plain_host_ms": plain_host_ms,
         "library_host_ms": library_host_ms,
@@ -157,122 +159,208 @@ def check_gather_segment_sum(ell_spmm, label, h, src, offsets,
         "bound_by": "bytes" if byte_ms >= op_ms else "operations",
         "bytes": bytes_moved,
     }
-    log(f"kernel gather_segment_sum [{label}] N={n_nodes} H={h_dim} "
-        f"S={num_segments} E={rec['E']} used={used}: device ms={ms:.6f} "
-        f"bound_us={rec['bound_ms'] * 1e3:.3f} ({rec['bound_by']}) "
-        f"plain_ms={plain_ms:.6f} library_ms={library_ms:.6f} | host ms "
-        f"per call: kernel {host_ms:.6f} plain {plain_host_ms:.6f} "
-        f"library {library_host_ms:.6f} | max_abs_err={err:.3e}")
+
+
+def timing_text(rec) -> str:
+    return (f"device ms={rec['ms']:.6f} bound_us={rec['bound_ms'] * 1e3:.3f}"
+            f" ({rec['bound_by']}) plain_ms={rec['plain_ms']:.6f} "
+            f"library_ms={rec['library_ms']:.6f} | host ms per call: kernel "
+            f"{rec['host_ms']:.6f} plain {rec['plain_host_ms']:.6f} library "
+            f"{rec['library_host_ms']:.6f} | "
+            f"max_abs_err={rec['max_abs_err']:.3e}")
+
+
+def check_kernel(ell_spmm, name, label, x, idx, offsets, num_segments,
+                 exact=False):
+    """A sorted-segment kernel, B1 (`gather_segment_sum`) or B2
+    (`segment_scatter_sum`), against its plain version on the card at one
+    shape; returns the shape's record. out[s] sums the rows x[idx[e]]
+    over the edges e of segment s. The bound counts the rows of x that
+    some edge reads (each once), the segments' indices and offsets once
+    and the output written once. `exact` demands equality (inputs whose
+    partial sums are exact in f32)."""
+    kernel = getattr(ell_spmm, name)
+    plain = getattr(ell_spmm, name + "_reference")
+    got = kernel(x, idx, offsets, num_segments)
+    want = plain(x, idx, offsets, num_segments)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max().item()) if got.numel() else 0.0
+    tol = 0.0 if exact else TOL_KERNEL
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    rows, h_dim = x.shape
+    begin, end = int(offsets[0].item()), int(offsets[-1].item())
+    used = end - begin
+    rows_read = int(torch.unique(idx[begin:end]).numel())
+    matrix = csr_count_matrix(idx, offsets, num_segments, rows)
+    lib_out = torch.sparse.mm(matrix, x)
+    torch.testing.assert_close(lib_out, want, rtol=TOL_KERNEL,
+                               atol=TOL_KERNEL)
+    rec = {
+        "shape": label, "rows_of_input": rows, "H": h_dim,
+        "S": num_segments, "E": int(idx.shape[0]), "edges_used": used,
+        "rows_read": rows_read, "max_abs_err": err,
+        **measure(
+            lambda: kernel(x, idx, offsets, num_segments),
+            lambda: plain(x, idx, offsets, num_segments),
+            lambda: torch.sparse.mm(matrix, x),
+            bytes_moved=4 * (rows_read * h_dim + used + (num_segments + 1)
+                             + num_segments * h_dim),
+            ops=used * h_dim),
+    }
+    log(f"kernel {name} [{label}] rows(input)={rows} H={h_dim} "
+        f"S={num_segments} E={rec['E']} used={used} rows_read={rows_read}: "
+        f"{timing_text(rec)}")
     return rec
 
 
-def ell_layout(rng, n_nodes, t_dim, n_edges, block):
-    """Target-block-major ELL forward layout (the layout of
-    ggnn_tpu/data/ell.py): per (type, node block) KE slots, targets
-    sorted within a block, pads at target NP."""
-    np_total = -(-n_nodes // block) * block
-    nb = np_total // block
-    per_type = []
-    ke = 1
-    for _ in range(t_dim):
-        src = rng.integers(0, n_nodes, n_edges).astype(np.int32)
-        tgt = rng.integers(0, n_nodes, n_edges).astype(np.int32)
-        order = np.argsort(tgt, kind="stable")
-        src, tgt = src[order], tgt[order]
-        blocks = tgt // block
-        slots = np.arange(n_edges) - np.searchsorted(blocks, blocks)
-        ke = max(ke, int(slots.max()) + 1)
-        per_type.append((src, tgt, blocks, slots))
-    ke = -(-ke // 8) * 8
-    fwd_src = np.zeros((t_dim, nb, ke), np.int32)
-    fwd_tgt = np.full((t_dim, nb, ke), np_total, np.int32)
-    for t, (src, tgt, blocks, slots) in enumerate(per_type):
-        fwd_src[t, blocks, slots] = src
-        fwd_tgt[t, blocks, slots] = tgt
-    return np_total, fwd_src, fwd_tgt
-
-
-def kernel_phase(dev, gen):
+def lane_batches():
+    """[(label, batch, T)] of the two combined-lane shapes both kernels
+    are measured at: the serving envelope (a batch packed exactly as
+    Predictor packs a multi-graph request at max_nodes=2048,
+    max_graphs=256) and the 20,000-node budget of
+    configs/sparse_tpu.json (capacities planned by the port's packer over
+    a synthetic corpus), the training path's batch."""
     from ggnn_tpu_torch.data import packing
     from ggnn_tpu_torch.data.loader import infer_metadata
     from ggnn_tpu_torch.data.synthetic import synthetic_molecules
-    from ggnn_tpu_torch.ops.kernels import ell_spmm
-    from ggnn_tpu_torch.ops.messages import combined_lane_offsets
 
-    def rand_h(n, h_dim=HIDDEN):
-        return torch.randn(n, h_dim, generator=gen, device=dev)
-
-    def lane_case(label, batch, t_dim):
-        n_cap = batch.node_capacity
-        b = batch.to(dev)
-        offsets = combined_lane_offsets(b.edge_targets_all,
-                                        b.edge_types_all, t_dim, n_cap)
-        return check_gather_segment_sum(ell_spmm, label, rand_h(n_cap),
-                                        b.edge_sources_all, offsets,
-                                        n_cap * t_dim)
-
-    records = []
-    # (a) the serving envelope: a batch packed exactly as Predictor packs
-    # a multi-graph request at max_nodes=2048, max_graphs=256.
     caps = packing.PackCapacities(nodes=2048, edges_per_type=16384,
                                   graphs=256, edges_all=16384)
-    mols = synthetic_molecules(300, seed=21)
-    proc = packing.preprocess_sparse(mols, EDGE_TYPES, True, [0], {}, False)
-    batch = next(packing.pack_sparse_batches(
+    proc = packing.preprocess_sparse(synthetic_molecules(300, seed=21),
+                                     EDGE_TYPES, True, [0], {}, False)
+    envelope = next(packing.pack_sparse_batches(
         proc, EDGE_TYPES, caps.nodes + 1, caps, HIDDEN, 5, False, None))
-    records.append(lane_case("serving envelope", batch, EDGE_TYPES))
-
-    # (b) the 20,000-node budget of configs/sparse_tpu.json, capacities
-    # planned by the port's packer over a synthetic corpus.
     corpus = synthetic_molecules(2400, seed=22)
     meta = infer_metadata([corpus], True)
     proc = packing.preprocess_sparse(corpus, meta.num_edge_types, True, [0],
                                      {}, False)
     caps20k = packing.plan_capacities(proc, meta.num_edge_types, 20000)
     log(f"20k-node plan: {caps20k}")
-    batch = next(packing.pack_sparse_batches(
+    budget = next(packing.pack_sparse_batches(
         proc, meta.num_edge_types, 20000, caps20k, HIDDEN,
         meta.annotation_size, False, None))
-    records.append(lane_case("20k-node budget", batch, meta.num_edge_types))
+    return [("serving envelope", envelope, EDGE_TYPES),
+            ("20k-node budget", budget, meta.num_edge_types)]
 
-    # (c) edge cases: mostly empty segments with one hub of 5,000 edges,
-    # and H = 37 (the scalar path; float4 needs H % 4 == 0). The hub
-    # sums 5,000 rows, whose f32 rounding differs by order well past
-    # 1e-5, so its h holds multiples of 1/8 in [-2, 2]: every partial
-    # sum is exact in f32 and the two versions must agree exactly.
-    rng = np.random.default_rng(23)
-    n_seg, n_nodes = 4096, 6000
-    counts = np.zeros(n_seg, np.int64)
-    counts[rng.choice(n_seg, 300, replace=False)] = rng.integers(1, 9, 300)
-    counts[1234] = 5000
+
+def small_ell_layout(dev):
+    """(NP, {name: [T, NB, KE] int32 on the card}) of a small blocked-ELL
+    layout from data/ell.py: 3,000 random edges of each of 4 types over
+    1,000 nodes, blocks of 64."""
+    from ggnn_tpu_torch.data.ell import build_ell_layout
+
+    rng = np.random.default_rng(25)
+    src = rng.integers(0, 1000, (EDGE_TYPES, 3000)).astype(np.int32)
+    tgt = rng.integers(0, 1000, (EDGE_TYPES, 3000)).astype(np.int32)
+    layout = build_ell_layout(src, tgt, np.ones_like(src, np.float32), 1000,
+                              64)
+    return layout.fwd_src.shape[1] * 64, {
+        name: torch.from_numpy(getattr(layout, name)).to(dev)
+        for name in ("fwd_src", "fwd_tgt", "bwd_tgt", "bwd_src")}
+
+
+def hub_case(dev, gen, seed, num_segments, num_rows, hub):
+    """(x, idx, offsets) of a hub check: `num_segments` segments, 300 of
+    them with 1-8 edges and segment `hub` with 5,000, the rest empty,
+    gathering from `num_rows` rows. The hub sums 5,000 rows, whose f32
+    rounding differs by order well past 1e-5, so x holds multiples of
+    1/8 in [-2, 2]: every partial sum is exact in f32 and a kernel must
+    equal its plain version."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(num_segments, np.int64)
+    counts[rng.choice(num_segments, 300, replace=False)] = rng.integers(
+        1, 9, 300)
+    counts[hub] = 5000
     offsets = torch.from_numpy(np.concatenate(
         [[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
-    src = torch.from_numpy(rng.integers(0, n_nodes, int(counts.sum()))
+    idx = torch.from_numpy(rng.integers(0, num_rows, int(counts.sum()))
                            .astype(np.int32)).to(dev)
-    h_exact = torch.randint(-16, 17, (n_nodes, HIDDEN), generator=gen,
-                            device=dev).float() / 8
-    records.append(check_gather_segment_sum(
-        ell_spmm, "hub + empty segments", h_exact, src, offsets, n_seg))
+    x = torch.randint(-16, 17, (num_rows, HIDDEN), generator=gen,
+                      device=dev).float() / 8
+    return x, idx, offsets
+
+
+def kernel_phase(dev, gen, batches, ell):
+    """B1 at the serving envelope and the 20k-node budget, a hub, H = 37
+    (the scalar path; float4 needs H % 4 == 0), and its ELL entry
+    point."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+    from ggnn_tpu_torch.ops.messages import combined_lane_offsets
+
+    def rand_h(n, h_dim=HIDDEN):
+        return torch.randn(n, h_dim, generator=gen, device=dev)
+
+    def check(*args, **kwargs):
+        return check_kernel(ell_spmm, "gather_segment_sum", *args, **kwargs)
+
+    records = []
+    for label, batch, t_dim in batches:
+        n_cap = batch.node_capacity
+        b = batch.to(dev)
+        offsets = combined_lane_offsets(b.edge_targets_all,
+                                        b.edge_types_all, t_dim, n_cap)
+        records.append(check(label, rand_h(n_cap), b.edge_sources_all,
+                             offsets, n_cap * t_dim))
+    records.append(check("hub + empty segments",
+                         *hub_case(dev, gen, 23, 4096, 6000, 1234), 4096,
+                         exact=True))
+    rng = np.random.default_rng(26)
     counts = rng.integers(0, 6, 6000)
     offsets = torch.from_numpy(np.concatenate(
         [[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
     src = torch.from_numpy(rng.integers(0, 3000, int(counts.sum()))
                            .astype(np.int32)).to(dev)
-    records.append(check_gather_segment_sum(
-        ell_spmm, "H=37", rand_h(3000, 37), src, offsets, 6000))
+    records.append(check("H=37", rand_h(3000, 37), src, offsets, 6000))
 
-    # (d) the ELL entry point on a small problem.
-    np_total, fwd_src, fwd_tgt = ell_layout(rng, 1000, EDGE_TYPES, 3000, 64)
+    np_total, layout = ell
     h = rand_h(np_total)
-    fwd_src = torch.from_numpy(fwd_src).to(dev)
-    fwd_tgt = torch.from_numpy(fwd_tgt).to(dev)
-    got = ell_spmm.ell_aggregate_by_type(h, fwd_src, fwd_tgt)
-    want = ell_spmm.ell_aggregate_by_type_reference(h, fwd_src, fwd_tgt)
+    fwd = (layout["fwd_src"], layout["fwd_tgt"])
+    got = ell_spmm.ell_aggregate_by_type(h, *fwd)
+    want = ell_spmm.ell_aggregate_by_type_reference(h, *fwd)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
     ell_err = float((got - want).abs().max().item())
     log(f"kernel ell_aggregate_by_type [T={EDGE_TYPES} NP={np_total} "
-        f"KE={fwd_src.shape[2]}]: max_abs_err={ell_err:.3e}")
+        f"KE={fwd[0].shape[2]}]: max_abs_err={ell_err:.3e}")
+    return records, ell_err
+
+
+def backward_kernel_phase(dev, gen, batches, ell):
+    """B2 at the backward of the serving envelope and of the 20k-node
+    budget (the training path's shape), a hub source, and its ELL entry
+    point."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+    from ggnn_tpu_torch.ops.messages import combined_lane_transpose
+
+    def check(*args, **kwargs):
+        return check_kernel(ell_spmm, "segment_scatter_sum", *args,
+                            **kwargs)
+
+    records = []
+    for label, batch, t_dim in batches:
+        n_cap = batch.node_capacity
+        b = batch.to(dev)
+        bgather, boff = combined_lane_transpose(
+            b.edge_sources_all, b.edge_types_all, b.edge_targets_all,
+            t_dim, n_cap)
+        g = torch.randn(n_cap * t_dim, HIDDEN, generator=gen, device=dev)
+        records.append(check(f"backward of the {label}", g, bgather, boff,
+                             n_cap))
+    records.append(check("hub + empty rows",
+                         *hub_case(dev, gen, 24, 4096, 4096 * EDGE_TYPES,
+                                   2345), 4096, exact=True))
+
+    # The ELL entry point on the layout of B1's ELL case.
+    np_total, layout = ell
+    g = torch.randn(EDGE_TYPES, np_total, HIDDEN, generator=gen, device=dev)
+    bwd = (layout["bwd_tgt"], layout["bwd_src"])
+    got = ell_spmm.ell_scatter_sum(g, *bwd)
+    want = ell_spmm.ell_scatter_sum_reference(g, *bwd)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=TOL_KERNEL, atol=TOL_KERNEL)
+    ell_err = float((got - want).abs().max().item())
+    log(f"kernel ell_scatter_sum [T={EDGE_TYPES} NP={np_total} "
+        f"KE={bwd[0].shape[2]}]: max_abs_err={ell_err:.3e}")
     return records, ell_err
 
 
@@ -316,16 +404,20 @@ def serving_phase(ckpt_dir):
 
     predictor._forward = counted_forward
     ell_spmm.launches = 0
+    ell_spmm.scatter_launches = 0
     answers = {n: predictor(req) for n, req in requests.items()}
     torch.cuda.synchronize()
-    launches = ell_spmm.launches
+    launches, scatter_launches = ell_spmm.launches, ell_spmm.scatter_launches
     predictor._forward = forward
-    log(f"serving: {forward_calls} forward calls, {launches} kernel "
-        f"launches ({steps} per forward expected)")
+    log(f"serving: {forward_calls} forward calls, {launches} B1 launches "
+        f"({steps} per forward expected), {scatter_launches} B2 launches "
+        "(0 expected: serving builds no transpose layout)")
     if launches != steps * forward_calls or launches == 0:
         raise RuntimeError(
             f"kernel launches {launches} != {steps} x {forward_calls} "
             "forward calls: the serving path did not run the kernel")
+    if scatter_launches != 0:
+        raise RuntimeError(f"serving launched B2 {scatter_launches} times")
 
     max_err = 0.0
     for n, req in requests.items():
@@ -358,6 +450,7 @@ def serving_phase(ckpt_dir):
         lat.append(time.perf_counter() - t0)
     result = {
         "forward_calls": forward_calls, "launches": launches,
+        "scatter_launches": scatter_launches,
         "graphs_per_s_3000": 3000 / statistics.median(times),
         "latency_1_graph_ms": statistics.median(lat[5:]) * 1e3,
         "max_abs_err_vs_cpu": max_err,
@@ -366,6 +459,227 @@ def serving_phase(ckpt_dir):
         f"3000-graph request (median of 3, host clock, synchronised); "
         f"1-graph latency {result['latency_1_graph_ms']:.3f} ms "
         "(median of 20)")
+    return result
+
+
+# ------------------------------------------------------------ training
+
+def training_config(overrides=None):
+    from ggnn_tpu_torch.training.config import resolve_config
+    config = resolve_config(
+        "sparse", os.path.join(REPO, "configs", "sparse_tpu.json"),
+        json.dumps(overrides or {}))
+    assert config["hidden_size"] == HIDDEN
+    assert config["batch_size"] == 20000
+    return config
+
+
+def training_phase(log_dir):
+    """3 epochs of the default sparse config at the 20k-node budget
+    through `Runner.train()` on the default device."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+    from ggnn_tpu_torch.training.runner import Runner
+
+    config = training_config({"num_epochs": 3})
+    assert config["edge_weight_dropout_keep_prob"] == 0.8
+    steps = sum(config["layer_timesteps"])
+    t0 = time.perf_counter()
+    runner = Runner("sparse", config,
+                    train_data=synthetic_molecules(6000, seed=40),
+                    valid_data=synthetic_molecules(600, seed=41),
+                    log_dir=log_dir, quiet=True)
+    setup_s = time.perf_counter() - t0
+    if runner.device.type != "cuda":
+        raise RuntimeError(f"default device is {runner.device}")
+    init_loss, init_accs, _, _, _ = runner.run_epoch(
+        "initial validation", runner.valid_processed, False)
+    log(f"training: Runner set-up {setup_s:.2f} s (preprocess + plan of "
+        f"6,600 graphs, caps {runner.adapter.caps}); validation loss of "
+        f"the initial weights {init_loss:.6f} (MAE {init_accs[0]:.6f})")
+
+    # Synchronised step times, per epoch.
+    step_times, epoch_marks = [], []
+    train_step, run_epoch = runner.train_step, runner.run_epoch
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = train_step(batch)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - start)
+        return out
+
+    def marked_epoch(name, processed, is_training):
+        if is_training:
+            epoch_marks.append(len(step_times))
+        return run_epoch(name, processed, is_training)
+
+    runner.train_step, runner.run_epoch = timed_step, marked_epoch
+    ell_spmm.launches = 0
+    ell_spmm.scatter_launches = 0
+    t0 = time.perf_counter()
+    history = runner.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    b1, b2 = ell_spmm.launches, ell_spmm.scatter_launches
+    runner.train_step, runner.run_epoch = train_step, run_epoch
+
+    train_steps, valid_batches = runner.train_step_id, runner.valid_step_id
+    want_b1 = steps * (train_steps + valid_batches)
+    want_b2 = (steps - 1) * train_steps
+    log(f"training: {len(history)} epochs, {train_steps} train steps, "
+        f"{valid_batches} validation batches in {train_s:.2f} s; launches "
+        f"B1 {b1} (expected {steps} x ({train_steps} + {valid_batches}) = "
+        f"{want_b1}), B2 {b2} (expected {steps - 1} x {train_steps} = "
+        f"{want_b2})")
+    if b1 != want_b1 or b2 != want_b2 or b1 == 0 or b2 == 0:
+        raise RuntimeError("the training path did not launch the kernels "
+                           "the expected number of times")
+    epoch_marks.append(len(step_times))
+    epochs = []
+    for i, entry in enumerate(history):
+        tr, va = entry["train_results"], entry["valid_results"]
+        times = step_times[epoch_marks[i]:epoch_marks[i + 1]]
+        rec = {"epoch": entry["epoch"], "train_loss": tr[0],
+               "train_mae": tr[1][0], "train_error_ratio": tr[2][0],
+               "train_graphs_per_s": tr[3], "valid_loss": va[0],
+               "valid_mae": va[1][0], "valid_error_ratio": va[2][0],
+               "valid_graphs_per_s": va[3], "train_steps": len(times),
+               "median_train_step_ms": statistics.median(times) * 1e3}
+        epochs.append(rec)
+        log(f"training epoch {rec['epoch']}: train loss {tr[0]:.6f} MAE "
+            f"{tr[1][0]:.6f} error_ratio {tr[2][0]:.4f} "
+            f"{tr[3]:.1f} graphs/s | valid loss {va[0]:.6f} MAE "
+            f"{va[1][0]:.6f} error_ratio {va[2][0]:.4f} {va[3]:.1f} "
+            f"graphs/s | median train step {rec['median_train_step_ms']:.3f}"
+            f" ms (synchronised, {len(times)} steps)")
+        values = [tr[0], va[0], *tr[1], *va[1]]
+        if not np.isfinite(values).all():
+            raise RuntimeError(f"epoch {rec['epoch']}: non-finite loss")
+    if not epochs[-1]["valid_loss"] < init_loss:
+        raise RuntimeError(
+            f"validation loss after training {epochs[-1]['valid_loss']} is "
+            f"not below the initial {init_loss}")
+    # The numpy packer alone over one epoch's training split (the Runner
+    # runs it in a prefetch thread beside the steps).
+    t0 = time.perf_counter()
+    packed = sum(1 for _ in runner.adapter.batches(
+        runner.train_processed, True, np.random.RandomState(0)))
+    pack_s = time.perf_counter() - t0
+    epoch_s = len(runner.train_processed) / statistics.median(
+        e["train_graphs_per_s"] for e in epochs)
+    log(f"training: the numpy packer alone packs one epoch ({packed} "
+        f"batches) in {pack_s:.3f} s, {pack_s / epoch_s:.1%} of the "
+        f"median train epoch's {epoch_s:.3f} s")
+    result = {"launches_b1": b1, "launches_b2": b2,
+              "pack_seconds_per_epoch": pack_s,
+              "train_epoch_seconds_median": epoch_s,
+              "train_steps": train_steps, "valid_batches": valid_batches,
+              "initial_valid_loss": init_loss, "train_seconds": train_s,
+              "setup_seconds": setup_s, "epochs": epochs}
+    return runner, result
+
+
+def card_vs_cpu_phase(log_dir):
+    """One train step, keep probabilities 1.0, on the card and on the
+    CPU from the same initial weights (both Runners draw them from a CPU
+    generator seeded with random_seed)."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.training.runner import Runner
+
+    config = training_config({
+        "num_epochs": 1, "edge_weight_dropout_keep_prob": 1.0,
+        "graph_state_dropout_keep_prob": 1.0,
+        "out_layer_dropout_keep_prob": 1.0})
+    train = synthetic_molecules(1300, seed=42)
+    valid = synthetic_molecules(50, seed=43)
+    runners = {dev: Runner("sparse", dict(config), train_data=train,
+                           valid_data=valid,
+                           log_dir=os.path.join(log_dir, dev), quiet=True,
+                           device=dev)
+               for dev in ("cuda", "cpu")}
+    batch = next(iter(runners["cpu"].adapter.batches(
+        runners["cpu"].train_processed, False)))
+    if int(batch.num_nodes) < 19000:
+        raise RuntimeError(f"batch has {int(batch.num_nodes)} nodes, not "
+                           "a 20k-node batch")
+    out = {}
+    for dev, runner in runners.items():
+        t0 = time.perf_counter()
+        out[dev] = runner.loss_and_grads(batch.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        log(f"card vs CPU: {dev} step (first call) "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    loss_gpu, _, grads_gpu = out["cuda"]
+    loss_cpu, _, grads_cpu = out["cpu"]
+    loss_err = abs(float(loss_gpu) - float(loss_cpu)) / abs(float(loss_cpu))
+    worst, worst_name = 0.0, ""
+    for name, g_cpu in grads_cpu.items():
+        g_gpu = grads_gpu[name].cpu()
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_name = rel, name
+    log(f"card vs CPU, one train step on {int(batch.num_nodes)} nodes "
+        f"({int(batch.num_graphs)} graphs): loss {float(loss_gpu):.8f} vs "
+        f"{float(loss_cpu):.8f} (relative error {loss_err:.3e}, limit "
+        f"{TOL_STEP_LOSS}); worst gradient relative L2 error {worst:.3e} "
+        f"({worst_name}, limit {TOL_STEP_GRAD}) over {len(grads_cpu)} "
+        "parameters")
+    if not loss_err <= TOL_STEP_LOSS or not worst <= TOL_STEP_GRAD:
+        raise RuntimeError("the card's train step disagrees with the CPU's")
+    return {"loss_relative_error": loss_err,
+            "worst_grad_relative_l2": worst, "worst_grad": worst_name}
+
+
+def profile_phase(runner, steps=5):
+    """torch.profiler over `steps` train steps on one 20k-node training
+    batch already on the card (dropout on)."""
+    from torch.autograd import DeviceType
+
+    batch = next(iter(runner.adapter.batches(runner.train_processed,
+                                             False))).to(runner.device)
+    for _ in range(3):
+        runner.train_step(batch)
+    torch.cuda.synchronize()
+    # Wall time without the profiler, whose own cost would count as idle.
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        runner.train_step(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            runner.train_step(batch)
+        torch.cuda.synchronize()
+    # Device-side events only: a CPU operator's self device time repeats
+    # the time of the kernels it launched.
+    kernels = [(e.key, e.self_device_time_total, e.count)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in kernels)
+    result = {
+        "nodes": int(batch.num_nodes), "steps": steps,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernels_per_step": sum(k[2] for k in kernels) / steps,
+        "top_device_ops": [
+            {"name": k[0][:80], "ms_per_step": k[1] / 1e3 / steps,
+             "calls_per_step": k[2] / steps} for k in kernels[:12]],
+    }
+    log(f"profile of a train step ({result['nodes']} nodes): wall "
+        f"{result['wall_ms_per_step']:.3f} ms, device busy "
+        f"{result['device_busy_ms_per_step']:.3f} ms, idle share "
+        f"{result['device_idle_share']:.3f}, "
+        f"{result['kernels_per_step']:.0f} kernels per step")
+    for k in result["top_device_ops"]:
+        log(f"  {k['ms_per_step']:.4f} ms/step, {k['calls_per_step']:.0f} "
+            f"calls: {k['name']}")
     return result
 
 
@@ -390,25 +704,54 @@ def main() -> int:
     log(_build.build_info.get("ell_spmm", (0.0, "prebuilt"))[1].strip())
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    records, ell_err = kernel_phase(dev, gen)
-    serving = serving_phase(os.path.join(REPO, "build", "chip_smoke"))
+    batches = lane_batches()
+    ell = small_ell_layout(dev)
+    records, ell_err = kernel_phase(dev, gen, batches, ell)
+    b2_records, b2_ell_err = backward_kernel_phase(dev, gen, batches, ell)
+    work_dir = os.path.join(REPO, "build", "chip_smoke")
+    serving = serving_phase(work_dir)
+    runner, training = training_phase(os.path.join(work_dir, "train"))
+    card_vs_cpu = card_vs_cpu_phase(os.path.join(work_dir, "step"))
+    profile = profile_phase(runner)
 
+    # Each kernel's `launches` sums the main paths' runs (serving and
+    # training), each counted from 0 just before its run.
     main_shape = records[0]
+    b2_shape = b2_records[1]          # the training path's 20k-node shape
     kernels = [{
         "name": "gather_segment_sum",
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:51",
-        "launches": serving["launches"],
+        "launches": serving["launches"] + training["launches_b1"],
+        "launches_by_path": {"serving": serving["launches"],
+                             "training": training["launches_b1"]},
         "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+    }, {
+        "name": "segment_scatter_sum",
+        "route": "cuda",
+        "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
+        "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:101",
+        "launches": serving["scatter_launches"] + training["launches_b2"],
+        "launches_by_path": {"serving": serving["scatter_launches"],
+                             "training": training["launches_b2"]},
+        "max_abs_err": max([r["max_abs_err"] for r in b2_records]
+                           + [b2_ell_err]),
+        "ms": b2_shape["ms"],
+        "plain_ms": b2_shape["plain_ms"],
+        "bound_ms": b2_shape["bound_ms"],
+        "bound_by": b2_shape["bound_by"],
+        "library_ms": b2_shape["library_ms"],
     }]
     device_line = gpu_name_and_power()
-    log(json.dumps({"shapes": records, "serving": serving}))
+    log(json.dumps({"shapes": records, "backward_shapes": b2_records,
+                    "serving": serving, "training": training,
+                    "card_vs_cpu": card_vs_cpu, "profile": profile}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

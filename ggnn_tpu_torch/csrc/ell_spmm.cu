@@ -1,4 +1,8 @@
-// Sorted-segment gather-sum: the sparse GGNN's message aggregation.
+// Sorted-segment gather-sum: the sparse GGNN's message aggregation (B1)
+// and its transpose, the aggregation's gradient (B2), one kernel body
+// behind two entry points.
+//
+// B1 (`gather_segment_sum_f32`):
 //
 //   out[s, :] = sum over e in [off[s], off[s+1]) of h[src[e], :]
 //
@@ -33,6 +37,35 @@
 // Loading a hub's rows 8 at a time halved its time but took the float4
 // kernel to 76 registers and doubled its time at the 20k-node shape
 // on an H100 (PERF.md, Findings), so it is not done.
+
+// B2, the transpose (`segment_scatter_sum_f32`):
+//
+//   dh[n, :] = sum over e in [boff[n], boff[n+1]) of g[bgather[e], :]
+//
+//   g [N*T, H] f32 is the gradient of B1's output on the combined lane
+//   (row n*T + t is the (target n, type t) sum); bgather [E] int32 holds
+//   each real edge's forward composite id target*T + type, in SOURCE
+//   order; boff [N+1] int32 are the CSR offsets over sources.
+//
+// Replaces the Pallas TPU kernel `_scatter_kernel`
+// (ggnn_tpu/ops/pallas/ell_spmm.py:101), which gathers rows of one
+// type's VMEM-resident cotangent slab, builds a one-hot per source
+// block for the MXU and sums over the types outside the kernel. On
+// Hopper the transpose is again a sorted-segment gather-sum, over the
+// edges sorted by source instead of target, so B2 runs the same kernel
+// body as B1 with its own entry point (and its own launch counter in
+// the wrapper). The alternative, an f32 atomicAdd scatter from the
+// forward's target order, is not used: its summation order would be
+// the scheduler's, and the gradient would differ from run to run.
+//
+// What bounds B2: bytes, as for B1. g is T times larger than h (32 MB at
+// N = 20,000, T = 4, H = 100, still inside L2, but not at the
+// reference's 100,000-node budget); the kernel reads one g row per real
+// edge, and only the rows of (target, type) pairs that have an edge,
+// and writes each dh row once. The design above carries over as it is:
+// one warp per dh row (a source node, whose out-edges of all types form
+// one segment), float4 lanes, f32 register sums, each row written once,
+// deterministic.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,14 +125,14 @@ gather_segment_sum_kernel(const V* __restrict__ h,
 
 }  // namespace
 
-// Launches on `stream` of `device` and returns the CUDA error code (0 on
-// success). This library links its own CUDA runtime, whose current
-// device is not PyTorch's, so it is set here. The caller validates
-// shapes, types and contiguity; num_segments and hidden are positive.
-extern "C" int gather_segment_sum_f32(const void* h, const void* src,
-                                      const void* off, void* out,
-                                      int num_segments, int hidden,
-                                      int device, void* stream) {
+// Launches the kernel on `stream` of `device` and returns the CUDA error
+// code (0 on success). This library links its own CUDA runtime, whose
+// current device is not PyTorch's, so it is set here. The caller
+// validates shapes, types and contiguity; num_segments and hidden are
+// positive.
+static int launch(const void* h, const void* src, const void* off,
+                  void* out, int num_segments, int hidden, int device,
+                  void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const int blocks = (num_segments + kWarpsPerBlock - 1) / kWarpsPerBlock;
@@ -120,4 +153,20 @@ extern "C" int gather_segment_sum_f32(const void* h, const void* src,
         num_segments, hidden);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// B1: out [num_segments, hidden] from h, src and off.
+extern "C" int gather_segment_sum_f32(const void* h, const void* src,
+                                      const void* off, void* out,
+                                      int num_segments, int hidden,
+                                      int device, void* stream) {
+  return launch(h, src, off, out, num_segments, hidden, device, stream);
+}
+
+// B2: dh [num_nodes, hidden] from g, bgather and boff.
+extern "C" int segment_scatter_sum_f32(const void* g, const void* bgather,
+                                       const void* boff, void* dh,
+                                       int num_nodes, int hidden,
+                                       int device, void* stream) {
+  return launch(g, bgather, boff, dh, num_nodes, hidden, device, stream);
 }

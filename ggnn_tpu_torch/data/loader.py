@@ -10,7 +10,8 @@ node-feature width of the first graph, accumulated across datasets.
 """
 
 import dataclasses
-from typing import Any, Sequence
+import json
+from typing import Any, List, Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -54,3 +55,12 @@ def infer_metadata(datasets: Sequence[Sequence[Any]],
     for data in datasets:
         meta.update_from(data, tie_fwd_bkwd)
     return meta
+
+
+def load_graphs_json(path: str, restrict: Optional[int] = None) -> List[Any]:
+    """A JSON corpus file; `restrict` keeps its first N graphs."""
+    with open(path, "r") as f:
+        data = json.load(f)
+    if restrict is not None and restrict > 0:
+        data = data[:restrict]
+    return data

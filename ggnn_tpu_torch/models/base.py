@@ -1,10 +1,21 @@
-"""Model-agnostic output heads and the gated segment-sum readout.
+"""Model-agnostic output heads, the gated segment-sum readout and the
+loss.
 
-Reproduces the reference's per-task gated regression
+Reproduces the reference's per-task gated regression + masked loss
 (chem_tensorflow.py:133-170):
 
   head(task):  sigmoid(MLP_gate([h_final ‖ h_init])) * MLP_transform(h_final)
-  pooled per graph by segment-sum over the packed batch's graph slots.
+  pooled per graph by segment-sum over the packed batch's graph slots
+  accuracy = Σ|masked diff| / (Σ mask + ε)            # masked MAE
+  loss     = Σ 0.5 · (masked diff)² / (Σ mask + ε)    # per task, then
+             × 1 / (task_sample_ratios.get(task_id) or 1.0), summed
+
+The rescale looks the ratio up by *integer* task id
+(chem_tensorflow.py:168) while the samplers blank labels by *string* id,
+a reference quirk kept as `ggnn_tpu/models/base.py:12-16` keeps it (JSON
+configs always produce string keys, so the rescale is 1.0 for them).
+In training the heads' weight matrices go through TF1 dropout with
+`out_layer_dropout_keep_prob`.
 
 `ModelParams` is the root of a model's parameters, the counterpart of the
 JAX state tree's `params` entry: `graph` (the propagation model) and
@@ -14,13 +25,14 @@ JAX state tree's `params` entry: `graph` (the propagation model) and
 what the checkpoint bridge relies on (training/checkpoint.py).
 """
 
-from typing import Sequence
+from typing import Dict, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from ggnn_tpu_torch.ops.mlp import mlp_apply, mlp_init
 from ggnn_tpu_torch.ops.segment import segment_sum
+from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
 
 
 class ModelParams(nn.Module):
@@ -48,12 +60,15 @@ def init_output_heads(generator: torch.Generator, hidden_size: int,
 
 def gated_regression_nodes(head: nn.ModuleDict, last_h: torch.Tensor,
                            initial_h: torch.Tensor, *,
-                           keep_prob: float = 1.0) -> torch.Tensor:
+                           keep_prob: float = 1.0,
+                           generator: torch.Generator = None
+                           ) -> torch.Tensor:
     """Per-node gated output [..., 1]."""
     gate_input = torch.cat([last_h, initial_h], dim=-1)
     gate = torch.sigmoid(mlp_apply(head["gate"], gate_input,
-                                   keep_prob=keep_prob))
-    transform = mlp_apply(head["transform"], last_h, keep_prob=keep_prob)
+                                   keep_prob=keep_prob, generator=generator))
+    transform = mlp_apply(head["transform"], last_h, keep_prob=keep_prob,
+                          generator=generator)
     return gate * transform
 
 
@@ -68,14 +83,34 @@ def pool_nodes_to_graphs(gated: torch.Tensor, node_graph_ids: torch.Tensor,
 def segment_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
                     init_features: torch.Tensor,
                     node_graph_ids: torch.Tensor, graph_capacity: int, *,
-                    keep_prob: float = 1.0) -> torch.Tensor:
+                    keep_prob: float = 1.0,
+                    generator: torch.Generator = None) -> torch.Tensor:
     """Per-task gated segment-sum pooling [K, G] — the readout of the
     edge-list variants. The JAX package's `psum_axis` (node-sharded
     batches) waits for multi-GPU (ROADMAP A11)."""
     outs = []
     for task_id in task_ids:
         gated = gated_regression_nodes(heads[f"task{task_id}"], last_h,
-                                       init_features, keep_prob=keep_prob)
+                                       init_features, keep_prob=keep_prob,
+                                       generator=generator)
         outs.append(pool_nodes_to_graphs(gated, node_graph_ids,
                                          graph_capacity))
     return torch.stack(outs, dim=0)
+
+
+def masked_regression_loss(computed: torch.Tensor, targets: torch.Tensor,
+                           target_mask: torch.Tensor,
+                           task_ids: Sequence[int],
+                           task_sample_ratios: Dict
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Total loss [] and per-task masked MAE [K] over a [K, G] prediction
+    block."""
+    diff = (computed - targets) * target_mask
+    task_target_num = target_mask.sum(dim=1) + SMALL_NUMBER
+    accuracies = diff.abs().sum(dim=1) / task_target_num
+    task_losses = (0.5 * diff.square()).sum(dim=1) / task_target_num
+    rescale = torch.tensor(
+        [1.0 / (task_sample_ratios.get(task_id) or 1.0)
+         for task_id in task_ids],
+        dtype=torch.float32, device=computed.device)
+    return (task_losses * rescale).sum(), accuracies

@@ -1,4 +1,4 @@
-"""Sparse GGNN — the serving model and the R-GCN host (inference).
+"""Sparse GGNN — the serving and training model, and the R-GCN host.
 
 Port of the single-device, type-combined-lane branch of
 `ggnn_tpu/models/sparse_ggnn.py` (chem_tensorflow_sparse.py:36-376).
@@ -15,13 +15,19 @@ count), each propagation step does, over the packed batch:
 
 The R-GCN of README.md:48-52 is this model with RGCN_CONFIG.
 
+Training (`is_training=True`, with a `torch.Generator`) adds TF1
+dropout: on each layer's edge weights, drawn ONCE per layer and shared
+by all its steps (`edge_weight_dropout_keep_prob`, the JAX model's
+per-layer `rng_w`), and on the cell's new state at every step
+(`graph_state_dropout_keep_prob`). When a gradient will be asked for,
+the forward builds the combined lane's transpose layout once, for B2 in
+every step's backward.
+
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
 propagation attention (A14), the per-type and per-edge paths
 (`aggregate_first: false`, `combined_edge_lanes: false`,
 `edges_sorted_by_target: false`; A15), `compute_dtype: bfloat16` (A16),
-the edge-partitioned and node-sharded branches (`edge_axis`; A11), and
-training-time edge-weight dropout (A4/A5). Dropout is training-only, so
-a model with the reference's default keep probabilities serves.
+and the edge-partitioned and node-sharded branches (`edge_axis`; A11).
 """
 
 from typing import Dict
@@ -32,9 +38,11 @@ from torch import nn
 from ggnn_tpu_torch.graph import GraphBatch
 from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.ops.cells import make_cell
+from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
                                          average_by_in_degree,
                                          combined_lane_offsets,
+                                         combined_lane_transpose,
                                          edge_bias_term)
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
@@ -130,13 +138,10 @@ class SparseGGNN(nn.Module):
         n_res = len(self.residual_connections.get(layer_idx, []))
         return self.hidden_size * (1 + n_res)
 
-    def forward(self, batch: GraphBatch,
-                is_training: bool = False) -> torch.Tensor:
-        """Final node representations [N, H]."""
-        if is_training and self.edge_weight_dropout_keep_prob < 1.0:
-            raise NotImplementedError(
-                "edge-weight dropout (training) is not ported yet "
-                "(ROADMAP A4/A5)")
+    def forward(self, batch: GraphBatch, is_training: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
+        """Final node representations [N, H]. Training draws its dropout
+        masks from `generator`, on the batch's device."""
         if batch.edge_sources_all is None:
             raise NotImplementedError(
                 "batch has no type-combined edge lane (caps.edges_all = 0); "
@@ -146,9 +151,20 @@ class SparseGGNN(nn.Module):
         offsets = combined_lane_offsets(batch.edge_targets_all,
                                         batch.edge_types_all,
                                         self.num_edge_types, n_cap)
+        transpose = None
+        if torch.is_grad_enabled() and any(
+                p.requires_grad for p in self.parameters()):
+            transpose = combined_lane_transpose(
+                batch.edge_sources_all, batch.edge_types_all,
+                batch.edge_targets_all, self.num_edge_types, n_cap)
         node_states_per_layer = [batch.node_features]
         for layer_idx, num_timesteps in enumerate(self.layer_timesteps):
             layer = self.layers[layer_idx]
+            edge_weights = layer.edge_weights
+            if is_training:
+                edge_weights = dropout(edge_weights,
+                                       self.edge_weight_dropout_keep_prob,
+                                       generator)
             residual_states = [
                 node_states_per_layer[i]
                 for i in self.residual_connections.get(layer_idx, [])
@@ -157,8 +173,8 @@ class SparseGGNN(nn.Module):
             for _step in range(num_timesteps):
                 incoming = aggregate_then_transform_combined(
                     h, batch.edge_sources_all, batch.edge_types_all,
-                    batch.edge_targets_all, layer.edge_weights, n_cap,
-                    offsets=offsets)
+                    batch.edge_targets_all, edge_weights, n_cap,
+                    offsets=offsets, transpose=transpose)
                 if self.use_edge_bias:
                     incoming = incoming + edge_bias_term(
                         batch.in_degrees, layer.edge_biases)
@@ -167,14 +183,17 @@ class SparseGGNN(nn.Module):
                                                     batch.in_degrees)
                 incoming_info = torch.cat(residual_states + [incoming],
                                           dim=-1)
-                h = layer.cell(incoming_info, h, is_training=is_training)
+                h = layer.cell(incoming_info, h, is_training=is_training,
+                               generator=generator)
             node_states_per_layer.append(h)
         return node_states_per_layer[-1]
 
     def readout(self, heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
-                batch: GraphBatch, *, keep_prob: float = 1.0) -> torch.Tensor:
+                batch: GraphBatch, *, keep_prob: float = 1.0,
+                generator: torch.Generator = None) -> torch.Tensor:
         """Per-task graph predictions [K, G] via gated segment-sum pooling
         (chem_tensorflow_sparse.py:220-231)."""
         return base.segment_readout(
             heads, task_ids, last_h, batch.node_features,
-            batch.node_graph_ids, batch.graph_capacity, keep_prob=keep_prob)
+            batch.node_graph_ids, batch.graph_capacity, keep_prob=keep_prob,
+            generator=generator)

@@ -1,4 +1,4 @@
-"""Recurrent node-update cells with TF 1.3 gate math (inference).
+"""Recurrent node-update cells with TF 1.3 gate math.
 
 The propagation step feeds aggregated messages into an RNN cell whose
 previous state is the node state (chem_tensorflow_sparse.py:102-115,
@@ -18,8 +18,9 @@ BasicRNNCell:
     h' = act([x, h] @ W + b)                     b initialised to 0.0
 
 The [x; h] @ W products run as split-K partial products (no concat),
-which rounds differently from one product at ~1e-7. The state dropout
-of training (`state_keep_prob < 1`) is not ported yet.
+which rounds differently from one product at ~1e-7. In training the new
+state goes through TF1 dropout with `state_keep_prob`
+(`DropoutWrapper(state_keep_prob)`, ggnn_tpu/ops/cells.py:161-167).
 """
 
 from typing import Callable
@@ -27,6 +28,7 @@ from typing import Callable
 import torch
 from torch import nn
 
+from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.utils.init import glorot_init, ones_init, zeros_init
 
 
@@ -37,12 +39,12 @@ class _Cell(nn.Module):
         self.state_keep_prob = state_keep_prob
 
     def forward(self, x: torch.Tensor, h: torch.Tensor,
-                is_training: bool = False) -> torch.Tensor:
-        if is_training and self.state_keep_prob < 1.0:
-            raise NotImplementedError(
-                "state dropout (training) is not ported yet "
-                "(ROADMAP A4/A5)")
-        return self.step(x, h)
+                is_training: bool = False,
+                generator: torch.Generator = None) -> torch.Tensor:
+        new_h = self.step(x, h)
+        if is_training:
+            new_h = dropout(new_h, self.state_keep_prob, generator)
+        return new_h
 
 
 class GRUCell(_Cell):

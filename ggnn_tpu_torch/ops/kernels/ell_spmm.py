@@ -1,24 +1,34 @@
-"""Gather + segment-sum aggregation: the hand-written CUDA kernel
-(`csrc/ell_spmm.cu`), its wrapper, its plain PyTorch version and its
-launch counter.
+"""Gather + segment-sum aggregation and its transpose: the hand-written
+CUDA kernels (`csrc/ell_spmm.cu`), their wrappers, their plain PyTorch
+versions, their launch counters and the autograd Function that joins
+them.
 
-The kernel computes a sorted-segment gather-sum,
+B1 computes a sorted-segment gather-sum,
 
     out[s, :] = sum over e in [offsets[s], offsets[s+1]) of h[src[e], :]
 
 the function of the Pallas TPU kernel `_agg_kernel`
-(`ggnn_tpu/ops/pallas/ell_spmm.py:51`). Two entry points share it:
+(`ggnn_tpu/ops/pallas/ell_spmm.py:51`). B2 is its transpose, the same
+gather-sum over the edges sorted by source,
 
-  * `gather_segment_sum` — the serving path's aggregation over the
-    type-combined edge lane (ops/messages.py), with segment id
-    `target * T + type`;
-  * `ell_aggregate_by_type` — the named counterpart of
-    `ggnn_tpu.ops.pallas.ell_aggregate_by_type` over the blocked-ELL
-    forward layout.
+    dh[n, :] = sum over e in [boff[n], boff[n+1]) of g[bgather[e], :]
+
+the function of `_scatter_kernel` (`ggnn_tpu/ops/pallas/ell_spmm.py:101`).
+Each has two entry points:
+
+  * `gather_segment_sum` / `segment_scatter_sum` — the training and
+    serving path's aggregation over the type-combined edge lane
+    (ops/messages.py), composite id `target * T + type`;
+  * `ell_aggregate_by_type` / `ell_scatter_sum` — the named counterparts
+    of `ggnn_tpu.ops.pallas` over the blocked-ELL layouts.
+
+`GatherSegmentSum` is the differentiable aggregation, the counterpart of
+`ell_aggregate_by_type.defvjp`: B1 forward, B2 backward.
 
 A CPU tensor takes the plain version (`index_select` + `index_add_`); a
-CUDA tensor launches the kernel or raises. `launches` counts kernel
-launches, so a run can show that its path went through the kernel.
+CUDA tensor launches the kernel or raises. `launches` counts B1's kernel
+launches and `scatter_launches` B2's, so a run can show that its path
+went through the kernels.
 """
 
 import ctypes
@@ -28,21 +38,22 @@ import torch
 from ggnn_tpu_torch.ops.kernels import _build
 
 launches = 0
+scatter_launches = 0
 
-_entry = None
+_entries = {}
 
 
-def _kernel():
-    """The C entry point of csrc/ell_spmm.cu, built at first use."""
-    global _entry
-    if _entry is None:
-        fn = _build.load("ell_spmm").gather_segment_sum_f32
+def _kernel(name: str):
+    """The C entry point `name` of csrc/ell_spmm.cu, built at first use."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.load("ell_spmm"), name)
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+        _entries[name] = fn
+    return fn
 
 
 def segment_offsets(segment_ids: torch.Tensor,
@@ -92,16 +103,9 @@ def gather_segment_sum_reference(h: torch.Tensor, src: torch.Tensor,
     return out[:num_segments]
 
 
-def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
-                       offsets: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
-    """out [S, H] f32 with out[s] = sum of h[src[e]] over the edges of
-    segment s (`offsets` from `segment_offsets`). Indices must lie in
-    [0, N): the packers guarantee it, and the kernel does not check."""
-    global launches
-    _check(h, src, offsets, num_segments)
-    if h.device.type == "cpu":
-        return gather_segment_sum_reference(h, src, offsets, num_segments)
+def _launch(entry: str, h, src, offsets, num_segments) -> torch.Tensor:
+    """One launch of a kernel of csrc/ell_spmm.cu on a CUDA tensor; the
+    caller has run `_check`."""
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     out = torch.empty(num_segments, h.shape[1], dtype=torch.float32,
@@ -109,14 +113,92 @@ def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
     if num_segments == 0 or h.shape[1] == 0:
         return out
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    rc = _kernel()(
+    rc = _kernel(entry)(
         h.data_ptr(), src.data_ptr(), offsets.data_ptr(), out.data_ptr(),
         num_segments, h.shape[1], h.device.index, stream)
     if rc != 0:
-        raise RuntimeError(f"gather_segment_sum kernel launch failed: "
-                           f"CUDA error {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
+                       offsets: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """B1: out [S, H] f32 with out[s] = sum of h[src[e]] over the edges
+    of segment s (`offsets` from `segment_offsets`). Indices must lie in
+    [0, N): the packers guarantee it, and the kernel does not check."""
+    global launches
+    _check(h, src, offsets, num_segments)
+    if h.device.type == "cpu":
+        return gather_segment_sum_reference(h, src, offsets, num_segments)
+    out = _launch("gather_segment_sum_f32", h, src, offsets, num_segments)
     launches += 1
     return out
+
+
+def segment_scatter_sum_reference(g: torch.Tensor, bgather: torch.Tensor,
+                                  boff: torch.Tensor,
+                                  num_nodes: int) -> torch.Tensor:
+    """Plain PyTorch version of B2 on any device: the sorted-segment
+    gather-sum of B1's plain version, over the source-sorted edges."""
+    return gather_segment_sum_reference(g, bgather, boff, num_nodes)
+
+
+def segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
+                        boff: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """B2: dh [N, H] f32 with dh[n] = sum of g[bgather[e]] over the
+    edges e of source n, `bgather` the edges' forward composite ids in
+    source order and `boff` [N+1] their CSR offsets over sources (see
+    `transpose_layout`). Indices must lie in [0, len(g)): pads must be
+    dropped before, and the kernel does not check."""
+    global scatter_launches
+    _check(g, bgather, boff, num_nodes)
+    if g.device.type == "cpu":
+        return segment_scatter_sum_reference(g, bgather, boff, num_nodes)
+    dh = _launch("segment_scatter_sum_f32", g, bgather, boff, num_nodes)
+    scatter_launches += 1
+    return dh
+
+
+def transpose_layout(sources: torch.Tensor, gather_ids: torch.Tensor,
+                     num_nodes: int):
+    """(bgather, boff) for B2 from the REAL edges of an aggregation:
+    `sources` [E] their source nodes, `gather_ids` [E] the rows of the
+    aggregation's output they feed. A stable sort by source keeps each
+    source's edges in their forward order."""
+    perm = torch.argsort(sources, stable=True)
+    sorted_sources = sources[perm]
+    bgather = gather_ids[perm].to(torch.int32).contiguous()
+    return bgather, segment_offsets(sorted_sources, num_nodes)
+
+
+class GatherSegmentSum(torch.autograd.Function):
+    """The differentiable aggregation: B1 forward, B2 backward.
+
+    `apply(h, src, offsets, num_segments, bgather, boff)`; the index
+    tensors are not differentiable, and (bgather, boff) is the transpose
+    layout of `transpose_layout`, or None where no gradient will be
+    asked for."""
+
+    @staticmethod
+    def forward(ctx, h, src, offsets, num_segments, bgather, boff):
+        ctx.num_nodes = h.shape[0]
+        ctx.save_for_backward(bgather, boff)
+        ctx.has_transpose = bgather is not None
+        return gather_segment_sum(h, src, offsets, num_segments)
+
+    @staticmethod
+    def backward(ctx, dper):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None, None, None
+        if not ctx.has_transpose:
+            raise RuntimeError(
+                "the aggregation's gradient needs its transpose layout "
+                "(bgather, boff); none was given to the forward")
+        bgather, boff = ctx.saved_tensors
+        dh = segment_scatter_sum(dper.contiguous(), bgather, boff,
+                                 ctx.num_nodes)
+        return dh, None, None, None, None, None
 
 
 def ell_aggregate_by_type_reference(h: torch.Tensor, fwd_src: torch.Tensor,
@@ -136,34 +218,96 @@ def ell_aggregate_by_type_reference(h: torch.Tensor, fwd_src: torch.Tensor,
     return out[:-1].view(t_dim, np_total, h_dim)
 
 
+def _check_ell(name, a, b):
+    if a.shape != b.shape or a.dim() != 3:
+        raise ValueError(f"{name} must share a [T, NB, KE] shape; got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32")
+
+
+def _real_slots(keys: torch.Tensor, others: torch.Tensor, np_total: int):
+    """(key, other, type) of the real slots of a [T, NB, KE] ELL layout
+    whose pads sit at key NP, flattened in slot order. The pads are
+    dropped before any offsetting: t*NP + NP would collide with type
+    t+1's first row."""
+    t_dim = keys.shape[0]
+    flat = keys.reshape(t_dim, -1).long()
+    real = flat < np_total
+    types = torch.arange(t_dim, device=keys.device).unsqueeze(1)
+    return (flat[real], others.reshape(t_dim, -1).long()[real],
+            types.expand_as(flat)[real])
+
+
+def ell_transpose_layout(bwd_tgt: torch.Tensor, bwd_src: torch.Tensor,
+                         np_total: int):
+    """(bgather, boff) of B2 from the source-block-major ELL backward
+    layout (`data/ell.py:build_ell_layout`): composite gather ids
+    t * NP + tgt of the real slots, stably sorted by source across
+    types, and CSR offsets over the NP sources."""
+    _check_ell("bwd_tgt and bwd_src", bwd_tgt, bwd_src)
+    sources, targets, types = _real_slots(bwd_src, bwd_tgt, np_total)
+    return transpose_layout(sources, types * np_total + targets, np_total)
+
+
+def ell_scatter_sum_reference(g: torch.Tensor, bwd_tgt: torch.Tensor,
+                              bwd_src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `ell_scatter_sum` on any device, straight
+    from the ELL arrays: gather every slot's row g[t, bwd_tgt] and
+    `index_add_` it into row bwd_src, the pads (bwd_src == NP) sent to
+    a dump row."""
+    t_dim, np_total, h_dim = g.shape
+    types = torch.arange(t_dim, device=g.device).view(t_dim, 1, 1)
+    rows = (types * np_total + bwd_tgt.long()).reshape(-1)
+    dh = torch.zeros(np_total + 1, h_dim, dtype=torch.float32,
+                     device=g.device)
+    dh.index_add_(0, bwd_src.reshape(-1).long(),
+                  g.reshape(t_dim * np_total, h_dim).index_select(0, rows))
+    return dh[:np_total]
+
+
+def ell_scatter_sum(g: torch.Tensor, bwd_tgt: torch.Tensor,
+                    bwd_src: torch.Tensor) -> torch.Tensor:
+    """The transpose of `ell_aggregate_by_type`: dh [NP, H] with
+    dh[n] = sum of g[t, bwd_tgt[t, nb, k]] over the slots with
+    bwd_src[t, nb, k] == n, the counterpart of
+    `ggnn_tpu.ops.pallas.ell_scatter_sum`. g [T, NP, H] f32. One B2
+    launch: the pads are dropped and the types merged in source order."""
+    t_dim, np_total, h_dim = g.shape
+    bgather, boff = ell_transpose_layout(bwd_tgt, bwd_src, np_total)
+    return segment_scatter_sum(g.reshape(t_dim * np_total, h_dim),
+                               bgather, boff, np_total)
+
+
 def ell_aggregate_by_type(h: torch.Tensor, fwd_src: torch.Tensor,
-                          fwd_tgt: torch.Tensor) -> torch.Tensor:
+                          fwd_tgt: torch.Tensor,
+                          bwd_tgt: torch.Tensor = None,
+                          bwd_src: torch.Tensor = None) -> torch.Tensor:
     """Per-type aggregation out[t, n] = sum of h[source] over the edges of
     type t with target n, over the target-block-major ELL forward layout
-    (`ggnn_tpu/data/ell.py:build_ell_layout`). h [NP, H] f32; fwd_src and
-    fwd_tgt [T, NB, KE] int32 with padded slots at tgt == NP. Returns
+    (`data/ell.py:build_ell_layout`). h [NP, H] f32; fwd_src and fwd_tgt
+    [T, NB, KE] int32 with padded slots at tgt == NP. Returns
     [T, NP, H] f32.
 
     Within a block the slots are target-sorted and the blocks ascend, so
     once the padded slots are dropped each type's targets are sorted and
-    `t * NP + tgt` is a sorted segment id for the same kernel."""
-    if fwd_src.shape != fwd_tgt.shape or fwd_src.dim() != 3:
-        raise ValueError(f"fwd_src and fwd_tgt must share a [T, NB, KE] "
-                         f"shape; got {tuple(fwd_src.shape)} and "
-                         f"{tuple(fwd_tgt.shape)}")
-    if fwd_src.dtype != torch.int32 or fwd_tgt.dtype != torch.int32:
-        raise TypeError("fwd_src and fwd_tgt must be int32")
+    `t * NP + tgt` is a sorted segment id for B1. Differentiable in h
+    through B2 over the source-block-major backward layout (bwd_tgt,
+    bwd_src), which must be given when h needs a gradient."""
+    _check_ell("fwd_src and fwd_tgt", fwd_src, fwd_tgt)
     t_dim = fwd_src.shape[0]
     np_total = h.shape[0]
-    src = fwd_src.reshape(t_dim, -1)
-    tgt = fwd_tgt.reshape(t_dim, -1).long()
-    # Drop the pads before offsetting: t*NP + NP would collide with type
-    # t+1's first segment.
-    real = tgt < np_total
-    types = torch.arange(t_dim, device=tgt.device).unsqueeze(1)
-    seg = (types * np_total + tgt)[real]
+    targets, sources, types = _real_slots(fwd_tgt, fwd_src, np_total)
     num_segments = t_dim * np_total
-    out = gather_segment_sum(h, src[real].contiguous(),
-                             segment_offsets(seg, num_segments),
-                             num_segments)
+    src = sources.to(torch.int32)
+    offsets = segment_offsets(types * np_total + targets, num_segments)
+    bgather = boff = None
+    if torch.is_grad_enabled() and h.requires_grad:
+        if bwd_tgt is None or bwd_src is None:
+            raise ValueError(
+                "ell_aggregate_by_type needs the backward layout "
+                "(bwd_tgt, bwd_src) when h requires a gradient")
+        bgather, boff = ell_transpose_layout(bwd_tgt, bwd_src, np_total)
+    out = GatherSegmentSum.apply(h, src, offsets, num_segments, bgather,
+                                 boff)
     return out.view(t_dim, np_total, h.shape[1])

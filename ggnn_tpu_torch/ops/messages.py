@@ -4,7 +4,8 @@ One propagation step of the sparse GGNN (chem_tensorflow_sparse.py:
 153-216), aggregate-before-transform over the type-combined edge lane:
 
   1. gather source rows and sum them per (target, type) — the
-     gather_segment_sum kernel over the composite id target*T + type;
+     differentiable GatherSegmentSum over the composite id
+     target*T + type: kernel B1 forward, its transpose B2 backward;
   2. one dense product [N, T*H] x [T*H, H] with the edge weights;
   3. optional edge bias and in-degree averaging.
 
@@ -18,8 +19,9 @@ from typing import Optional
 
 import torch
 
-from ggnn_tpu_torch.ops.kernels.ell_spmm import (gather_segment_sum,
-                                                 segment_offsets)
+from ggnn_tpu_torch.ops.kernels.ell_spmm import (GatherSegmentSum,
+                                                 segment_offsets,
+                                                 transpose_layout)
 from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
 
 
@@ -34,6 +36,21 @@ def combined_lane_offsets(tgt_all: torch.Tensor, type_all: torch.Tensor,
     return segment_offsets(seg, node_capacity * num_edge_types)
 
 
+def combined_lane_transpose(src_all: torch.Tensor, type_all: torch.Tensor,
+                            tgt_all: torch.Tensor, num_edge_types: int,
+                            node_capacity: int):
+    """(bgather, boff): the combined lane's transpose layout for B2, the
+    real edges' composite ids target*T + type in source order and CSR
+    offsets [N + 1] over sources. The pads (source 0, target N) are
+    dropped first: in source order they would land among node 0's edges
+    with an id past the end of the aggregation's output. Index
+    preparation: compute once per forward, and only when a gradient is
+    needed."""
+    real = tgt_all < node_capacity
+    composite = (tgt_all.long() * num_edge_types + type_all.long())[real]
+    return transpose_layout(src_all.long()[real], composite, node_capacity)
+
+
 def aggregate_then_transform_combined(node_states: torch.Tensor,
                                       src_all: torch.Tensor,
                                       type_all: torch.Tensor,
@@ -41,11 +58,13 @@ def aggregate_then_transform_combined(node_states: torch.Tensor,
                                       edge_weights: torch.Tensor,
                                       node_capacity: int,
                                       attention: Optional[torch.Tensor] = None,
-                                      offsets: Optional[torch.Tensor] = None
-                                      ) -> torch.Tensor:
+                                      offsets: Optional[torch.Tensor] = None,
+                                      transpose=None) -> torch.Tensor:
     """One propagation step's incoming activations [N, H] over the
     type-COMBINED edge lane (GraphBatch.edge_*_all). `offsets` are the
-    lane's `combined_lane_offsets`, computed here when not given."""
+    lane's `combined_lane_offsets`, computed here when not given;
+    `transpose` is its `combined_lane_transpose`, needed when
+    node_states needs a gradient."""
     if attention is not None:
         raise NotImplementedError(
             "propagation attention is not ported yet (ROADMAP A14)")
@@ -53,8 +72,10 @@ def aggregate_then_transform_combined(node_states: torch.Tensor,
     if offsets is None:
         offsets = combined_lane_offsets(tgt_all, type_all, t_dim,
                                         node_capacity)
-    per = gather_segment_sum(node_states, src_all, offsets,
-                             node_capacity * t_dim)         # [N*T, H]
+    bgather, boff = (None, None) if transpose is None else transpose
+    per = GatherSegmentSum.apply(node_states, src_all, offsets,
+                                 node_capacity * t_dim, bgather,
+                                 boff)                      # [N*T, H]
     # Row n of the [N, T*H] view is [per(n, 0) | ... | per(n, T-1)], and
     # row t*H + k of the [T*H, H] view is edge_weights[t, k]: the
     # product is einsum("nth,thd->nd").

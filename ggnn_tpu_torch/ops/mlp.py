@@ -1,10 +1,10 @@
-"""MLP with the reference's semantics (utils.py:39-71), inference only.
+"""MLP with the reference's semantics (utils.py:39-71).
 
+  * dropout is applied to the weight MATRICES, not the activations
+    (training only; one mask per layer from the generator);
   * ReLU between layers, but the FINAL layer output is the
     pre-activation (`last_hidden` is returned before the trailing ReLU);
-  * uniform Glorot weights, zero biases;
-  * the reference's dropout on the weight MATRICES is training-only and
-    not ported yet.
+  * uniform Glorot weights, zero biases.
 
 Default regression heads are single linear layers (`hid_sizes=[]`,
 chem_tensorflow.py:153-157). Parameters are named `W` and `b`, the
@@ -16,6 +16,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
 
@@ -34,14 +35,12 @@ def mlp_init(generator: torch.Generator, in_size: int, out_size: int,
 
 
 def mlp_apply(layers: nn.ModuleList, inputs: torch.Tensor, *,
-              keep_prob: float = 1.0) -> torch.Tensor:
-    if keep_prob < 1.0:
-        raise NotImplementedError(
-            "MLP weight dropout (training) is not ported yet "
-            "(ROADMAP A4/A5)")
+              keep_prob: float = 1.0,
+              generator: torch.Generator = None) -> torch.Tensor:
     acts = inputs
     hid = acts
     for layer in layers:
-        hid = torch.matmul(acts, layer.W) + layer.b
+        w = dropout(layer.W, keep_prob, generator)
+        hid = torch.matmul(acts, w) + layer.b
         acts = torch.relu(hid)
     return hid

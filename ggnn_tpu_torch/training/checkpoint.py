@@ -12,13 +12,21 @@ A checkpoint written by either package loads in the other.
 The bridge is a rename: `ModelParams` (models/base.py) names its
 parameters by the same path with dots ("graph.layers.0.cell.
 gates_kernel"), and every parameter keeps the JAX layout, so no array is
-transposed. Entries outside ['params'] (the optimizer state) are not
-model weights and are reported as unused.
+transposed.
+
+The Adam state of a training run (training/optimizer.py:TFAdam) is
+saved under the JAX package's own key names, so either package resumes
+the other's run with its moments:
+  ['opt_state'][1]['count'], ['opt_state'][1]['mu']<param path>,
+  ['opt_state'][1]['nu']<param path>
+and, under --freeze-graph-model (heads only),
+  ['opt_state'].inner_states['train'].inner_state[1][...].
 
 Restore keeps the reference's semantics (chem_tensorflow.py:330-359):
 the configs must match except `task_ids` and `num_epochs`; every saved
 weight whose name matches is assigned (shape-checked); missing names keep
-their fresh initialization; unused saved names are reported.
+their fresh initialization and are reported, the optimizer's moments as
+well as the weights; unused saved names are reported.
 
 Not ported yet (ROADMAP A17): Orbax directory checkpoints and
 reference-produced TF1 pickles.
@@ -73,20 +81,78 @@ def jax_weights_from_params(params: nn.Module) -> Dict[str, np.ndarray]:
             for name, p in params.named_parameters()}
 
 
+def _opt_prefix(optimizer) -> str:
+    if optimizer.freeze_graph_model:
+        return "['opt_state'].inner_states['train'].inner_state[1]"
+    return "['opt_state'][1]"
+
+
+def _moment_key(prefix: str, moment: str, name: str) -> str:
+    """['opt_state'][1]['mu'] + the parameter's path below ['params']."""
+    return f"{prefix}['{moment}']" + _keystr(name)[len("['params']"):]
+
+
+def optimizer_entries(optimizer) -> Dict[str, np.ndarray]:
+    """{JAX key path: ndarray} of a TFAdam's state."""
+    prefix = _opt_prefix(optimizer)
+    out = {f"{prefix}['count']": np.asarray(optimizer.count, np.int32)}
+    for moment, state in (("mu", optimizer.mu), ("nu", optimizer.nu)):
+        for name, value in state.items():
+            out[_moment_key(prefix, moment, name)] = \
+                value.detach().cpu().numpy().copy()
+    return out
+
+
+def _restore_optimizer(optimizer, saved: Dict, log) -> set:
+    """Assign the saved Adam state found under the optimizer's key names;
+    returns the keys used."""
+    prefix = _opt_prefix(optimizer)
+    used = set()
+    count_key = f"{prefix}['count']"
+    if count_key in saved:
+        optimizer.count = int(np.asarray(saved[count_key]))
+        used.add(count_key)
+    else:
+        log(f"Freshly initializing {count_key} since no saved value was "
+            "found.")
+    with torch.no_grad():
+        for moment, state in (("mu", optimizer.mu), ("nu", optimizer.nu)):
+            for name, tensor in state.items():
+                key = _moment_key(prefix, moment, name)
+                value = saved.get(key)
+                if value is None:
+                    log(f"Freshly initializing {key} since no saved value "
+                        "was found.")
+                    continue
+                if tuple(np.shape(value)) != tuple(tensor.shape):
+                    raise ValueError(
+                        f"checkpoint leaf '{key}' has shape "
+                        f"{tuple(np.shape(value))} but the optimizer "
+                        f"expects {tuple(tensor.shape)}")
+                tensor.copy_(torch.from_numpy(np.array(value)))
+                used.add(key)
+    return used
+
+
 def _is_pickle_path(path: str) -> bool:
     return path.endswith(".pickle") or path.endswith(".pkl")
 
 
 def save_checkpoint(path: str, config: Dict, params: nn.Module,
-                    train_step: int, valid_step: int) -> None:
+                    train_step: int, valid_step: int,
+                    optimizer=None) -> None:
+    """The model's weights and, when given, the optimizer's state."""
     if not _is_pickle_path(path):
         raise NotImplementedError(
             f"'{path}' has no .pickle/.pkl extension, which selects the "
             "Orbax format; Orbax checkpoints are not ported yet "
             "(ROADMAP A17)")
+    weights = jax_weights_from_params(params)
+    if optimizer is not None:
+        weights.update(optimizer_entries(optimizer))
     payload = {
         "params": config,
-        "weights": jax_weights_from_params(params),
+        "weights": weights,
         "train_step": train_step,
         "valid_step": valid_step,
     }
@@ -135,11 +201,12 @@ def _check_config(config: Dict, saved_config: Dict) -> None:
 
 
 def restore_checkpoint(path: str, config: Dict, params: nn.Module,
-                       log=print, *, payload: Dict = None
+                       log=print, *, payload: Dict = None, optimizer=None
                        ) -> Tuple[nn.Module, int, int]:
-    """Assign a checkpoint's weights to `params` in place. Returns
-    (params, train_step, valid_step). `payload` skips the load when the
-    caller already holds the loaded checkpoint."""
+    """Assign a checkpoint's weights to `params` in place, and its Adam
+    state to `optimizer` when given. Returns (params, train_step,
+    valid_step). `payload` skips the load when the caller already holds
+    the loaded checkpoint."""
     if payload is None:
         payload = _load_payload(path)
     if _looks_tf1(payload):
@@ -166,7 +233,10 @@ def restore_checkpoint(path: str, config: Dict, params: nn.Module,
                     f"{tuple(param.shape)} (e.g. a different "
                     "num_edge_types inferred from the dataset)")
             param.copy_(value)
+    used = set()
+    if optimizer is not None:
+        used = _restore_optimizer(optimizer, saved, log)
     for key in saved:
-        if _module_name(key) not in own:
+        if _module_name(key) not in own and key not in used:
             log(f"Saved weights for {key} not used by model.")
     return params, payload["train_step"], payload["valid_step"]

@@ -1,11 +1,17 @@
-"""The CUDA kernel of ggnn_tpu_torch against its plain PyTorch version,
-on the card. Every test here needs an NVIDIA GPU and skips without one.
-The file imports nothing of JAX, so it runs where JAX is not installed:
+"""The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, and B2, its
+transpose) against their plain PyTorch versions, the autograd Function
+and one training step, on the card. Every test here needs an NVIDIA GPU
+and skips without one. The file imports nothing of JAX, so it runs where
+JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerance rtol = atol = 1e-5: f32 sums in another order.
+Tolerances: rtol = atol = 1e-5 for a kernel against its plain version
+(f32 sums in another order); 1e-4 for a model forward or a gradient,
+which chain 8 GRU steps of f32 products in another order.
 """
+
+import json
 
 import numpy as np
 import pytest
@@ -16,8 +22,12 @@ from ggnn_tpu_torch.data.synthetic import synthetic_molecules
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.ops.kernels import ell_spmm
-from ggnn_tpu_torch.ops.messages import combined_lane_offsets
-from ggnn_tpu_torch.training.config import default_params_for
+from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
+                                         combined_lane_offsets,
+                                         combined_lane_transpose)
+from ggnn_tpu_torch.training.config import (default_params_for,
+                                            resolve_config)
+from ggnn_tpu_torch.training.runner import Runner
 
 torch.set_num_threads(1)
 
@@ -128,3 +138,105 @@ def test_sparse_ggnn_forward_on_the_card_matches_cpu(cuda):
         torch.cuda.synchronize()
     assert ell_spmm.launches - before == sum(config["layer_timesteps"])
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def _transpose(batch, device):
+    lane = [torch.from_numpy(a).to(device) for a in (
+        batch.edge_sources_all, batch.edge_types_all,
+        batch.edge_targets_all)]
+    return combined_lane_transpose(*lane, 4, batch.node_capacity)
+
+
+@pytest.mark.parametrize("h_dim,aligned", [(100, True), (37, True),
+                                           (100, False)])
+def test_segment_scatter_sum_kernel_matches_plain(cuda, h_dim, aligned):
+    batch = _envelope_batch()
+    n_cap = batch.node_capacity
+    bgather, boff = _transpose(batch, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    flat = torch.randn(n_cap * 4 * h_dim + 1, generator=gen, device=cuda)
+    # A view one float into its buffer is not 16-byte aligned.
+    g = (flat[:-1] if aligned else flat[1:]).view(n_cap * 4, h_dim)
+    before = ell_spmm.scatter_launches
+    got = ell_spmm.segment_scatter_sum(g, bgather, boff, n_cap)
+    torch.cuda.synchronize()
+    assert ell_spmm.scatter_launches == before + 1
+    want = ell_spmm.segment_scatter_sum_reference(g, bgather, boff, n_cap)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_segment_scatter_sum_hub_sums_exactly(cuda):
+    rng = np.random.default_rng(2)
+    counts = np.zeros(600, np.int64)
+    counts[11], counts[400] = 5000, 7       # a hub and a short segment
+    boff = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(counts)]).astype(np.int32)).to(cuda)
+    bgather = torch.from_numpy(rng.integers(0, 2400, int(counts.sum()))
+                               .astype(np.int32)).to(cuda)
+    # Multiples of 1/8: every partial sum is exact in f32.
+    g = torch.from_numpy(rng.integers(-16, 17, (2400, 100))
+                         .astype(np.float32) / 8).to(cuda)
+    got = ell_spmm.segment_scatter_sum(g, bgather, boff, 600)
+    want = ell_spmm.segment_scatter_sum_reference(g, bgather, boff, 600)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert not got[counts == 0].any()
+
+
+def test_aggregation_gradient_on_the_card_matches_plain_autograd(cuda):
+    """The autograd Function (B1 forward, B2 backward) against PyTorch's
+    autograd of the plain version, on the card."""
+    batch = _envelope_batch(seed=5)
+    n_cap = batch.node_capacity
+    src, offsets = _lane(batch, cuda)
+    lane = [torch.from_numpy(a).to(cuda) for a in (
+        batch.edge_sources_all, batch.edge_types_all,
+        batch.edge_targets_all)]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn(n_cap, 100, generator=gen, device=cuda,
+                    requires_grad=True)
+    w = (0.1 * torch.randn(4, 100, 100, generator=gen, device=cuda)
+         ).requires_grad_(True)
+    before = (ell_spmm.launches, ell_spmm.scatter_launches)
+    out = aggregate_then_transform_combined(
+        h, *lane, w, n_cap, offsets=offsets,
+        transpose=_transpose(batch, cuda))
+    got_h, got_w = torch.autograd.grad(torch.tanh(out).sum(), (h, w))
+    torch.cuda.synchronize()
+    assert (ell_spmm.launches, ell_spmm.scatter_launches) == (
+        before[0] + 1, before[1] + 1)
+    per = ell_spmm.gather_segment_sum_reference(h, src, offsets, n_cap * 4)
+    plain = torch.matmul(per.view(n_cap, -1), w.reshape(-1, 100))
+    want_h, want_w = torch.autograd.grad(torch.tanh(plain).sum(), (h, w))
+    torch.testing.assert_close(got_h, want_h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_w, want_w, rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_on_the_card_matches_cpu(cuda, tmp_path):
+    """One Runner train step, keep probabilities 1.0, from the same
+    initial weights on the card and on the CPU: loss at rtol 1e-5, every
+    gradient at a relative L2 error <= 1e-4, 8 B1 and 7 B2 launches."""
+    config = resolve_config("sparse", config_json=json.dumps({
+        "batch_size": 2000, "edge_weight_dropout_keep_prob": 1.0}))
+    train = synthetic_molecules(120, seed=7)
+    valid = synthetic_molecules(20, seed=8)
+    runners = {dev: Runner("sparse", dict(config), train_data=train,
+                           valid_data=valid, log_dir=str(tmp_path / dev),
+                           quiet=True, device=dev)
+               for dev in ("cuda", "cpu")}
+    batch = next(iter(runners["cpu"].adapter.batches(
+        runners["cpu"].train_processed, False)))
+    results = {}
+    for dev, runner in runners.items():
+        before = (ell_spmm.launches, ell_spmm.scatter_launches)
+        results[dev] = runner.loss_and_grads(batch.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (ell_spmm.launches - before[0],
+                    ell_spmm.scatter_launches - before[1]) == (8, 7)
+    loss_gpu, _, grads_gpu = results["cuda"]
+    loss_cpu, _, grads_cpu = results["cpu"]
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for name, g_cpu in grads_cpu.items():
+        g_gpu = grads_gpu[name].cpu()
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, f"{name}: relative L2 error {rel:.3e}"

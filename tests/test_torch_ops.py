@@ -84,12 +84,27 @@ def test_make_cell_validation_matches_jax(cell_type, activation, message):
 
 
 def test_cell_state_dropout_in_training_is_not_ported():
+    """State dropout (now ported): in training the cell's new state goes
+    through TF1 dropout, kept entries scaled by 1/keep; inference ignores
+    it."""
     cell = cells.make_cell("GRU", "tanh", state_keep_prob=0.5)(
         H, H, torch.Generator().manual_seed(0))
-    x = torch.zeros(2, H)
-    cell(x, x)   # inference ignores the training-only dropout
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cell(x, x, is_training=True)
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy(rng.randn(64, H).astype(np.float32))
+    h = torch.from_numpy(rng.randn(64, H).astype(np.float32))
+    with torch.no_grad():
+        plain = cell(x, h)
+        got = cell(x, h, is_training=True,
+                   generator=torch.Generator().manual_seed(1))
+        again = cell(x, h, is_training=True,
+                     generator=torch.Generator().manual_seed(1))
+    torch.testing.assert_close(cell.step(x, h), plain, rtol=0, atol=0)
+    kept = got != 0
+    assert 0.4 < float(kept.float().mean()) < 0.6
+    torch.testing.assert_close(got[kept], 2 * plain[kept], **TOL)
+    assert torch.equal(got, again)
+    with pytest.raises(ValueError, match="Generator"):
+        cell(x, h, is_training=True)
 
 
 @pytest.mark.parametrize("hid_sizes", [(), (8,), (8, 5)])

@@ -175,9 +175,18 @@ def test_edge_axis_and_training_dropout_raise():
                                   False),
         4, 100, packing.PackCapacities(96, 128, 8, 128), 16, 5, False,
         None)).to("cpu")
+    # Edge-weight dropout (keep 0.8 by default, now ported) changes the
+    # training forward only, and draws its masks from the generator.
+    assert model.edge_weight_dropout_keep_prob == 0.8
     with torch.no_grad():
-        model(batch)    # serving ignores the training-only dropout
-    with pytest.raises(NotImplementedError, match="A4"):
+        served = model(batch)
+        trained = model(batch, is_training=True,
+                        generator=torch.Generator().manual_seed(1))
+        again = model(batch, is_training=True,
+                      generator=torch.Generator().manual_seed(1))
+    assert torch.isfinite(trained).all() and torch.equal(trained, again)
+    assert not torch.allclose(trained, served)
+    with pytest.raises(ValueError, match="Generator"):
         model(batch, is_training=True)
 
 
