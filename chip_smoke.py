@@ -6,7 +6,8 @@
 Phases, each raising (and so exiting non-zero) on any failure:
 
   1. setup — TF32 off for matmuls and cuDNN; build the CUDA kernels from
-     ggnn_tpu_torch/csrc into build/kernels/ and report the build time;
+     ggnn_tpu_torch/csrc into build/kernels/, one nvcc for each source,
+     all started together, and report the build times;
   2. kernels — every kernel of the serving and training paths against
      its plain PyTorch version on the card, at the shapes those paths
      give it and at edge cases (rtol = atol = 1e-5: f32 sums in another
@@ -14,31 +15,44 @@ Phases, each raising (and so exiting non-zero) on any failure:
      with its device time (CUDA events around each call, median of 50
      after warm-up, see `time_ms`), its byte bound, the plain version's
      time and, as a yardstick the port never calls, `torch.sparse.mm` of
-     the CSR count matrix (B1) or of its transpose (B2);
-  3. serving — a default sparse model (hidden 100, layer_timesteps
+     the CSR count matrix (B1) or of its transpose (B2) (time_ms is
+     `ggnn_tpu_torch/utils/timing.py`'s, shared with the probe);
+  3. probe — the gather-floor probe's entry point
+     (`ggnn_tpu_torch.probes.gather_floor.run`) on the card: kernel B3
+     (`gather_rows`) at unroll 1, 4 and 8 at the JAX probe's shape
+     (`make_inputs(0)`: NB 2048, KE 96, H 128, NP 8192) and at the
+     20k-node training lane's own source order (its first 422 x 96 real
+     sources over a randn(20000, 100) table), each equal to its plain
+     version (tolerance 0: a gather copies bits), with plain and with
+     streaming stores, with its time, byte bound, the plain version's,
+     `torch.index_select`'s and an output-sized `zero_`'s times and the
+     registers of each kernel instance; and `zero_` of B1's output at the
+     20k-node batch;
+  4. serving — a default sparse model (hidden 100, layer_timesteps
      [2,2,1,2,1], random weights from torch.Generator seed 0) written as
      a pickle checkpoint and loaded by `Predictor.from_checkpoint` with
      the default device and envelope; a 1-graph, a 300-graph and a
-     3,000-graph request, with both kernels' launch counters read around
-     them (8 B1 launches per forward, no B2), each answer held against the same checkpoint served on the
-     CPU (rtol = atol = 1e-4: 8 GRU steps with f32 products in another
-     order), graphs/s of the large request and the 1-graph latency;
-  4. training — `Runner("sparse", cfg)` with the default sparse config
+     3,000-graph request, with the kernels' launch counters read around
+     them (8 B1 launches per forward, no B2, no B3), each answer held
+     against the same checkpoint served on the CPU (rtol = atol = 1e-4:
+     8 GRU steps with f32 products in another order), graphs/s of the
+     large request and the 1-graph latency;
+  5. training — `Runner("sparse", cfg)` with the default sparse config
      plus configs/sparse_tpu.json (20,000-node batches, edge-weight
      dropout 0.8) on the default device, 3 epochs of
      synthetic_molecules(6000, seed=40), validated on
-     synthetic_molecules(600, seed=41): both kernels' counters set to 0
+     synthetic_molecules(600, seed=41): the kernels' counters set to 0
      before `train()` and read after it (8 B1 launches per train step
-     and per validation batch, 7 B2 launches per train step), every loss
-     finite, the last validation loss below that of the initial
-     weights; per epoch the losses, MAE, error_ratio, graphs/s and the
-     median synchronised train-step time;
-  5. card against CPU — one train step on one 20k-node batch, every keep
+     and per validation batch, 7 B2 launches per train step, no B3),
+     every loss finite, the last validation loss below that of the
+     initial weights; per epoch the losses, MAE, error_ratio, graphs/s
+     and the median synchronised train-step time;
+  6. card against CPU — one train step on one 20k-node batch, every keep
      probability 1.0, from the same initial weights on the card and on
      the CPU: loss at rtol 1e-5, every parameter's gradient at a
      relative L2 error <= 1e-4 (f32 sums in another order over 8 GRU
      steps);
-  6. profile — `torch.profiler` over train steps on a 20k-node batch:
+  7. profile — `torch.profiler` over train steps on a 20k-node batch:
      wall ms, device-busy ms, the device's idle share, the kernel count
      and the top device operations.
 
@@ -51,12 +65,13 @@ the repository, the script fails and prints no result.
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+from ggnn_tpu_torch.utils.timing import gpu_name_and_power, time_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -71,64 +86,6 @@ EDGE_TYPES = 4
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-_SLEEP_CYCLES_PER_MS = None
-
-
-def _sleep_cycles_per_ms() -> float:
-    """GPU clock cycles of `torch.cuda._sleep` per millisecond."""
-    global _SLEEP_CYCLES_PER_MS
-    if _SLEEP_CYCLES_PER_MS is None:
-        cycles = 10_000_000
-        torch.cuda._sleep(cycles)          # warm-up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(cycles)
-        end.record()
-        torch.cuda.synchronize()
-        _SLEEP_CYCLES_PER_MS = cycles / start.elapsed_time(end)
-    return _SLEEP_CYCLES_PER_MS
-
-
-def time_ms(fn, iters: int = 50, warmup: int = 5):
-    """(device ms, host ms) of one call.
-
-    Device ms is the median over `iters` calls of CUDA events recorded
-    around each call, with the stream held busy by a sleep kernel while
-    the host enqueues them all: the events then bracket the call's device
-    work alone, not the host's time to launch it. Host ms is the mean
-    wall time per call of a synchronised loop, launch overhead included.
-    """
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t0) * 1e3 / iters
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
-    # Sleep for twice the host's enqueue time, so the queue never drains.
-    torch.cuda._sleep(int(_sleep_cycles_per_ms()
-                          * max(2.0 * host_ms * iters, 1.0)))
-    for start, end in events:
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    device_ms = statistics.median(s.elapsed_time(e) for s, e in events)
-    return device_ms, host_ms
-
-
-def gpu_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 # ------------------------------------------------------------ kernels
@@ -362,6 +319,59 @@ def backward_kernel_phase(dev, gen, batches, ell):
     log(f"kernel ell_scatter_sum [T={EDGE_TYPES} NP={np_total} "
         f"KE={bwd[0].shape[2]}]: max_abs_err={ell_err:.3e}")
     return records, ell_err
+
+
+# ------------------------------------------------------------ probe
+
+def probe_phase(dev, batches):
+    """The gather-floor probe's entry point on the card at the JAX
+    probe's shape and at the 20k-node training lane's own source order,
+    with plain and with streaming stores, B3's counter set to 0 just
+    before and read just after; and, beside it, the time of writing
+    B1's output at that batch alone."""
+    from ggnn_tpu_torch.ops.kernels import gather_floor
+    from ggnn_tpu_torch.probes import gather_floor as probe
+
+    _, batch, t_dim = batches[1]
+    n_cap = batch.node_capacity
+    targets = batch.edge_targets_all
+    real = int((targets < n_cap).sum())
+    if not (targets[:real] < n_cap).all():
+        raise RuntimeError("the 20k-node lane's pads are not at its end")
+    lane_src = batch.edge_sources_all[:real // probe.KE * probe.KE]
+    lane_h = np.random.RandomState(1).randn(n_cap, HIDDEN).astype(
+        np.float32)
+    lane = (lane_h, lane_src.reshape(-1, probe.KE))
+    gather_floor.launches = 0
+    shapes = {"probe shape": probe.run(dev),
+              "probe shape, streaming stores": probe.run(dev,
+                                                         streaming=True),
+              "20k-node lane sources": probe.run(dev, *lane),
+              "20k-node lane sources, streaming stores": probe.run(
+                  dev, *lane, streaming=True)}
+    torch.cuda.synchronize()
+    launches = gather_floor.launches
+    for label, records in shapes.items():
+        for rec in records:
+            log(f"probe gather_rows [{label}] {probe.record_text(rec)}")
+    registers = {
+        f"{'float4' if vec else 'scalar'} unroll {u}"
+        f"{' streaming' if stream else ''}":
+        gather_floor.registers(u, vec, stream, dev)
+        for vec in (True, False) for stream in (False, True)
+        for u in gather_floor.UNROLLS}
+    log(f"probe: gather_rows registers per thread {registers}; {launches} "
+        f"launches in the probe's run ({real} real edges in the 20k-node "
+        f"lane, N = {n_cap})")
+    if launches == 0:
+        raise RuntimeError("the probe did not launch gather_rows")
+    # What writing B1's output at this batch alone costs: [N*T, H] f32.
+    b1_out = torch.empty(n_cap * t_dim, HIDDEN, device=dev)
+    b1_zero_ms = time_ms(b1_out.zero_)[0]
+    log(f"probe: zero_ of B1's [{n_cap * t_dim}, {HIDDEN}] output at the "
+        f"20k-node batch {b1_zero_ms * 1e3:.3f} us")
+    return {"shapes": shapes, "registers": registers, "launches": launches,
+            "b1_output_zero_ms": b1_zero_ms}
 
 
 # ------------------------------------------------------------ serving
@@ -688,7 +698,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    from ggnn_tpu_torch.ops.kernels import _build
+    from ggnn_tpu_torch.ops.kernels import _build, gather_floor
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -697,27 +707,44 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
+    sources = ("ell_spmm", "gather_floor")
     start = time.perf_counter()
-    _build.load("ell_spmm")
-    log(f"build ell_spmm.cu: {time.perf_counter() - start:.2f} s "
-        f"(nvcc {_build.build_info.get('ell_spmm', (0.0, ''))[0]:.2f} s)")
-    log(_build.build_info.get("ell_spmm", (0.0, "prebuilt"))[1].strip())
+    _build.build_all(sources)
+    log(f"build {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
+        f"in parallel): {time.perf_counter() - start:.2f} s")
+    for name in sources:
+        seconds, output = _build.build_info.get(name, (0.0, "prebuilt"))
+        log(f"{name}.cu: nvcc {seconds:.2f} s\n{output.strip()}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = lane_batches()
     ell = small_ell_layout(dev)
     records, ell_err = kernel_phase(dev, gen, batches, ell)
     b2_records, b2_ell_err = backward_kernel_phase(dev, gen, batches, ell)
+    probe = probe_phase(dev, batches)
     work_dir = os.path.join(REPO, "build", "chip_smoke")
+    # B3's counter around the serving and training paths, which must not
+    # launch it.
+    gather_floor.launches = 0
     serving = serving_phase(work_dir)
+    b3_serving = gather_floor.launches
+    gather_floor.launches = 0
     runner, training = training_phase(os.path.join(work_dir, "train"))
+    b3_training = gather_floor.launches
+    log(f"B3 launches: serving {b3_serving}, training {b3_training} "
+        "(0 expected)")
+    if b3_serving or b3_training:
+        raise RuntimeError("the serving or training path launched B3")
     card_vs_cpu = card_vs_cpu_phase(os.path.join(work_dir, "step"))
     profile = profile_phase(runner)
 
-    # Each kernel's `launches` sums the main paths' runs (serving and
-    # training), each counted from 0 just before its run.
+    # Each kernel's `launches` sums the main paths' runs (the probe,
+    # serving and training), each counted from 0 just before its run.
     main_shape = records[0]
     b2_shape = b2_records[1]          # the training path's 20k-node shape
+    # The JAX probe's shape at unroll 8.
+    b3_shape = [r for r in probe["shapes"]["probe shape"]
+                if r["unroll"] == 8][0]
     kernels = [{
         "name": "gather_segment_sum",
         "route": "cuda",
@@ -747,10 +774,27 @@ def main() -> int:
         "bound_ms": b2_shape["bound_ms"],
         "bound_by": b2_shape["bound_by"],
         "library_ms": b2_shape["library_ms"],
+    }, {
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "ggnn_tpu_torch/csrc/gather_floor.cu",
+        "replaces": "benchmarks/probes/gather_floor.py:52",
+        "launches": probe["launches"] + b3_serving + b3_training,
+        "launches_by_path": {"probe": probe["launches"],
+                             "serving": b3_serving,
+                             "training": b3_training},
+        "max_abs_err": max(r["max_abs_err"]
+                           for recs in probe["shapes"].values()
+                           for r in recs),
+        "ms": b3_shape["ms"],
+        "plain_ms": b3_shape["plain_ms"],
+        "bound_ms": b3_shape["bound_ms"],
+        "bound_by": b3_shape["bound_by"],
+        "library_ms": b3_shape["library_ms"],
     }]
     device_line = gpu_name_and_power()
     log(json.dumps({"shapes": records, "backward_shapes": b2_records,
-                    "serving": serving, "training": training,
+                    "probe": probe, "serving": serving, "training": training,
                     "card_vs_cpu": card_vs_cpu, "profile": profile}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))

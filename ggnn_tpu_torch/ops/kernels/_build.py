@@ -16,8 +16,9 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -75,6 +76,14 @@ def build(name: str) -> Path:
     os.replace(tmp, target)
     build_info[name] = (seconds, proc.stdout + proc.stderr)
     return target
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Compile several sources at once, one `nvcc` for each, so that a
+    script that needs them all (`chip_smoke.py`) waits for the slowest
+    build, not for their sum."""
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

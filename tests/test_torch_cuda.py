@@ -1,14 +1,15 @@
-"""The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, and B2, its
-transpose) against their plain PyTorch versions, the autograd Function
-and one training step, on the card. Every test here needs an NVIDIA GPU
-and skips without one. The file imports nothing of JAX, so it runs where
-JAX is not installed:
+"""The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, B2, its
+transpose, and B3, the gather-floor probe's row gather) against their
+plain PyTorch versions, the autograd Function and one training step, on
+the card. Every test here needs an NVIDIA GPU and skips without one. The
+file imports nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 Tolerances: rtol = atol = 1e-5 for a kernel against its plain version
-(f32 sums in another order); 1e-4 for a model forward or a gradient,
-which chain 8 GRU steps of f32 products in another order.
+(f32 sums in another order), 0 for B3 (a gather copies bits); 1e-4 for
+a model forward or a gradient, which chain 8 GRU steps of f32 products
+in another order.
 """
 
 import json
@@ -21,7 +22,7 @@ from ggnn_tpu_torch.data import packing
 from ggnn_tpu_torch.data.synthetic import synthetic_molecules
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
-from ggnn_tpu_torch.ops.kernels import ell_spmm
+from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
 from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
                                          combined_lane_offsets,
                                          combined_lane_transpose)
@@ -240,3 +241,53 @@ def test_train_step_on_the_card_matches_cpu(cuda, tmp_path):
         g_gpu = grads_gpu[name].cpu()
         rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
         assert rel <= 1e-4, f"{name}: relative L2 error {rel:.3e}"
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("h_dim", [128, 100, 37])
+@pytest.mark.parametrize("unroll", [1, 4, 8])
+def test_gather_rows_kernel_equals_plain(cuda, unroll, h_dim, streaming):
+    gen = torch.Generator(device=cuda).manual_seed(unroll * 1000 + h_dim)
+    h = torch.randn(3000, h_dim, generator=gen, device=cuda)
+    # 75 blocks of 40 rows: the last warp's 32-row tile is partly empty.
+    src = torch.randint(0, 3000, (75, 40), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = gather_floor.gather_rows(h, src, unroll, streaming)
+    want = gather_floor.gather_rows_reference(h, src)
+    torch.cuda.synchronize()
+    assert gather_floor.vectorized(h, got) == (h_dim % 4 == 0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("unroll", [1, 8])
+def test_gather_rows_unaligned_view_takes_the_scalar_path(cuda, unroll):
+    flat = torch.randn(500 * 100 + 1, device=cuda)
+    # A view one float into its buffer is not 16-byte aligned.
+    h = flat[1:].view(500, 100)
+    src = torch.randint(0, 500, (33, 16), device=cuda, dtype=torch.int32)
+    got = gather_floor.gather_rows(h, src, unroll)
+    assert not gather_floor.vectorized(h, got)
+    torch.testing.assert_close(got, gather_floor.gather_rows_reference(
+        h, src), rtol=0, atol=0)
+
+
+def test_gather_rows_counts_one_launch_per_call_and_none_when_empty(cuda):
+    h = torch.randn(64, 128, device=cuda)
+    src = torch.randint(0, 64, (5, 8), device=cuda, dtype=torch.int32)
+    before = gather_floor.launches
+    for i, unroll in enumerate((1, 4, 8)):
+        gather_floor.gather_rows(h, src, unroll)
+        assert gather_floor.launches == before + i + 1
+    empty = gather_floor.gather_rows(
+        h, torch.zeros(0, 8, device=cuda, dtype=torch.int32), 8)
+    torch.cuda.synchronize()
+    assert empty.shape == (0, 8, 128) and empty.device.type == "cuda"
+    assert gather_floor.launches == before + 3
+
+
+def test_gather_rows_registers_are_reported(cuda):
+    for vec in (True, False):
+        for streaming in (False, True):
+            for unroll in gather_floor.UNROLLS:
+                regs = gather_floor.registers(unroll, vec, streaming, cuda)
+                assert 0 < regs <= 255

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ggnn_tpu_torch, and not
-chip_smoke.py, imports jax, jaxlib or the JAX package ggnn_tpu."""
+"""The port stands alone: no module of ggnn_tpu_torch, and neither
+chip_smoke.py nor tools/torch_serving_profile.py, imports jax, jaxlib,
+the JAX package ggnn_tpu or the JAX benchmarks."""
 
 import ast
 import os
@@ -10,11 +11,12 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ggnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ggnn_tpu", "benchmarks")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"),
+             os.path.join(ROOT, "tools", "torch_serving_profile.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ggnn_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -39,9 +41,12 @@ def _imported_roots(path):
 def test_the_scan_sees_the_whole_port():
     files = _port_files()
     assert "chip_smoke.py" in files
+    assert os.path.join("tools", "torch_serving_profile.py") in files
     assert os.path.join("ggnn_tpu_torch", "serving.py") in files
-    assert os.path.join("ggnn_tpu_torch", "ops", "kernels",
-                        "ell_spmm.py") in files
+    for path in (("ops", "kernels", "ell_spmm.py"),
+                 ("ops", "kernels", "gather_floor.py"),
+                 ("probes", "gather_floor.py"), ("utils", "timing.py")):
+        assert os.path.join("ggnn_tpu_torch", *path) in files
 
 
 @pytest.mark.parametrize("path", _port_files())
