@@ -10,13 +10,17 @@ Phases, each raising (and so exiting non-zero) on any failure:
      all started together, and report the build times;
   2. kernels — every kernel of the serving and training paths against
      its plain PyTorch version on the card, at the shapes those paths
-     give it and at edge cases (rtol = atol = 1e-5: f32 sums in another
-     order; the hub cases sum multiples of 1/8 and must match exactly),
-     with its device time (CUDA events around each call, median of 50
-     after warm-up, see `time_ms`), its byte bound, the plain version's
-     time and, as a yardstick the port never calls, `torch.sparse.mm` of
-     the CSR count matrix (B1) or of its transpose (B2) (time_ms is
-     `ggnn_tpu_torch/utils/timing.py`'s, shared with the probe);
+     give it, at a full-width lane with skewed in-degrees (N 20,000, T 4,
+     H 100, 160,000 edges, Zipf 1.1 targets; B2 on its transpose) and at
+     edge cases (rtol = atol = 1e-5: f32 sums in another order; the hub
+     and skewed cases sum multiples of 1/8 and must match exactly), with
+     its device time (CUDA events around each call, median of 50 after
+     warm-up, see `time_ms`), its byte bound, the plain version's time
+     and, as a yardstick the port never calls, `torch.sparse.mm` of the
+     CSR count matrix (B1) or of its transpose (B2) (time_ms is
+     `ggnn_tpu_torch/utils/timing.py`'s, shared with the probe); the
+     edges past which B1/B2 cut a segment and the registers of its
+     float4 and scalar instances;
   3. probe — the gather-floor probe's entry point
      (`ggnn_tpu_torch.probes.gather_floor.run`) on the card: kernel B3
      (`gather_rows`) at unroll 1, 4 and 8 at the JAX probe's shape
@@ -27,7 +31,7 @@ Phases, each raising (and so exiting non-zero) on any failure:
      streaming stores, with its time, byte bound, the plain version's,
      `torch.index_select`'s and an output-sized `zero_`'s times and the
      registers of each kernel instance; and `zero_` of B1's output at the
-     20k-node batch;
+     20k-node batch, with B1's time there as a multiple of it;
   4. serving — a default sparse model (hidden 100, layer_timesteps
      [2,2,1,2,1], random weights from torch.Generator seed 0) written as
      a pickle checkpoint and loaded by `Predictor.from_checkpoint` with
@@ -82,6 +86,8 @@ TOL_STEP_LOSS = 1e-5       # card vs CPU train step: loss, rtol
 TOL_STEP_GRAD = 1e-4       # ... and each gradient, relative L2 error
 HIDDEN = 100
 EDGE_TYPES = 4
+SKEWED_NODES = 20000
+SKEWED_EDGES = 160000
 
 
 def log(msg: str) -> None:
@@ -232,15 +238,42 @@ def hub_case(dev, gen, seed, num_segments, num_rows, hub):
         [[0], np.cumsum(counts)]).astype(np.int32)).to(dev)
     idx = torch.from_numpy(rng.integers(0, num_rows, int(counts.sum()))
                            .astype(np.int32)).to(dev)
-    x = torch.randint(-16, 17, (num_rows, HIDDEN), generator=gen,
-                      device=dev).float() / 8
-    return x, idx, offsets
+    return eighths(gen, dev, num_rows), idx, offsets
 
 
-def kernel_phase(dev, gen, batches, ell):
-    """B1 at the serving envelope and the 20k-node budget, a hub, H = 37
-    (the scalar path; float4 needs H % 4 == 0), and its ELL entry
-    point."""
+def skewed_lane(dev):
+    """(src, types, targets) int32 on the card of a full-width lane with
+    skewed in-degrees: N = 20,000 nodes, T = 4, H = 100 and 160,000
+    edges (the edge count the JAX kernel's docstring measured at,
+    ggnn_tpu/ops/pallas/ell_spmm.py:26). Targets are drawn with
+    probability proportional to 1/(rank+1)^1.1 over a random ranking of
+    the nodes, so the top node has thousands of in-edges; sources and
+    types are uniform; the lane is sorted by (target, type), as the
+    packers sort it."""
+    rng = np.random.default_rng(27)
+    weights = 1.0 / np.arange(1, SKEWED_NODES + 1) ** 1.1
+    node_of_rank = rng.permutation(SKEWED_NODES)
+    tgt = node_of_rank[rng.choice(SKEWED_NODES, SKEWED_EDGES,
+                                  p=weights / weights.sum())]
+    src = rng.integers(0, SKEWED_NODES, SKEWED_EDGES)
+    types = rng.integers(0, EDGE_TYPES, SKEWED_EDGES)
+    order = np.lexsort((types, tgt))
+    return tuple(torch.from_numpy(a[order].astype(np.int32)).to(dev)
+                 for a in (src, types, tgt))
+
+
+def eighths(gen, dev, rows):
+    """[rows, HIDDEN] multiples of 1/8 in [-2, 2]: every partial sum of
+    a few thousand rows is exact in f32, so a kernel must equal its plain
+    version whatever its order of summation."""
+    return torch.randint(-16, 17, (rows, HIDDEN), generator=gen,
+                         device=dev).float() / 8
+
+
+def kernel_phase(dev, gen, batches, ell, skewed):
+    """B1 at the serving envelope and the 20k-node budget, a hub, the
+    skewed lane, H = 37 (the scalar path; float4 needs H % 4 == 0), and
+    its ELL entry point."""
     from ggnn_tpu_torch.ops.kernels import ell_spmm
     from ggnn_tpu_torch.ops.messages import combined_lane_offsets
 
@@ -261,6 +294,12 @@ def kernel_phase(dev, gen, batches, ell):
     records.append(check("hub + empty segments",
                          *hub_case(dev, gen, 23, 4096, 6000, 1234), 4096,
                          exact=True))
+    src, types, tgt = skewed
+    num_segments = SKEWED_NODES * EDGE_TYPES
+    records.append(check(
+        "skewed in-degree", eighths(gen, dev, SKEWED_NODES), src,
+        combined_lane_offsets(tgt, types, EDGE_TYPES, SKEWED_NODES),
+        num_segments, exact=True))
     rng = np.random.default_rng(26)
     counts = rng.integers(0, 6, 6000)
     offsets = torch.from_numpy(np.concatenate(
@@ -282,10 +321,10 @@ def kernel_phase(dev, gen, batches, ell):
     return records, ell_err
 
 
-def backward_kernel_phase(dev, gen, batches, ell):
+def backward_kernel_phase(dev, gen, batches, ell, skewed):
     """B2 at the backward of the serving envelope and of the 20k-node
-    budget (the training path's shape), a hub source, and its ELL entry
-    point."""
+    budget (the training path's shape), a hub source, the skewed lane's
+    transpose, and its ELL entry point."""
     from ggnn_tpu_torch.ops.kernels import ell_spmm
     from ggnn_tpu_torch.ops.messages import combined_lane_transpose
 
@@ -306,6 +345,13 @@ def backward_kernel_phase(dev, gen, batches, ell):
     records.append(check("hub + empty rows",
                          *hub_case(dev, gen, 24, 4096, 4096 * EDGE_TYPES,
                                    2345), 4096, exact=True))
+    src, types, tgt = skewed
+    bgather, boff = combined_lane_transpose(src, types, tgt, EDGE_TYPES,
+                                            SKEWED_NODES)
+    records.append(check(
+        "backward of the skewed in-degree",
+        eighths(gen, dev, SKEWED_NODES * EDGE_TYPES), bgather, boff,
+        SKEWED_NODES, exact=True))
 
     # The ELL entry point on the layout of B1's ELL case.
     np_total, layout = ell
@@ -698,7 +744,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    from ggnn_tpu_torch.ops.kernels import _build, gather_floor
+    from ggnn_tpu_torch.ops.kernels import _build, ell_spmm, gather_floor
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -719,9 +765,19 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     batches = lane_batches()
     ell = small_ell_layout(dev)
-    records, ell_err = kernel_phase(dev, gen, batches, ell)
-    b2_records, b2_ell_err = backward_kernel_phase(dev, gen, batches, ell)
+    skewed = skewed_lane(dev)
+    records, ell_err = kernel_phase(dev, gen, batches, ell, skewed)
+    b2_records, b2_ell_err = backward_kernel_phase(dev, gen, batches, ell,
+                                                   skewed)
+    registers = {"float4": ell_spmm.registers(True, dev),
+                 "scalar": ell_spmm.registers(False, dev)}
+    log(f"ell_spmm: segments of more than {ell_spmm.split_edges()} edges "
+        f"cut; registers a thread {registers} (B1 and B2 share both "
+        "instances)")
     probe = probe_phase(dev, batches)
+    log(f"B1 at the 20k-node budget: {records[1]['ms'] * 1e3:.3f} us, "
+        f"{records[1]['ms'] / probe['b1_output_zero_ms']:.3f} x the zero_ "
+        "of its output")
     work_dir = os.path.join(REPO, "build", "chip_smoke")
     # B3's counter around the serving and training paths, which must not
     # launch it.
@@ -759,6 +815,7 @@ def main() -> int:
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"],
         "library_ms": main_shape["library_ms"],
+        "registers": registers,
     }, {
         "name": "segment_scatter_sum",
         "route": "cuda",
@@ -774,6 +831,7 @@ def main() -> int:
         "bound_ms": b2_shape["bound_ms"],
         "bound_by": b2_shape["bound_by"],
         "library_ms": b2_shape["library_ms"],
+        "registers": registers,
     }, {
         "name": "gather_rows",
         "route": "cuda",
@@ -794,6 +852,7 @@ def main() -> int:
     }]
     device_line = gpu_name_and_power()
     log(json.dumps({"shapes": records, "backward_shapes": b2_records,
+                    "split_edges": ell_spmm.split_edges(),
                     "probe": probe, "serving": serving, "training": training,
                     "card_vs_cpu": card_vs_cpu, "profile": profile}))
     log(device_line)

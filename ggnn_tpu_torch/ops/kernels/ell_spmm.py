@@ -28,7 +28,11 @@ Each has two entry points:
 A CPU tensor takes the plain version (`index_select` + `index_add_`); a
 CUDA tensor launches the kernel or raises. `launches` counts B1's kernel
 launches and `scatter_launches` B2's, so a run can show that its path
-went through the kernels.
+went through the kernels; a call with an empty output launches nothing
+and counts nothing. The kernel cuts segments of more than `split_edges()`
+edges across warps and hands their partial sums over through scratch
+(tickets and partial rows), which the wrapper keeps per device and
+stream (`_scratch_for`).
 """
 
 import ctypes
@@ -41,6 +45,23 @@ launches = 0
 scatter_launches = 0
 
 _entries = {}
+_ARGTYPES = {
+    # (x, idx, offsets, out, tickets, partials, num_segments, num_edges,
+    #  hidden, device, stream)
+    "gather_segment_sum_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                              + [ctypes.c_void_p],
+    "segment_scatter_sum_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                               + [ctypes.c_void_p],
+    # (num_segments, num_edges, hidden, tickets, partials)
+    "ell_spmm_scratch": [ctypes.c_int] * 3
+                        + [ctypes.POINTER(ctypes.c_int64)] * 2,
+    "ell_spmm_split": [],
+    # (vectorized_path, device, regs)
+    "ell_spmm_registers": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)],
+}
+# (device index, stream) -> (tickets, partial rows): the kernel's scratch,
+# its int32 tickets 0 between calls (the kernel resets those it takes).
+_scratch = {}
 
 
 def _kernel(name: str):
@@ -48,9 +69,7 @@ def _kernel(name: str):
     fn = _entries.get(name)
     if fn is None:
         fn = getattr(_build.load("ell_spmm"), name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _entries[name] = fn
     return fn
@@ -103,22 +122,50 @@ def gather_segment_sum_reference(h: torch.Tensor, src: torch.Tensor,
     return out[:num_segments]
 
 
-def _launch(entry: str, h, src, offsets, num_segments) -> torch.Tensor:
-    """One launch of a kernel of csrc/ell_spmm.cu on a CUDA tensor; the
-    caller has run `_check`."""
+def _scratch_for(device: torch.device, stream: int, num_tickets: int,
+                 num_partials: int):
+    """(tickets, partials) for a launch on `stream`: at least
+    `num_tickets` int32 tickets, all 0, and `num_partials` f32, kept
+    between calls. The kernel leaves its tickets at 0, so they are zeroed
+    only when made or grown."""
+    key = (device.index, stream)
+    tickets, partials = _scratch.get(key, (None, None))
+    if tickets is None or tickets.numel() < num_tickets:
+        tickets = torch.zeros(num_tickets, dtype=torch.int32, device=device)
+    if partials is None or partials.numel() < num_partials:
+        partials = torch.empty(num_partials, dtype=torch.float32,
+                               device=device)
+    _scratch[key] = (tickets, partials)
+    return tickets, partials
+
+
+def _launch(entry: str, h, src, offsets, num_segments):
+    """(out, launched): one launch of a kernel of csrc/ell_spmm.cu on a
+    CUDA tensor, none when the output is empty; the caller has run
+    `_check`."""
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     out = torch.empty(num_segments, h.shape[1], dtype=torch.float32,
                       device=h.device)
     if num_segments == 0 or h.shape[1] == 0:
-        return out
+        return out, False
+    num_edges, h_dim = src.shape[0], h.shape[1]
+    num_tickets, num_partials = ctypes.c_int64(0), ctypes.c_int64(0)
+    if _kernel("ell_spmm_scratch")(num_segments, num_edges, h_dim,
+                                   ctypes.byref(num_tickets),
+                                   ctypes.byref(num_partials)) != 0:
+        raise ValueError(f"{num_segments} segments and {num_edges} edges "
+                         "overflow the kernel's int32 warp count")
     stream = torch.cuda.current_stream(h.device).cuda_stream
+    tickets, partials = _scratch_for(h.device, stream, num_tickets.value,
+                                     num_partials.value)
     rc = _kernel(entry)(
         h.data_ptr(), src.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        num_segments, h.shape[1], h.device.index, stream)
+        tickets.data_ptr(), partials.data_ptr(), num_segments, num_edges,
+        h_dim, h.device.index, stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    return out
+    return out, True
 
 
 def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
@@ -131,8 +178,9 @@ def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
     _check(h, src, offsets, num_segments)
     if h.device.type == "cpu":
         return gather_segment_sum_reference(h, src, offsets, num_segments)
-    out = _launch("gather_segment_sum_f32", h, src, offsets, num_segments)
-    launches += 1
+    out, launched = _launch("gather_segment_sum_f32", h, src, offsets,
+                            num_segments)
+    launches += launched
     return out
 
 
@@ -155,9 +203,31 @@ def segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
     _check(g, bgather, boff, num_nodes)
     if g.device.type == "cpu":
         return segment_scatter_sum_reference(g, bgather, boff, num_nodes)
-    dh = _launch("segment_scatter_sum_f32", g, bgather, boff, num_nodes)
-    scatter_launches += 1
+    dh, launched = _launch("segment_scatter_sum_f32", g, bgather, boff,
+                           num_nodes)
+    scatter_launches += launched
     return dh
+
+
+def split_edges() -> int:
+    """The most edges of a segment that the kernel does not cut, and the
+    edges of each further piece of a cut one: a constant of
+    csrc/ell_spmm.cu."""
+    return _kernel("ell_spmm_split")()
+
+
+def registers(vectorized_path: bool, device=None) -> int:
+    """Registers a thread of the kernel's float4 (`vectorized_path`) or
+    scalar instance uses on the card `device`, as the compiler allotted
+    them; B1 and B2 share both instances."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    regs = ctypes.c_int(0)
+    rc = _kernel("ell_spmm_registers")(int(vectorized_path), index,
+                                       ctypes.byref(regs))
+    if rc != 0:
+        raise RuntimeError(f"ell_spmm_registers failed: CUDA error {rc}")
+    return regs.value
 
 
 def transpose_layout(sources: torch.Tensor, gather_ids: torch.Tensor,

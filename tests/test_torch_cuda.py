@@ -183,6 +183,194 @@ def test_segment_scatter_sum_hub_sums_exactly(cuda):
     assert not got[counts == 0].any()
 
 
+KERNELS = ("gather_segment_sum", "segment_scatter_sum")
+# An id no table has: the kernel must never read the slots that hold it.
+POISON = 2**30
+
+
+def _eighths(rng, rows, h_dim, device, aligned=True):
+    """[rows, h_dim] multiples of 1/8 in [-2, 2], so every partial sum is
+    exact in f32 and any summation order gives the same bits; a view one
+    float into its buffer (not 16-byte aligned) unless `aligned`."""
+    flat = rng.integers(-16, 17, rows * h_dim + 1).astype(np.float32) / 8
+    flat = torch.from_numpy(flat).to(device)
+    return (flat[:-1] if aligned else flat[1:]).view(rows, h_dim)
+
+
+def _csr(rng, counts, rows, device, before=0, after=0):
+    """(idx, clean, offsets) of segments with `counts` edges whose ids
+    index `rows` rows, behind `before` slots and ahead of `after` slots
+    outside [off[0], off[S]) that hold POISON in `idx` and a valid id in
+    `clean` (for the plain version, which reads every slot)."""
+    counts = np.asarray(counts, np.int64)
+    offsets = before + np.concatenate([[0], np.cumsum(counts)])
+    ids = rng.integers(0, rows, before + int(counts.sum()) + after)
+    poisoned = ids.copy()
+    poisoned[:before] = POISON
+    poisoned[before + int(counts.sum()):] = POISON
+    return tuple(torch.from_numpy(a.astype(np.int32)).to(device)
+                 for a in (poisoned, ids, offsets))
+
+
+def _check_exact(name, x, idx, clean, offsets, num_segments):
+    kernel = getattr(ell_spmm, name)
+    plain = getattr(ell_spmm, name + "_reference")
+    got = kernel(x, idx, offsets, num_segments)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, plain(x, clean, offsets, num_segments),
+                               rtol=0, atol=0)
+    return got
+
+
+@pytest.mark.parametrize("h_dim,aligned", [(100, True), (37, True),
+                                           (100, False)])
+@pytest.mark.parametrize("copies", [1, 150])
+@pytest.mark.parametrize("length", ["0", "1", "c-1", "c", "c+1", "2c+1",
+                                    "17c"])
+@pytest.mark.parametrize("name", KERNELS)
+def test_segment_lengths_around_the_split(cuda, name, length, copies, h_dim,
+                                          aligned):
+    """Segments of 0, 1, c - 1, c, c + 1, 2c + 1 and 17c edges, c the
+    edges past which the kernel cuts a segment: 3c of them (times
+    `copies`), each behind a run of 0-2 one-edge segments and 0-1 empty
+    ones, so they start at many places of a chunk of c edges and of a
+    segment warp's group (one segment a warp for a few hundred segments,
+    several for the thousands of 150 copies). Segments of c edges or
+    fewer are never cut; one of 17c edges is cut into more than one group
+    of pieces."""
+    c = ell_spmm.split_edges()
+    n = {"0": 0, "1": 1, "c-1": c - 1, "c": c, "c+1": c + 1,
+         "2c+1": 2 * c + 1, "17c": 17 * c}[length]
+    rng = np.random.default_rng(n * 1000 + h_dim + copies)
+    counts = []
+    for k in range(3 * c):
+        counts += [1] * (k % 3) + [0] * (k % 2) + [n]
+    counts *= copies
+    rows = 500
+    x = _eighths(rng, rows, h_dim, cuda, aligned)
+    idx, clean, offsets = _csr(rng, counts, rows, cuda, after=7)
+    _check_exact(name, x, idx, clean, offsets, len(counts))
+
+
+@pytest.mark.parametrize("layout", ["one segment holds every edge",
+                                    "all segments empty", "E = 0",
+                                    "off[0] > 0"])
+@pytest.mark.parametrize("name", KERNELS)
+def test_awkward_layouts(cuda, name, layout):
+    rng = np.random.default_rng(len(layout))
+    before = 0
+    if layout == "one segment holds every edge":
+        counts = [0] * 300 + [5000] + [0] * 300
+    elif layout == "all segments empty":
+        counts = [0] * 1000
+    elif layout == "E = 0":
+        counts = [0] * 70
+    else:
+        counts, before = rng.integers(0, 150, 400), 333
+    rows = 700
+    x = _eighths(rng, rows, 100, cuda)
+    after = 0 if layout == "E = 0" else 9
+    idx, clean, offsets = _csr(rng, counts, rows, cuda, before, after)
+    got = _check_exact(name, x, idx, clean, offsets, len(counts))
+    assert got.shape == (len(counts), 100)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+def test_calls_of_other_sizes_in_turn_sum_exactly(cuda, name):
+    """Calls with few and with many warps, and of two widths, in turn on
+    one stream without a synchronisation, each with segments cut across
+    warps: the scratch one call leaves must not corrupt the next."""
+    rng = np.random.default_rng(11)
+    calls = []
+    for num_segments, long_every, h_dim in ((50, 5, 100), (3000, 40, 37),
+                                            (300, 7, 100), (5000, 25, 100)):
+        counts = rng.integers(0, 3, num_segments)
+        counts[::long_every] = rng.integers(100, 400,
+                                            len(counts[::long_every]))
+        x = _eighths(rng, 900, h_dim, cuda)
+        idx, clean, offsets = _csr(rng, counts, 900, cuda, after=3)
+        calls.append((x, idx, clean, offsets, num_segments))
+    kernel = getattr(ell_spmm, name)
+    plain = getattr(ell_spmm, name + "_reference")
+    for _ in range(2):
+        got = [kernel(x, idx, offsets, s)
+               for x, idx, _, offsets, s in calls]
+        for out, (x, _, clean, offsets, s) in zip(got, calls):
+            torch.testing.assert_close(out, plain(x, clean, offsets, s),
+                                       rtol=0, atol=0)
+
+
+def _twenty_k_lane(device):
+    """A lane shaped like the 20k-node training batch's: 40,514 edges
+    over N = 20,000 nodes and T = 4 types, sorted by composite id, and
+    its transpose; returns (B1's src, offsets, S) and (B2's bgather,
+    boff, N)."""
+    rng = np.random.default_rng(20000)
+    n, t_dim, edges = 20000, 4, 40514
+    src = rng.integers(0, n, edges)
+    composite = np.sort(rng.integers(0, n * t_dim, edges))
+    offsets = np.searchsorted(composite, np.arange(n * t_dim + 1))
+    order = np.argsort(src, kind="stable")
+    boff = np.searchsorted(src[order], np.arange(n + 1))
+    src, offsets, bgather, boff = (
+        torch.from_numpy(a.astype(np.int32)).to(device)
+        for a in (src, offsets, composite[order], boff))
+    return (src, offsets, n * t_dim), (bgather, boff, n)
+
+
+@pytest.mark.parametrize("shape", ["20k-node lane", "hub"])
+@pytest.mark.parametrize("name", KERNELS)
+def test_two_calls_give_the_same_bits(cuda, name, shape):
+    """randn inputs, whose sums round differently in another order: two
+    calls must agree bit for bit (the exact tests above hold the values
+    against the plain version)."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    if shape == "hub":
+        rng = np.random.default_rng(8)
+        counts = [0] * 2000 + [5000] + [3] * 100 + [0] * 1000
+        idx, _, offsets = _csr(rng, counts, 3000, cuda)
+        rows, num_segments = 3000, len(counts)
+    else:
+        b1, b2 = _twenty_k_lane(cuda)
+        idx, offsets, num_segments = b1 if name == KERNELS[0] else b2
+        rows = 20000 if name == KERNELS[0] else 80000
+    x = torch.randn(rows, 100, generator=gen, device=cuda)
+    kernel = getattr(ell_spmm, name)
+    first = kernel(x, idx, offsets, num_segments)
+    second = kernel(x, idx, offsets, num_segments)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_segment_kernels_count_one_launch_per_call_and_none_when_empty(
+        cuda):
+    h = torch.randn(64, 100, device=cuda)
+    src = torch.randint(0, 64, (40,), device=cuda, dtype=torch.int32)
+    offsets = torch.tensor([0, 10, 40], dtype=torch.int32, device=cuda)
+    before = (ell_spmm.launches, ell_spmm.scatter_launches)
+    ell_spmm.gather_segment_sum(h, src, offsets, 2)
+    ell_spmm.segment_scatter_sum(h, src, offsets, 2)
+    assert (ell_spmm.launches, ell_spmm.scatter_launches) == (
+        before[0] + 1, before[1] + 1)
+    no_segments = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for kernel in (ell_spmm.gather_segment_sum,
+                   ell_spmm.segment_scatter_sum):
+        empty = kernel(h, src, no_segments, 0)
+        narrow = kernel(h[:, :0], src, offsets, 2)
+        assert empty.shape == (0, 100) and narrow.shape == (2, 0)
+        assert empty.device.type == narrow.device.type == "cuda"
+    torch.cuda.synchronize()
+    assert (ell_spmm.launches, ell_spmm.scatter_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_segment_kernel_registers_are_reported(cuda):
+    for vec in (True, False):
+        regs = ell_spmm.registers(vec, cuda)
+        # __launch_bounds__ pins 4 blocks of 256 threads an SM.
+        assert 0 < regs <= 64
+
+
 def test_aggregation_gradient_on_the_card_matches_plain_autograd(cuda):
     """The autograd Function (B1 forward, B2 backward) against PyTorch's
     autograd of the plain version, on the card."""
