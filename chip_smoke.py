@@ -41,24 +41,35 @@ Phases, each raising (and so exiting non-zero) on any failure:
      against the same checkpoint served on the CPU (rtol = atol = 1e-4:
      8 GRU steps with f32 products in another order), graphs/s of the
      large request and the 1-graph latency;
-  5. training — `Runner("sparse", cfg)` with the default sparse config
+  5. dense serving — the same for the default `dense` and `blocked`
+     models (cuBLAS products, no hand kernel): the B1/B2/B3 counters set
+     to 0 before each request and read after it, 0 expected;
+  6. training — `Runner(variant, cfg).train()` on the default device, 3
+     epochs of synthetic_molecules(6000, seed=40), validated on
+     synthetic_molecules(600, seed=41), the kernels' counters set to 0
+     before `train()` and read after it: `sparse` with the default config
      plus configs/sparse_tpu.json (20,000-node batches, edge-weight
-     dropout 0.8) on the default device, 3 epochs of
-     synthetic_molecules(6000, seed=40), validated on
-     synthetic_molecules(600, seed=41): the kernels' counters set to 0
-     before `train()` and read after it (8 B1 launches per train step
-     and per validation batch, 7 B2 launches per train step, no B3),
-     every loss finite, the last validation loss below that of the
-     initial weights; per epoch the losses, MAE, error_ratio, graphs/s
-     and the median synchronised train-step time;
-  6. card against CPU — one train step on one 20k-node batch, every keep
-     probability 1.0, from the same initial weights on the card and on
-     the CPU: loss at rtol 1e-5, every parameter's gradient at a
-     relative L2 error <= 1e-4 (f32 sums in another order over 8 GRU
-     steps);
-  7. profile — `torch.profiler` over train steps on a 20k-node batch:
-     wall ms, device-busy ms, the device's idle share, the kernel count
-     and the top device operations.
+     dropout 0.8; 8 B1 launches per train step and per validation batch,
+     7 B2 launches per train step, no B3); `dense` with the default
+     config and the buckets [16, 32] bench.py trains; `blocked` with the
+     default config plus configs/blocked_tpu.json (no B1, B2 or B3 for
+     either); every loss finite, the last validation loss below that of
+     the initial weights; per epoch the losses, MAE, error_ratio,
+     graphs/s and the median synchronised train-step time, and the numpy
+     packer alone over one epoch;
+  7. card against CPU — one train step, every keep probability 1.0, from
+     the same initial weights on the card and on the CPU, for `sparse`
+     on one 20k-node batch and for `dense` and `blocked` on one
+     256-graph batch of the V = 32 bucket: loss at rtol 1e-5, every
+     parameter's gradient at a relative L2 error <= 1e-4 (f32 sums in
+     another order over 8 GRU steps);
+  8. dense forward — the device time of one `dense` and one `blocked`
+     inference forward and readout at that batch against the least time
+     of their products at the f32 rate outside the tensor cores;
+  9. profile — `torch.profiler` over train steps of `sparse` on a
+     20k-node batch and of `dense` and `blocked` on a 256-graph V = 32
+     batch: wall ms, device-busy ms, the device's idle share, the kernel
+     count and the top device operations.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -422,33 +433,97 @@ def probe_phase(dev, batches):
 
 # ------------------------------------------------------------ serving
 
-def serving_phase(ckpt_dir):
+def launch_counts():
+    """(B1, B2, B3) launch counters."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
+    return (ell_spmm.launches, ell_spmm.scatter_launches,
+            gather_floor.launches)
+
+
+def zero_launch_counts():
+    from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
+    ell_spmm.launches = ell_spmm.scatter_launches = gather_floor.launches = 0
+
+
+def serving_requests():
     from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    return {n: synthetic_molecules(n, seed=30 + i)
+            for i, n in enumerate((1, 300, 3000))}
+
+
+def random_checkpoint(variant, model_cls, ckpt_dir):
+    """The default config of `variant` with random weights from
+    torch.Generator seed 0, written as a pickle checkpoint."""
     from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
-    from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
-    from ggnn_tpu_torch.ops.kernels import ell_spmm
-    from ggnn_tpu_torch.serving import Predictor
     from ggnn_tpu_torch.training.checkpoint import save_checkpoint
     from ggnn_tpu_torch.training.config import default_params_for
 
-    config = default_params_for("sparse")
+    config = default_params_for(variant)
     assert config["hidden_size"] == HIDDEN
-    steps = sum(config["layer_timesteps"])
     gen = torch.Generator().manual_seed(0)
     params = ModelParams(
-        graph=SparseGGNN(config, EDGE_TYPES, gen),
+        graph=model_cls(config, EDGE_TYPES, gen),
         heads=init_output_heads(gen, config["hidden_size"],
                                 config["task_ids"]))
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, "sparse_random_seed0.pickle")
+    path = os.path.join(ckpt_dir, f"{variant}_random_seed0.pickle")
     save_checkpoint(path, config, params, 0, 0)
+    return config, path
 
+
+def check_and_time_answers(label, predictor, cpu_predictor, requests,
+                           answers):
+    """Each request's answer held against the CPU's, then graphs/s of
+    the 3,000-graph request (median of 3) and the 1-graph latency
+    (median of 20), host clock, synchronised."""
+    max_err = 0.0
+    for n, req in requests.items():
+        got = answers[n]
+        if got.shape != (1, n) or not np.isfinite(got).all():
+            raise RuntimeError(f"{label}: {n}-graph answer has shape "
+                               f"{got.shape} or non-finite values")
+        want = cpu_predictor(req)
+        err = float(np.abs(got - want).max())
+        max_err = max(max_err, err)
+        np.testing.assert_allclose(got, want, rtol=TOL_SERVING,
+                                   atol=TOL_SERVING)
+        log(f"{label} {n}-graph request: matches CPU port "
+            f"(max_abs_err={err:.3e})")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor(requests[3000])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    lat = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor(requests[1])
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    result = {"graphs_per_s_3000": 3000 / statistics.median(times),
+              "latency_1_graph_ms": statistics.median(lat[5:]) * 1e3,
+              "max_abs_err_vs_cpu": max_err}
+    log(f"{label}: {result['graphs_per_s_3000']:.1f} graphs/s on the "
+        f"3000-graph request (median of 3, host clock, synchronised); "
+        f"1-graph latency {result['latency_1_graph_ms']:.3f} ms "
+        "(median of 20)")
+    return result
+
+
+def serving_phase(ckpt_dir):
+    from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
+    from ggnn_tpu_torch.serving import Predictor
+
+    config, path = random_checkpoint("sparse", SparseGGNN, ckpt_dir)
+    steps = sum(config["layer_timesteps"])
     predictor = Predictor.from_checkpoint(path, "sparse")
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
     cpu_predictor = Predictor.from_checkpoint(path, "sparse", device="cpu")
-    requests = {n: synthetic_molecules(n, seed=30 + i)
-                for i, n in enumerate((1, 300, 3000))}
+    requests = serving_requests()
 
     forward_calls = 0
     forward = predictor._forward
@@ -459,100 +534,116 @@ def serving_phase(ckpt_dir):
         return forward(batch)
 
     predictor._forward = counted_forward
-    ell_spmm.launches = 0
-    ell_spmm.scatter_launches = 0
+    zero_launch_counts()
     answers = {n: predictor(req) for n, req in requests.items()}
     torch.cuda.synchronize()
-    launches, scatter_launches = ell_spmm.launches, ell_spmm.scatter_launches
+    launches, scatter_launches, b3 = launch_counts()
     predictor._forward = forward
     log(f"serving: {forward_calls} forward calls, {launches} B1 launches "
         f"({steps} per forward expected), {scatter_launches} B2 launches "
-        "(0 expected: serving builds no transpose layout)")
+        "(0 expected: serving builds no transpose layout), "
+        f"{b3} B3 launches (0 expected)")
     if launches != steps * forward_calls or launches == 0:
         raise RuntimeError(
             f"kernel launches {launches} != {steps} x {forward_calls} "
             "forward calls: the serving path did not run the kernel")
-    if scatter_launches != 0:
-        raise RuntimeError(f"serving launched B2 {scatter_launches} times")
+    if scatter_launches != 0 or b3 != 0:
+        raise RuntimeError(f"serving launched B2 {scatter_launches} times, "
+                           f"B3 {b3} times")
+    return {"forward_calls": forward_calls, "launches": launches,
+            "scatter_launches": scatter_launches, "launches_b3": b3,
+            **check_and_time_answers("serving", predictor, cpu_predictor,
+                                     requests, answers)}
 
-    max_err = 0.0
-    for n, req in requests.items():
-        got = answers[n]
-        if got.shape != (1, n) or not np.isfinite(got).all():
-            raise RuntimeError(f"{n}-graph answer has shape {got.shape} "
-                               "or non-finite values")
-        want = cpu_predictor(req)
-        err = float(np.abs(got - want).max())
-        max_err = max(max_err, err)
-        np.testing.assert_allclose(got, want, rtol=TOL_SERVING,
-                                   atol=TOL_SERVING)
-        log(f"serving {n}-graph request: matches CPU port "
-            f"(max_abs_err={err:.3e})")
 
-    big = requests[3000]
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        predictor(big)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    lat = []
-    for _ in range(25):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        predictor(requests[1])
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-    result = {
-        "forward_calls": forward_calls, "launches": launches,
-        "scatter_launches": scatter_launches,
-        "graphs_per_s_3000": 3000 / statistics.median(times),
-        "latency_1_graph_ms": statistics.median(lat[5:]) * 1e3,
-        "max_abs_err_vs_cpu": max_err,
-    }
-    log(f"serving: {result['graphs_per_s_3000']:.1f} graphs/s on the "
-        f"3000-graph request (median of 3, host clock, synchronised); "
-        f"1-graph latency {result['latency_1_graph_ms']:.3f} ms "
-        "(median of 20)")
-    return result
+def dense_serving_phase(ckpt_dir):
+    """The default `dense` and `blocked` models served from pickle
+    checkpoints on the default device; the three kernels' counters set
+    to 0 before each request and read after it (0 expected: the dense
+    family runs cuBLAS products, no hand kernel)."""
+    from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
+    from ggnn_tpu_torch.serving import Predictor
+
+    requests = serving_requests()
+    results = {}
+    for variant in DENSE_VARIANTS:
+        _, path = random_checkpoint(variant, DenseGGNN, ckpt_dir)
+        predictor = Predictor.from_checkpoint(path, variant)
+        if predictor.device.type != "cuda":
+            raise RuntimeError(f"default device is {predictor.device}")
+        cpu_predictor = Predictor.from_checkpoint(path, variant,
+                                                  device="cpu")
+        answers = {}
+        for n, req in requests.items():
+            zero_launch_counts()
+            answers[n] = predictor(req)
+            torch.cuda.synchronize()
+            if any(launch_counts()):
+                raise RuntimeError(f"{variant} serving of {n} graphs "
+                                   f"launched B1/B2/B3 {launch_counts()}")
+        log(f"{variant} serving: B1/B2/B3 launches 0 around each request")
+        results[variant] = {
+            "launches": [0, 0, 0],
+            **check_and_time_answers(f"{variant} serving", predictor,
+                                     cpu_predictor, requests, answers)}
+    return results
 
 
 # ------------------------------------------------------------ training
 
-def training_config(overrides=None):
+def resolved_config(variant, config_file=None, overrides=None):
     from ggnn_tpu_torch.training.config import resolve_config
     config = resolve_config(
-        "sparse", os.path.join(REPO, "configs", "sparse_tpu.json"),
+        variant, None if config_file is None
+        else os.path.join(REPO, "configs", config_file),
         json.dumps(overrides or {}))
     assert config["hidden_size"] == HIDDEN
-    assert config["batch_size"] == 20000
     return config
 
 
-def training_phase(log_dir):
-    """3 epochs of the default sparse config at the 20k-node budget
-    through `Runner.train()` on the default device."""
-    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
-    from ggnn_tpu_torch.ops.kernels import ell_spmm
+# Each variant's training configuration: the sparse default plus the
+# 20,000-node batches of configs/sparse_tpu.json; the dense default with
+# the two buckets bench.py trains (bench.py:77-83); the blocked default
+# plus configs/blocked_tpu.json.
+TRAIN_CONFIGS = {
+    "sparse": ("sparse_tpu.json", {}),
+    "dense": (None, {"dense_bucket_sizes": [16, 32]}),
+    "blocked": ("blocked_tpu.json", {}),
+}
+DENSE_VARIANTS = ("dense", "blocked")
+NO_DROPOUT = {"edge_weight_dropout_keep_prob": 1.0,
+              "graph_state_dropout_keep_prob": 1.0,
+              "out_layer_dropout_keep_prob": 1.0}
+
+
+def train_config(variant, overrides=None):
+    config_file, extra = TRAIN_CONFIGS[variant]
+    return resolved_config(variant, config_file, {**extra,
+                                                  **(overrides or {})})
+
+
+def train_run(variant, epochs, corpus, log_dir):
+    """`epochs` epochs of `variant` through `Runner.train()` on the
+    default device: the kernels' counters set to 0 just before `train()`
+    and read just after, every loss finite, the last validation loss
+    below that of the initial weights; per epoch the losses, MAE,
+    error_ratio, graphs/s and the median synchronised train-step time;
+    and the numpy packer alone over one training epoch."""
     from ggnn_tpu_torch.training.runner import Runner
 
-    config = training_config({"num_epochs": 3})
-    assert config["edge_weight_dropout_keep_prob"] == 0.8
-    steps = sum(config["layer_timesteps"])
+    config = train_config(variant, {"num_epochs": epochs})
+    train, valid = corpus
     t0 = time.perf_counter()
-    runner = Runner("sparse", config,
-                    train_data=synthetic_molecules(6000, seed=40),
-                    valid_data=synthetic_molecules(600, seed=41),
+    runner = Runner(variant, config, train_data=train, valid_data=valid,
                     log_dir=log_dir, quiet=True)
     setup_s = time.perf_counter() - t0
     if runner.device.type != "cuda":
         raise RuntimeError(f"default device is {runner.device}")
     init_loss, init_accs, _, _, _ = runner.run_epoch(
         "initial validation", runner.valid_processed, False)
-    log(f"training: Runner set-up {setup_s:.2f} s (preprocess + plan of "
-        f"6,600 graphs, caps {runner.adapter.caps}); validation loss of "
-        f"the initial weights {init_loss:.6f} (MAE {init_accs[0]:.6f})")
+    log(f"{variant} training: Runner set-up {setup_s:.2f} s (preprocess "
+        f"and plan of {len(train) + len(valid):,} graphs); validation loss "
+        f"of the initial weights {init_loss:.6f} (MAE {init_accs[0]:.6f})")
 
     # Synchronised step times, per epoch.
     step_times, epoch_marks = [], []
@@ -572,28 +663,19 @@ def training_phase(log_dir):
         return run_epoch(name, processed, is_training)
 
     runner.train_step, runner.run_epoch = timed_step, marked_epoch
-    ell_spmm.launches = 0
-    ell_spmm.scatter_launches = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     history = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    b1, b2 = ell_spmm.launches, ell_spmm.scatter_launches
+    b1, b2, b3 = launch_counts()
     runner.train_step, runner.run_epoch = train_step, run_epoch
+    log(f"{variant} training: {len(history)} epochs, {runner.train_step_id} "
+        f"train steps, {runner.valid_step_id} validation batches in "
+        f"{train_s:.2f} s; launches B1 {b1}, B2 {b2}, B3 {b3}")
 
-    train_steps, valid_batches = runner.train_step_id, runner.valid_step_id
-    want_b1 = steps * (train_steps + valid_batches)
-    want_b2 = (steps - 1) * train_steps
-    log(f"training: {len(history)} epochs, {train_steps} train steps, "
-        f"{valid_batches} validation batches in {train_s:.2f} s; launches "
-        f"B1 {b1} (expected {steps} x ({train_steps} + {valid_batches}) = "
-        f"{want_b1}), B2 {b2} (expected {steps - 1} x {train_steps} = "
-        f"{want_b2})")
-    if b1 != want_b1 or b2 != want_b2 or b1 == 0 or b2 == 0:
-        raise RuntimeError("the training path did not launch the kernels "
-                           "the expected number of times")
     epoch_marks.append(len(step_times))
-    epochs = []
+    epochs_out = []
     for i, entry in enumerate(history):
         tr, va = entry["train_results"], entry["valid_results"]
         times = step_times[epoch_marks[i]:epoch_marks[i + 1]]
@@ -603,70 +685,117 @@ def training_phase(log_dir):
                "valid_mae": va[1][0], "valid_error_ratio": va[2][0],
                "valid_graphs_per_s": va[3], "train_steps": len(times),
                "median_train_step_ms": statistics.median(times) * 1e3}
-        epochs.append(rec)
-        log(f"training epoch {rec['epoch']}: train loss {tr[0]:.6f} MAE "
-            f"{tr[1][0]:.6f} error_ratio {tr[2][0]:.4f} "
+        epochs_out.append(rec)
+        log(f"{variant} training epoch {rec['epoch']}: train loss "
+            f"{tr[0]:.6f} MAE {tr[1][0]:.6f} error_ratio {tr[2][0]:.4f} "
             f"{tr[3]:.1f} graphs/s | valid loss {va[0]:.6f} MAE "
             f"{va[1][0]:.6f} error_ratio {va[2][0]:.4f} {va[3]:.1f} "
             f"graphs/s | median train step {rec['median_train_step_ms']:.3f}"
             f" ms (synchronised, {len(times)} steps)")
         values = [tr[0], va[0], *tr[1], *va[1]]
         if not np.isfinite(values).all():
-            raise RuntimeError(f"epoch {rec['epoch']}: non-finite loss")
-    if not epochs[-1]["valid_loss"] < init_loss:
+            raise RuntimeError(f"{variant} epoch {rec['epoch']}: "
+                               "non-finite loss")
+    if not epochs_out[-1]["valid_loss"] < init_loss:
         raise RuntimeError(
-            f"validation loss after training {epochs[-1]['valid_loss']} is "
-            f"not below the initial {init_loss}")
+            f"{variant}: validation loss after training "
+            f"{epochs_out[-1]['valid_loss']} is not below the initial "
+            f"{init_loss}")
     # The numpy packer alone over one epoch's training split (the Runner
     # runs it in a prefetch thread beside the steps).
     t0 = time.perf_counter()
     packed = sum(1 for _ in runner.adapter.batches(
         runner.train_processed, True, np.random.RandomState(0)))
     pack_s = time.perf_counter() - t0
-    epoch_s = len(runner.train_processed) / statistics.median(
-        e["train_graphs_per_s"] for e in epochs)
-    log(f"training: the numpy packer alone packs one epoch ({packed} "
-        f"batches) in {pack_s:.3f} s, {pack_s / epoch_s:.1%} of the "
-        f"median train epoch's {epoch_s:.3f} s")
-    result = {"launches_b1": b1, "launches_b2": b2,
-              "pack_seconds_per_epoch": pack_s,
-              "train_epoch_seconds_median": epoch_s,
-              "train_steps": train_steps, "valid_batches": valid_batches,
-              "initial_valid_loss": init_loss, "train_seconds": train_s,
-              "setup_seconds": setup_s, "epochs": epochs}
+    epoch_s = len(train) / statistics.median(
+        e["train_graphs_per_s"] for e in epochs_out)
+    log(f"{variant} training: the numpy packer alone packs one epoch "
+        f"({packed} batches) in {pack_s:.3f} s, {pack_s / epoch_s:.1%} of "
+        f"the median train epoch's {epoch_s:.3f} s")
+    return runner, {
+        "launches_b1": b1, "launches_b2": b2, "launches_b3": b3,
+        "pack_seconds_per_epoch": pack_s,
+        "train_epoch_seconds_median": epoch_s,
+        "train_steps": runner.train_step_id,
+        "valid_batches": runner.valid_step_id,
+        "initial_valid_loss": init_loss, "train_seconds": train_s,
+        "setup_seconds": setup_s, "epochs": epochs_out}
+
+
+def training_phase(corpus, log_dir):
+    """The sparse variant at the 20k-node budget: 8 B1 launches per train
+    step and per validation batch, 7 B2 launches per train step, no
+    B3."""
+    runner, result = train_run("sparse", 3, corpus, log_dir)
+    assert runner.config["batch_size"] == 20000
+    assert runner.config["edge_weight_dropout_keep_prob"] == 0.8
+    steps = sum(runner.config["layer_timesteps"])
+    want_b1 = steps * (result["train_steps"] + result["valid_batches"])
+    want_b2 = (steps - 1) * result["train_steps"]
+    log(f"training: launches B1 expected {steps} x ({result['train_steps']}"
+        f" + {result['valid_batches']}) = {want_b1}, B2 {steps - 1} x "
+        f"{result['train_steps']} = {want_b2}, B3 0")
+    b1, b2 = result["launches_b1"], result["launches_b2"]
+    if (b1 != want_b1 or b2 != want_b2 or b1 == 0 or b2 == 0
+            or result["launches_b3"]):
+        raise RuntimeError("the training path did not launch the kernels "
+                           "the expected number of times")
     return runner, result
 
 
-def card_vs_cpu_phase(log_dir):
+def dense_training_phase(corpus, log_dir):
+    """3 epochs of each dense-family variant: no B1, B2 or B3 launch."""
+    runners, results = {}, {}
+    for variant in DENSE_VARIANTS:
+        runners[variant], results[variant] = train_run(
+            variant, 3, corpus, os.path.join(log_dir, variant))
+        counts = [results[variant][f"launches_b{i}"] for i in (1, 2, 3)]
+        if any(counts):
+            raise RuntimeError(f"{variant} training launched B1/B2/B3 "
+                               f"{counts} times")
+    return runners, results
+
+
+def first_batch(runner, want):
+    """The first batch of the runner's training split, unshuffled, that
+    `want` accepts."""
+    for batch in runner.adapter.batches(runner.train_processed, False):
+        if want(batch):
+            return batch
+    raise RuntimeError("no batch of the wanted shape")
+
+
+def is_20k_batch(batch):
+    return int(batch.num_nodes) >= 19000
+
+
+def is_full_v32_batch(batch):
+    return int(batch.num_graphs) == 256 and batch.num_vertices == 32
+
+
+def card_vs_cpu_phase(variant, corpus, pick, log_dir):
     """One train step, keep probabilities 1.0, on the card and on the
     CPU from the same initial weights (both Runners draw them from a CPU
-    generator seeded with random_seed)."""
-    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    generator seeded with random_seed), on the batch `pick` accepts."""
     from ggnn_tpu_torch.training.runner import Runner
 
-    config = training_config({
-        "num_epochs": 1, "edge_weight_dropout_keep_prob": 1.0,
-        "graph_state_dropout_keep_prob": 1.0,
-        "out_layer_dropout_keep_prob": 1.0})
-    train = synthetic_molecules(1300, seed=42)
-    valid = synthetic_molecules(50, seed=43)
-    runners = {dev: Runner("sparse", dict(config), train_data=train,
+    config = train_config(variant, {"num_epochs": 1, **NO_DROPOUT})
+    train, valid = corpus
+    runners = {dev: Runner(variant, dict(config), train_data=train,
                            valid_data=valid,
-                           log_dir=os.path.join(log_dir, dev), quiet=True,
-                           device=dev)
+                           log_dir=os.path.join(log_dir, variant, dev),
+                           quiet=True, device=dev)
                for dev in ("cuda", "cpu")}
-    batch = next(iter(runners["cpu"].adapter.batches(
-        runners["cpu"].train_processed, False)))
-    if int(batch.num_nodes) < 19000:
-        raise RuntimeError(f"batch has {int(batch.num_nodes)} nodes, not "
-                           "a 20k-node batch")
+    batch = first_batch(runners["cpu"], pick)
     out = {}
     for dev, runner in runners.items():
         t0 = time.perf_counter()
+        zero_launch_counts()
         out[dev] = runner.loss_and_grads(batch.to(dev))
         if dev == "cuda":
             torch.cuda.synchronize()
-        log(f"card vs CPU: {dev} step (first call) "
+            launches = launch_counts()
+        log(f"card vs CPU: {variant} {dev} step (first call) "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     loss_gpu, _, grads_gpu = out["cuda"]
     loss_cpu, _, grads_cpu = out["cpu"]
@@ -677,25 +806,30 @@ def card_vs_cpu_phase(log_dir):
         rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
         if rel > worst:
             worst, worst_name = rel, name
-    log(f"card vs CPU, one train step on {int(batch.num_nodes)} nodes "
+    what = (f"{int(batch.num_nodes)} nodes" if variant == "sparse" else
+            f"V = {batch.num_vertices}")
+    log(f"card vs CPU, one {variant} train step on {what} "
         f"({int(batch.num_graphs)} graphs): loss {float(loss_gpu):.8f} vs "
         f"{float(loss_cpu):.8f} (relative error {loss_err:.3e}, limit "
         f"{TOL_STEP_LOSS}); worst gradient relative L2 error {worst:.3e} "
         f"({worst_name}, limit {TOL_STEP_GRAD}) over {len(grads_cpu)} "
-        "parameters")
+        f"parameters; launches B1/B2/B3 {launches}")
     if not loss_err <= TOL_STEP_LOSS or not worst <= TOL_STEP_GRAD:
-        raise RuntimeError("the card's train step disagrees with the CPU's")
+        raise RuntimeError(f"the card's {variant} train step disagrees "
+                           "with the CPU's")
+    if variant != "sparse" and any(launches):
+        raise RuntimeError(f"the {variant} train step launched B1/B2/B3")
     return {"loss_relative_error": loss_err,
-            "worst_grad_relative_l2": worst, "worst_grad": worst_name}
+            "worst_grad_relative_l2": worst, "worst_grad": worst_name,
+            "launches": list(launches)}
 
 
-def profile_phase(runner, steps=5):
-    """torch.profiler over `steps` train steps on one 20k-node training
-    batch already on the card (dropout on)."""
+def profile_phase(runner, batch, steps=5):
+    """torch.profiler over `steps` train steps on one training batch
+    already on the card (the variant's dropout on)."""
     from torch.autograd import DeviceType
 
-    batch = next(iter(runner.adapter.batches(runner.train_processed,
-                                             False))).to(runner.device)
+    batch = batch.to(runner.device)
     for _ in range(3):
         runner.train_step(batch)
     torch.cuda.synchronize()
@@ -718,8 +852,11 @@ def profile_phase(runner, steps=5):
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda k: -k[1])
     busy_us = sum(k[1] for k in kernels)
+    shape = (f"{int(batch.num_nodes)} nodes"
+             if hasattr(batch, "num_nodes") else
+             f"{int(batch.num_graphs)} graphs, V = {batch.num_vertices}")
     result = {
-        "nodes": int(batch.num_nodes), "steps": steps,
+        "variant": runner.variant, "batch": shape, "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -728,7 +865,7 @@ def profile_phase(runner, steps=5):
             {"name": k[0][:80], "ms_per_step": k[1] / 1e3 / steps,
              "calls_per_step": k[2] / steps} for k in kernels[:12]],
     }
-    log(f"profile of a train step ({result['nodes']} nodes): wall "
+    log(f"profile of a {runner.variant} train step ({shape}): wall "
         f"{result['wall_ms_per_step']:.3f} ms, device busy "
         f"{result['device_busy_ms_per_step']:.3f} ms, idle share "
         f"{result['device_idle_share']:.3f}, "
@@ -739,13 +876,72 @@ def profile_phase(runner, steps=5):
     return result
 
 
+def dense_forward_flops(model, batch) -> int:
+    """Operations (2 per multiply-add) of the products of one DenseGGNN
+    forward: per step the bmm with the adjacency, the [B*V, T*H] x
+    [T*H, H] transform and the cell's products (each 2-D cell weight is
+    used once per row). The default configs have no attention."""
+    b, t, v, _ = batch.adjacency.shape
+    h, rows = model.hidden_size, b * v
+    if model.extended:
+        stages = [(n, layer.cell) for n, layer in zip(model.layer_timesteps,
+                                                      model.layers)]
+    else:
+        stages = [(model.num_timesteps, model.cell)]
+    total = 0
+    for steps, cell in stages:
+        cell_weights = sum(p.numel() for p in cell.parameters()
+                           if p.dim() == 2)
+        total += steps * (2 * b * v * t * v * h + 2 * rows * t * h * h
+                          + 2 * rows * cell_weights)
+    return total
+
+
+def dense_forward_phase(runners):
+    """Device time of one inference forward and readout of each dense
+    variant at a full 256-graph batch of the V = 32 bucket (CUDA events,
+    `time_ms`), against the least time its products need at the f32 rate
+    outside the tensor cores (TF32 is off). A call launches 80-200
+    kernels and the host enqueues them slower than the card runs them,
+    so `time_ms` gets 5 calls: all of them fit in the launch queue
+    behind its sleep (about a thousand entries); 50 would not, and the
+    events would time the host's pace."""
+    results = {}
+    for variant, runner in runners.items():
+        batch = first_batch(runner, is_full_v32_batch).to(runner.device)
+        model, heads = runner.params.graph, runner.params.heads
+
+        def forward():
+            with torch.inference_mode():
+                return model.readout(heads, runner.task_ids, model(batch),
+                                     batch)
+
+        ms, host_ms = time_ms(forward, iters=5)
+        ms_50_calls = time_ms(forward)[0]
+        flops = dense_forward_flops(model, batch)
+        bound_ms = flops / F32_OPS_PER_S * 1e3
+        results[variant] = {"gflop": flops / 1e9, "ms": ms,
+                            "ms_50_calls": ms_50_calls, "host_ms": host_ms,
+                            "bound_ms": bound_ms,
+                            "share_of_bound": bound_ms / ms}
+        log(f"{variant} forward + readout at 256 graphs, V = 32: device "
+            f"{ms:.4f} ms (host {host_ms:.4f} ms a call; events over 50 "
+            f"queued calls {ms_50_calls:.4f} ms), {flops / 1e9:.3f} GFLOP "
+            f"of products, bound {bound_ms:.4f} ms at "
+            f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s: "
+            f"{bound_ms / ms:.1%} of the bound")
+    return results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
-    from ggnn_tpu_torch.ops.kernels import _build, ell_spmm, gather_floor
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.ops.kernels import _build, ell_spmm
 
+    script_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -779,23 +975,35 @@ def main() -> int:
         f"{records[1]['ms'] / probe['b1_output_zero_ms']:.3f} x the zero_ "
         "of its output")
     work_dir = os.path.join(REPO, "build", "chip_smoke")
-    # B3's counter around the serving and training paths, which must not
-    # launch it.
-    gather_floor.launches = 0
     serving = serving_phase(work_dir)
-    b3_serving = gather_floor.launches
-    gather_floor.launches = 0
-    runner, training = training_phase(os.path.join(work_dir, "train"))
-    b3_training = gather_floor.launches
-    log(f"B3 launches: serving {b3_serving}, training {b3_training} "
-        "(0 expected)")
-    if b3_serving or b3_training:
-        raise RuntimeError("the serving or training path launched B3")
-    card_vs_cpu = card_vs_cpu_phase(os.path.join(work_dir, "step"))
-    profile = profile_phase(runner)
+    dense_serving = dense_serving_phase(work_dir)
+    corpus = (synthetic_molecules(6000, seed=40),
+              synthetic_molecules(600, seed=41))
+    runner, training = training_phase(corpus,
+                                      os.path.join(work_dir, "train"))
+    dense_runners, dense_training = dense_training_phase(
+        corpus, os.path.join(work_dir, "train_dense"))
+    step_corpus = (synthetic_molecules(1300, seed=42),
+                   synthetic_molecules(50, seed=43))
+    step_dir = os.path.join(work_dir, "step")
+    card_vs_cpu = card_vs_cpu_phase("sparse", step_corpus, is_20k_batch,
+                                    step_dir)
+    dense_card_vs_cpu = {
+        variant: card_vs_cpu_phase(variant, step_corpus, is_full_v32_batch,
+                                   step_dir)
+        for variant in DENSE_VARIANTS}
+    profile = profile_phase(runner, first_batch(runner, is_20k_batch))
+    dense_forward = dense_forward_phase(dense_runners)
+    dense_profile = {
+        variant: profile_phase(runner, first_batch(runner,
+                                                   is_full_v32_batch))
+        for variant, runner in dense_runners.items()}
 
     # Each kernel's `launches` sums the main paths' runs (the probe,
-    # serving and training), each counted from 0 just before its run.
+    # serving and training of every variant), each counted from 0 just
+    # before its run; the dense family's paths launch none.
+    dense_paths = {f"{variant} {path}": 0 for variant in DENSE_VARIANTS
+                   for path in ("serving", "training")}
     main_shape = records[0]
     b2_shape = b2_records[1]          # the training path's 20k-node shape
     # The JAX probe's shape at unroll 8.
@@ -808,7 +1016,8 @@ def main() -> int:
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:51",
         "launches": serving["launches"] + training["launches_b1"],
         "launches_by_path": {"serving": serving["launches"],
-                             "training": training["launches_b1"]},
+                             "training": training["launches_b1"],
+                             **dense_paths},
         "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
@@ -823,7 +1032,8 @@ def main() -> int:
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:101",
         "launches": serving["scatter_launches"] + training["launches_b2"],
         "launches_by_path": {"serving": serving["scatter_launches"],
-                             "training": training["launches_b2"]},
+                             "training": training["launches_b2"],
+                             **dense_paths},
         "max_abs_err": max([r["max_abs_err"] for r in b2_records]
                            + [b2_ell_err]),
         "ms": b2_shape["ms"],
@@ -837,10 +1047,12 @@ def main() -> int:
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/gather_floor.cu",
         "replaces": "benchmarks/probes/gather_floor.py:52",
-        "launches": probe["launches"] + b3_serving + b3_training,
+        "launches": (probe["launches"] + serving["launches_b3"]
+                     + training["launches_b3"]),
         "launches_by_path": {"probe": probe["launches"],
-                             "serving": b3_serving,
-                             "training": b3_training},
+                             "serving": serving["launches_b3"],
+                             "training": training["launches_b3"],
+                             **dense_paths},
         "max_abs_err": max(r["max_abs_err"]
                            for recs in probe["shapes"].values()
                            for r in recs),
@@ -851,10 +1063,17 @@ def main() -> int:
         "library_ms": b3_shape["library_ms"],
     }]
     device_line = gpu_name_and_power()
+    log(f"chip_smoke: {time.perf_counter() - script_start:.1f} s from the "
+        "build to the end")
     log(json.dumps({"shapes": records, "backward_shapes": b2_records,
                     "split_edges": ell_spmm.split_edges(),
-                    "probe": probe, "serving": serving, "training": training,
-                    "card_vs_cpu": card_vs_cpu, "profile": profile}))
+                    "probe": probe, "serving": serving,
+                    "dense_serving": dense_serving, "training": training,
+                    "dense_training": dense_training,
+                    "card_vs_cpu": card_vs_cpu,
+                    "dense_card_vs_cpu": dense_card_vs_cpu,
+                    "dense_forward": dense_forward,
+                    "profile": profile, "dense_profile": dense_profile}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

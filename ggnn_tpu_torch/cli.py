@@ -1,8 +1,8 @@
-"""Command-line entry point of the port: train a sparse GGNN.
+"""Command-line entry point of the port: train a GGNN.
 
-    python -m ggnn_tpu_torch.cli sparse|rgcn [--config-file FILE]
-        [--config JSON] [--log_dir DIR] [--data_dir DIR] [--restore FILE]
-        [--freeze-graph-model] [--restrict_data N] [--synthetic N]
+    python -m ggnn_tpu_torch.cli sparse|rgcn|dense|blocked
+        [--config-file FILE] [--config JSON] [--log_dir DIR]
+        [--data_dir DIR] [--restore FILE] [--freeze-graph-model] [--restrict_data N] [--synthetic N]
         [--quiet] [--save-every-epoch] [--pdb] [--device DEVICE]
 
 The flags of `ggnn_tpu/cli.py` for these variants, plus `--device`: the
@@ -18,8 +18,7 @@ import argparse
 import sys
 import traceback
 
-_VARIANTS_NOT_PORTED = {"dense": "A6", "blocked": "A6", "gcn": "A7",
-                        "gcn_blocked": "A7", "async": "A8"}
+_VARIANTS_NOT_PORTED = {"gcn": "A7", "gcn_blocked": "A7", "async": "A8"}
 # flag destination -> (flag, ROADMAP item)
 _FLAGS_NOT_PORTED = {
     "evaluate": ("--evaluate", "A9"),
@@ -34,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="ggnn_tpu_torch",
         description="GGNN training on an NVIDIA GPU (PyTorch port)")
     p.add_argument("variant",
-                   choices=["sparse", "rgcn", *_VARIANTS_NOT_PORTED])
+                   choices=["sparse", "rgcn", "dense", "blocked",
+                            *_VARIANTS_NOT_PORTED])
     p.add_argument("--config-file", dest="config_file", default=None,
                    help="Hyperparameter configuration file path (JSON).")
     p.add_argument("--config", default=None,

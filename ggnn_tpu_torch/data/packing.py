@@ -1,8 +1,9 @@
-"""Sparse graph preprocessing and static-shape batch packing (numpy).
+"""Graph preprocessing and static-shape batch packing (numpy).
 
-A copy of the sparse half of `ggnn_tpu/data/packing.py`; its batches are
-bit-identical to that packer's. Sparse packing reproduces the reference's
-node-budget super-graph packing (chem_tensorflow_sparse.py:278-350):
+A copy of the sparse and dense halves of `ggnn_tpu/data/packing.py`; its
+batches are bit-identical to that packer's. Sparse packing reproduces
+the reference's node-budget super-graph packing
+(chem_tensorflow_sparse.py:278-350):
 graphs are appended while `node_offset + n < node_budget` (strict <),
 with vertex ids offset per component. Static capacities (per-type edge
 caps, the combined-lane cap, the graph-count cap) end a batch early in
@@ -12,7 +13,13 @@ Backward edges of untied weights land in type `num_fwd_edge_types + e`
 (the reference's chem_tensorflow_sparse.py:271 computed an out-of-range
 type there; the fix is kept).
 
-The blocked-ELL layout branch of the JAX packer is not ported.
+Dense packing reproduces the bucketed padding scheme
+(chem_tensorflow_dense.py:132-228), including, behind `drop_remainder`,
+the reference's silent dropping of each bucket's remainder graphs
+(floor division at chem_tensorflow_dense.py:160).
+
+The blocked-ELL layout branch and the GCN half of the JAX packer are not
+ported.
 """
 
 import dataclasses
@@ -20,8 +27,10 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from ggnn_tpu_torch.graph import GraphBatch
+from ggnn_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from ggnn_tpu_torch.utils.padding import pad_to, round_up
+
+DENSE_BUCKET_SIZES = np.array(list(range(4, 28, 2)) + [29])
 
 DEFAULT_PACK_MARGIN = 1.05
 
@@ -345,4 +354,153 @@ def pack_sparse_batches(processed: List[dict], num_edge_types: int,
             num_nodes=np.int32(node_offset),
             **build_combined_lane(edge_sources, edge_targets, edge_mask,
                                   caps.edges_all, caps.nodes),
+        )
+
+
+# --------------------------------------------------------------------
+# Dense (bucketed adjacency) preprocessing + packing
+# --------------------------------------------------------------------
+
+def build_dense_adjacency(edges, max_n_vertices: int, num_edge_types: int,
+                          tie_fwd_bkwd: bool = True) -> np.ndarray:
+    """Per-edge-type dense adjacency [T, V, V] with amat[t, dst, src] = 1.
+
+    Mirrors chem_tensorflow_dense.py:30-36: tied backward edges land in
+    the same type slice, untied ones in slice `t + num_edge_types // 2`.
+    """
+    bwd_offset = 0 if tie_fwd_bkwd else num_edge_types // 2
+    num_fwd = num_edge_types if tie_fwd_bkwd else num_edge_types // 2
+    amat = np.zeros((num_edge_types, max_n_vertices, max_n_vertices),
+                    dtype=np.float32)
+    for src, e, dst in edges:
+        if not 1 <= e <= num_fwd:
+            raise ValueError(
+                f"edge type {e} out of range [1, {num_fwd}]")
+        if src < 0 or dst < 0:
+            # A negative id would numpy-wrap to the last vertex row.
+            raise ValueError(
+                f"edge vertex id out of range [0, {max_n_vertices}): "
+                f"({src}, ., {dst})")
+        amat[e - 1, dst, src] = 1
+        amat[e - 1 + bwd_offset, src, dst] = 1
+    return amat
+
+
+def preprocess_dense(raw_data: Sequence[Any], num_edge_types: int,
+                     tie_fwd_bkwd: bool, task_ids: Sequence[int],
+                     task_sample_ratios: Dict, is_training: bool,
+                     rng: Optional[np.random.RandomState] = None,
+                     bucket_sizes: Optional[np.ndarray] = None):
+    """Bucket graphs by vertex count and densify (dense.py:132-164).
+    Returns ({bucket index: [graph dict]}, bucket_sizes); each graph
+    keeps its corpus index as "graph_id", so a consumer can scatter
+    outputs back to request order."""
+    if bucket_sizes is None:
+        bucket_sizes = DENSE_BUCKET_SIZES
+    bucketed: Dict[int, List[dict]] = {}
+    if not raw_data:
+        return bucketed, bucket_sizes  # empty split packs to nothing
+    x_dim = len(raw_data[0]["node_features"][0])
+    for graph_id, d in enumerate(raw_data):
+        max_vertex = max((v for e in d["graph"] for v in (e[0], e[2])),
+                         default=-1)
+        n_active = len(d["node_features"])
+        if max_vertex >= n_active:
+            # An edge naming a vertex without a feature row is corrupt
+            # input (the TF1 reference padded such phantoms silently).
+            raise ValueError(
+                f"graph {graph_id}: edge vertex id {max_vertex} >= "
+                f"number of node-feature rows {n_active}")
+        _validate_vertex_ids(d["graph"], n_active)
+        # Bucket by the rows actually written too: trailing isolated
+        # nodes must fit.
+        needed = max(max_vertex + 1, n_active)
+        if needed > int(bucket_sizes[-1]):
+            raise ValueError(
+                f"graph with {needed} vertices exceeds the largest "
+                f"bucket ({int(bucket_sizes[-1])})")
+        chosen_bucket_idx = int(np.argmax(bucket_sizes >= needed))
+        chosen_bucket_size = int(bucket_sizes[chosen_bucket_idx])
+        init = np.zeros((chosen_bucket_size, x_dim), dtype=np.float32)
+        init[:n_active] = np.asarray(d["node_features"], dtype=np.float32)
+        mask = np.zeros(chosen_bucket_size, dtype=np.float32)
+        mask[:n_active] = 1.0
+        bucketed.setdefault(chosen_bucket_idx, []).append({
+            "adj_mat": build_dense_adjacency(
+                d["graph"], chosen_bucket_size, num_edge_types, tie_fwd_bkwd),
+            "init": init,
+            "labels": _extract_labels(d, task_ids),
+            "mask": mask,
+            "graph_id": graph_id,
+        })
+    if is_training:
+        for bucket in bucketed.values():
+            if rng is not None:
+                rng.shuffle(bucket)
+            # Reference quirk kept: the ratio applies PER BUCKET
+            # (chem_tensorflow_dense.py:154-157), not corpus-wide.
+            _apply_task_sample_ratios(bucket, task_ids, task_sample_ratios)
+    return bucketed, bucket_sizes
+
+
+def pack_dense_batches(bucketed: Dict[int, List[dict]],
+                       bucket_sizes: np.ndarray, batch_size: int,
+                       hidden_size: int, annotation_size: int,
+                       is_training: bool,
+                       rng: Optional[np.random.RandomState] = None,
+                       drop_remainder: bool = True
+                       ) -> Iterator[DenseGraphBatch]:
+    """Fixed-size batches drawn bucket-wise.
+
+    `drop_remainder=True` reproduces the reference's floor-division
+    schedule (chem_tensorflow_dense.py:160-162), which drops each
+    bucket's remainder graphs every epoch, in training and validation.
+    With False every graph is processed (the last batch of a bucket is
+    zero-padded to `batch_size`, so shapes stay fixed).
+    """
+    if drop_remainder:
+        bucket_at_step = [b for b, data in bucketed.items()
+                          for _ in range(len(data) // batch_size)]
+    else:
+        bucket_at_step = [b for b, data in bucketed.items()
+                          for _ in range(-(-len(data) // batch_size))]
+    if is_training and rng is not None:
+        rng.shuffle(bucket_at_step)
+        # Copies, not in-place: epoch shuffles must not compose.
+        bucketed = {b: list(data) for b, data in bucketed.items()}
+        for data in bucketed.values():
+            rng.shuffle(data)
+
+    if not bucketed:
+        return  # empty split packs to zero batches
+    num_tasks = len(next(iter(bucketed.values()))[0]["labels"])
+    counters: Dict[int, int] = {}
+    for bucket in bucket_at_step:
+        start = counters.get(bucket, 0) * batch_size
+        counters[bucket] = counters.get(bucket, 0) + 1
+        elements = bucketed[bucket][start:start + batch_size]
+        v = int(bucket_sizes[bucket])
+
+        init = np.zeros((batch_size, v, hidden_size), dtype=np.float32)
+        adjacency = np.zeros(
+            (batch_size, elements[0]["adj_mat"].shape[0], v, v),
+            dtype=np.float32)
+        node_mask = np.zeros((batch_size, v), dtype=np.float32)
+        values = np.zeros((num_tasks, batch_size), dtype=np.float32)
+        t_mask = np.zeros((num_tasks, batch_size), dtype=np.float32)
+        for i, el in enumerate(elements):
+            init[i, :, :annotation_size] = el["init"]
+            adjacency[i] = el["adj_mat"]
+            node_mask[i] = el["mask"]
+            vals, msk = _labels_to_values_and_mask(el["labels"])
+            values[:, i] = vals
+            t_mask[:, i] = msk
+
+        yield DenseGraphBatch(
+            node_features=init,
+            adjacency=adjacency,
+            node_mask=node_mask,
+            targets=values,
+            target_mask=t_mask,
+            num_graphs=np.int32(len(elements)),
         )

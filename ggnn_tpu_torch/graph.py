@@ -1,9 +1,11 @@
-"""Static-shape graph-batch container (sparse, typed edge lists).
+"""Static-shape graph-batch containers: sparse (typed edge lists) and
+dense (bucketed adjacency stacks).
 
-The packers emit a `GraphBatch` of numpy arrays; `.to(device)` turns it
-into torch tensors on the device the model runs on. Fields, shapes and
-padding conventions are those of `ggnn_tpu/graph.py:GraphBatch`, so a
-batch from either package's packer compares leaf for leaf.
+The packers emit a `GraphBatch` or a `DenseGraphBatch` of numpy arrays;
+`.to(device)` turns it into torch tensors on the device the model runs
+on. Fields, shapes and padding conventions are those of
+`ggnn_tpu/graph.py`, so a batch from either package's packer compares
+leaf for leaf.
 
 Padding conventions:
   * nodes: rows `[num_nodes, node_capacity)` are zero features; their
@@ -27,6 +29,24 @@ import torch
 # Scalar leaves: kept as python ints on the device copy, so reading them
 # never waits for the device.
 _SCALARS = ("num_graphs", "num_nodes")
+
+
+def _to_device(batch, device):
+    """The same batch (a dataclass of numpy leaves) as torch tensors on
+    `device`; scalar leaves become python ints."""
+    moved = {}
+    for field in dataclasses.fields(batch):
+        value = getattr(batch, field.name)
+        if field.name in _SCALARS:
+            moved[field.name] = int(value)
+        elif value is None:
+            moved[field.name] = None
+        elif isinstance(value, torch.Tensor):
+            moved[field.name] = value.to(device)
+        else:
+            moved[field.name] = torch.from_numpy(
+                np.ascontiguousarray(value)).to(device)
+    return type(batch)(**moved)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,16 +101,35 @@ class GraphBatch:
 
     def to(self, device) -> "GraphBatch":
         """The same batch as torch tensors on `device`."""
-        moved = {}
-        for field in dataclasses.fields(self):
-            value = getattr(self, field.name)
-            if field.name in _SCALARS:
-                moved[field.name] = int(value)
-            elif value is None:
-                moved[field.name] = None
-            elif isinstance(value, torch.Tensor):
-                moved[field.name] = value.to(device)
-            else:
-                moved[field.name] = torch.from_numpy(
-                    np.ascontiguousarray(value)).to(device)
-        return GraphBatch(**moved)
+        return _to_device(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseGraphBatch:
+    """A dense-adjacency batch, one graph per row (the dense and blocked
+    variants).
+
+    Shapes (B = batch, T = edge types, V = the bucket's vertex count):
+      node_features [B, V, H]    float32 — annotations zero-padded to H
+      adjacency     [B, T, V, V] float32 — adjacency[b, t, dst, src] = 1
+      node_mask     [B, V]       float32 — 1.0 for real vertices
+      targets       [K, B]       float32
+      target_mask   [K, B]       float32
+      num_graphs    []           int32   — real graph count; rows
+                                           [num_graphs, B) are all zero
+    """
+
+    node_features: Any
+    adjacency: Any
+    node_mask: Any
+    targets: Any
+    target_mask: Any
+    num_graphs: Any
+
+    @property
+    def num_vertices(self) -> int:
+        return self.node_features.shape[1]
+
+    def to(self, device) -> "DenseGraphBatch":
+        """The same batch as torch tensors on `device`."""
+        return _to_device(self, device)

@@ -6,6 +6,7 @@ Reproduces the reference's per-task gated regression + masked loss
 
   head(task):  sigmoid(MLP_gate([h_final ‖ h_init])) * MLP_transform(h_final)
   pooled per graph by segment-sum over the packed batch's graph slots
+  (sparse), or by a node-masked sum over each graph's row (dense)
   accuracy = Σ|masked diff| / (Σ mask + ε)            # masked MAE
   loss     = Σ 0.5 · (masked diff)² / (Σ mask + ε)    # per task, then
              × 1 / (task_sample_ratios.get(task_id) or 1.0), summed
@@ -95,6 +96,25 @@ def segment_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
                                        generator=generator)
         outs.append(pool_nodes_to_graphs(gated, node_graph_ids,
                                          graph_capacity))
+    return torch.stack(outs, dim=0)
+
+
+def dense_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
+                  init_features: torch.Tensor, node_mask: torch.Tensor, *,
+                  keep_prob: float = 1.0,
+                  generator: torch.Generator = None) -> torch.Tensor:
+    """Per-task gated masked-sum pooling [K, B] — the readout of the
+    dense-path variants (chem_tensorflow_dense.py:119-129): padded
+    vertices, and the all-zero rows past `num_graphs`, carry node_mask 0."""
+    b, v, d = last_h.shape
+    flat_last = last_h.reshape(b * v, d)
+    flat_init = init_features.reshape(b * v, d)
+    outs = []
+    for task_id in task_ids:
+        gated = gated_regression_nodes(heads[f"task{task_id}"], flat_last,
+                                       flat_init, keep_prob=keep_prob,
+                                       generator=generator)   # [B*V, 1]
+        outs.append((gated.reshape(b, v) * node_mask).sum(dim=1))
     return torch.stack(outs, dim=0)
 
 

@@ -1,23 +1,28 @@
 """Inference serving: checkpoint -> batched predictor on the GPU.
 
-Port of `ggnn_tpu/serving.py:Predictor` for the `sparse` and `rgcn`
-variants. A `Predictor`
+Port of `ggnn_tpu/serving.py:Predictor` for the `sparse`, `rgcn`,
+`dense` and `blocked` variants. A `Predictor`
 
   * loads a pickle checkpoint of either package without any training
     data; the edge-type count comes from the saved edge weights;
-  * packs requests into a fixed serving envelope (`max_nodes`,
-    `max_graphs`), so every batch has the same shapes, and micro-batches
-    requests that exceed it;
+  * packs sparse-family requests into a fixed serving envelope
+    (`max_nodes`, `max_graphs`), so every batch has the same shapes, and
+    micro-batches requests that exceed it; dense-family requests are
+    packed bucket by bucket into batches of the config's `batch_size`
+    graphs (the bucket table is the envelope), and the answers are put
+    back in request order;
   * runs the forward pass on the GPU unless asked otherwise
-    (`device="cpu"`), through the gather + segment-sum CUDA kernel.
+    (`device="cpu"`): the sparse family through the gather +
+    segment-sum CUDA kernel, the dense family through cuBLAS products.
 
 Example:
     predictor = Predictor.from_checkpoint("run_model_best.pickle",
                                           variant="sparse")
     mu = predictor(molecule_jsons)      # np.ndarray [K, n_graphs]
 
-Not ported yet: the dense, GCN and async variants (ROADMAP A6-A8), the
-native C++ packer (A12), the HTTP server and exported artifacts (A10).
+Not ported yet: the GCN and async variants (ROADMAP A7, A8), the native
+C++ packer (A12), the bf16 adjacency of `compute_dtype: bfloat16` (A16),
+the HTTP server and exported artifacts (A10).
 """
 
 from typing import Dict, List, Optional, Sequence
@@ -27,15 +32,20 @@ import torch
 
 from ggnn_tpu_torch.data import packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
-from ggnn_tpu_torch.graph import GraphBatch
+from ggnn_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
-from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.training.checkpoint import (_load_payload, _looks_tf1,
                                                 restore_checkpoint)
 from ggnn_tpu_torch.training.config import default_params_for
+from ggnn_tpu_torch.training.variants import make_adapter
 from ggnn_tpu_torch.utils.device import resolve_device
 
-_SERVED = ("sparse", "rgcn")
+_DENSE_FAMILY = ("dense", "blocked")
+_SERVED = ("sparse", "rgcn") + _DENSE_FAMILY
+# Where the models keep their edge weights [T, H, H]: the layered ones
+# (sparse, rgcn, blocked) per layer, the reference dense model once.
+_EDGE_WEIGHT_KEYS = ("['params']['graph']['layers'][0]['edge_weights']",
+                     "['params']['graph']['edge_weights']")
 
 
 def _check_variant(variant: str) -> None:
@@ -50,16 +60,18 @@ def _infer_geometry(payload: Dict, variant: str, config: Dict):
     hidden from the config."""
     weights = payload["weights"]
     hidden = int(config["hidden_size"])
-    key = "['params']['graph']['layers'][0]['edge_weights']"
-    if variant in _SERVED and key in weights:
-        return int(np.shape(weights[key])[0]), hidden
+    if variant in _SERVED:
+        for key in _EDGE_WEIGHT_KEYS:
+            if key in weights:
+                return int(np.shape(weights[key])[0]), hidden
     raise ValueError(
         f"cannot infer geometry for variant '{variant}' from checkpoint "
         f"keys {sorted(weights)[:6]}...")
 
 
 class Predictor:
-    """Batched forward pass over a fixed serving envelope."""
+    """Batched forward pass over a fixed serving envelope (sparse
+    family) or the bucket table (dense family)."""
 
     def __init__(self, variant: str, config: Dict, meta: DatasetMeta,
                  params: ModelParams, max_nodes: int = 2048,
@@ -72,17 +84,23 @@ class Predictor:
         self.task_ids = list(config["task_ids"])
         self.max_nodes = max_nodes
         self.max_graphs = max_graphs
-        self.caps = packing.PackCapacities(
-            nodes=max_nodes,
-            edges_per_type=max(8 * max_nodes, 64),
-            graphs=max_graphs,
-            # type-combined lane envelope (~4 bonds/node x 2 directions
-            # covers molecular graphs with headroom)
-            edges_all=max(8 * max_nodes, 64),
-        )
+        if variant in _DENSE_FAMILY:
+            # No envelope: a dense batch is `batch_size` graphs of one
+            # bucket, and every graph is answered (no remainder dropping).
+            self.adapter = make_adapter(variant, self.config, meta,
+                                        drop_remainder=False)
+        else:
+            self.caps = packing.PackCapacities(
+                nodes=max_nodes,
+                edges_per_type=max(8 * max_nodes, 64),
+                graphs=max_graphs,
+                # type-combined lane envelope (~4 bonds/node x 2
+                # directions covers molecular graphs with headroom)
+                edges_all=max(8 * max_nodes, 64),
+            )
         self.params = params.to(self.device).eval()
 
-    def _forward(self, batch: GraphBatch) -> np.ndarray:
+    def _forward(self, batch) -> np.ndarray:
         """Predictions [K, G] of one packed batch."""
         on_device = batch.to(self.device)
         model = self.params.graph
@@ -120,7 +138,7 @@ class Predictor:
         # state in the checkpoint is ignored for serving.
         generator = torch.Generator().manual_seed(0)
         skeleton = ModelParams(
-            graph=SparseGGNN(config, num_edge_types, generator),
+            graph=make_adapter(variant, config, meta).build_model(generator),
             heads=init_output_heads(generator, config["hidden_size"],
                                     config["task_ids"]))
         restored, _, _ = restore_checkpoint(
@@ -133,6 +151,7 @@ class Predictor:
     # ----------------------------------------------------------- batches
 
     def _batches(self, raw_graphs: Sequence, annotation_size: int):
+        """The sparse family's envelope batches of a request."""
         cfg = self.config
         # The packer's fit check is strict (`offset + n < budget`,
         # reference semantics), so budget = envelope + 1 lets a request
@@ -151,8 +170,11 @@ class Predictor:
     def __call__(self, raw_graphs: Sequence) -> np.ndarray:
         """Predict per-task values for raw graph JSON dicts.
 
-        Returns [K, len(raw_graphs)]. Requests larger than the serving
-        envelope are micro-batched in request order.
+        Returns [K, len(raw_graphs)], column i the answer to graph i.
+        Sparse-family requests larger than the serving envelope are
+        micro-batched in request order; dense-family requests are packed
+        bucket by bucket and their answers scattered back to request
+        order.
         """
         if not raw_graphs:
             raise ValueError("empty prediction request")
@@ -179,6 +201,8 @@ class Predictor:
                                or edges[:, [0, 2]].max() >= n):
                 raise ValueError(
                     f"graph {i}: edge vertex id out of range [0, {n})")
+        if self.variant in _DENSE_FAMILY:
+            return self._call_dense(raw_graphs, annotation_size)
         if len(raw_graphs) == 1:
             batch = self._pack_single_sparse(raw_graphs[0], annotation_size)
             return self._forward(batch)[:, :1]
@@ -296,3 +320,75 @@ class Predictor:
         targets[:, 0] = values
         target_mask[:, 0] = mask
         return targets, target_mask
+
+    def _pack_single_dense(self, g: Dict,
+                           annotation_size: int) -> DenseGraphBatch:
+        """One-graph bucket pack (the dense family's latency path): the
+        graph's bucket, row 0 of a zeroed [batch_size, ...] batch filled
+        directly — the same batch, leaf for leaf, as the corpus packer's
+        for a 1-graph request, without its bucketed-dict plumbing.
+        Semantics of data/packing.py: preprocess_dense +
+        pack_dense_batches (bucket by max(max_vertex + 1, rows), phantom
+        vertices rejected, [T, V, V] adjacency, labels -> values/mask)."""
+        cfg = self.config
+        sizes = self.adapter._bucket_sizes()
+        sizes = packing.DENSE_BUCKET_SIZES if sizes is None else sizes
+        edges = g.get("graph", ())
+        n = len(g["node_features"])
+        max_vertex = max((v for e in edges for v in (e[0], e[2])),
+                         default=-1)
+        if max_vertex >= n:
+            raise ValueError(
+                f"graph 0: edge vertex id {max_vertex} >= "
+                f"number of node-feature rows {n}")
+        needed = max(max_vertex + 1, n)
+        if needed > int(sizes[-1]):
+            raise ValueError(
+                f"graph with {needed} vertices exceeds the largest "
+                f"bucket ({int(sizes[-1])})")
+        v = int(sizes[int(np.argmax(sizes >= needed))])
+        b_cap = int(cfg["batch_size"])
+        t_dim = self.meta.num_edge_types
+
+        init = np.zeros((b_cap, v, int(cfg["hidden_size"])), np.float32)
+        init[0, :n, :annotation_size] = np.asarray(g["node_features"],
+                                                   dtype=np.float32)
+        node_mask = np.zeros((b_cap, v), np.float32)
+        node_mask[0, :n] = 1.0
+        adjacency = np.zeros((b_cap, t_dim, v, v), np.float32)
+        adjacency[0] = packing.build_dense_adjacency(edges, v, t_dim,
+                                                     cfg["tie_fwd_bkwd"])
+        targets, target_mask = self._single_graph_targets(g, b_cap)
+        return DenseGraphBatch(
+            node_features=init, adjacency=adjacency, node_mask=node_mask,
+            targets=targets, target_mask=target_mask,
+            num_graphs=np.int32(1))
+
+    def _dense_batches(self, raw_graphs: Sequence, annotation_size: int):
+        """(order, batches): the dense family's bucket batches of a
+        request, and the request index of each graph in their order."""
+        # A request-local adapter carries this request's annotation
+        # width: the shared one must not change under a concurrent
+        # request of another width.
+        adapter = make_adapter(self.variant, self.config, DatasetMeta(
+            max_num_vertices=self.meta.max_num_vertices,
+            num_edge_types=self.meta.num_edge_types,
+            annotation_size=annotation_size), drop_remainder=False)
+        processed = adapter.preprocess(list(raw_graphs), False)
+        # Bucketing re-orders graphs; each keeps its request index.
+        order = [int(g["graph_id"]) for bucket in processed.values()
+                 for g in bucket]
+        return order, adapter.batches(processed, False)
+
+    def _call_dense(self, raw_graphs: Sequence,
+                    annotation_size: int) -> np.ndarray:
+        if len(raw_graphs) == 1:
+            batch = self._pack_single_dense(raw_graphs[0], annotation_size)
+            return self._forward(batch)[:, :1]
+        order, batches = self._dense_batches(raw_graphs, annotation_size)
+        outs = [self._forward(batch)[:, :int(batch.num_graphs)]
+                for batch in batches]
+        packed = np.concatenate(outs, axis=1)
+        result = np.empty_like(packed)
+        result[:, np.asarray(order)] = packed
+        return result

@@ -55,6 +55,36 @@ SPARSE_DEFAULTS: Dict = {
     # models/sparse_ggnn.py.
 }
 
+# chem_tensorflow_dense.py:56-66
+DENSE_DEFAULTS: Dict = {
+    **BASE_DEFAULTS,
+    "batch_size": 256,  # graphs
+    "graph_state_dropout_keep_prob": 1.0,
+    "task_sample_ratios": {},
+    "use_edge_bias": True,
+    "edge_weight_dropout_keep_prob": 1,
+}
+
+# The JAX package's own variant: the sparse model's feature surface
+# (layers, residuals, attention, averaging, cells) computed on the dense
+# bucketed path (models/dense_ggnn.py, extended mode).
+BLOCKED_DEFAULTS: Dict = {
+    **BASE_DEFAULTS,
+    "batch_size": 256,  # graphs (dense bucketed batching)
+    "use_edge_bias": False,
+    "use_propagation_attention": False,
+    "use_edge_msg_avg_aggregation": True,
+    "residual_connections": {"2": [0], "4": [0, 2]},
+    "layer_timesteps": [2, 2, 1, 2, 1],
+    "graph_rnn_cell": "GRU",
+    "graph_rnn_activation": "tanh",
+    "graph_state_dropout_keep_prob": 1.0,
+    "task_sample_ratios": {},
+    "edge_weight_dropout_keep_prob": 0.8,
+    # Coarse buckets: the same math (padding is masked), fewer shapes.
+    "dense_bucket_sizes": [8, 16, 24, 32],
+}
+
 # README.md:48-52 — R-GCN is the sparse model under this config.
 RGCN_CONFIG: Dict = {
     "use_edge_bias": False,
@@ -67,19 +97,21 @@ RGCN_CONFIG: Dict = {
 
 # Variants of the JAX package that this package does not port yet, and
 # the ROADMAP item that ports each.
-_NOT_PORTED = {
-    "dense": "A6", "blocked": "A6", "gcn": "A7", "gcn_blocked": "A7",
-    "async": "A8",
+_NOT_PORTED = {"gcn": "A7", "gcn_blocked": "A7", "async": "A8"}
+
+_VARIANT_DEFAULTS = {
+    "sparse": SPARSE_DEFAULTS,
+    "rgcn": {**SPARSE_DEFAULTS, **RGCN_CONFIG},
+    "dense": DENSE_DEFAULTS,
+    "blocked": BLOCKED_DEFAULTS,
 }
 
 
 def default_params_for(variant: str) -> Dict:
-    if variant == "rgcn":
-        return copy.deepcopy({**SPARSE_DEFAULTS, **RGCN_CONFIG})
-    if variant == "sparse":
+    if variant in _VARIANT_DEFAULTS:
         # DEEP copy: the defaults hold nested mutables that a caller
         # must not be able to change for every later config.
-        return copy.deepcopy(SPARSE_DEFAULTS)
+        return copy.deepcopy(_VARIANT_DEFAULTS[variant])
     if variant in _NOT_PORTED:
         raise NotImplementedError(
             f"variant '{variant}' is not ported yet "

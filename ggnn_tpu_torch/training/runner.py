@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.data.loader import infer_metadata, load_graphs_json
+from ggnn_tpu_torch.graph import DenseGraphBatch
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss)
 from ggnn_tpu_torch.training.checkpoint import (restore_checkpoint,
@@ -48,6 +49,13 @@ from ggnn_tpu_torch.training.variants import make_adapter
 from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
 from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
+
+
+def _batch_edge_count(batch) -> float:
+    """Real (unpadded) edge count of one numpy batch."""
+    if isinstance(batch, DenseGraphBatch):
+        return float(np.count_nonzero(batch.adjacency))
+    return float(np.asarray(batch.edge_mask).sum())
 
 
 class Runner:
@@ -126,7 +134,9 @@ class Runner:
         self.restored = restore is not None
 
         # Propagation steps per forward: the edge-messages/s multiplier.
-        self.prop_steps = int(sum(config["layer_timesteps"]))
+        self.prop_steps = int(sum(config["layer_timesteps"])
+                              if "layer_timesteps" in config
+                              else config["num_timesteps"])
         self.last_edge_msg_per_sec = None
 
     # ------------------------------------------------------------- steps
@@ -191,7 +201,7 @@ class Runner:
         for step, batch in enumerate(batch_iter):
             num_graphs = int(batch.num_graphs)
             processed_graphs += num_graphs
-            processed_edges += float(np.asarray(batch.edge_mask).sum())
+            processed_edges += _batch_edge_count(batch)
             loss, accs = step_fn(batch.to(self.device))
             step_metrics.append((loss, accs))
             graph_counts.append(num_graphs)
@@ -201,10 +211,16 @@ class Runner:
                       f"graphs). Loss so far: "
                       f"{total_loss / processed_graphs:.4f}", end="\r")
         if processed_graphs == 0:
+            hint = ("the corpus split is empty — check the data files "
+                    "and any --restrict_data truncation.")
+            if getattr(self.adapter, "drop_remainder", False):
+                hint = ("with the dense variant's reference-compatible "
+                        "remainder dropping, every bucket needs at least "
+                        "batch_size graphs (set config \"drop_remainder\": "
+                        "false — or use the `blocked` variant — to "
+                        "process all).")
             raise RuntimeError(
-                f"{epoch_name}: no batches produced — the corpus split is "
-                "empty; check the data files and any --restrict_data "
-                "truncation.")
+                f"{epoch_name}: no batches produced — {hint}")
         losses = torch.stack([m[0] for m in step_metrics]).cpu().numpy()
         accs_all = torch.stack([m[1] for m in step_metrics]).cpu().numpy()
         counts = np.asarray(graph_counts, dtype=np.float64)

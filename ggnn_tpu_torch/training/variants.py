@@ -1,9 +1,10 @@
 """Per-variant adapters: model construction, preprocessing and packing
 behind one interface, so the Runner (training/runner.py) is
 model-agnostic. The port of `ggnn_tpu/training/variants.py`, with the
-sparse adapter only (variants `sparse` and `rgcn`).
+sparse adapter (variants `sparse` and `rgcn`) and the dense one
+(variants `dense` and `blocked`).
 
-The adapter packs with the port's numpy packer (data/packing.py), whose
+The adapters pack with the port's numpy packer (data/packing.py), whose
 batches are bit-identical to the JAX package's numpy packer. A config's
 `native_pack` key is accepted and does not change that: the native C++
 packer is not ported yet (ROADMAP A12).
@@ -16,6 +17,7 @@ import torch
 
 from ggnn_tpu_torch.data import packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
+from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.training.config import default_params_for
 
@@ -73,9 +75,64 @@ class SparseAdapter:
             is_training, rng)
 
 
-def make_adapter(variant: str, config: Dict, meta: DatasetMeta):
+class DenseAdapter:
+    """`dense` and `blocked`: bucketed dense batches of `batch_size`
+    graphs, shapes from the bucket table (no capacity plan)."""
+    name = "dense"
+
+    def __init__(self, config: Dict, meta: DatasetMeta,
+                 drop_remainder: Optional[bool] = None):
+        self.config = config
+        self.meta = meta
+        # The reference drops each bucket's remainder graphs
+        # (chem_tensorflow_dense.py:160); the config key turns that off,
+        # and the argument (serving) wins over both.
+        if drop_remainder is None:
+            drop_remainder = bool(config.get("drop_remainder", True))
+        self.drop_remainder = drop_remainder
+        self.bucket_sizes = None
+
+    def build_model(self, generator: torch.Generator) -> DenseGGNN:
+        return DenseGGNN(self.config, self.meta.num_edge_types, generator)
+
+    def _bucket_sizes(self) -> Optional[np.ndarray]:
+        """`dense_bucket_sizes` overrides the reference bucket table:
+        the same numbers (padding is masked and disconnected), fewer
+        shapes."""
+        sizes = self.config.get("dense_bucket_sizes")
+        return None if sizes is None else np.asarray(sizes)
+
+    def preprocess(self, raw, is_training: bool,
+                   rng: Optional[np.random.RandomState] = None):
+        bucketed, self.bucket_sizes = packing.preprocess_dense(
+            raw, self.meta.num_edge_types, self.config["tie_fwd_bkwd"],
+            self.config["task_ids"], self.config["task_sample_ratios"],
+            is_training, rng, bucket_sizes=self._bucket_sizes())
+        return bucketed
+
+    def plan(self, *processed_lists) -> None:
+        return None  # dense shapes come from the bucket table
+
+    def batches(self, processed, is_training: bool,
+                rng: Optional[np.random.RandomState] = None) -> Iterator:
+        return packing.pack_dense_batches(
+            processed, self.bucket_sizes, self.config["batch_size"],
+            self.config["hidden_size"], self.meta.annotation_size,
+            is_training, rng, drop_remainder=self.drop_remainder)
+
+
+def make_adapter(variant: str, config: Dict, meta: DatasetMeta,
+                 drop_remainder: Optional[bool] = None):
+    """The adapter of a variant. `drop_remainder` (dense family only)
+    overrides the config; by default `dense` keeps the reference's
+    remainder dropping and `blocked` processes every graph, and the
+    config key `drop_remainder` wins in both."""
     if variant in ("sparse", "rgcn"):
         return SparseAdapter(config, meta)
+    if variant in ("dense", "blocked"):
+        if variant == "blocked" and drop_remainder is None:
+            drop_remainder = bool(config.get("drop_remainder", False))
+        return DenseAdapter(config, meta, drop_remainder)
     # Raises NotImplementedError naming the ROADMAP item (A6, A7, A8) of
     # a known variant, ValueError for an unknown one.
     default_params_for(variant)

@@ -1,8 +1,10 @@
 """The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, B2, its
 transpose, and B3, the gather-floor probe's row gather) against their
 plain PyTorch versions, the autograd Function and one training step, on
-the card. Every test here needs an NVIDIA GPU and skips without one. The
-file imports nothing of JAX, so it runs where JAX is not installed:
+the card; and the dense family (cuBLAS products, no hand kernel), whose
+forward and train step must match the CPU and launch none of the three.
+Every test here needs an NVIDIA GPU and skips without one. The file
+imports nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
@@ -21,6 +23,7 @@ import torch
 from ggnn_tpu_torch.data import packing
 from ggnn_tpu_torch.data.synthetic import synthetic_molecules
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
+from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
 from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
@@ -479,3 +482,71 @@ def test_gather_rows_registers_are_reported(cuda):
             for unroll in gather_floor.UNROLLS:
                 regs = gather_floor.registers(unroll, vec, streaming, cuda)
                 assert 0 < regs <= 255
+
+
+def _launch_counts():
+    return (ell_spmm.launches, ell_spmm.scatter_launches,
+            gather_floor.launches)
+
+
+def _dense_batch(variant, n_graphs=256, seed=9):
+    """One full 256-graph batch of the V = 32 bucket."""
+    config = default_params_for(variant)
+    data = [g for g in synthetic_molecules(3 * n_graphs, seed=seed)
+            if len(g["node_features"]) > 16][:n_graphs]
+    bucketed, sizes = packing.preprocess_dense(
+        data, 4, True, [0], {}, False, bucket_sizes=np.asarray([16, 32]))
+    batch = next(packing.pack_dense_batches(bucketed, sizes, 256, 100, 5,
+                                            False))
+    assert int(batch.num_graphs) == 256 and batch.num_vertices == 32
+    return config, batch
+
+
+@pytest.mark.parametrize("variant", ["dense", "blocked"])
+def test_dense_forward_on_the_card_matches_cpu(cuda, variant):
+    config, batch = _dense_batch(variant)
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(DenseGGNN(config, 4, gen),
+                         init_output_heads(gen, 100, [0])).eval()
+    with torch.no_grad():
+        want = params.graph.readout(params.heads, [0], params.graph(
+            batch.to("cpu")), batch.to("cpu"))
+        params.to(cuda)
+        before = _launch_counts()
+        on_card = batch.to(cuda)
+        got = params.graph.readout(params.heads, [0],
+                                   params.graph(on_card), on_card)
+        torch.cuda.synchronize()
+    assert _launch_counts() == before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["dense", "blocked"])
+def test_dense_train_step_on_the_card_matches_cpu(cuda, variant, tmp_path):
+    """One Runner train step on a 256-graph batch, keep probabilities
+    1.0, from the same initial weights on the card and on the CPU: loss
+    at rtol 1e-5, every gradient at a relative L2 error <= 1e-4, and no
+    launch of B1, B2 or B3."""
+    config, batch = _dense_batch(variant)
+    config.update({"edge_weight_dropout_keep_prob": 1.0,
+                   "dense_bucket_sizes": [16, 32]})
+    train = synthetic_molecules(40, seed=7)
+    valid = synthetic_molecules(20, seed=8)
+    runners = {dev: Runner(variant, dict(config), train_data=train,
+                           valid_data=valid, log_dir=str(tmp_path / dev),
+                           quiet=True, device=dev)
+               for dev in ("cuda", "cpu")}
+    results = {}
+    for dev, runner in runners.items():
+        before = _launch_counts()
+        results[dev] = runner.loss_and_grads(batch.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert _launch_counts() == before
+    loss_gpu, _, grads_gpu = results["cuda"]
+    loss_cpu, _, grads_cpu = results["cpu"]
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for name, g_cpu in grads_cpu.items():
+        g_gpu = grads_gpu[name].cpu()
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, f"{name}: relative L2 error {rel:.3e}"

@@ -145,3 +145,129 @@ def test_pack_single_sparse_bit_identical_to_jax(tie):
         # 1-graph request.
         if "targets" in g:
             _assert_batches_identical(got, next(iter(port._batches([g], 5))))
+
+
+# ------------------------------------------------------------- dense
+
+
+def _dense_processed(pkg, data, tie, is_training, rng_seed=None,
+                     ratios=None, bucket_sizes=None):
+    t_dim = 4 if tie else 8
+    rng = None if rng_seed is None else np.random.RandomState(rng_seed)
+    return pkg.preprocess_dense(data, t_dim, tie, [0], ratios or {},
+                                is_training, rng, bucket_sizes=bucket_sizes)
+
+
+@pytest.mark.parametrize("bucket_sizes", [None, [16, 32]])
+@pytest.mark.parametrize("drop_remainder", [True, False])
+@pytest.mark.parametrize("tie", [True, False])
+def test_pack_dense_batches_bit_identical_to_jax(tie, drop_remainder,
+                                                 bucket_sizes):
+    data = synthetic_molecules(70, seed=8)
+    sizes = None if bucket_sizes is None else np.asarray(bucket_sizes)
+    bucketed, got_sizes = _dense_processed(packing, data, tie, False,
+                                           bucket_sizes=sizes)
+    jax_bucketed, want_sizes = _dense_processed(jax_packing, data, tie,
+                                                False, bucket_sizes=sizes)
+    np.testing.assert_array_equal(got_sizes, want_sizes)
+    assert list(bucketed) == list(jax_bucketed)
+    for b in bucketed:
+        assert [g["graph_id"] for g in bucketed[b]] == \
+            [g["graph_id"] for g in jax_bucketed[b]]
+    got = list(packing.pack_dense_batches(bucketed, got_sizes, 8, 16, 5,
+                                          False, None, drop_remainder))
+    want = list(jax_packing.pack_dense_batches(
+        jax_bucketed, want_sizes, 8, 16, 5, False, None, drop_remainder))
+    assert len(got) == len(want) > 1
+    for a, b in zip(got, want):
+        _assert_batches_identical(a, b)
+    total = sum(int(b.num_graphs) for b in got)
+    assert (total < 70) if drop_remainder else (total == 70)
+
+
+@pytest.mark.parametrize("drop_remainder", [True, False])
+def test_pack_dense_batches_shuffled_training_identical_to_jax(
+        drop_remainder):
+    """Per-bucket shuffles and the per-bucket task_sample_ratios quirk in
+    preprocessing, the step and bucket shuffles of each epoch's pack, on
+    copies: the caller's lists keep their order for the next epoch."""
+    data = synthetic_molecules(60, seed=9)
+    ratios = {"0": 0.5}
+    bucketed, sizes = _dense_processed(packing, data, True, True, 3, ratios,
+                                       np.asarray([16, 32]))
+    jax_bucketed, _ = _dense_processed(jax_packing, data, True, True, 3,
+                                       ratios, np.asarray([16, 32]))
+    before = {b: [g["graph_id"] for g in gs] for b, gs in bucketed.items()}
+    rng, jax_rng = np.random.RandomState(4), np.random.RandomState(4)
+    for _epoch in range(2):
+        got = packing.pack_dense_batches(bucketed, sizes, 8, 8, 5, True,
+                                         rng, drop_remainder)
+        want = jax_packing.pack_dense_batches(jax_bucketed, sizes, 8, 8, 5,
+                                              True, jax_rng, drop_remainder)
+        for a, b in zip(got, want, strict=True):
+            _assert_batches_identical(a, b)
+    assert {b: [g["graph_id"] for g in gs]
+            for b, gs in bucketed.items()} == before
+    labels = [g["labels"][0] for gs in bucketed.values() for g in gs]
+    assert any(v is None for v in labels) and any(v is not None
+                                                  for v in labels)
+
+
+@pytest.mark.parametrize("graph,message", [
+    ({"graph": [[0, 5, 1]], "node_features": [[1], [0]]}, "edge type"),
+    ({"graph": [[0, 1, 2]], "node_features": [[1], [0]]}, "vertex id 2"),
+    ({"graph": [[-1, 1, 0]], "node_features": [[1], [0]]}, "vertex id"),
+    ({"graph": [], "node_features": [[1]] * 30}, "largest bucket"),
+])
+def test_preprocess_dense_rejects_what_jax_rejects(graph, message):
+    raw = [{**graph, "targets": [[0.0]]}]
+    for pkg in (jax_packing, packing):
+        with pytest.raises(ValueError, match=message):
+            pkg.preprocess_dense(raw, 4, True, [0], {}, False)
+
+
+def test_empty_dense_split_packs_to_nothing():
+    bucketed, sizes = packing.preprocess_dense([], 4, True, [0], {}, True)
+    assert bucketed == {}
+    assert list(packing.pack_dense_batches(bucketed, sizes, 8, 8, 5, True,
+                                           np.random.RandomState(0))) == []
+
+
+def _dense_predictors(variant, tie):
+    t_dim = 4 if tie else 8
+    overrides = {"hidden_size": 16, "batch_size": 8, "tie_fwd_bkwd": tie,
+                 "native_pack": False}
+    config = {**default_params_for(variant), **overrides}
+    jax_config = {**jax_defaults(variant), **overrides}
+    from ggnn_tpu.models.dense_ggnn import DenseGGNN as JaxDenseGGNN
+    from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
+    key = jax.random.PRNGKey(0)
+    jax_state = {"params": {
+        "graph": JaxDenseGGNN(jax_config, t_dim).init_params(key),
+        "heads": jax_init_heads(key, 16, [0])}}
+    jax_pred = JaxPredictor(variant, jax_config,
+                            JaxDatasetMeta(64, t_dim, 16), jax_state)
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(DenseGGNN(config, t_dim, gen),
+                         init_output_heads(gen, 16, [0]))
+    port = Predictor(variant, config, DatasetMeta(64, t_dim, 16), params,
+                     device="cpu")
+    return jax_pred, port
+
+
+@pytest.mark.parametrize("variant,tie", [("dense", True), ("dense", False),
+                                         ("blocked", True)])
+def test_pack_single_dense_bit_identical_to_jax(variant, tie):
+    """The 1-graph latency pack equals JAX's and the port's own corpus
+    pack of a 1-graph request, leaf for leaf."""
+    jax_pred, port = _dense_predictors(variant, tie)
+    for g in synthetic_molecules(5, seed=6) + [
+            {"graph": [], "node_features": [[0, 1, 0, 0, 0]]},
+            {"graph": [[0, 1, 1]], "node_features": [[1, 0, 0, 0, 0]] * 3,
+             "targets": [[0.25]]}]:
+        got = port._pack_single_dense(g, 5)
+        _assert_batches_identical(got, jax_pred._pack_single_dense(g, 5))
+        if "targets" in g:
+            order, batches = port._dense_batches([g], 5)
+            assert order == [0]
+            _assert_batches_identical(got, next(iter(batches)))

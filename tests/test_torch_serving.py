@@ -9,12 +9,14 @@ import pytest
 import torch
 
 from ggnn_tpu.models.base import init_output_heads as jax_init_heads
+from ggnn_tpu.models.dense_ggnn import DenseGGNN as JaxDenseGGNN
 from ggnn_tpu.models.sparse_ggnn import SparseGGNN as JaxSparseGGNN
 from ggnn_tpu.serving import Predictor as JaxPredictor
 from ggnn_tpu.training.checkpoint import save_checkpoint as jax_save
 from ggnn_tpu.training.config import resolve_config as jax_resolve_config
 from ggnn_tpu_torch.data.synthetic import synthetic_molecules
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
+from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.serving import Predictor
 from ggnn_tpu_torch.training import checkpoint
@@ -171,7 +173,7 @@ def test_from_checkpoint_without_device_needs_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("variant,error", [
-    ("dense", NotImplementedError), ("async", NotImplementedError),
+    ("gcn_blocked", NotImplementedError), ("async", NotImplementedError),
     ("nonsense", ValueError)])
 def test_unserved_variants_raise(tmp_path, variant, error):
     path = _jax_checkpoint(tmp_path / "jax.pickle", "sparse", SMALL)
@@ -193,3 +195,57 @@ def test_predictor_validates_requests(tmp_path, request_graphs, message):
                                      **ENVELOPE)
     with pytest.raises(ValueError, match=message):
         port(request_graphs)
+
+
+# ------------------------------------------------------ dense family
+
+DENSE_OVERRIDES = {
+    "dense": {"hidden_size": 16, "batch_size": 8, "native_pack": False,
+              "dense_bucket_sizes": [16, 32]},
+    "blocked": {"hidden_size": 16, "batch_size": 8, "native_pack": False,
+                "layer_timesteps": [2, 1], "residual_connections": {"1": [0]},
+                "use_edge_bias": True},
+}
+
+
+def _jax_dense_checkpoint(path, variant):
+    config = jax_resolve_config(variant, config_json=json.dumps(
+        DENSE_OVERRIDES[variant]))
+    key = jax.random.PRNGKey(4)
+    params = {"graph": JaxDenseGGNN(config, 4).init_params(key),
+              "heads": jax_init_heads(key, 16, config["task_ids"])}
+    jax_save(str(path), config, {"params": params}, 5, 2)
+    return str(path)
+
+
+@pytest.mark.parametrize("n_graphs", [1, 40])
+@pytest.mark.parametrize("variant", ["dense", "blocked"])
+def test_dense_predictor_matches_jax_in_request_order(tmp_path, variant,
+                                                      n_graphs):
+    path = _jax_dense_checkpoint(tmp_path / "jax.pickle", variant)
+    want_pred = JaxPredictor.from_checkpoint(path, variant)
+    port = Predictor.from_checkpoint(path, variant, device="cpu")
+    request = synthetic_molecules(n_graphs, seed=70 + n_graphs)
+    got = port(request)
+    want = want_pred(request)
+    assert got.shape == want.shape == (1, n_graphs)
+    np.testing.assert_allclose(got, want, **TOL)
+    if n_graphs > 1:
+        # Column i answers graph i: the 1-graph path agrees.
+        alone = np.concatenate([port([g]) for g in request[:4]], axis=1)
+        np.testing.assert_allclose(got[:, :4], alone, **TOL)
+
+
+@pytest.mark.parametrize("variant", ["dense", "blocked"])
+def test_port_dense_checkpoint_serves_in_jax_predictor(tmp_path, variant):
+    config = resolve_config(variant, config_json=json.dumps(
+        DENSE_OVERRIDES[variant]))
+    gen = torch.Generator().manual_seed(9)
+    params = ModelParams(DenseGGNN(config, 4, gen),
+                         init_output_heads(gen, 16, config["task_ids"]))
+    path = str(tmp_path / "port.pickle")
+    checkpoint.save_checkpoint(path, config, params, 3, 1)
+    want_pred = JaxPredictor.from_checkpoint(path, variant)
+    port = Predictor.from_checkpoint(path, variant, device="cpu")
+    request = synthetic_molecules(20, seed=62)
+    np.testing.assert_allclose(port(request), want_pred(request), **TOL)

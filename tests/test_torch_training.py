@@ -36,6 +36,7 @@ from ggnn_tpu.training.runner import Runner as JaxRunner
 from ggnn_tpu_torch import cli
 from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
+from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.ops import dropout as port_dropout
 from ggnn_tpu_torch.ops import mlp
@@ -50,7 +51,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures", "tf1")
 GOLDEN_CASES = ["sparse_default", "sparse_one_step", "sparse_three_steps",
-                "rgcn", "sparse_freeze", "sparse_multitask"]
+                "rgcn", "sparse_freeze", "sparse_multitask", "dense_default"]
 NO_DROPOUT = {"edge_weight_dropout_keep_prob": 1.0,
               "graph_state_dropout_keep_prob": 1.0,
               "out_layer_dropout_keep_prob": 1.0}
@@ -327,16 +328,16 @@ def test_tf1_golden_train_step(case, tmp_path):
                        f"{case} step {k_steps}", rtol=5e-4, atol=5e-5)
 
 
-def test_tf1_grad_replay(tmp_path):
+def _grad_replay(case, model_cls):
     """The reference's recorded pre-clip gradients gt1/..gt10/ through the
     port's clip -> Adam from `w/` give the reference's step-10 weights
     `t/`: optimizer semantics alone, chaos-free."""
-    meta, data = _load_fixture("sparse_default")
+    meta, data = _load_fixture(case)
     config = resolve_config(meta["variant"],
                             config_json=json.dumps(meta["config"]))
     t_dim = meta["num_edge_types"]
     gen = torch.Generator().manual_seed(0)
-    params = ModelParams(SparseGGNN(config, t_dim, gen),
+    params = ModelParams(model_cls(config, t_dim, gen),
                          init_output_heads(gen, config["hidden_size"],
                                            config["task_ids"]))
     params.load_state_dict(_tf1_params(meta, _group(data, "w/"), config,
@@ -350,6 +351,14 @@ def test_tf1_grad_replay(tmp_path):
     for name, p in params.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(),
                                    rtol=1e-4, atol=2e-6, err_msg=name)
+
+
+def test_tf1_grad_replay(tmp_path):
+    _grad_replay("sparse_default", SparseGGNN)
+
+
+def test_tf1_grad_replay_dense():
+    _grad_replay("dense_default", DenseGGNN)
 
 
 # ------------------------------------------- Runner parity, checkpoints
@@ -480,3 +489,130 @@ def test_cli_without_cuda_or_with_unported_options_exits_nonzero(
     assert "A7" in capsys.readouterr().err
     assert cli.main(["rgcn", "--evaluate", *args]) != 0
     assert "A9" in capsys.readouterr().err
+
+
+# ------------------------------------------------------ dense family
+
+DENSE_RUNS = {
+    "dense": {"hidden_size": 16, "batch_size": 4,
+              "dense_bucket_sizes": [16, 32]},
+    "blocked": {"hidden_size": 16, "batch_size": 8,
+                "dense_bucket_sizes": [16, 32], "layer_timesteps": [2, 1],
+                "residual_connections": {"1": [0]}},
+}
+
+
+@pytest.fixture(scope="module", params=sorted(DENSE_RUNS))
+def trained_dense_pair(request, tmp_path_factory):
+    """The JAX Runner and the port's for a dense-family variant, as
+    `trained_pair` (numpy packers, no dropout, injected weights), each
+    trained for 2 epochs."""
+    variant = request.param
+    config_json = json.dumps({**DENSE_RUNS[variant], **NO_DROPOUT,
+                              "num_epochs": 2, "native_pack": False,
+                              "random_seed": 3})
+    train = synthetic_molecules(40, seed=11)
+    valid = synthetic_molecules(12, seed=12)
+    jax_runner = JaxRunner(variant, resolve_config(variant, config_json=
+                                                   config_json),
+                           train_data=train, valid_data=valid,
+                           log_dir=str(tmp_path_factory.mktemp("jax_run")),
+                           quiet=True, tensorboard=False)
+    port_runner = Runner(variant, resolve_config(variant,
+                                                 config_json=config_json),
+                         train_data=train, valid_data=valid,
+                         log_dir=str(tmp_path_factory.mktemp("port_run")),
+                         quiet=True, device="cpu")
+    port_runner.params.load_state_dict(
+        _bridge(jax_runner.state["params"]), strict=True)
+    jax_log = jax_runner.train()
+    port_log = port_runner.train()
+    return variant, jax_runner, jax_log, port_runner, port_log, train, valid
+
+
+def test_dense_runner_matches_jax_runner_over_two_epochs(trained_dense_pair):
+    variant, jax_runner, jax_log, port_runner, port_log, _, _ = \
+        trained_dense_pair
+    assert port_runner.adapter.drop_remainder is (variant == "dense")
+    assert len(port_log) == len(jax_log) == 2
+    assert port_runner.train_step_id == jax_runner.train_step_id > 4
+    assert port_runner.valid_step_id == jax_runner.valid_step_id
+    assert port_runner.prop_steps == jax_runner.prop_steps
+    for got, want in zip(port_log, jax_log):
+        for split in ("train_results", "valid_results"):
+            for i in range(3):   # loss, MAE, error_ratio
+                np.testing.assert_allclose(
+                    np.asarray(got[split][i]), np.asarray(want[split][i]),
+                    rtol=5e-4, err_msg=f"epoch {got['epoch']} {split} {i}")
+    assert port_runner.last_edge_msg_per_sec > 0
+
+
+def test_dense_checkpoints_restore_across_packages(trained_dense_pair,
+                                                   tmp_path):
+    """The final weights and Adam state of each Runner, saved by its own
+    package, restore in the other's Runner."""
+    from ggnn_tpu.training.checkpoint import save_checkpoint as jax_save
+    variant, jax_runner, _, port_runner, _, train, valid = \
+        trained_dense_pair
+    port_path = str(tmp_path / "port.pickle")
+    port_runner._save(port_path)
+    jax_path = str(tmp_path / "jax.pickle")
+    jax_save(jax_path, jax_runner.config, jax_runner.state,
+             jax_runner.train_step_id, jax_runner.valid_step_id)
+    restored = JaxRunner(variant, dict(port_runner.config), train_data=train,
+                         valid_data=valid, log_dir=str(tmp_path / "jax"),
+                         quiet=True, tensorboard=False, restore=port_path)
+    want = optimizer_entries(port_runner.optimizer)
+    got = _flat(restored.state["opt_state"], "opt_state")
+    for key, value in want.items():
+        np.testing.assert_array_equal(got[key], value, err_msg=key)
+    for name, value in _bridge(restored.state["params"]).items():
+        np.testing.assert_array_equal(
+            value.numpy(),
+            dict(port_runner.params.named_parameters())[name].detach()
+            .numpy())
+    port = Runner(variant, dict(jax_runner.config), train_data=train,
+                  valid_data=valid, log_dir=str(tmp_path / "port"),
+                  quiet=True, device="cpu", restore=jax_path)
+    assert port.optimizer.count == jax_runner.train_step_id == \
+        int(jax_runner.state["opt_state"][1]["count"])
+    want = _flat(jax_runner.state["opt_state"], "opt_state")
+    for key, value in optimizer_entries(port.optimizer).items():
+        np.testing.assert_array_equal(value, want[key], err_msg=key)
+
+
+def test_dense_empty_epoch_raises_with_the_remainder_hint(tmp_path):
+    config = resolve_config("dense", config_json=json.dumps(
+        {**DENSE_RUNS["dense"], "batch_size": 64}))
+    runner = Runner("dense", config, train_data=synthetic_molecules(20),
+                    valid_data=synthetic_molecules(5, seed=1),
+                    log_dir=str(tmp_path), quiet=True, device="cpu")
+    with pytest.raises(RuntimeError, match="drop_remainder"):
+        runner.run_epoch("epoch 1 (training)", runner.train_processed, True)
+
+
+@pytest.mark.parametrize("variant", ["dense", "blocked"])
+def test_cli_trains_the_dense_family_on_the_cpu(tmp_path, variant):
+    config = json.dumps({**DENSE_RUNS[variant], "num_epochs": 2,
+                         "drop_remainder": False})
+    proc = subprocess.run(
+        [sys.executable, "-m", "ggnn_tpu_torch.cli", variant,
+         "--synthetic", "60", "--device", "cpu", "--quiet", "--config",
+         config, "--log_dir", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    names = os.listdir(tmp_path)
+    for suffix in ("_log.json", "_params.json", "_model_best.pickle"):
+        assert sum(n.endswith(suffix) for n in names) == 1, suffix
+    best = [n for n in names if n.endswith("_model_best.pickle")][0]
+    out = np.asarray(JaxPredictor.from_checkpoint(
+        str(tmp_path / best), variant)(synthetic_molecules(5, seed=2)))
+    assert out.shape == (1, 5) and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("variant,item", [("gcn", "A7"),
+                                          ("gcn_blocked", "A7"),
+                                          ("async", "A8")])
+def test_cli_unported_variants_exit_2(capsys, variant, item):
+    assert cli.main([variant, "--synthetic", "20", "--device", "cpu"]) == 2
+    assert item in capsys.readouterr().err
