@@ -36,14 +36,14 @@ Phases, each raising (and so exiting non-zero) on any failure:
      [2,2,1,2,1], random weights from torch.Generator seed 0) written as
      a pickle checkpoint and loaded by `Predictor.from_checkpoint` with
      the default device and envelope; a 1-graph, a 300-graph and a
-     3,000-graph request, with the kernels' launch counters read around
-     them (8 B1 launches per forward, no B2, no B3), each answer held
+     3,000-graph request, with the kernels' launch counters set to 0
+     before each request and read after it (8 B1 launches per forward,
+     no other kernel), each answer held
      against the same checkpoint served on the CPU (rtol = atol = 1e-4:
      8 GRU steps with f32 products in another order), graphs/s of the
      large request and the 1-graph latency;
   5. dense serving — the same for the default `dense` and `blocked`
-     models (cuBLAS products, no hand kernel): the B1/B2/B3 counters set
-     to 0 before each request and read after it, 0 expected;
+     models (cuBLAS products, no hand kernel): every counter 0;
   6. training — `Runner(variant, cfg).train()` on the default device, 3
      epochs of synthetic_molecules(6000, seed=40), validated on
      synthetic_molecules(600, seed=41), the kernels' counters set to 0
@@ -64,12 +64,29 @@ Phases, each raising (and so exiting non-zero) on any failure:
      parameter's gradient at a relative L2 error <= 1e-4 (f32 sums in
      another order over 8 GRU steps);
   8. dense forward — the device time of one `dense` and one `blocked`
-     inference forward and readout at that batch against the least time
+     inference forward and readout at that batch (`time_ms` over 50 and
+     over 5 calls, which must agree within 20%) against the least time
      of their products at the f32 rate outside the tensor cores;
   9. profile — `torch.profiler` over train steps of `sparse` on a
      20k-node batch and of `dense` and `blocked` on a 256-graph V = 32
      batch: wall ms, device-busy ms, the device's idle share, the kernel
-     count and the top device operations.
+     count and the top device operations;
+ 10. weighted kernel — the weighted instance of B1's body (the GCN's
+     Â·H, `weighted_gather_segment_sum`) and its transpose
+     (`weighted_segment_scatter_sum`) against their plain versions
+     (rtol = atol = 1e-5) at the GCN serving envelope (N 2048), a
+     20,000-node GCN batch, the skewed 160,000-edge lane with random
+     weights and a 5,000-edge hub with weights in multiples of 1/8
+     (exact), each with its time, byte bound, plain time and
+     `torch.sparse.mm` of the CSR weight matrix, two calls bit-equal, and
+     the registers of the weighted instances;
+ 11. GCN — the default `gcn` and `gcn_blocked` models served (as in 4,
+     every counter set to 0 around each request: `num_timesteps` weighted
+     launches a `gcn` forward and nothing else, no hand kernel for
+     `gcn_blocked`), trained for 3 epochs (`gcn` at 20,000-node batches:
+     per train step a weighted launch a layer and a transpose launch a
+     layer but the first; `gcn_blocked` with buckets [16, 32]), one train
+     step each on the card against the CPU, and a profile of each.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -378,6 +395,132 @@ def backward_kernel_phase(dev, gen, batches, ell, skewed):
     return records, ell_err
 
 
+# ------------------------------------------------------ weighted kernel
+
+def check_weighted(name, label, x, idx, w, offsets, num_segments,
+                   exact=False):
+    """The weighted instance (`weighted_gather_segment_sum`, or over a
+    transpose `weighted_segment_scatter_sum`) against its plain version
+    on the card at one shape, with two calls bit-equal; returns the
+    shape's record. out[s] sums w[e] * x[idx[e]] over the edges e of
+    segment s. The bound counts the rows of x that some edge reads (each
+    once), the segments' indices, weights and offsets once and the output
+    written once, and two operations an edge and column. The library
+    yardstick is `torch.sparse.mm` of the CSR weight matrix."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    kernel = getattr(ell_spmm, name)
+    plain = ell_spmm.weighted_gather_segment_sum_reference
+    got = kernel(x, idx, w, offsets, num_segments)
+    again = kernel(x, idx, w, offsets, num_segments)
+    want = plain(x, idx, w, offsets, num_segments)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"{name} [{label}]: two calls differ")
+    err = float((got - want).abs().max().item()) if got.numel() else 0.0
+    tol = 0.0 if exact else TOL_KERNEL
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    rows, h_dim = x.shape
+    begin, end = int(offsets[0].item()), int(offsets[-1].item())
+    if begin != 0:
+        raise RuntimeError("the CSR yardstick needs off[0] = 0")
+    used = end - begin
+    rows_read = int(torch.unique(idx[begin:end]).numel())
+    matrix = torch.sparse_csr_tensor(offsets.long(), idx[:end].long(),
+                                     w[:end], size=(num_segments, rows))
+    torch.testing.assert_close(torch.sparse.mm(matrix, x), want,
+                               rtol=TOL_KERNEL, atol=TOL_KERNEL)
+    rec = {
+        "shape": label, "rows_of_input": rows, "H": h_dim,
+        "S": num_segments, "E": int(idx.shape[0]), "edges_used": used,
+        "rows_read": rows_read, "max_abs_err": err, "bit_equal_repeat": True,
+        **measure(
+            lambda: kernel(x, idx, w, offsets, num_segments),
+            lambda: plain(x, idx, w, offsets, num_segments),
+            lambda: torch.sparse.mm(matrix, x),
+            bytes_moved=4 * (rows_read * h_dim + 2 * used
+                             + (num_segments + 1) + num_segments * h_dim),
+            ops=2 * used * h_dim),
+    }
+    log(f"kernel {name} [{label}] rows(input)={rows} H={h_dim} "
+        f"S={num_segments} E={rec['E']} used={used} rows_read={rows_read}: "
+        f"{timing_text(rec)}")
+    return rec
+
+
+def gcn_batches():
+    """[(label, GCN batch)]: the serving envelope (a request packed as
+    Predictor packs `gcn` at max_nodes=2048, max_graphs=256) and a
+    20,000-node batch (capacities planned by the port's packer over a
+    synthetic corpus), the training path's batch."""
+    from ggnn_tpu_torch.data import packing
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+
+    caps = packing.PackCapacities(nodes=2048, edges_per_type=16384,
+                                  graphs=256, edges_all=16384)
+    proc = packing.preprocess_gcn(synthetic_molecules(300, seed=21), [0],
+                                  {}, False)
+    envelope = next(packing.pack_gcn_batches(proc, caps.nodes + 1, caps,
+                                             HIDDEN, 5, False, None))
+    proc = packing.preprocess_gcn(synthetic_molecules(2400, seed=22), [0],
+                                  {}, False)
+    caps20k = packing.plan_gcn_capacities(proc, 20000)
+    log(f"20k-node GCN plan: {caps20k}")
+    budget = next(packing.pack_gcn_batches(proc, 20000, caps20k, HIDDEN, 5,
+                                           False, None))
+    return [("GCN serving envelope", envelope),
+            ("20k-node GCN batch", budget)]
+
+
+def weighted_kernel_phase(dev, gen, skewed, b1_20k):
+    """The weighted instance forward and over its transpose at the GCN
+    serving envelope, the 20k-node GCN batch, the skewed lane (rows and
+    weights random multiples of 1/8: exact) and a hub (exact); its
+    registers; and B1 at the 20k-node budget timed again five times."""
+    from ggnn_tpu_torch.models.gcn import gcn_edges
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    fwd, bwd = "weighted_gather_segment_sum", "weighted_segment_scatter_sum"
+    records, b_records = [], []
+    for label, batch in gcn_batches():
+        b = batch.to(dev)
+        n_cap = b.node_capacity
+        src, weights, offsets, transpose = gcn_edges(b, n_cap, True, True)
+        x = torch.randn(n_cap, HIDDEN, generator=gen, device=dev)
+        records.append(check_weighted(fwd, label, x, src, weights, offsets,
+                                      n_cap))
+        g = torch.randn(n_cap, HIDDEN, generator=gen, device=dev)
+        b_records.append(check_weighted(bwd, f"transpose of the {label}", g,
+                                        *transpose, n_cap))
+    src, _, tgt = skewed
+    w = torch.randint(-8, 9, (src.shape[0],), generator=gen,
+                      device=dev).float() / 8
+    offsets = ell_spmm.segment_offsets(tgt, SKEWED_NODES)
+    records.append(check_weighted(
+        fwd, "skewed in-degree", eighths(gen, dev, SKEWED_NODES), src, w,
+        offsets, SKEWED_NODES, exact=True))
+    bgather, bweights, boff = ell_spmm.weighted_transpose_layout(
+        src, tgt, w, SKEWED_NODES)
+    b_records.append(check_weighted(
+        bwd, "transpose of the skewed in-degree",
+        eighths(gen, dev, SKEWED_NODES), bgather, bweights, boff,
+        SKEWED_NODES, exact=True))
+    for seed, name, out in ((28, fwd, records), (29, bwd, b_records)):
+        x, idx, offsets = hub_case(dev, gen, seed, 4096, 6000, 1234)
+        w = torch.randint(-8, 9, (idx.shape[0],), generator=gen,
+                          device=dev).float() / 8
+        out.append(check_weighted(name, "hub + empty segments", x, idx, w,
+                                  offsets, 4096, exact=True))
+    registers = {"float4": ell_spmm.registers(True, dev, weighted=True),
+                 "scalar": ell_spmm.registers(False, dev, weighted=True)}
+    log(f"weighted instance: registers a thread {registers}")
+    b1_again = [time_ms(b1_20k)[0] for _ in range(5)]
+    log("B1 at the 20k-node budget, timed again 5 times: "
+        + ", ".join(f"{ms * 1e3:.3f} us" for ms in b1_again))
+    return {"shapes": records, "transpose_shapes": b_records,
+            "registers": registers, "b1_20k_again_ms": b1_again}
+
+
 # ------------------------------------------------------------ probe
 
 def probe_phase(dev, batches):
@@ -434,15 +577,17 @@ def probe_phase(dev, batches):
 # ------------------------------------------------------------ serving
 
 def launch_counts():
-    """(B1, B2, B3) launch counters."""
+    """(B1, B2, B3, weighted, weighted transpose) launch counters."""
     from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
     return (ell_spmm.launches, ell_spmm.scatter_launches,
-            gather_floor.launches)
+            gather_floor.launches, ell_spmm.weighted_launches,
+            ell_spmm.weighted_scatter_launches)
 
 
 def zero_launch_counts():
     from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
     ell_spmm.launches = ell_spmm.scatter_launches = gather_floor.launches = 0
+    ell_spmm.weighted_launches = ell_spmm.weighted_scatter_launches = 0
 
 
 def serving_requests():
@@ -451,18 +596,22 @@ def serving_requests():
             for i, n in enumerate((1, 300, 3000))}
 
 
-def random_checkpoint(variant, model_cls, ckpt_dir):
+def random_checkpoint(variant, ckpt_dir):
     """The default config of `variant` with random weights from
     torch.Generator seed 0, written as a pickle checkpoint."""
+    from ggnn_tpu_torch.data.loader import DatasetMeta
     from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
     from ggnn_tpu_torch.training.checkpoint import save_checkpoint
     from ggnn_tpu_torch.training.config import default_params_for
+    from ggnn_tpu_torch.training.variants import make_adapter
 
     config = default_params_for(variant)
     assert config["hidden_size"] == HIDDEN
     gen = torch.Generator().manual_seed(0)
+    adapter = make_adapter(variant, config,
+                           DatasetMeta(2048, EDGE_TYPES, HIDDEN))
     params = ModelParams(
-        graph=model_cls(config, EDGE_TYPES, gen),
+        graph=adapter.build_model(gen),
         heads=init_output_heads(gen, config["hidden_size"],
                                 config["task_ids"]))
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -514,17 +663,29 @@ def check_and_time_answers(label, predictor, cpu_predictor, requests,
 
 
 def serving_phase(ckpt_dir):
-    from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
+    """The default sparse model served: B1 once a propagation step of
+    each forward, and no other kernel (serving builds no transpose
+    layout)."""
+    from ggnn_tpu_torch.training.config import default_params_for
+
+    steps = sum(default_params_for("sparse")["layer_timesteps"])
+    return counted_serving("sparse", ckpt_dir,
+                           lambda calls: (steps * calls, 0, 0, 0, 0))
+
+
+def counted_serving(variant, ckpt_dir, want):
+    """The default `variant` served from a pickle checkpoint on the
+    default device: the kernels' counters set to 0 before each request
+    and read after it, where `want(forward_calls)` gives the counts
+    expected; then the answers against the CPU's and the times."""
     from ggnn_tpu_torch.serving import Predictor
 
-    config, path = random_checkpoint("sparse", SparseGGNN, ckpt_dir)
-    steps = sum(config["layer_timesteps"])
-    predictor = Predictor.from_checkpoint(path, "sparse")
+    requests = serving_requests()
+    _, path = random_checkpoint(variant, ckpt_dir)
+    predictor = Predictor.from_checkpoint(path, variant)
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
-    cpu_predictor = Predictor.from_checkpoint(path, "sparse", device="cpu")
-    requests = serving_requests()
-
+    cpu_predictor = Predictor.from_checkpoint(path, variant, device="cpu")
     forward_calls = 0
     forward = predictor._forward
 
@@ -534,59 +695,34 @@ def serving_phase(ckpt_dir):
         return forward(batch)
 
     predictor._forward = counted_forward
-    zero_launch_counts()
-    answers = {n: predictor(req) for n, req in requests.items()}
-    torch.cuda.synchronize()
-    launches, scatter_launches, b3 = launch_counts()
+    answers, counts, calls = {}, [], 0
+    for n, req in requests.items():
+        forward_calls = 0
+        zero_launch_counts()
+        answers[n] = predictor(req)
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+        calls += forward_calls
+        if counts[-1] != want(forward_calls):
+            raise RuntimeError(
+                f"{variant} serving of {n} graphs ({forward_calls} forward "
+                f"calls) launched B1/B2/B3/weighted/transpose {counts[-1]}, "
+                f"expected {want(forward_calls)}")
     predictor._forward = forward
-    log(f"serving: {forward_calls} forward calls, {launches} B1 launches "
-        f"({steps} per forward expected), {scatter_launches} B2 launches "
-        "(0 expected: serving builds no transpose layout), "
-        f"{b3} B3 launches (0 expected)")
-    if launches != steps * forward_calls or launches == 0:
-        raise RuntimeError(
-            f"kernel launches {launches} != {steps} x {forward_calls} "
-            "forward calls: the serving path did not run the kernel")
-    if scatter_launches != 0 or b3 != 0:
-        raise RuntimeError(f"serving launched B2 {scatter_launches} times, "
-                           f"B3 {b3} times")
-    return {"forward_calls": forward_calls, "launches": launches,
-            "scatter_launches": scatter_launches, "launches_b3": b3,
-            **check_and_time_answers("serving", predictor, cpu_predictor,
-                                     requests, answers)}
+    log(f"{variant} serving: launches B1/B2/B3/weighted/transpose around "
+        f"the 1-, 300- and 3000-graph requests {counts}")
+    return {"forward_calls": calls, "launches_by_request": counts,
+            "launches": [sum(c) for c in zip(*counts)],
+            **check_and_time_answers(f"{variant} serving", predictor,
+                                     cpu_predictor, requests, answers)}
 
 
 def dense_serving_phase(ckpt_dir):
-    """The default `dense` and `blocked` models served from pickle
-    checkpoints on the default device; the three kernels' counters set
-    to 0 before each request and read after it (0 expected: the dense
-    family runs cuBLAS products, no hand kernel)."""
-    from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
-    from ggnn_tpu_torch.serving import Predictor
-
-    requests = serving_requests()
-    results = {}
-    for variant in DENSE_VARIANTS:
-        _, path = random_checkpoint(variant, DenseGGNN, ckpt_dir)
-        predictor = Predictor.from_checkpoint(path, variant)
-        if predictor.device.type != "cuda":
-            raise RuntimeError(f"default device is {predictor.device}")
-        cpu_predictor = Predictor.from_checkpoint(path, variant,
-                                                  device="cpu")
-        answers = {}
-        for n, req in requests.items():
-            zero_launch_counts()
-            answers[n] = predictor(req)
-            torch.cuda.synchronize()
-            if any(launch_counts()):
-                raise RuntimeError(f"{variant} serving of {n} graphs "
-                                   f"launched B1/B2/B3 {launch_counts()}")
-        log(f"{variant} serving: B1/B2/B3 launches 0 around each request")
-        results[variant] = {
-            "launches": [0, 0, 0],
-            **check_and_time_answers(f"{variant} serving", predictor,
-                                     cpu_predictor, requests, answers)}
-    return results
+    """The default `dense` and `blocked` models served: no hand kernel
+    launches (the dense family runs cuBLAS products)."""
+    return {variant: counted_serving(variant, ckpt_dir,
+                                     lambda calls: (0, 0, 0, 0, 0))
+            for variant in DENSE_VARIANTS}
 
 
 # ------------------------------------------------------------ training
@@ -609,8 +745,15 @@ TRAIN_CONFIGS = {
     "sparse": ("sparse_tpu.json", {}),
     "dense": (None, {"dense_bucket_sizes": [16, 32]}),
     "blocked": ("blocked_tpu.json", {}),
+    # GCN_DEFAULTS at the sparse training batch's 20,000 nodes (the
+    # reference's 100,000 would give about one step an epoch).
+    "gcn": (None, {"batch_size": 20000}),
+    "gcn_blocked": (None, {"dense_bucket_sizes": [16, 32]}),
 }
 DENSE_VARIANTS = ("dense", "blocked")
+GCN_VARIANTS = ("gcn", "gcn_blocked")
+# Variants whose batches are edge lists under a node budget.
+EDGE_LIST_VARIANTS = ("sparse", "gcn")
 NO_DROPOUT = {"edge_weight_dropout_keep_prob": 1.0,
               "graph_state_dropout_keep_prob": 1.0,
               "out_layer_dropout_keep_prob": 1.0}
@@ -668,11 +811,12 @@ def train_run(variant, epochs, corpus, log_dir):
     history = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    b1, b2, b3 = launch_counts()
+    b1, b2, b3, w_fwd, w_bwd = launch_counts()
     runner.train_step, runner.run_epoch = train_step, run_epoch
     log(f"{variant} training: {len(history)} epochs, {runner.train_step_id} "
         f"train steps, {runner.valid_step_id} validation batches in "
-        f"{train_s:.2f} s; launches B1 {b1}, B2 {b2}, B3 {b3}")
+        f"{train_s:.2f} s; launches B1 {b1}, B2 {b2}, B3 {b3}, weighted "
+        f"{w_fwd}, weighted transpose {w_bwd}")
 
     epoch_marks.append(len(step_times))
     epochs_out = []
@@ -714,6 +858,7 @@ def train_run(variant, epochs, corpus, log_dir):
         f"the median train epoch's {epoch_s:.3f} s")
     return runner, {
         "launches_b1": b1, "launches_b2": b2, "launches_b3": b3,
+        "launches_weighted": w_fwd, "launches_weighted_transpose": w_bwd,
         "pack_seconds_per_epoch": pack_s,
         "train_epoch_seconds_median": epoch_s,
         "train_steps": runner.train_step_id,
@@ -737,7 +882,8 @@ def training_phase(corpus, log_dir):
         f"{result['train_steps']} = {want_b2}, B3 0")
     b1, b2 = result["launches_b1"], result["launches_b2"]
     if (b1 != want_b1 or b2 != want_b2 or b1 == 0 or b2 == 0
-            or result["launches_b3"]):
+            or result["launches_b3"] or result["launches_weighted"]
+            or result["launches_weighted_transpose"]):
         raise RuntimeError("the training path did not launch the kernels "
                            "the expected number of times")
     return runner, result
@@ -749,10 +895,53 @@ def dense_training_phase(corpus, log_dir):
     for variant in DENSE_VARIANTS:
         runners[variant], results[variant] = train_run(
             variant, 3, corpus, os.path.join(log_dir, variant))
-        counts = [results[variant][f"launches_b{i}"] for i in (1, 2, 3)]
+        counts = [results[variant][f"launches_{k}"]
+                  for k in ("b1", "b2", "b3", "weighted",
+                            "weighted_transpose")]
         if any(counts):
-            raise RuntimeError(f"{variant} training launched B1/B2/B3 "
-                               f"{counts} times")
+            raise RuntimeError(f"{variant} training launched B1/B2/B3/"
+                               f"weighted/transpose {counts} times")
+    return runners, results
+
+
+def gcn_serving_phase(ckpt_dir):
+    """The default `gcn` model served: `num_timesteps` weighted launches
+    a forward and no other kernel; `gcn_blocked`: no hand kernel."""
+    from ggnn_tpu_torch.training.config import default_params_for
+
+    layers = default_params_for("gcn")["num_timesteps"]
+    return {"gcn": counted_serving(
+                "gcn", ckpt_dir, lambda calls: (0, 0, 0, layers * calls, 0)),
+            "gcn_blocked": counted_serving(
+                "gcn_blocked", ckpt_dir, lambda calls: (0, 0, 0, 0, 0))}
+
+
+def gcn_training_phase(corpus, log_dir):
+    """3 epochs of each GCN variant. `gcn` at 20,000-node batches: the
+    weighted kernel once a layer per train step and validation batch,
+    its transpose once a layer but the first per train step, no B1, B2
+    or B3; `gcn_blocked`: no hand kernel."""
+    runners, results = {}, {}
+    for variant in GCN_VARIANTS:
+        runners[variant], result = train_run(
+            variant, 3, corpus, os.path.join(log_dir, variant))
+        results[variant] = result
+        counts = [result[f"launches_{k}"]
+                  for k in ("b1", "b2", "b3", "weighted",
+                            "weighted_transpose")]
+        want = [0] * 5
+        if variant == "gcn":
+            config = runners[variant].config
+            assert config["batch_size"] == 20000
+            layers = config["num_timesteps"]
+            want[3] = layers * (result["train_steps"]
+                                + result["valid_batches"])
+            want[4] = (layers - 1) * result["train_steps"]
+        log(f"{variant} training: launches B1/B2/B3/weighted/transpose "
+            f"{counts}, expected {want}")
+        if counts != want or (variant == "gcn" and not all(want[3:])):
+            raise RuntimeError(f"{variant} training launched the kernels "
+                               f"{counts} times, expected {want}")
     return runners, results
 
 
@@ -779,7 +968,8 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir):
     generator seeded with random_seed), on the batch `pick` accepts."""
     from ggnn_tpu_torch.training.runner import Runner
 
-    config = train_config(variant, {"num_epochs": 1, **NO_DROPOUT})
+    config = train_config(variant, {"num_epochs": 1})
+    config.update({k: v for k, v in NO_DROPOUT.items() if k in config})
     train, valid = corpus
     runners = {dev: Runner(variant, dict(config), train_data=train,
                            valid_data=valid,
@@ -806,19 +996,26 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir):
         rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
         if rel > worst:
             worst, worst_name = rel, name
-    what = (f"{int(batch.num_nodes)} nodes" if variant == "sparse" else
-            f"V = {batch.num_vertices}")
+    what = (f"{int(batch.num_nodes)} nodes" if variant in EDGE_LIST_VARIANTS
+            else f"V = {batch.num_vertices}")
     log(f"card vs CPU, one {variant} train step on {what} "
         f"({int(batch.num_graphs)} graphs): loss {float(loss_gpu):.8f} vs "
         f"{float(loss_cpu):.8f} (relative error {loss_err:.3e}, limit "
         f"{TOL_STEP_LOSS}); worst gradient relative L2 error {worst:.3e} "
         f"({worst_name}, limit {TOL_STEP_GRAD}) over {len(grads_cpu)} "
-        f"parameters; launches B1/B2/B3 {launches}")
+        f"parameters; launches B1/B2/B3/weighted/transpose {launches}")
     if not loss_err <= TOL_STEP_LOSS or not worst <= TOL_STEP_GRAD:
         raise RuntimeError(f"the card's {variant} train step disagrees "
                            "with the CPU's")
-    if variant != "sparse" and any(launches):
-        raise RuntimeError(f"the {variant} train step launched B1/B2/B3")
+    # A `gcn` step: the weighted kernel once a layer forward, its
+    # transpose once a layer but the first (whose input needs no
+    # gradient); no hand kernel on the dense family.
+    layers = config.get("num_timesteps")
+    want = ((0, 0, 0, layers, layers - 1) if variant == "gcn"
+            else (0, 0, 0, 0, 0))
+    if variant != "sparse" and launches != want:
+        raise RuntimeError(f"the {variant} train step launched "
+                           f"{launches}, expected {want}")
     return {"loss_relative_error": loss_err,
             "worst_grad_relative_l2": worst, "worst_grad": worst_name,
             "launches": list(launches)}
@@ -902,10 +1099,9 @@ def dense_forward_phase(runners):
     variant at a full 256-graph batch of the V = 32 bucket (CUDA events,
     `time_ms`), against the least time its products need at the f32 rate
     outside the tensor cores (TF32 is off). A call launches 80-200
-    kernels and the host enqueues them slower than the card runs them,
-    so `time_ms` gets 5 calls: all of them fit in the launch queue
-    behind its sleep (about a thousand entries); 50 would not, and the
-    events would time the host's pace."""
+    kernels, so 50 of them overflow the launch queue; `time_ms` queues
+    them in groups that fit, and its time over 50 calls must agree with
+    that over 5 (which fit in one group) within 20%."""
     results = {}
     for variant, runner in runners.items():
         batch = first_batch(runner, is_full_v32_batch).to(runner.device)
@@ -916,20 +1112,23 @@ def dense_forward_phase(runners):
                 return model.readout(heads, runner.task_ids, model(batch),
                                      batch)
 
-        ms, host_ms = time_ms(forward, iters=5)
-        ms_50_calls = time_ms(forward)[0]
+        ms, host_ms = time_ms(forward)
+        ms_5_calls = time_ms(forward, iters=5)[0]
         flops = dense_forward_flops(model, batch)
         bound_ms = flops / F32_OPS_PER_S * 1e3
         results[variant] = {"gflop": flops / 1e9, "ms": ms,
-                            "ms_50_calls": ms_50_calls, "host_ms": host_ms,
+                            "ms_5_calls": ms_5_calls, "host_ms": host_ms,
                             "bound_ms": bound_ms,
                             "share_of_bound": bound_ms / ms}
         log(f"{variant} forward + readout at 256 graphs, V = 32: device "
-            f"{ms:.4f} ms (host {host_ms:.4f} ms a call; events over 50 "
-            f"queued calls {ms_50_calls:.4f} ms), {flops / 1e9:.3f} GFLOP "
-            f"of products, bound {bound_ms:.4f} ms at "
+            f"{ms:.4f} ms over 50 calls, {ms_5_calls:.4f} ms over 5 (host "
+            f"{host_ms:.4f} ms a call), {flops / 1e9:.3f} GFLOP of "
+            f"products, bound {bound_ms:.4f} ms at "
             f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s: "
             f"{bound_ms / ms:.1%} of the bound")
+        if abs(ms - ms_5_calls) > 0.2 * ms_5_calls:
+            raise RuntimeError(f"time_ms of the {variant} forward: "
+                               f"{ms} ms over 50 calls, {ms_5_calls} over 5")
     return results
 
 
@@ -940,6 +1139,7 @@ def main() -> int:
         return 1
     from ggnn_tpu_torch.data.synthetic import synthetic_molecules
     from ggnn_tpu_torch.ops.kernels import _build, ell_spmm
+    from ggnn_tpu_torch.ops.messages import combined_lane_offsets
 
     script_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -974,15 +1174,27 @@ def main() -> int:
     log(f"B1 at the 20k-node budget: {records[1]['ms'] * 1e3:.3f} us, "
         f"{records[1]['ms'] / probe['b1_output_zero_ms']:.3f} x the zero_ "
         "of its output")
+    _, lane20k, t20k = batches[1]
+    lane20k = lane20k.to(dev)
+    n20k = lane20k.node_capacity
+    off20k = combined_lane_offsets(lane20k.edge_targets_all,
+                                   lane20k.edge_types_all, t20k, n20k)
+    h20k = torch.randn(n20k, HIDDEN, generator=gen, device=dev)
+    weighted = weighted_kernel_phase(
+        dev, gen, skewed, lambda: ell_spmm.gather_segment_sum(
+            h20k, lane20k.edge_sources_all, off20k, n20k * t20k))
     work_dir = os.path.join(REPO, "build", "chip_smoke")
     serving = serving_phase(work_dir)
     dense_serving = dense_serving_phase(work_dir)
+    gcn_serving = gcn_serving_phase(work_dir)
     corpus = (synthetic_molecules(6000, seed=40),
               synthetic_molecules(600, seed=41))
     runner, training = training_phase(corpus,
                                       os.path.join(work_dir, "train"))
     dense_runners, dense_training = dense_training_phase(
         corpus, os.path.join(work_dir, "train_dense"))
+    gcn_runners, gcn_training = gcn_training_phase(
+        corpus, os.path.join(work_dir, "train_gcn"))
     step_corpus = (synthetic_molecules(1300, seed=42),
                    synthetic_molecules(50, seed=43))
     step_dir = os.path.join(work_dir, "step")
@@ -992,18 +1204,43 @@ def main() -> int:
         variant: card_vs_cpu_phase(variant, step_corpus, is_full_v32_batch,
                                    step_dir)
         for variant in DENSE_VARIANTS}
+    gcn_card_vs_cpu = {
+        variant: card_vs_cpu_phase(
+            variant, step_corpus,
+            is_20k_batch if variant == "gcn" else is_full_v32_batch,
+            step_dir)
+        for variant in GCN_VARIANTS}
     profile = profile_phase(runner, first_batch(runner, is_20k_batch))
     dense_forward = dense_forward_phase(dense_runners)
     dense_profile = {
         variant: profile_phase(runner, first_batch(runner,
                                                    is_full_v32_batch))
         for variant, runner in dense_runners.items()}
+    gcn_profile = {
+        variant: profile_phase(runner, first_batch(
+            runner, is_20k_batch if variant == "gcn" else is_full_v32_batch))
+        for variant, runner in gcn_runners.items()}
 
     # Each kernel's `launches` sums the main paths' runs (the probe,
     # serving and training of every variant), each counted from 0 just
-    # before its run; the dense family's paths launch none.
-    dense_paths = {f"{variant} {path}": 0 for variant in DENSE_VARIANTS
+    # before its run; B1, B2 and B3 launch none on the dense and GCN
+    # paths, the weighted instance only on the `gcn` paths.
+    dense_paths = {f"{variant} {path}": 0
+                   for variant in DENSE_VARIANTS + GCN_VARIANTS
                    for path in ("serving", "training")}
+    gcn_fwd = (gcn_serving["gcn"]["launches"][3]
+               + gcn_training["gcn"]["launches_weighted"])
+    gcn_bwd = (gcn_serving["gcn"]["launches"][4]
+               + gcn_training["gcn"]["launches_weighted_transpose"])
+    weighted_paths = {
+        "serving": 0, "training": 0,
+        **{f"{variant} {path}": 0 for variant in DENSE_VARIANTS
+           for path in ("serving", "training")},
+        "gcn serving": sum(gcn_serving["gcn"]["launches"][3:]),
+        "gcn training": (gcn_training["gcn"]["launches_weighted"]
+                         + gcn_training["gcn"]["launches_weighted_transpose"]),
+        "gcn_blocked serving": 0, "gcn_blocked training": 0}
+    w_shape = weighted["shapes"][1]   # the 20k-node GCN batch, forward
     main_shape = records[0]
     b2_shape = b2_records[1]          # the training path's 20k-node shape
     # The JAX probe's shape at unroll 8.
@@ -1014,8 +1251,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:51",
-        "launches": serving["launches"] + training["launches_b1"],
-        "launches_by_path": {"serving": serving["launches"],
+        "launches": serving["launches"][0] + training["launches_b1"],
+        "launches_by_path": {"serving": serving["launches"][0],
                              "training": training["launches_b1"],
                              **dense_paths},
         "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]),
@@ -1030,8 +1267,8 @@ def main() -> int:
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:101",
-        "launches": serving["scatter_launches"] + training["launches_b2"],
-        "launches_by_path": {"serving": serving["scatter_launches"],
+        "launches": serving["launches"][1] + training["launches_b2"],
+        "launches_by_path": {"serving": serving["launches"][1],
                              "training": training["launches_b2"],
                              **dense_paths},
         "max_abs_err": max([r["max_abs_err"] for r in b2_records]
@@ -1047,10 +1284,10 @@ def main() -> int:
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/gather_floor.cu",
         "replaces": "benchmarks/probes/gather_floor.py:52",
-        "launches": (probe["launches"] + serving["launches_b3"]
+        "launches": (probe["launches"] + serving["launches"][2]
                      + training["launches_b3"]),
         "launches_by_path": {"probe": probe["launches"],
-                             "serving": serving["launches_b3"],
+                             "serving": serving["launches"][2],
                              "training": training["launches_b3"],
                              **dense_paths},
         "max_abs_err": max(r["max_abs_err"]
@@ -1061,6 +1298,24 @@ def main() -> int:
         "bound_ms": b3_shape["bound_ms"],
         "bound_by": b3_shape["bound_by"],
         "library_ms": b3_shape["library_ms"],
+    }, {
+        "name": "weighted_gather_segment_sum",
+        "route": "cuda",
+        "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
+        "replaces": "XLA segment_sum at ggnn_tpu/models/gcn.py:74, no "
+                    "Pallas kernel",
+        "launches": gcn_fwd + gcn_bwd,
+        "launches_forward": gcn_fwd,
+        "launches_transpose": gcn_bwd,
+        "launches_by_path": weighted_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           weighted["shapes"] + weighted["transpose_shapes"]),
+        "ms": w_shape["ms"],
+        "plain_ms": w_shape["plain_ms"],
+        "bound_ms": w_shape["bound_ms"],
+        "bound_by": w_shape["bound_by"],
+        "library_ms": w_shape["library_ms"],
+        "registers": weighted["registers"],
     }]
     device_line = gpu_name_and_power()
     log(f"chip_smoke: {time.perf_counter() - script_start:.1f} s from the "
@@ -1073,7 +1328,11 @@ def main() -> int:
                     "card_vs_cpu": card_vs_cpu,
                     "dense_card_vs_cpu": dense_card_vs_cpu,
                     "dense_forward": dense_forward,
-                    "profile": profile, "dense_profile": dense_profile}))
+                    "profile": profile, "dense_profile": dense_profile,
+                    "weighted": weighted, "gcn_serving": gcn_serving,
+                    "gcn_training": gcn_training,
+                    "gcn_card_vs_cpu": gcn_card_vs_cpu,
+                    "gcn_profile": gcn_profile}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Command-line entry point of the port: train a GGNN.
 
-    python -m ggnn_tpu_torch.cli sparse|rgcn|dense|blocked
+    python -m ggnn_tpu_torch.cli sparse|rgcn|dense|blocked|gcn|gcn_blocked
         [--config-file FILE] [--config JSON] [--log_dir DIR]
         [--data_dir DIR] [--restore FILE] [--freeze-graph-model] [--restrict_data N] [--synthetic N]
         [--quiet] [--save-every-epoch] [--pdb] [--device DEVICE]
@@ -10,15 +10,16 @@ run goes to the GPU unless `--device cpu` is given, and exits non-zero
 without CUDA. `--synthetic N` trains on N synthetic QM9-shaped
 molecules (and validates on N // 10) instead of JSON files.
 
-The other variants and the flags of the JAX CLI that are not ported yet
-are accepted and exit non-zero naming the ROADMAP item that ports them.
+The `async` variant and the flags of the JAX CLI that are not ported
+yet are accepted and exit non-zero naming the ROADMAP item that ports
+them.
 """
 
 import argparse
 import sys
 import traceback
 
-_VARIANTS_NOT_PORTED = {"gcn": "A7", "gcn_blocked": "A7", "async": "A8"}
+_VARIANTS_NOT_PORTED = {"async": "A8"}
 # flag destination -> (flag, ROADMAP item)
 _FLAGS_NOT_PORTED = {
     "evaluate": ("--evaluate", "A9"),
@@ -33,8 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="ggnn_tpu_torch",
         description="GGNN training on an NVIDIA GPU (PyTorch port)")
     p.add_argument("variant",
-                   choices=["sparse", "rgcn", "dense", "blocked",
-                            *_VARIANTS_NOT_PORTED])
+                   choices=["sparse", "rgcn", "dense", "blocked", "gcn",
+                            "gcn_blocked", *_VARIANTS_NOT_PORTED])
     p.add_argument("--config-file", dest="config_file", default=None,
                    help="Hyperparameter configuration file path (JSON).")
     p.add_argument("--config", default=None,

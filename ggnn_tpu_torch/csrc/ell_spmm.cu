@@ -1,6 +1,6 @@
 // Sorted-segment gather-sum: the sparse GGNN's message aggregation (B1)
-// and its transpose, the aggregation's gradient (B2), one kernel body
-// behind two entry points.
+// and its transpose, the aggregation's gradient (B2), and a weighted
+// instance of the same body for the GCN, behind three entry points.
 //
 // B1 (`gather_segment_sum_f32`):
 //
@@ -35,6 +35,22 @@
 // the wrapper). An f32 atomicAdd scatter from the forward's target order
 // is not used: its summation order would be the scheduler's, and the
 // gradient would differ from run to run.
+//
+// The weighted instance (`weighted_gather_segment_sum_f32`):
+//
+//   out[s, :] = sum over e in [off[s], off[s+1]) of w[e] * h[src[e], :]
+//
+//   w [E] f32. The edge-list GCN's Â·H per layer over its target-sorted
+//   COO list of D^-1/2 (A+I) D^-1/2, and, over the list's transpose
+//   (sorted by source, the weights permuted with it), that product's
+//   gradient dh[n] = sum of w[e] * g[tgt[e]] over n's out-edges. It
+//   replaces no TPU kernel: the JAX GCN computes Â·H with XLA's sorted
+//   segment_sum (ggnn_tpu/models/gcn.py:73-75), outside Pallas. Here it
+//   takes B1's body, templated on kWeighted: a lane loads its edge's
+//   weight beside its id, and a row is scaled by it as it is added, on
+//   the segment warps and the chunk warps alike, so the fixed order of
+//   every sum, and the same bits from call to call, hold as for B1. The
+//   instances of B1 and B2 (kWeighted false) compile as before.
 //
 // What bounds both on the H100: bytes. Each edge adds one gathered row
 // of H floats (4H bytes read for H adds), about 1/4 flop a byte, far
@@ -148,6 +164,17 @@ __device__ __forceinline__ void add(float4& a, const float4 b) {
   a.z += b.z;
   a.w += b.w;
 }
+// a *= s, rounded as a product alone (no multiply-add with the sum), as
+// the plain version's `index_select * w` rounds it.
+__device__ __forceinline__ void scale(float& a, const float s) {
+  a = __fmul_rn(a, s);
+}
+__device__ __forceinline__ void scale(float4& a, const float s) {
+  a.x = __fmul_rn(a.x, s);
+  a.y = __fmul_rn(a.y, s);
+  a.z = __fmul_rn(a.z, s);
+  a.w = __fmul_rn(a.w, s);
+}
 
 int64_t num_chunks(int num_edges) {
   return (static_cast<int64_t>(num_edges) + kSplit - 1) / kSplit;
@@ -247,11 +274,14 @@ __device__ __forceinline__ void store_row(V* out, V* partials, int dst, int k,
 // walked in order, their ids 32 a round, one a lane, and the rows of
 // kRowsInFlight consecutive edges loaded before any is added, across
 // runs; a sum stays in f32 registers and is stored once, when its run
-// ends. Called by the whole warp.
-template <typename V>
+// ends. kWeighted: each lane loads its edge's weight w[e] beside its id,
+// and a row is scaled by its edge's weight (shuffled from that lane) as
+// it is added. Called by the whole warp.
+template <typename V, bool kWeighted>
 __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
-                         V* out, V* partials, int n, int begin, int count,
-                         int dst, int width, int lane) {
+                         const float* __restrict__ w, V* out, V* partials,
+                         int n, int begin, int count, int dst, int width,
+                         int lane) {
   int upto = count;  // the edges of runs 0 .. lane
 #pragma unroll
   for (int d = 1; d < kWarp; d *= 2) {
@@ -268,9 +298,10 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
     V acc;
     zero(acc);
     int run = -1;  // the run acc holds
-    // The ids of walk positions q0 + lane, and r the run of each: the
-    // runs that end at or before it.
+    // The ids of walk positions q0 + lane, r the run of each (the runs
+    // that end at or before it) and, weighted, wt its edge's weight.
     int r;
+    float wt = 0.f;
     auto load_ids = [&](int q0) {
       const int q = q0 + lane;
       r = 0;
@@ -279,6 +310,7 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
         if (__shfl_sync(kFull, upto, r + step - 1) <= q) r += step;
       }
       const int at = q + __shfl_sync(kFull, skip, r);
+      if constexpr (kWeighted) wt = q < total ? __ldg(w + at) : 0.f;
       return q < total ? __ldg(src + at) : 0;
     };
     int id = load_ids(0);
@@ -305,6 +337,9 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
 #pragma unroll
         for (int u = 0; u < kRowsInFlight; ++u) {
           const int run_u = __shfl_sync(kFull, r, u0 + u);
+          if constexpr (kWeighted) {
+            scale(rows[u], __shfl_sync(kFull, wt, u0 + u));
+          }
           if (u0 + u < m) {
             if (run_u != run) {
               if (run >= 0) {
@@ -408,9 +443,10 @@ __device__ __noinline__ void finish_piece(const Cut& cut, int p,
 
 // Segments [first, first + n): their sums, the heads of the cut ones to
 // scratch, then the hand-over of those heads.
-template <typename V>
+template <typename V, bool kWeighted>
 __device__ void segment_warp(const V* __restrict__ h,
                              const int* __restrict__ src,
+                             const float* __restrict__ w,
                              const int* __restrict__ off, V* __restrict__ out,
                              int* tickets, int* group_tickets, V* partials,
                              int first, int n, int width, int lane) {
@@ -420,7 +456,8 @@ __device__ void segment_warp(const V* __restrict__ h,
   const bool cut = len > kSplit;
   const int dst = cut ? scratch_dst(2 * static_cast<size_t>(b / kSplit) + 1)
                       : first + lane;
-  sum_runs(h, src, out, partials, n, b, min(len, kSplit), dst, width, lane);
+  sum_runs<V, kWeighted>(h, src, w, out, partials, n, b, min(len, kSplit),
+                         dst, width, lane);
   for (unsigned m = __ballot_sync(kFull, cut); m != 0; m &= m - 1) {
     const int k = __ffs(static_cast<int>(m)) - 1;
     const Cut segment(__shfl_sync(kFull, b, k), __shfl_sync(kFull, e, k));
@@ -431,9 +468,10 @@ __device__ void segment_warp(const V* __restrict__ h,
 
 // Chunk c: the piece, past its head, of the cut segment that holds the
 // chunk's first edge, if there is one.
-template <typename V>
+template <typename V, bool kWeighted>
 __device__ void chunk_warp(const V* __restrict__ h,
                            const int* __restrict__ src,
+                           const float* __restrict__ w,
                            const int* __restrict__ off, V* __restrict__ out,
                            int* tickets, int* group_tickets, V* partials,
                            int num_segments, int c, int width, int lane) {
@@ -444,25 +482,27 @@ __device__ void chunk_warp(const V* __restrict__ h,
   const int lo = max(a, b + kSplit);
   const int hi = min(a + kSplit, e);
   if (seg < 0 || e - b <= kSplit || lo >= hi) return;
-  sum_runs(h, src, out, partials, 1, lo, lane == 0 ? hi - lo : 0,
-           scratch_dst(2 * static_cast<size_t>(c)), width, lane);
+  sum_runs<V, kWeighted>(h, src, w, out, partials, 1, lo,
+                         lane == 0 ? hi - lo : 0,
+                         scratch_dst(2 * static_cast<size_t>(c)), width, lane);
   const Cut segment(b, e);
   finish_piece(segment, c - segment.head_chunk, tickets, group_tickets,
                partials, out + static_cast<size_t>(seg) * width, width, lane);
 }
 
-// V is float or float4; `width` is the row length in units of V. The
+// V is float or float4; `width` is the row length in units of V; `w`
+// holds the edges' weights when kWeighted and is not read otherwise. The
 // first ceil(S / group) warps are segment warps of `group` segments, the
 // next `chunks` chunk warps. `tickets` [chunks] and `group_tickets`
 // [2 * chunks] are 0 on entry and on exit; `partials` hold two rows of
 // `width` a chunk. Every branch depends on values that are the same on
 // all lanes of a warp, so the warp leaves together and every shuffle and
 // ballot has its full warp.
-template <typename V>
+template <typename V, bool kWeighted>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksPerSm)
 segment_sum_kernel(const V* __restrict__ h, const int* __restrict__ src,
-                   const int* __restrict__ off, V* __restrict__ out,
-                   int* __restrict__ tickets,
+                   const float* __restrict__ w, const int* __restrict__ off,
+                   V* __restrict__ out, int* __restrict__ tickets,
                    int* __restrict__ group_tickets, V* partials,
                    int num_segments, int chunks, int group, int width) {
   const int lane = threadIdx.x % kWarp;
@@ -470,11 +510,13 @@ segment_sum_kernel(const V* __restrict__ h, const int* __restrict__ src,
   const int segment_warps = (num_segments + group - 1) / group;
   if (warp < segment_warps) {
     const int first = warp * group;
-    segment_warp(h, src, off, out, tickets, group_tickets, partials, first,
-                 min(group, num_segments - first), width, lane);
+    segment_warp<V, kWeighted>(h, src, w, off, out, tickets, group_tickets,
+                               partials, first,
+                               min(group, num_segments - first), width, lane);
   } else if (warp - segment_warps < chunks) {
-    chunk_warp(h, src, off, out, tickets, group_tickets, partials,
-               num_segments, warp - segment_warps, width, lane);
+    chunk_warp<V, kWeighted>(h, src, w, off, out, tickets, group_tickets,
+                             partials, num_segments, warp - segment_warps,
+                             width, lane);
   }
 }
 
@@ -485,9 +527,13 @@ bool vectorized(const void* h, const void* out, const void* partials,
          reinterpret_cast<uintptr_t>(partials) % 16 == 0;
 }
 
-const void* instance(bool vec) {
-  return vec ? reinterpret_cast<const void*>(segment_sum_kernel<float4>)
-             : reinterpret_cast<const void*>(segment_sum_kernel<float>);
+const void* instance(bool vec, bool weighted) {
+  if (weighted) {
+    return vec ? reinterpret_cast<const void*>(segment_sum_kernel<float4, true>)
+               : reinterpret_cast<const void*>(segment_sum_kernel<float, true>);
+  }
+  return vec ? reinterpret_cast<const void*>(segment_sum_kernel<float4, false>)
+             : reinterpret_cast<const void*>(segment_sum_kernel<float, false>);
 }
 
 // Launches the kernel on `stream` of `device` and returns the CUDA error
@@ -497,10 +543,11 @@ const void* instance(bool vec) {
 // positive, num_edges is the length of the index array (an upper bound of
 // off[S] - off[0], which sizes the grid without reading `off` on the
 // host); `tickets` and `partials` hold the ints, all 0, and the floats
-// that ell_spmm_scratch gives for these sizes.
-int launch(const void* h, const void* src, const void* off, void* out,
-           void* tickets, void* partials, int num_segments, int num_edges,
-           int hidden, int device, void* stream) {
+// that ell_spmm_scratch gives for these sizes. `w` is null for B1 and B2,
+// the edges' weights for the weighted instance.
+int launch(const void* h, const void* src, const void* w, const void* off,
+           void* out, void* tickets, void* partials, int num_segments,
+           int num_edges, int hidden, int device, void* stream) {
   if (too_large(num_segments, num_edges)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -517,11 +564,12 @@ int launch(const void* h, const void* src, const void* off, void* out,
   // The kernel's parameters by address; the pointers have the same size
   // and bits whatever V is.
   void* group_tickets = static_cast<int*>(tickets) + chunks;
-  void* args[] = {&h,        &src,          &off,          &out,
-                  &tickets,  &group_tickets, &partials, &num_segments,
-                  &chunks,   &group,        &width};
-  cudaLaunchKernel(instance(vec), blocks, dim3(kWarpsPerBlock * kWarp),
-                   args, 0, static_cast<cudaStream_t>(stream));
+  void* args[] = {&h,       &src,          &w,        &off,
+                  &out,     &tickets,      &group_tickets, &partials,
+                  &num_segments, &chunks,  &group,    &width};
+  cudaLaunchKernel(instance(vec, w != nullptr), blocks,
+                   dim3(kWarpsPerBlock * kWarp), args, 0,
+                   static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -533,7 +581,7 @@ extern "C" int gather_segment_sum_f32(const void* h, const void* src,
                                       void* tickets, void* partials,
                                       int num_segments, int num_edges,
                                       int hidden, int device, void* stream) {
-  return launch(h, src, off, out, tickets, partials, num_segments,
+  return launch(h, src, nullptr, off, out, tickets, partials, num_segments,
                 num_edges, hidden, device, stream);
 }
 
@@ -543,7 +591,20 @@ extern "C" int segment_scatter_sum_f32(const void* g, const void* bgather,
                                        void* tickets, void* partials,
                                        int num_nodes, int num_edges,
                                        int hidden, int device, void* stream) {
-  return launch(g, bgather, boff, dh, tickets, partials, num_nodes,
+  return launch(g, bgather, nullptr, boff, dh, tickets, partials, num_nodes,
+                num_edges, hidden, device, stream);
+}
+
+// The weighted instance: out [num_segments, hidden] from h, src and w
+// [num_edges] and off, out[s] = sum of w[e] * h[src[e]] over segment s.
+// The GCN's Â·H over its target-sorted COO list and, over the list's
+// source-sorted transpose, that product's gradient.
+extern "C" int weighted_gather_segment_sum_f32(
+    const void* h, const void* src, const void* w, const void* off,
+    void* out, void* tickets, void* partials, int num_segments,
+    int num_edges, int hidden, int device, void* stream) {
+  if (w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(h, src, w, off, out, tickets, partials, num_segments,
                 num_edges, hidden, device, stream);
 }
 
@@ -565,15 +626,15 @@ extern "C" int ell_spmm_scratch(int num_segments, int num_edges, int hidden,
 extern "C" int ell_spmm_split() { return kSplit; }
 
 // The registers a thread of the float4 (vectorized_path != 0) or scalar
-// instance uses, as the compiler allotted them, into *regs; returns the
-// CUDA error code.
-extern "C" int ell_spmm_registers(int vectorized_path, int device,
-                                  int* regs) {
+// instance, weighted (weighted != 0) or not, uses, as the compiler
+// allotted them, into *regs; returns the CUDA error code.
+extern "C" int ell_spmm_registers(int vectorized_path, int weighted,
+                                  int device, int* regs) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaFuncAttributes attr;
-  const cudaError_t got =
-      cudaFuncGetAttributes(&attr, instance(vectorized_path != 0));
+  const cudaError_t got = cudaFuncGetAttributes(
+      &attr, instance(vectorized_path != 0, weighted != 0));
   if (got != cudaSuccess) return static_cast<int>(got);
   *regs = attr.numRegs;
   return 0;

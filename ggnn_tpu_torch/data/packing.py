@@ -1,7 +1,7 @@
 """Graph preprocessing and static-shape batch packing (numpy).
 
-A copy of the sparse and dense halves of `ggnn_tpu/data/packing.py`; its
-batches are bit-identical to that packer's. Sparse packing reproduces
+A copy of the sparse, dense and GCN halves of `ggnn_tpu/data/packing.py`;
+its batches are bit-identical to that packer's. Sparse packing reproduces
 the reference's node-budget super-graph packing
 (chem_tensorflow_sparse.py:278-350):
 graphs are appended while `node_offset + n < node_budget` (strict <),
@@ -18,8 +18,13 @@ Dense packing reproduces the bucketed padding scheme
 the reference's silent dropping of each bucket's remainder graphs
 (floor division at chem_tensorflow_dense.py:160).
 
-The blocked-ELL layout branch and the GCN half of the JAX packer are not
-ported.
+GCN packing stores the normalised adjacency D^-1/2 (A+I) D^-1/2 of each
+graph (chem_tensorflow_gcn.py:116-142, float64 math, +1e-7 on the
+D^-1/2 diagonal, edge types discarded) as a row-major, so target-sorted,
+weighted COO list packed under the sparse node budget (`gcn`), or as a
+dense [1, V, V] block per bucket for `pack_dense_batches` (`gcn_blocked`).
+
+The blocked-ELL layout branch of the JAX packer is not ported.
 """
 
 import dataclasses
@@ -27,7 +32,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from ggnn_tpu_torch.graph import DenseGraphBatch, GraphBatch
+from ggnn_tpu_torch.graph import DenseGraphBatch, GCNGraphBatch, GraphBatch
 from ggnn_tpu_torch.utils.padding import pad_to, round_up
 
 DENSE_BUCKET_SIZES = np.array(list(range(4, 28, 2)) + [29])
@@ -395,6 +400,17 @@ def preprocess_dense(raw_data: Sequence[Any], num_edge_types: int,
     Returns ({bucket index: [graph dict]}, bucket_sizes); each graph
     keeps its corpus index as "graph_id", so a consumer can scatter
     outputs back to request order."""
+    return _bucket_graphs(
+        raw_data, task_ids, task_sample_ratios, is_training, rng,
+        bucket_sizes, lambda edges, v, n_active: build_dense_adjacency(
+            edges, v, num_edge_types, tie_fwd_bkwd))
+
+
+def _bucket_graphs(raw_data, task_ids, task_sample_ratios, is_training,
+                   rng, bucket_sizes, adjacency):
+    """The dense family's bucketing: each graph into the smallest bucket
+    that holds it, its adjacency block `adjacency(edges, V, n_active)`,
+    features and node mask padded to the bucket's V."""
     if bucket_sizes is None:
         bucket_sizes = DENSE_BUCKET_SIZES
     bucketed: Dict[int, List[dict]] = {}
@@ -426,8 +442,7 @@ def preprocess_dense(raw_data: Sequence[Any], num_edge_types: int,
         mask = np.zeros(chosen_bucket_size, dtype=np.float32)
         mask[:n_active] = 1.0
         bucketed.setdefault(chosen_bucket_idx, []).append({
-            "adj_mat": build_dense_adjacency(
-                d["graph"], chosen_bucket_size, num_edge_types, tie_fwd_bkwd),
+            "adj_mat": adjacency(d["graph"], chosen_bucket_size, n_active),
             "init": init,
             "labels": _extract_labels(d, task_ids),
             "mask": mask,
@@ -503,4 +518,189 @@ def pack_dense_batches(bucketed: Dict[int, List[dict]],
             targets=values,
             target_mask=t_mask,
             num_graphs=np.int32(len(elements)),
+        )
+
+
+# --------------------------------------------------------------------
+# GCN (normalised single-type COO) preprocessing + packing
+# --------------------------------------------------------------------
+
+def _normalized_dense_adjacency(edges, num_nodes: int) -> np.ndarray:
+    """Symmetrised, self-looped, D^-1/2 (A+I) D^-1/2-normalised dense
+    [num_nodes, num_nodes] float64 matrix, chem_tensorflow_gcn.py:116-142
+    exactly, the +1e-7 on the D^-1/2 diagonal included. Edge types are
+    discarded."""
+    adj = np.zeros((num_nodes, num_nodes))
+    for src, _, dst in edges:
+        adj[src, dst] = 1
+        adj[dst, src] = 1
+    adj += np.eye(num_nodes)
+    row_sum = np.sum(adj, axis=-1)
+    d_inv_sqrt = np.diag(np.power(row_sum, -0.5).flatten() + 1e-7)
+    return d_inv_sqrt.dot(adj).dot(d_inv_sqrt)
+
+
+def normalized_adjacency_block(edges, v: int, n_active: int) -> np.ndarray:
+    """[1, v, v] float32 block of a graph's normalised adjacency (the
+    `gcn_blocked` batches' adjacency): padding rows and columns are zero,
+    so padded vertices neither send nor receive."""
+    adj = np.zeros((1, v, v), dtype=np.float32)
+    adj[0, :n_active, :n_active] = _normalized_dense_adjacency(edges,
+                                                               n_active)
+    return adj
+
+
+def graph_to_normalized_adjacency(edges, num_nodes: int):
+    """(coo [K, 2] int32 of (target, source), weights [K] float32): the
+    normalised adjacency's non-zeros in row-major order, the reference's
+    i/j loop order, so the list is sorted by target."""
+    _validate_vertex_ids(edges, num_nodes)
+    adj = _normalized_dense_adjacency(edges, num_nodes)
+    idx = np.nonzero(adj)
+    order = np.lexsort((idx[1], idx[0]))
+    coo = np.stack([idx[0][order], idx[1][order]], axis=1).astype(np.int32)
+    weights = adj[idx][order].astype(np.float32)
+    return coo, weights
+
+
+def preprocess_gcn(raw_data: Sequence[Any], task_ids: Sequence[int],
+                   task_sample_ratios: Dict, is_training: bool,
+                   rng: Optional[np.random.RandomState] = None) -> List[dict]:
+    processed = []
+    for d in raw_data:
+        coo, weights = graph_to_normalized_adjacency(
+            d["graph"], len(d["node_features"]))
+        processed.append({
+            "adjacency_list": coo,
+            "adjacency_weights": weights,
+            "init": np.asarray(d["node_features"], dtype=np.float32),
+            "labels": _extract_labels(d, task_ids),
+        })
+    if is_training:
+        if rng is not None:
+            rng.shuffle(processed)
+        _apply_task_sample_ratios(processed, task_ids, task_sample_ratios)
+    return processed
+
+
+def preprocess_gcn_dense(raw_data: Sequence[Any], task_ids: Sequence[int],
+                         task_sample_ratios: Dict, is_training: bool,
+                         rng: Optional[np.random.RandomState] = None,
+                         bucket_sizes: Optional[np.ndarray] = None):
+    """Bucket graphs with their normalised adjacency as a dense [1, V, V]
+    float block (one "type", so `pack_dense_batches` packs them), for the
+    `gcn_blocked` variant; the per-bucket task-ratio quirk of
+    `preprocess_dense` is kept."""
+    return _bucket_graphs(raw_data, task_ids, task_sample_ratios,
+                          is_training, rng, bucket_sizes,
+                          normalized_adjacency_block)
+
+
+def plan_gcn_capacities_from_walk(walk, node_budget: int,
+                                  margin: float = None) -> PackCapacities:
+    """The batch-composition walk over (num_nodes, coo_rows) per graph
+    in pack order."""
+    if margin is None:
+        margin = DEFAULT_PACK_MARGIN
+    max_graphs, max_edges = 1, 0
+    cur_nodes, cur_graphs, cur_edges = 0, 0, 0
+    for n, e in walk:
+        if n >= node_budget:
+            raise ValueError(
+                f"graph with {n} nodes cannot fit the node budget "
+                f"{node_budget} (strict '<' fit check); raise "
+                f"\"batch_size\" past {n}")
+        if cur_nodes + n >= node_budget and cur_graphs > 0:
+            max_graphs = max(max_graphs, cur_graphs)
+            max_edges = max(max_edges, cur_edges)
+            cur_nodes, cur_graphs, cur_edges = 0, 0, 0
+        cur_nodes += n
+        cur_graphs += 1
+        cur_edges += e
+    max_graphs = max(max_graphs, cur_graphs)
+    max_edges = max(max_edges, cur_edges)
+    return PackCapacities(
+        nodes=round_up(node_budget, 8),
+        edges_per_type=round_up(int(np.ceil(max_edges * margin)), 8),
+        graphs=round_up(int(np.ceil(max_graphs * margin)), 8),
+    )
+
+
+def plan_gcn_capacities(processed: Sequence[dict], node_budget: int,
+                        margin: float = None) -> PackCapacities:
+    return plan_gcn_capacities_from_walk(
+        ((len(g["init"]), len(g["adjacency_list"])) for g in processed),
+        node_budget, margin)
+
+
+def pack_gcn_batches(processed: List[dict], node_budget: int,
+                     caps: PackCapacities, hidden_size: int,
+                     annotation_size: int, is_training: bool,
+                     rng: Optional[np.random.RandomState] = None
+                     ) -> Iterator[GCNGraphBatch]:
+    """Pack graphs' normalised COO lists into padded super-graph batches
+    under the sparse node budget; `caps.edges_per_type` is the COO
+    capacity."""
+    if is_training and rng is not None:
+        processed = list(processed)  # copy: epoch shuffles must not compose
+        rng.shuffle(processed)
+    if not processed:
+        return  # empty split packs to zero batches
+    num_tasks = len(processed[0]["labels"])
+    idx = 0
+    while idx < len(processed):
+        feats, graph_ids, coos, weights, values, masks = [], [], [], [], [], []
+        node_offset, graphs_in_batch, edge_count = 0, 0, 0
+        while idx < len(processed):
+            g = processed[idx]
+            n = len(g["init"])
+            fits = (
+                node_offset + n < node_budget
+                and graphs_in_batch + 1 <= caps.graphs
+                and edge_count + len(g["adjacency_list"]) <= caps.edges_per_type
+            )
+            if not fits:
+                if graphs_in_batch == 0:
+                    raise ValueError(f"graph exceeds pack capacities {caps}")
+                break
+            feats.append(np.pad(g["init"],
+                                ((0, 0), (0, hidden_size - annotation_size))))
+            graph_ids.append(np.full(n, graphs_in_batch, dtype=np.int32))
+            coos.append(g["adjacency_list"] + node_offset)
+            weights.append(g["adjacency_weights"])
+            v, m = _labels_to_values_and_mask(g["labels"])
+            values.append(v)
+            masks.append(m)
+            idx += 1
+            graphs_in_batch += 1
+            node_offset += n
+            edge_count += len(g["adjacency_list"])
+
+        coo = np.concatenate(coos, axis=0)
+        k = len(coo)
+        e_cap = caps.edges_per_type
+        edge_sources = np.zeros(e_cap, dtype=np.int32)
+        edge_targets = np.full(e_cap, caps.nodes, dtype=np.int32)
+        edge_weights = np.zeros(e_cap, dtype=np.float32)
+        # The reference's SparseTensor is [target_row, source_col]
+        # (chem_tensorflow_gcn.py:64-69 computes A @ H over row-major
+        # COO): column 0 is the message's target, column 1 its source.
+        edge_targets[:k] = coo[:, 0]
+        edge_sources[:k] = coo[:, 1]
+        edge_weights[:k] = np.concatenate(weights)
+
+        yield GCNGraphBatch(
+            node_features=pad_to(
+                np.concatenate(feats, axis=0).astype(np.float32), caps.nodes),
+            node_graph_ids=pad_to(np.concatenate(graph_ids), caps.nodes,
+                                  fill=caps.graphs),
+            edge_sources=edge_sources,
+            edge_targets=edge_targets,
+            edge_weights=edge_weights,
+            targets=pad_to(np.asarray(values, dtype=np.float32).T.reshape(
+                num_tasks, graphs_in_batch), caps.graphs, axis=1),
+            target_mask=pad_to(np.asarray(masks, dtype=np.float32).T.reshape(
+                num_tasks, graphs_in_batch), caps.graphs, axis=1),
+            num_graphs=np.int32(graphs_in_batch),
+            num_nodes=np.int32(node_offset),
         )

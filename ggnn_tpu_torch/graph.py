@@ -1,7 +1,8 @@
-"""Static-shape graph-batch containers: sparse (typed edge lists) and
-dense (bucketed adjacency stacks).
+"""Static-shape graph-batch containers: sparse (typed edge lists), dense
+(bucketed adjacency stacks) and GCN (one weighted COO list).
 
-The packers emit a `GraphBatch` or a `DenseGraphBatch` of numpy arrays;
+The packers emit a `GraphBatch`, `DenseGraphBatch` or `GCNGraphBatch` of
+numpy arrays;
 `.to(device)` turns it into torch tensors on the device the model runs
 on. Fields, shapes and padding conventions are those of
 `ggnn_tpu/graph.py`, so a batch from either package's packer compares
@@ -131,5 +132,47 @@ class DenseGraphBatch:
         return self.node_features.shape[1]
 
     def to(self, device) -> "DenseGraphBatch":
+        """The same batch as torch tensors on `device`."""
+        return _to_device(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class GCNGraphBatch:
+    """A packed batch for the single-edge-type GCN variant: the
+    pre-normalised symmetric adjacency D^-1/2 (A+I) D^-1/2 as a weighted
+    COO edge list (reference: chem_tensorflow_gcn.py:116-142), sorted by
+    target, padding as in `GraphBatch` (source 0, target N, weight 0).
+
+    Shapes (N = node capacity, E = COO capacity, G = graph capacity):
+      node_features  [N, H] float32
+      node_graph_ids [N]    int32   — padding -> G
+      edge_sources   [E]    int32   — padding -> 0
+      edge_targets   [E]    int32   — padding -> N (dump slot)
+      edge_weights   [E]    float32 — 0.0 on padding
+      targets        [K, G] float32
+      target_mask    [K, G] float32
+      num_graphs     []     int32
+      num_nodes      []     int32
+    """
+
+    node_features: Any
+    node_graph_ids: Any
+    edge_sources: Any
+    edge_targets: Any
+    edge_weights: Any
+    targets: Any
+    target_mask: Any
+    num_graphs: Any
+    num_nodes: Any
+
+    @property
+    def node_capacity(self) -> int:
+        return self.node_features.shape[0]
+
+    @property
+    def graph_capacity(self) -> int:
+        return self.targets.shape[1]
+
+    def to(self, device) -> "GCNGraphBatch":
         """The same batch as torch tensors on `device`."""
         return _to_device(self, device)

@@ -25,14 +25,26 @@ Each has two entry points:
 `GatherSegmentSum` is the differentiable aggregation, the counterpart of
 `ell_aggregate_by_type.defvjp`: B1 forward, B2 backward.
 
+The weighted instance of the same kernel body,
+
+    out[s, :] = sum over e in [offsets[s], offsets[s+1]) of w[e] * h[src[e], :]
+
+is the edge-list GCN's Â·H over its target-sorted COO list
+(`weighted_gather_segment_sum`) and, over the list's source-sorted
+transpose, its gradient (`weighted_segment_scatter_sum`);
+`WeightedGatherSegmentSum` joins the two. It replaces no TPU kernel: the
+JAX GCN computes Â·H with XLA's sorted `segment_sum`
+(`ggnn_tpu/models/gcn.py:73-75`).
+
 A CPU tensor takes the plain version (`index_select` + `index_add_`); a
 CUDA tensor launches the kernel or raises. `launches` counts B1's kernel
-launches and `scatter_launches` B2's, so a run can show that its path
-went through the kernels; a call with an empty output launches nothing
-and counts nothing. The kernel cuts segments of more than `split_edges()`
-edges across warps and hands their partial sums over through scratch
-(tickets and partial rows), which the wrapper keeps per device and
-stream (`_scratch_for`).
+launches, `scatter_launches` B2's, `weighted_launches` and
+`weighted_scatter_launches` the weighted instance's forward and
+transpose, so a run can show that its path went through the kernels; a
+call with an empty output launches nothing and counts nothing. The
+kernel cuts segments of more than `split_edges()` edges across warps and
+hands their partial sums over through scratch (tickets and partial
+rows), which the wrapper keeps per device and stream (`_scratch_for`).
 """
 
 import ctypes
@@ -43,6 +55,8 @@ from ggnn_tpu_torch.ops.kernels import _build
 
 launches = 0
 scatter_launches = 0
+weighted_launches = 0
+weighted_scatter_launches = 0
 
 _entries = {}
 _ARGTYPES = {
@@ -52,12 +66,17 @@ _ARGTYPES = {
                               + [ctypes.c_void_p],
     "segment_scatter_sum_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                                + [ctypes.c_void_p],
+    # (x, idx, weights, offsets, out, tickets, partials, num_segments,
+    #  num_edges, hidden, device, stream)
+    "weighted_gather_segment_sum_f32": [ctypes.c_void_p] * 7
+                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p],
     # (num_segments, num_edges, hidden, tickets, partials)
     "ell_spmm_scratch": [ctypes.c_int] * 3
                         + [ctypes.POINTER(ctypes.c_int64)] * 2,
     "ell_spmm_split": [],
-    # (vectorized_path, device, regs)
-    "ell_spmm_registers": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)],
+    # (vectorized_path, weighted, device, regs)
+    "ell_spmm_registers": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
 }
 # (device index, stream) -> (tickets, partial rows): the kernel's scratch,
 # its int32 tickets 0 between calls (the kernel resets those it takes).
@@ -107,19 +126,53 @@ def _check(h, src, offsets, num_segments):
                          f"{h.device}, {src.device}, {offsets.device}")
 
 
+def _check_weights(src, weights):
+    if weights.dtype != torch.float32:
+        raise TypeError(f"weights must be float32, got {weights.dtype} "
+                        "(bf16 is ROADMAP A16)")
+    if weights.shape != src.shape:
+        raise ValueError(f"weights {tuple(weights.shape)} and src "
+                         f"{tuple(src.shape)} must have one entry an edge")
+    if not weights.is_contiguous():
+        raise ValueError("weights must be contiguous")
+    if weights.device != src.device:
+        raise ValueError(f"weights and src lie on different devices: "
+                         f"{weights.device}, {src.device}")
+
+
+def _segment_sum_plain(rows: torch.Tensor, offsets: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Row e of `rows` added into its edge's segment by `index_add_`;
+    edges outside [off[0], off[S]) go to a dump row."""
+    positions = torch.arange(rows.shape[0], device=rows.device)
+    seg = torch.searchsorted(offsets.long(), positions, right=True) - 1
+    seg = torch.where((seg < 0) | (seg >= num_segments), num_segments, seg)
+    out = torch.zeros(num_segments + 1, rows.shape[1], dtype=torch.float32,
+                      device=rows.device)
+    out.index_add_(0, seg, rows)
+    return out[:num_segments]
+
+
 def gather_segment_sum_reference(h: torch.Tensor, src: torch.Tensor,
                                  offsets: torch.Tensor,
                                  num_segments: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device: each edge's
     segment from the offsets, then `index_select` + `index_add_` in
     int64. Edges outside [off[0], off[S]) go to a dump row."""
-    positions = torch.arange(src.shape[0], device=h.device)
-    seg = torch.searchsorted(offsets.long(), positions, right=True) - 1
-    seg = torch.where((seg < 0) | (seg >= num_segments), num_segments, seg)
-    out = torch.zeros(num_segments + 1, h.shape[1], dtype=torch.float32,
-                      device=h.device)
-    out.index_add_(0, seg, h.index_select(0, src.long()))
-    return out[:num_segments]
+    return _segment_sum_plain(h.index_select(0, src.long()), offsets,
+                              num_segments)
+
+
+def weighted_gather_segment_sum_reference(h: torch.Tensor,
+                                          src: torch.Tensor,
+                                          weights: torch.Tensor,
+                                          offsets: torch.Tensor,
+                                          num_segments: int) -> torch.Tensor:
+    """Plain PyTorch version of the weighted instance, on any device:
+    `index_select` * weights, then `index_add_` into a dump-slotted
+    output."""
+    return _segment_sum_plain(h.index_select(0, src.long()) * weights[:, None],
+                              offsets, num_segments)
 
 
 def _scratch_for(device: torch.device, stream: int, num_tickets: int,
@@ -139,10 +192,10 @@ def _scratch_for(device: torch.device, stream: int, num_tickets: int,
     return tickets, partials
 
 
-def _launch(entry: str, h, src, offsets, num_segments):
+def _launch(entry: str, h, src, offsets, num_segments, weights=None):
     """(out, launched): one launch of a kernel of csrc/ell_spmm.cu on a
     CUDA tensor, none when the output is empty; the caller has run
-    `_check`."""
+    `_check` (and `_check_weights` for the weighted entry point)."""
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
     out = torch.empty(num_segments, h.shape[1], dtype=torch.float32,
@@ -159,10 +212,11 @@ def _launch(entry: str, h, src, offsets, num_segments):
     stream = torch.cuda.current_stream(h.device).cuda_stream
     tickets, partials = _scratch_for(h.device, stream, num_tickets.value,
                                      num_partials.value)
+    inputs = [h, src] + ([] if weights is None else [weights]) + [offsets]
     rc = _kernel(entry)(
-        h.data_ptr(), src.data_ptr(), offsets.data_ptr(), out.data_ptr(),
-        tickets.data_ptr(), partials.data_ptr(), num_segments, num_edges,
-        h_dim, h.device.index, stream)
+        *(x.data_ptr() for x in inputs), out.data_ptr(), tickets.data_ptr(),
+        partials.data_ptr(), num_segments, num_edges, h_dim, h.device.index,
+        stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     return out, True
@@ -209,6 +263,45 @@ def segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
     return dh
 
 
+def _weighted(h, src, weights, offsets, num_segments):
+    """(out, launched) of the weighted instance: the plain version on a
+    CPU tensor, one launch (or none for an empty output) on a CUDA one."""
+    _check(h, src, offsets, num_segments)
+    _check_weights(src, weights)
+    if h.device.type == "cpu":
+        return weighted_gather_segment_sum_reference(
+            h, src, weights, offsets, num_segments), False
+    return _launch("weighted_gather_segment_sum_f32", h, src, offsets,
+                   num_segments, weights)
+
+
+def weighted_gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
+                                weights: torch.Tensor, offsets: torch.Tensor,
+                                num_segments: int) -> torch.Tensor:
+    """The weighted instance: out [S, H] f32 with out[s] = sum of
+    weights[e] * h[src[e]] over the edges of segment s (`offsets` from
+    `segment_offsets`), the GCN's Â·H over its target-sorted COO list.
+    Indices must lie in [0, N): the packers guarantee it, and the kernel
+    does not check."""
+    global weighted_launches
+    out, launched = _weighted(h, src, weights, offsets, num_segments)
+    weighted_launches += launched
+    return out
+
+
+def weighted_segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
+                                 bweights: torch.Tensor, boff: torch.Tensor,
+                                 num_nodes: int) -> torch.Tensor:
+    """The weighted instance over a source-sorted transpose (see
+    `weighted_transpose_layout`): dh [N, H] f32 with dh[n] = sum of
+    bweights[e] * g[bgather[e]] over the out-edges e of n, the gradient
+    of `weighted_gather_segment_sum`. Counted apart from the forward."""
+    global weighted_scatter_launches
+    dh, launched = _weighted(g, bgather, bweights, boff, num_nodes)
+    weighted_scatter_launches += launched
+    return dh
+
+
 def split_edges() -> int:
     """The most edges of a segment that the kernel does not cut, and the
     edges of each further piece of a cut one: a constant of
@@ -216,30 +309,49 @@ def split_edges() -> int:
     return _kernel("ell_spmm_split")()
 
 
-def registers(vectorized_path: bool, device=None) -> int:
+def registers(vectorized_path: bool, device=None,
+              weighted: bool = False) -> int:
     """Registers a thread of the kernel's float4 (`vectorized_path`) or
-    scalar instance uses on the card `device`, as the compiler allotted
-    them; B1 and B2 share both instances."""
+    scalar instance, of B1 and B2 or `weighted`, uses on the card
+    `device`, as the compiler allotted them; B1 and B2 share their two
+    instances."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     regs = ctypes.c_int(0)
-    rc = _kernel("ell_spmm_registers")(int(vectorized_path), index,
-                                       ctypes.byref(regs))
+    rc = _kernel("ell_spmm_registers")(int(vectorized_path), int(weighted),
+                                       index, ctypes.byref(regs))
     if rc != 0:
         raise RuntimeError(f"ell_spmm_registers failed: CUDA error {rc}")
     return regs.value
+
+
+def _source_order(sources: torch.Tensor, num_nodes: int):
+    """(perm, boff): the stable sort of the edges by source, which keeps
+    each source's edges in their forward order, and the CSR offsets over
+    the sources. An edge whose source is num_nodes sorts past boff[N]."""
+    perm = torch.argsort(sources, stable=True)
+    return perm, segment_offsets(sources[perm], num_nodes)
 
 
 def transpose_layout(sources: torch.Tensor, gather_ids: torch.Tensor,
                      num_nodes: int):
     """(bgather, boff) for B2 from the REAL edges of an aggregation:
     `sources` [E] their source nodes, `gather_ids` [E] the rows of the
-    aggregation's output they feed. A stable sort by source keeps each
-    source's edges in their forward order."""
-    perm = torch.argsort(sources, stable=True)
-    sorted_sources = sources[perm]
-    bgather = gather_ids[perm].to(torch.int32).contiguous()
-    return bgather, segment_offsets(sorted_sources, num_nodes)
+    aggregation's output they feed."""
+    perm, boff = _source_order(sources, num_nodes)
+    return gather_ids[perm].to(torch.int32).contiguous(), boff
+
+
+def weighted_transpose_layout(sources: torch.Tensor,
+                              gather_ids: torch.Tensor,
+                              weights: torch.Tensor, num_nodes: int):
+    """(bgather, bweights, boff) for `weighted_segment_scatter_sum`: as
+    `transpose_layout`, with the edges' weights permuted by the same
+    stable sort. Edges with source `num_nodes` (pads) sort past boff[N]
+    and are never read."""
+    perm, boff = _source_order(sources, num_nodes)
+    return (gather_ids[perm].to(torch.int32).contiguous(),
+            weights[perm].contiguous(), boff)
 
 
 class GatherSegmentSum(torch.autograd.Function):
@@ -269,6 +381,41 @@ class GatherSegmentSum(torch.autograd.Function):
         dh = segment_scatter_sum(dper.contiguous(), bgather, boff,
                                  ctx.num_nodes)
         return dh, None, None, None, None, None
+
+
+class WeightedGatherSegmentSum(torch.autograd.Function):
+    """The GCN's differentiable Â·H: the weighted instance over the
+    target-sorted edges forward, the weighted instance over their
+    source-sorted transpose backward.
+
+    `apply(h, src, weights, offsets, num_segments, bgather, bweights,
+    boff)`; the weights and indices are data and get no gradient, and
+    (bgather, bweights, boff) is `weighted_transpose_layout` of the
+    edges, or None where no gradient will be asked for. The transpose is
+    the real one: Â need not be symmetric."""
+
+    @staticmethod
+    def forward(ctx, h, src, weights, offsets, num_segments, bgather,
+                bweights, boff):
+        ctx.num_nodes = h.shape[0]
+        ctx.save_for_backward(bgather, bweights, boff)
+        ctx.has_transpose = bgather is not None
+        return weighted_gather_segment_sum(h, src, weights, offsets,
+                                           num_segments)
+
+    @staticmethod
+    def backward(ctx, dout):
+        if not ctx.needs_input_grad[0]:
+            return (None,) * 8
+        if not ctx.has_transpose:
+            raise RuntimeError(
+                "the weighted aggregation's gradient needs its transpose "
+                "layout (bgather, bweights, boff); none was given to the "
+                "forward")
+        bgather, bweights, boff = ctx.saved_tensors
+        dh = weighted_segment_scatter_sum(dout.contiguous(), bgather,
+                                          bweights, boff, ctx.num_nodes)
+        return (dh,) + (None,) * 7
 
 
 def ell_aggregate_by_type_reference(h: torch.Tensor, fwd_src: torch.Tensor,

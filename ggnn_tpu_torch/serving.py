@@ -1,28 +1,30 @@
 """Inference serving: checkpoint -> batched predictor on the GPU.
 
 Port of `ggnn_tpu/serving.py:Predictor` for the `sparse`, `rgcn`,
-`dense` and `blocked` variants. A `Predictor`
+`dense`, `blocked`, `gcn` and `gcn_blocked` variants. A `Predictor`
 
   * loads a pickle checkpoint of either package without any training
-    data; the edge-type count comes from the saved edge weights;
-  * packs sparse-family requests into a fixed serving envelope
+    data; the edge-type count comes from the saved edge weights (1 for
+    the GCN variants, which discard edge types);
+  * packs sparse-family and `gcn` requests into a fixed serving envelope
     (`max_nodes`, `max_graphs`), so every batch has the same shapes, and
-    micro-batches requests that exceed it; dense-family requests are
-    packed bucket by bucket into batches of the config's `batch_size`
-    graphs (the bucket table is the envelope), and the answers are put
-    back in request order;
+    micro-batches requests that exceed it; dense-family requests
+    (`dense`, `blocked`, `gcn_blocked`) are packed bucket by bucket into
+    batches of the config's `batch_size` graphs (the bucket table is the
+    envelope), and the answers are put back in request order;
   * runs the forward pass on the GPU unless asked otherwise
     (`device="cpu"`): the sparse family through the gather +
-    segment-sum CUDA kernel, the dense family through cuBLAS products.
+    segment-sum CUDA kernel, `gcn` through its weighted instance, the
+    dense family through cuBLAS products.
 
 Example:
     predictor = Predictor.from_checkpoint("run_model_best.pickle",
                                           variant="sparse")
     mu = predictor(molecule_jsons)      # np.ndarray [K, n_graphs]
 
-Not ported yet: the GCN and async variants (ROADMAP A7, A8), the native
-C++ packer (A12), the bf16 adjacency of `compute_dtype: bfloat16` (A16),
-the HTTP server and exported artifacts (A10).
+Not ported yet: the async variant (ROADMAP A8), the native C++ packer
+(A12), the bf16 adjacency of `compute_dtype: bfloat16` (A16), the HTTP
+server and exported artifacts (A10).
 """
 
 from typing import Dict, List, Optional, Sequence
@@ -40,8 +42,10 @@ from ggnn_tpu_torch.training.config import default_params_for
 from ggnn_tpu_torch.training.variants import make_adapter
 from ggnn_tpu_torch.utils.device import resolve_device
 
-_DENSE_FAMILY = ("dense", "blocked")
-_SERVED = ("sparse", "rgcn") + _DENSE_FAMILY
+_DENSE_FAMILY = ("dense", "blocked", "gcn_blocked")
+# Packed into the fixed envelope.
+_ENVELOPE_FAMILY = ("sparse", "rgcn", "gcn")
+_SERVED = _ENVELOPE_FAMILY + _DENSE_FAMILY
 # Where the models keep their edge weights [T, H, H]: the layered ones
 # (sparse, rgcn, blocked) per layer, the reference dense model once.
 _EDGE_WEIGHT_KEYS = ("['params']['graph']['layers'][0]['edge_weights']",
@@ -56,10 +60,12 @@ def _check_variant(variant: str) -> None:
 
 
 def _infer_geometry(payload: Dict, variant: str, config: Dict):
-    """(num_edge_types, hidden): T from the saved edge-weight tensor,
-    hidden from the config."""
+    """(num_edge_types, hidden): T from the saved edge-weight tensor (1
+    for the GCN variants, which have none), hidden from the config."""
     weights = payload["weights"]
     hidden = int(config["hidden_size"])
+    if variant in ("gcn", "gcn_blocked"):
+        return 1, hidden
     if variant in _SERVED:
         for key in _EDGE_WEIGHT_KEYS:
             if key in weights:
@@ -70,8 +76,8 @@ def _infer_geometry(payload: Dict, variant: str, config: Dict):
 
 
 class Predictor:
-    """Batched forward pass over a fixed serving envelope (sparse
-    family) or the bucket table (dense family)."""
+    """Batched forward pass over a fixed serving envelope (sparse family
+    and `gcn`) or the bucket table (dense family)."""
 
     def __init__(self, variant: str, config: Dict, meta: DatasetMeta,
                  params: ModelParams, max_nodes: int = 2048,
@@ -151,13 +157,19 @@ class Predictor:
     # ----------------------------------------------------------- batches
 
     def _batches(self, raw_graphs: Sequence, annotation_size: int):
-        """The sparse family's envelope batches of a request."""
+        """The envelope batches of a sparse-family or `gcn` request."""
         cfg = self.config
         # The packer's fit check is strict (`offset + n < budget`,
         # reference semantics), so budget = envelope + 1 lets a request
         # graph of exactly max_nodes through — the arrays are sized by
         # caps.nodes either way.
         node_budget = self.caps.nodes + 1
+        if self.variant == "gcn":
+            processed = packing.preprocess_gcn(raw_graphs, self.task_ids,
+                                               {}, False)
+            return packing.pack_gcn_batches(
+                processed, node_budget, self.caps, cfg["hidden_size"],
+                annotation_size, False, None)
         processed = packing.preprocess_sparse(
             raw_graphs, self.meta.num_edge_types, cfg["tie_fwd_bkwd"],
             self.task_ids, {}, False)
@@ -203,7 +215,7 @@ class Predictor:
                     f"graph {i}: edge vertex id out of range [0, {n})")
         if self.variant in _DENSE_FAMILY:
             return self._call_dense(raw_graphs, annotation_size)
-        if len(raw_graphs) == 1:
+        if len(raw_graphs) == 1 and self.variant != "gcn":
             batch = self._pack_single_sparse(raw_graphs[0], annotation_size)
             return self._forward(batch)[:, :1]
         outs: List[np.ndarray] = []
@@ -327,9 +339,11 @@ class Predictor:
         graph's bucket, row 0 of a zeroed [batch_size, ...] batch filled
         directly — the same batch, leaf for leaf, as the corpus packer's
         for a 1-graph request, without its bucketed-dict plumbing.
-        Semantics of data/packing.py: preprocess_dense +
-        pack_dense_batches (bucket by max(max_vertex + 1, rows), phantom
-        vertices rejected, [T, V, V] adjacency, labels -> values/mask)."""
+        Semantics of data/packing.py: preprocess_dense (or
+        preprocess_gcn_dense) + pack_dense_batches (bucket by
+        max(max_vertex + 1, rows), phantom vertices rejected, [T, V, V]
+        adjacency or the [1, V, V] normalised GCN block, labels ->
+        values/mask)."""
         cfg = self.config
         sizes = self.adapter._bucket_sizes()
         sizes = packing.DENSE_BUCKET_SIZES if sizes is None else sizes
@@ -356,8 +370,11 @@ class Predictor:
         node_mask = np.zeros((b_cap, v), np.float32)
         node_mask[0, :n] = 1.0
         adjacency = np.zeros((b_cap, t_dim, v, v), np.float32)
-        adjacency[0] = packing.build_dense_adjacency(edges, v, t_dim,
-                                                     cfg["tie_fwd_bkwd"])
+        if self.variant == "gcn_blocked":
+            adjacency[0] = packing.normalized_adjacency_block(edges, v, n)
+        else:
+            adjacency[0] = packing.build_dense_adjacency(
+                edges, v, t_dim, cfg["tie_fwd_bkwd"])
         targets, target_mask = self._single_graph_targets(g, b_cap)
         return DenseGraphBatch(
             node_features=init, adjacency=adjacency, node_mask=node_mask,

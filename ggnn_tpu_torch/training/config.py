@@ -85,6 +85,27 @@ BLOCKED_DEFAULTS: Dict = {
     "dense_bucket_sizes": [8, 16, 24, 32],
 }
 
+# chem_tensorflow_gcn.py:32-40
+GCN_DEFAULTS: Dict = {
+    **BASE_DEFAULTS,
+    "batch_size": 100000,  # nodes
+    "task_sample_ratios": {},
+    "gcn_use_bias": False,
+    "graph_state_dropout_keep_prob": 1.0,
+}
+
+# The JAX package's own variant: GCN math (models/gcn.py:BlockedGCN) on
+# the dense bucketed path.
+GCN_BLOCKED_DEFAULTS: Dict = {
+    **BASE_DEFAULTS,
+    "batch_size": 256,  # graphs (dense bucketed batching)
+    "task_sample_ratios": {},
+    "gcn_use_bias": False,
+    "graph_state_dropout_keep_prob": 1.0,
+    # Coarse buckets: the same math (padding is masked), fewer shapes.
+    "dense_bucket_sizes": [8, 16, 24, 32],
+}
+
 # README.md:48-52 — R-GCN is the sparse model under this config.
 RGCN_CONFIG: Dict = {
     "use_edge_bias": False,
@@ -97,13 +118,15 @@ RGCN_CONFIG: Dict = {
 
 # Variants of the JAX package that this package does not port yet, and
 # the ROADMAP item that ports each.
-_NOT_PORTED = {"gcn": "A7", "gcn_blocked": "A7", "async": "A8"}
+_NOT_PORTED = {"async": "A8"}
 
 _VARIANT_DEFAULTS = {
     "sparse": SPARSE_DEFAULTS,
     "rgcn": {**SPARSE_DEFAULTS, **RGCN_CONFIG},
     "dense": DENSE_DEFAULTS,
     "blocked": BLOCKED_DEFAULTS,
+    "gcn": GCN_DEFAULTS,
+    "gcn_blocked": GCN_BLOCKED_DEFAULTS,
 }
 
 

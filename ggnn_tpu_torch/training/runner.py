@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.data.loader import infer_metadata, load_graphs_json
-from ggnn_tpu_torch.graph import DenseGraphBatch
+from ggnn_tpu_torch.graph import DenseGraphBatch, GCNGraphBatch
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss)
 from ggnn_tpu_torch.training.checkpoint import (restore_checkpoint,
@@ -52,9 +52,12 @@ from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
 
 
 def _batch_edge_count(batch) -> float:
-    """Real (unpadded) edge count of one numpy batch."""
+    """Real (unpadded) edge count of one numpy batch: the GCN's counts
+    its COO rows, self-loops included, as the JAX Runner does."""
     if isinstance(batch, DenseGraphBatch):
         return float(np.count_nonzero(batch.adjacency))
+    if isinstance(batch, GCNGraphBatch):
+        return float(np.count_nonzero(batch.edge_weights))
     return float(np.asarray(batch.edge_mask).sum())
 
 

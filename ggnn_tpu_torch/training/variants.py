@@ -1,8 +1,8 @@
 """Per-variant adapters: model construction, preprocessing and packing
 behind one interface, so the Runner (training/runner.py) is
-model-agnostic. The port of `ggnn_tpu/training/variants.py`, with the
-sparse adapter (variants `sparse` and `rgcn`) and the dense one
-(variants `dense` and `blocked`).
+model-agnostic. The port of `ggnn_tpu/training/variants.py`: the sparse
+adapter (variants `sparse` and `rgcn`), the dense one (`dense` and
+`blocked`), the GCN one (`gcn`) and the dense GCN one (`gcn_blocked`).
 
 The adapters pack with the port's numpy packer (data/packing.py), whose
 batches are bit-identical to the JAX package's numpy packer. A config's
@@ -18,6 +18,7 @@ import torch
 from ggnn_tpu_torch.data import packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
+from ggnn_tpu_torch.models.gcn import GCN, BlockedGCN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.training.config import default_params_for
 
@@ -26,6 +27,21 @@ def _nonempty(p) -> bool:
     if isinstance(p, (list, tuple, dict)):
         return len(p) > 0
     return p is not None
+
+
+def _merged_caps(caps) -> packing.PackCapacities:
+    """The field-wise largest of the splits' planned capacities."""
+    if not caps:
+        raise ValueError(
+            "every data split is empty — nothing to plan capacities "
+            "over (check the data files / --restrict_data / "
+            "task_sample_ratios)")
+    return packing.PackCapacities(
+        nodes=max(c.nodes for c in caps),
+        edges_per_type=max(c.edges_per_type for c in caps),
+        graphs=max(c.graphs for c in caps),
+        edges_all=max(c.edges_all for c in caps),
+    )
 
 
 class SparseAdapter:
@@ -48,23 +64,12 @@ class SparseAdapter:
 
     def plan(self, *processed_lists) -> packing.PackCapacities:
         margin = self.config.get("pack_margin")
-        caps = [packing.plan_capacities(p, self.meta.num_edge_types,
-                                        self.config["batch_size"],
-                                        margin=margin)
-                for p in processed_lists if _nonempty(p)]
-        if not caps:
-            raise ValueError(
-                "every data split is empty — nothing to plan capacities "
-                "over (check the data files / --restrict_data / "
-                "task_sample_ratios)")
         # Merge every field across splits: dropping edges_all would
         # disable the type-combined lane the model needs.
-        self.caps = packing.PackCapacities(
-            nodes=max(c.nodes for c in caps),
-            edges_per_type=max(c.edges_per_type for c in caps),
-            graphs=max(c.graphs for c in caps),
-            edges_all=max(c.edges_all for c in caps),
-        )
+        self.caps = _merged_caps([
+            packing.plan_capacities(p, self.meta.num_edge_types,
+                                    self.config["batch_size"], margin=margin)
+            for p in processed_lists if _nonempty(p)])
         return self.caps
 
     def batches(self, processed, is_training: bool,
@@ -121,19 +126,82 @@ class DenseAdapter:
             is_training, rng, drop_remainder=self.drop_remainder)
 
 
+class GCNAdapter:
+    """`gcn`: normalised COO lists packed under the sparse node budget,
+    capacities planned over every split."""
+    name = "gcn"
+
+    def __init__(self, config: Dict, meta: DatasetMeta):
+        self.config = config
+        self.meta = meta
+        self.caps = None
+
+    def build_model(self, generator: torch.Generator) -> GCN:
+        return GCN(self.config, generator)
+
+    def preprocess(self, raw, is_training: bool,
+                   rng: Optional[np.random.RandomState] = None):
+        return packing.preprocess_gcn(
+            raw, self.config["task_ids"], self.config["task_sample_ratios"],
+            is_training, rng)
+
+    def plan(self, *processed_lists) -> packing.PackCapacities:
+        margin = self.config.get("pack_margin")
+        self.caps = _merged_caps([
+            packing.plan_gcn_capacities(p, self.config["batch_size"],
+                                        margin=margin)
+            for p in processed_lists if _nonempty(p)])
+        return self.caps
+
+    def batches(self, processed, is_training: bool,
+                rng: Optional[np.random.RandomState] = None) -> Iterator:
+        return packing.pack_gcn_batches(
+            processed, self.config["batch_size"], self.caps,
+            self.config["hidden_size"], self.meta.annotation_size,
+            is_training, rng)
+
+
+class GcnBlockedAdapter(DenseAdapter):
+    """`gcn_blocked`: GCN math on the bucketed dense path. The dense
+    adapter's batching, with the normalised [1, V, V] adjacency of
+    `preprocess_gcn_dense` and `BlockedGCN`. Drops no bucket remainder
+    unless the config's `drop_remainder` says so."""
+    name = "gcn_blocked"
+
+    def __init__(self, config: Dict, meta: DatasetMeta,
+                 drop_remainder: Optional[bool] = None):
+        if drop_remainder is None:
+            drop_remainder = bool(config.get("drop_remainder", False))
+        super().__init__(config, meta, drop_remainder)
+
+    def build_model(self, generator: torch.Generator) -> BlockedGCN:
+        return BlockedGCN(self.config, generator)
+
+    def preprocess(self, raw, is_training: bool,
+                   rng: Optional[np.random.RandomState] = None):
+        bucketed, self.bucket_sizes = packing.preprocess_gcn_dense(
+            raw, self.config["task_ids"], self.config["task_sample_ratios"],
+            is_training, rng, bucket_sizes=self._bucket_sizes())
+        return bucketed
+
+
 def make_adapter(variant: str, config: Dict, meta: DatasetMeta,
                  drop_remainder: Optional[bool] = None):
     """The adapter of a variant. `drop_remainder` (dense family only)
     overrides the config; by default `dense` keeps the reference's
-    remainder dropping and `blocked` processes every graph, and the
-    config key `drop_remainder` wins in both."""
+    remainder dropping and `blocked` and `gcn_blocked` process every
+    graph, and the config key `drop_remainder` wins in each."""
     if variant in ("sparse", "rgcn"):
         return SparseAdapter(config, meta)
     if variant in ("dense", "blocked"):
         if variant == "blocked" and drop_remainder is None:
             drop_remainder = bool(config.get("drop_remainder", False))
         return DenseAdapter(config, meta, drop_remainder)
-    # Raises NotImplementedError naming the ROADMAP item (A6, A7, A8) of
-    # a known variant, ValueError for an unknown one.
+    if variant == "gcn":
+        return GCNAdapter(config, meta)
+    if variant == "gcn_blocked":
+        return GcnBlockedAdapter(config, meta, drop_remainder)
+    # Raises NotImplementedError naming the ROADMAP item (A8) of a known
+    # variant, ValueError for an unknown one.
     default_params_for(variant)
     raise ValueError(f"unknown model variant '{variant}'")

@@ -1,8 +1,9 @@
 """The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, B2, its
-transpose, and B3, the gather-floor probe's row gather) against their
-plain PyTorch versions, the autograd Function and one training step, on
-the card; and the dense family (cuBLAS products, no hand kernel), whose
-forward and train step must match the CPU and launch none of the three.
+transpose, B3, the gather-floor probe's row gather, and the weighted
+instance of B1's body, the GCN's Â·H) against their plain PyTorch
+versions, the autograd Functions and one training step, on the card; the
+dense family (cuBLAS products, no hand kernel), whose forward and train
+step must match the CPU and launch none of the kernels; and `time_ms`.
 Every test here needs an NVIDIA GPU and skips without one. The file
 imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -24,6 +25,7 @@ from ggnn_tpu_torch.data import packing
 from ggnn_tpu_torch.data.synthetic import synthetic_molecules
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
+from ggnn_tpu_torch.models.gcn import GCN, BlockedGCN, gcn_edges
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
 from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
@@ -32,6 +34,7 @@ from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
 from ggnn_tpu_torch.training.config import (default_params_for,
                                             resolve_config)
 from ggnn_tpu_torch.training.runner import Runner
+from ggnn_tpu_torch.utils.timing import time_ms
 
 torch.set_num_threads(1)
 
@@ -486,7 +489,8 @@ def test_gather_rows_registers_are_reported(cuda):
 
 def _launch_counts():
     return (ell_spmm.launches, ell_spmm.scatter_launches,
-            gather_floor.launches)
+            gather_floor.launches, ell_spmm.weighted_launches,
+            ell_spmm.weighted_scatter_launches)
 
 
 def _dense_batch(variant, n_graphs=256, seed=9):
@@ -543,6 +547,242 @@ def test_dense_train_step_on_the_card_matches_cpu(cuda, variant, tmp_path):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert _launch_counts() == before
+    loss_gpu, _, grads_gpu = results["cuda"]
+    loss_cpu, _, grads_cpu = results["cpu"]
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for name, g_cpu in grads_cpu.items():
+        g_gpu = grads_gpu[name].cpu()
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, f"{name}: relative L2 error {rel:.3e}"
+
+
+def test_time_ms_of_a_call_of_hundreds_of_kernels_does_not_depend_on_iters(
+        cuda):
+    """A `dense` inference forward and readout (hundreds of kernels a
+    call): 50 calls fill the launch queue, so time_ms queues them in
+    groups behind their own sleeps; the device time must agree with that
+    of 5 calls within 20%."""
+    config, batch = _dense_batch("dense")
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(DenseGGNN(config, 4, gen),
+                         init_output_heads(gen, 100, [0])).to(cuda).eval()
+    on_card = batch.to(cuda)
+
+    def forward():
+        with torch.inference_mode():
+            return params.graph.readout(params.heads, [0],
+                                        params.graph(on_card), on_card)
+
+    ms_50, _ = time_ms(forward)
+    ms_5, _ = time_ms(forward, iters=5)
+    assert abs(ms_50 - ms_5) <= 0.2 * ms_5, (ms_50, ms_5)
+
+
+# ------------------------------------------------ the weighted instance
+
+W_KERNELS = ("weighted_gather_segment_sum", "weighted_segment_scatter_sum")
+
+
+def _gcn_batch(n_graphs=300, seed=3, nodes=2048):
+    """A GCN batch packed as Predictor packs a request at the default
+    envelope (N 2048, COO capacity 16,384)."""
+    caps = packing.PackCapacities(nodes=nodes, edges_per_type=8 * nodes,
+                                  graphs=256, edges_all=8 * nodes)
+    proc = packing.preprocess_gcn(synthetic_molecules(n_graphs, seed), [0],
+                                  {}, False)
+    return next(packing.pack_gcn_batches(proc, nodes + 1, caps, 100, 5,
+                                         False, None))
+
+
+@pytest.mark.parametrize("h_dim,aligned", [(100, True), (37, True),
+                                           (100, False)])
+@pytest.mark.parametrize("name", W_KERNELS)
+def test_weighted_kernel_matches_plain(cuda, name, h_dim, aligned):
+    """The forward over the envelope batch's target-sorted COO list and
+    the transpose over its source-sorted one, against the plain version;
+    each call counts one launch of its own counter and none of B1's or
+    B2's."""
+    b = _gcn_batch().to(cuda)
+    n_cap = b.node_capacity
+    src, weights, offsets, transpose = gcn_edges(b, n_cap, True, True)
+    idx, w, off = ((src, weights, offsets) if name == W_KERNELS[0]
+                   else transpose)
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    flat = torch.randn(n_cap * h_dim + 1, generator=gen, device=cuda)
+    x = (flat[:-1] if aligned else flat[1:]).view(n_cap, h_dim)
+    before = _launch_counts()
+    got = getattr(ell_spmm, name)(x, idx, w, off, n_cap)
+    torch.cuda.synchronize()
+    after = _launch_counts()
+    counter = 3 if name == W_KERNELS[0] else 4
+    assert [a - b for a, b in zip(after, before)] == [
+        int(i == counter) for i in range(5)]
+    torch.testing.assert_close(
+        got, ell_spmm.weighted_gather_segment_sum_reference(x, idx, w, off, n_cap), **TOL)
+
+
+def _eighth_weights(rng, n, device):
+    return torch.from_numpy(rng.integers(-8, 9, n).astype(np.float32)
+                            / 8).to(device)
+
+
+@pytest.mark.parametrize("layout", ["hub", "lengths around the split",
+                                    "one segment holds every edge",
+                                    "all segments empty", "off[0] > 0"])
+@pytest.mark.parametrize("name", W_KERNELS)
+def test_weighted_kernel_sums_exactly(cuda, name, layout):
+    """Rows and weights in multiples of 1/8, so every product and partial
+    sum is exact in f32: the weighted kernel must equal its plain version
+    bit for bit on hubs (cut into pieces across warps), segments around
+    the split, empty segments, and with pads poisoned outside
+    [off[0], off[S])."""
+    c = ell_spmm.split_edges()
+    rng = np.random.default_rng(len(layout) * 7 + len(name))
+    before = 0
+    if layout == "hub":
+        counts = [0] * 2000 + [5000] + [3] * 100 + [0] * 1000
+    elif layout == "lengths around the split":
+        counts = [n for k in range(3 * c)
+                  for n in (0, 1, c - 1, c, c + 1, 2 * c + 1, 17 * c)][:400]
+    elif layout == "one segment holds every edge":
+        counts = [0] * 300 + [5000] + [0] * 300
+    elif layout == "all segments empty":
+        counts = [0] * 1000
+    else:
+        counts, before = rng.integers(0, 150, 400), 333
+    rows = 3000
+    x = _eighths(rng, rows, 100, cuda)
+    idx, clean, offsets = _csr(rng, counts, rows, cuda, before, after=9)
+    w = _eighth_weights(rng, idx.shape[0], cuda)
+    got = getattr(ell_spmm, name)(x, idx, w, offsets, len(counts))
+    torch.cuda.synchronize()
+    want = ell_spmm.weighted_gather_segment_sum_reference(x, clean, w, offsets, len(counts))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    empty = torch.from_numpy(np.asarray(counts) == 0).to(cuda)
+    assert not got[empty].any()
+
+
+@pytest.mark.parametrize("shape", ["envelope", "hub"])
+@pytest.mark.parametrize("name", W_KERNELS)
+def test_weighted_kernel_two_calls_give_the_same_bits(cuda, name, shape):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    if shape == "hub":
+        rng = np.random.default_rng(12)
+        counts = [0] * 2000 + [5000] + [3] * 100 + [0] * 1000
+        idx, _, off = _csr(rng, counts, 3000, cuda)
+        w = torch.rand(idx.shape[0], generator=gen, device=cuda)
+        rows, num_segments = 3000, len(counts)
+    else:
+        b = _gcn_batch(seed=13).to(cuda)
+        src, weights, offsets, transpose = gcn_edges(b, b.node_capacity,
+                                                     True, True)
+        idx, w, off = ((src, weights, offsets) if name == W_KERNELS[0]
+                       else transpose)
+        rows = num_segments = b.node_capacity
+    x = torch.randn(rows, 100, generator=gen, device=cuda)
+    kernel = getattr(ell_spmm, name)
+    first = kernel(x, idx, w, off, num_segments)
+    second = kernel(x, idx, w, off, num_segments)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_segment_kernel_registers_of_every_instance(cuda):
+    """B1's and B2's instances keep the registers they had before the
+    weighted instance joined the body (float4 62, scalar 51); the
+    weighted instances stay within the 64 that 4 blocks of 256 allow."""
+    assert ell_spmm.registers(True, cuda) == 62
+    assert ell_spmm.registers(False, cuda) == 51
+    for vec in (True, False):
+        assert 0 < ell_spmm.registers(vec, cuda, weighted=True) <= 64
+
+
+def test_weighted_aggregation_gradient_on_the_card_matches_plain(cuda):
+    """WeightedGatherSegmentSum (the weighted kernel forward, over the
+    transpose backward) against PyTorch's autograd of the plain version,
+    on the card."""
+    b = _gcn_batch(seed=5).to(cuda)
+    n_cap = b.node_capacity
+    src, weights, offsets, transpose = gcn_edges(b, n_cap, True, True)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h = torch.randn(n_cap, 100, generator=gen, device=cuda,
+                    requires_grad=True)
+    probe = torch.randn(n_cap, 100, generator=gen, device=cuda)
+    before = _launch_counts()
+    out = ell_spmm.WeightedGatherSegmentSum.apply(h, src, weights, offsets,
+                                                  n_cap, *transpose)
+    (got,) = torch.autograd.grad((torch.tanh(out) * probe).sum(), h)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [
+        0, 0, 0, 1, 1]
+    plain = ell_spmm.weighted_gather_segment_sum_reference(
+        h, src, weights, offsets, n_cap)
+    (want,) = torch.autograd.grad((torch.tanh(plain) * probe).sum(), h)
+    torch.testing.assert_close(out, plain, **TOL)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["gcn", "gcn_blocked"])
+def test_gcn_forward_on_the_card_matches_cpu(cuda, variant):
+    """`gcn` launches the weighted forward once a layer and nothing
+    else; `gcn_blocked` launches no hand kernel."""
+    config = default_params_for(variant)
+    gen = torch.Generator().manual_seed(0)
+    model = (GCN(config, gen) if variant == "gcn"
+             else BlockedGCN(config, gen))
+    params = ModelParams(model, init_output_heads(gen, 100, [0])).eval()
+    if variant == "gcn":
+        batch = _gcn_batch(seed=4)
+    else:
+        data = synthetic_molecules(300, seed=4)
+        bucketed, sizes = packing.preprocess_gcn_dense(
+            data, [0], {}, False, bucket_sizes=np.asarray([16, 32]))
+        batch = next(packing.pack_dense_batches(bucketed, sizes, 256, 100,
+                                                5, False,
+                                                drop_remainder=False))
+    with torch.no_grad():
+        want = params.graph.readout(params.heads, [0], params.graph(
+            batch.to("cpu")), batch.to("cpu"))
+        params.to(cuda)
+        before = _launch_counts()
+        on_card = batch.to(cuda)
+        got = params.graph.readout(params.heads, [0], params.graph(on_card),
+                                   on_card)
+        torch.cuda.synchronize()
+    layers = config["num_timesteps"]
+    assert [a - b for a, b in zip(_launch_counts(), before)] == (
+        [0, 0, 0, layers, 0] if variant == "gcn" else [0] * 5)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["gcn", "gcn_blocked"])
+def test_gcn_train_step_on_the_card_matches_cpu(cuda, variant, tmp_path):
+    """One Runner train step from the same initial weights on the card
+    and on the CPU: loss at rtol 1e-5, every gradient at a relative L2
+    error <= 1e-4; `gcn` launches the weighted forward once a layer and
+    its transpose once a layer but the first (whose input needs no
+    gradient), `gcn_blocked` no hand kernel."""
+    config = default_params_for(variant)
+    config.update({"batch_size": 2000} if variant == "gcn" else
+                  {"dense_bucket_sizes": [16, 32]})
+    train = synthetic_molecules(120, seed=7)
+    valid = synthetic_molecules(20, seed=8)
+    runners = {dev: Runner(variant, dict(config), train_data=train,
+                           valid_data=valid, log_dir=str(tmp_path / dev),
+                           quiet=True, device=dev)
+               for dev in ("cuda", "cpu")}
+    batch = next(iter(runners["cpu"].adapter.batches(
+        runners["cpu"].train_processed, False)))
+    results = {}
+    for dev, runner in runners.items():
+        before = _launch_counts()
+        results[dev] = runner.loss_and_grads(batch.to(dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            layers = config["num_timesteps"]
+            assert [a - b for a, b in zip(_launch_counts(), before)] == (
+                [0, 0, 0, layers, layers - 1] if variant == "gcn"
+                else [0] * 5)
     loss_gpu, _, grads_gpu = results["cuda"]
     loss_cpu, _, grads_cpu = results["cpu"]
     torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-5, atol=0)

@@ -10,6 +10,7 @@ import torch
 
 from ggnn_tpu.models.base import init_output_heads as jax_init_heads
 from ggnn_tpu.models.dense_ggnn import DenseGGNN as JaxDenseGGNN
+from ggnn_tpu.models.gcn import BlockedGCN as JaxBlockedGCN
 from ggnn_tpu.models.sparse_ggnn import SparseGGNN as JaxSparseGGNN
 from ggnn_tpu.serving import Predictor as JaxPredictor
 from ggnn_tpu.training.checkpoint import save_checkpoint as jax_save
@@ -17,6 +18,7 @@ from ggnn_tpu.training.config import resolve_config as jax_resolve_config
 from ggnn_tpu_torch.data.synthetic import synthetic_molecules
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
+from ggnn_tpu_torch.models.gcn import BlockedGCN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
 from ggnn_tpu_torch.serving import Predictor
 from ggnn_tpu_torch.training import checkpoint
@@ -173,8 +175,7 @@ def test_from_checkpoint_without_device_needs_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("variant,error", [
-    ("gcn_blocked", NotImplementedError), ("async", NotImplementedError),
-    ("nonsense", ValueError)])
+    ("async", NotImplementedError), ("nonsense", ValueError)])
 def test_unserved_variants_raise(tmp_path, variant, error):
     path = _jax_checkpoint(tmp_path / "jax.pickle", "sparse", SMALL)
     with pytest.raises(error):
@@ -205,6 +206,8 @@ DENSE_OVERRIDES = {
     "blocked": {"hidden_size": 16, "batch_size": 8, "native_pack": False,
                 "layer_timesteps": [2, 1], "residual_connections": {"1": [0]},
                 "use_edge_bias": True},
+    "gcn_blocked": {"hidden_size": 16, "batch_size": 8, "native_pack": False,
+                    "num_timesteps": 3, "gcn_use_bias": True},
 }
 
 
@@ -212,14 +215,16 @@ def _jax_dense_checkpoint(path, variant):
     config = jax_resolve_config(variant, config_json=json.dumps(
         DENSE_OVERRIDES[variant]))
     key = jax.random.PRNGKey(4)
-    params = {"graph": JaxDenseGGNN(config, 4).init_params(key),
+    model = (JaxBlockedGCN(config) if variant == "gcn_blocked"
+             else JaxDenseGGNN(config, 4))
+    params = {"graph": model.init_params(key),
               "heads": jax_init_heads(key, 16, config["task_ids"])}
     jax_save(str(path), config, {"params": params}, 5, 2)
     return str(path)
 
 
 @pytest.mark.parametrize("n_graphs", [1, 40])
-@pytest.mark.parametrize("variant", ["dense", "blocked"])
+@pytest.mark.parametrize("variant", ["dense", "blocked", "gcn_blocked"])
 def test_dense_predictor_matches_jax_in_request_order(tmp_path, variant,
                                                       n_graphs):
     path = _jax_dense_checkpoint(tmp_path / "jax.pickle", variant)
@@ -236,12 +241,14 @@ def test_dense_predictor_matches_jax_in_request_order(tmp_path, variant,
         np.testing.assert_allclose(got[:, :4], alone, **TOL)
 
 
-@pytest.mark.parametrize("variant", ["dense", "blocked"])
+@pytest.mark.parametrize("variant", ["dense", "blocked", "gcn_blocked"])
 def test_port_dense_checkpoint_serves_in_jax_predictor(tmp_path, variant):
     config = resolve_config(variant, config_json=json.dumps(
         DENSE_OVERRIDES[variant]))
     gen = torch.Generator().manual_seed(9)
-    params = ModelParams(DenseGGNN(config, 4, gen),
+    model = (BlockedGCN(config, gen) if variant == "gcn_blocked"
+             else DenseGGNN(config, 4, gen))
+    params = ModelParams(model,
                          init_output_heads(gen, 16, config["task_ids"]))
     path = str(tmp_path / "port.pickle")
     checkpoint.save_checkpoint(path, config, params, 3, 1)
