@@ -86,7 +86,24 @@ Phases, each raising (and so exiting non-zero) on any failure:
      `gcn_blocked`), trained for 3 epochs (`gcn` at 20,000-node batches:
      per train step a weighted launch a layer and a transpose launch a
      layer but the first; `gcn_blocked` with buckets [16, 32]), one train
-     step each on the card against the CPU, and a profile of each.
+     step each on the card against the CPU, and a profile of each;
+ 12. async — B1 and B2 at the widest substep of a 10,000-node async
+     training batch (its compact buffer and (target, type)-sorted send
+     lane; B2 over the model's transpose of it) and B1 at the widest
+     substep of a served envelope (the plain path's [T*SE] messages in
+     stable target order), against their plain versions, two calls
+     bit-equal; the default `async` model with `propagation_substeps` 40
+     (the synthetic corpus reaches schedule depth 17) served as in 4 (B1
+     once a substep of every round, R x S = 160 a forward, nothing else;
+     the CPU answers the 1- and 300-graph requests only: its plain path
+     runs 160 substeps of [4, 16384, 100] products an envelope); trained
+     for 3 epochs with configs/async_tpu.json (10,000-node batches, one
+     pack and a batch-order shuffle): B1 once a substep of the segmented
+     path per train step and validation batch, B2 once a substep but the
+     first of round 0 per train step, each counted from the batches;
+     one train step on the card against the CPU, and the same step with
+     `async_remat` on against off on the card (gradients within 1e-6, B1
+     again in the backward); and a profile.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -112,6 +129,7 @@ TOL_KERNEL = 1e-5
 TOL_SERVING = 1e-4
 TOL_STEP_LOSS = 1e-5       # card vs CPU train step: loss, rtol
 TOL_STEP_GRAD = 1e-4       # ... and each gradient, relative L2 error
+TOL_REMAT = 1e-6           # async step, remat on vs off on the card
 HIDDEN = 100
 EDGE_TYPES = 4
 SKEWED_NODES = 20000
@@ -596,16 +614,17 @@ def serving_requests():
             for i, n in enumerate((1, 300, 3000))}
 
 
-def random_checkpoint(variant, ckpt_dir):
-    """The default config of `variant` with random weights from
-    torch.Generator seed 0, written as a pickle checkpoint."""
+def random_checkpoint(variant, ckpt_dir, overrides=None):
+    """The default config of `variant` (with `overrides`) with random
+    weights from torch.Generator seed 0, written as a pickle
+    checkpoint."""
     from ggnn_tpu_torch.data.loader import DatasetMeta
     from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
     from ggnn_tpu_torch.training.checkpoint import save_checkpoint
     from ggnn_tpu_torch.training.config import default_params_for
     from ggnn_tpu_torch.training.variants import make_adapter
 
-    config = default_params_for(variant)
+    config = {**default_params_for(variant), **(overrides or {})}
     assert config["hidden_size"] == HIDDEN
     gen = torch.Generator().manual_seed(0)
     adapter = make_adapter(variant, config,
@@ -621,16 +640,21 @@ def random_checkpoint(variant, ckpt_dir):
 
 
 def check_and_time_answers(label, predictor, cpu_predictor, requests,
-                           answers):
-    """Each request's answer held against the CPU's, then graphs/s of
-    the 3,000-graph request (median of 3) and the 1-graph latency
-    (median of 20), host clock, synchronised."""
+                           answers, cpu_sizes=None):
+    """Each request's answer (of the sizes in `cpu_sizes`, all when None)
+    held against the CPU's, then graphs/s of the 3,000-graph request
+    (median of 3) and the 1-graph latency (median of 20), host clock,
+    synchronised."""
     max_err = 0.0
     for n, req in requests.items():
         got = answers[n]
         if got.shape != (1, n) or not np.isfinite(got).all():
             raise RuntimeError(f"{label}: {n}-graph answer has shape "
                                f"{got.shape} or non-finite values")
+        if cpu_sizes is not None and n not in cpu_sizes:
+            log(f"{label} {n}-graph request: finite, shape {got.shape}; "
+                "not held against the CPU")
+            continue
         want = cpu_predictor(req)
         err = float(np.abs(got - want).max())
         max_err = max(max_err, err)
@@ -654,7 +678,10 @@ def check_and_time_answers(label, predictor, cpu_predictor, requests,
         lat.append(time.perf_counter() - t0)
     result = {"graphs_per_s_3000": 3000 / statistics.median(times),
               "latency_1_graph_ms": statistics.median(lat[5:]) * 1e3,
-              "max_abs_err_vs_cpu": max_err}
+              "max_abs_err_vs_cpu": max_err,
+              "requests_held_against_cpu": sorted(
+                  n for n in requests
+                  if cpu_sizes is None or n in cpu_sizes)}
     log(f"{label}: {result['graphs_per_s_3000']:.1f} graphs/s on the "
         f"3000-graph request (median of 3, host clock, synchronised); "
         f"1-graph latency {result['latency_1_graph_ms']:.3f} ms "
@@ -673,15 +700,17 @@ def serving_phase(ckpt_dir):
                            lambda calls: (steps * calls, 0, 0, 0, 0))
 
 
-def counted_serving(variant, ckpt_dir, want):
-    """The default `variant` served from a pickle checkpoint on the
-    default device: the kernels' counters set to 0 before each request
-    and read after it, where `want(forward_calls)` gives the counts
-    expected; then the answers against the CPU's and the times."""
+def counted_serving(variant, ckpt_dir, want, overrides=None,
+                    cpu_sizes=None):
+    """The default `variant` (with `overrides`) served from a pickle
+    checkpoint on the default device: the kernels' counters set to 0
+    before each request and read after it, where `want(forward_calls)`
+    gives the counts expected; then the answers against the CPU's (of
+    the requests in `cpu_sizes`, all when None) and the times."""
     from ggnn_tpu_torch.serving import Predictor
 
     requests = serving_requests()
-    _, path = random_checkpoint(variant, ckpt_dir)
+    _, path = random_checkpoint(variant, ckpt_dir, overrides)
     predictor = Predictor.from_checkpoint(path, variant)
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
@@ -714,7 +743,8 @@ def counted_serving(variant, ckpt_dir, want):
     return {"forward_calls": calls, "launches_by_request": counts,
             "launches": [sum(c) for c in zip(*counts)],
             **check_and_time_answers(f"{variant} serving", predictor,
-                                     cpu_predictor, requests, answers)}
+                                     cpu_predictor, requests, answers,
+                                     cpu_sizes)}
 
 
 def dense_serving_phase(ckpt_dir):
@@ -749,11 +779,16 @@ TRAIN_CONFIGS = {
     # reference's 100,000 would give about one step an epoch).
     "gcn": (None, {"batch_size": 20000}),
     "gcn_blocked": (None, {"dense_bucket_sizes": [16, 32]}),
+    # configs/async_tpu.json (10,000-node batches, one pack and a
+    # batch-order shuffle); the synthetic corpus reaches schedule depth
+    # 17, past the default 15 substeps (QM9 fits in 15).
+    "async": ("async_tpu.json", {"propagation_substeps": 40}),
 }
 DENSE_VARIANTS = ("dense", "blocked")
 GCN_VARIANTS = ("gcn", "gcn_blocked")
 # Variants whose batches are edge lists under a node budget.
-EDGE_LIST_VARIANTS = ("sparse", "gcn")
+EDGE_LIST_VARIANTS = ("sparse", "gcn", "async")
+ASYNC_SERVING = {"propagation_substeps": 40}
 NO_DROPOUT = {"edge_weight_dropout_keep_prob": 1.0,
               "graph_state_dropout_keep_prob": 1.0,
               "out_layer_dropout_keep_prob": 1.0}
@@ -945,6 +980,205 @@ def gcn_training_phase(corpus, log_dir):
     return runners, results
 
 
+# ------------------------------------------------------------ async
+
+def async_launches(batch, config):
+    """(B1 launches of one forward, B2 launches of one train step) of an
+    async batch. The segmented path launches B1 once a substep and B2
+    once a substep but the first of round 0, whose buffer holds only
+    features; a batch without segments (its segment plan overflowed)
+    takes the plain path: R x S substeps, each with a gradient through
+    the edge weights."""
+    if batch.seg_rounds is None:
+        steps = config["propagation_rounds"] * config["propagation_substeps"]
+        return steps, steps
+    steps = sum(seg.old_compact.shape[0] for segs in batch.seg_rounds
+                for seg in segs)
+    return steps, steps - 1
+
+
+def is_async_10k_batch(batch):
+    return batch.seg_rounds is not None and int(batch.num_nodes) >= 9000
+
+
+def async_batches():
+    """(training batch, serving batch) of `async` at 4 rounds and 40
+    substeps: the first batch of synthetic_molecules(2400, seed=22) under
+    the 10,000-node budget of configs/async_tpu.json and its own plan,
+    and a 300-graph request packed as the Predictor packs it (max_nodes
+    2048, max_graphs 256, no plan: the plain path)."""
+    from ggnn_tpu_torch.data import async_schedule
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+
+    rounds, substeps = 4, ASYNC_SERVING["propagation_substeps"]
+
+    def first_batch_of(n, seed, budget, caps=None):
+        proc = async_schedule.preprocess_async(
+            synthetic_molecules(n, seed=seed), EDGE_TYPES, True, rounds,
+            substeps, [0], {}, False)
+        if caps is None:
+            caps = async_schedule.plan_async_capacities(proc, EDGE_TYPES,
+                                                        budget, rounds)
+            log(f"10k-node async plan: {caps}")
+        return next(async_schedule.pack_async_batches(
+            proc, EDGE_TYPES, budget, caps, rounds, substeps, HIDDEN, 5,
+            False))
+
+    serving_caps = async_schedule.AsyncCapacities(
+        nodes=2048, graphs=256, initial_nodes=2048, sending_edges=16384,
+        receiving_nodes=2048)
+    return (first_batch_of(2400, 22, 10000),
+            first_batch_of(300, 21, serving_caps.nodes + 1, serving_caps))
+
+
+def check_repeat(name, label, *args):
+    """Two calls of a B1/B2 wrapper give the same bits."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    kernel = getattr(ell_spmm, name)
+    if not torch.equal(kernel(*args), kernel(*args)):
+        raise RuntimeError(f"{name} [{label}]: two calls differ")
+
+
+def async_kernel_phase(dev, gen, train, serve):
+    """B1 and B2 at the substep of the 10k-node async batch with the most
+    real edges, over the layouts the model makes once per batch (B1 over
+    the compact buffer and the (target, type)-sorted send lane, B2 over
+    its source-sorted transpose into the buffer), and B1 at the served
+    envelope's substep with the most real messages (the plain path's
+    [T*SE, H] messages in stable target order), each against its plain
+    version, two calls bit-equal."""
+    from ggnn_tpu_torch.models.async_ggnn import (compact_dump_row,
+                                                  plain_layouts,
+                                                  segment_layouts)
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    b = train.to(dev)
+    rows = compact_dump_row(b) + 1
+    layouts = segment_layouts(b, EDGE_TYPES, True)
+    edges, r, i, k = max(
+        (int(offsets[k, -1]), r, i, k)
+        for r, segs in enumerate(layouts)
+        for i, (offsets, _, _) in enumerate(segs)
+        for k in range(offsets.shape[0]))
+    seg = b.seg_rounds[r][i]
+    offsets, bgather, boff = layouts[r][i]
+    rc_cap, sea_cap = seg.old_compact.shape[1], seg.send_compact.shape[1]
+    num_segments = rc_cap * EDGE_TYPES
+    substeps = sum(o.shape[0] for segs in layouts for o, _, _ in segs)
+    log(f"async 10k batch: {int(b.num_nodes)} nodes, {int(b.num_graphs)} "
+        f"graphs, {substeps} substeps, buffer rows {rows}; widest substep "
+        f"(round {r}, segment {i}, step {k}): {edges} edges, RC {rc_cap}, "
+        f"SEA {sea_cap}")
+    buf = torch.randn(rows, HIDDEN, generator=gen, device=dev)
+    fwd_args = (buf, seg.send_compact[k], offsets[k], num_segments)
+    b1 = check_kernel(ell_spmm, "gather_segment_sum", "async substep",
+                      *fwd_args)
+    check_repeat("gather_segment_sum", "async substep", *fwd_args)
+    g = torch.randn(num_segments, HIDDEN, generator=gen, device=dev)
+    bwd_args = (g, bgather[k], boff[k], rows)
+    b2 = check_kernel(ell_spmm, "segment_scatter_sum",
+                      "backward of the async substep", *bwd_args)
+    check_repeat("segment_scatter_sum", "backward of the async substep",
+                 *bwd_args)
+
+    s = serve.to(dev)
+    perm, p_offsets, _, _ = plain_layouts(s, False)
+    real = p_offsets[..., -1]
+    r, step = divmod(int(torch.argmax(real)), real.shape[1])
+    rc_cap = s.receiving_nodes.shape[-1]
+    msgs = torch.randn(perm.shape[-1], HIDDEN, generator=gen, device=dev)
+    serve_args = (msgs, perm[r, step], p_offsets[r, step], rc_cap)
+    log(f"async serving envelope: {int(s.num_graphs)} graphs, widest "
+        f"substep (round {r}, step {step}): {int(real[r, step])} of "
+        f"{perm.shape[-1]} message slots real, RC {rc_cap}")
+    b1_serving = check_kernel(ell_spmm, "gather_segment_sum",
+                              "async serving substep", *serve_args)
+    check_repeat("gather_segment_sum", "async serving substep", *serve_args)
+    return {"b1": b1, "b2": b2, "b1_serving": b1_serving,
+            "substeps": substeps, "buffer_rows": rows}
+
+
+def async_serving_phase(ckpt_dir):
+    """The default `async` model with 40 substeps served: the plain path
+    launches B1 once a substep of every round and nothing else. The CPU
+    answers the 1- and 300-graph requests only: its plain path runs R x S
+    = 160 substeps of [4, 16384, 100] products an envelope."""
+    from ggnn_tpu_torch.training.config import default_params_for
+
+    steps = (default_params_for("async")["propagation_rounds"]
+             * ASYNC_SERVING["propagation_substeps"])
+    return counted_serving("async", ckpt_dir,
+                           lambda calls: (steps * calls, 0, 0, 0, 0),
+                           overrides=ASYNC_SERVING, cpu_sizes=(1, 300))
+
+
+def async_training_phase(corpus, log_dir):
+    """3 epochs of `async` with configs/async_tpu.json: per train step B1
+    once a substep and B2 once a substep but the first of round 0, per
+    validation batch B1 once a substep, counted from the packed batches
+    (packed once, the same every epoch); no B3 and no weighted launch."""
+    runner, result = train_run("async", 3, corpus, log_dir)
+    config = runner.config
+    assert config["num_nodes"] == 10000
+    assert config["async_epoch_shuffle"] == "batches"
+    epochs = len(result["epochs"])
+    splits = {name: list(runner.adapter.batches(processed, False))
+              for name, processed in (("train", runner.train_processed),
+                                      ("valid", runner.valid_processed))}
+    if (epochs * len(splits["train"]) != result["train_steps"]
+            or epochs * len(splits["valid"]) != result["valid_batches"]):
+        raise RuntimeError("the async batches are not those the Runner ran")
+    per_batch = {name: [async_launches(b, config) for b in batches]
+                 for name, batches in splits.items()}
+    want = [epochs * sum(b1 for b1, _ in per_batch["train"]
+                         + per_batch["valid"]),
+            epochs * sum(b2 for _, b2 in per_batch["train"]), 0, 0, 0]
+    plain = sum(b.seg_rounds is None for batches in splits.values()
+                for b in batches)
+    got = [result[f"launches_{k}"] for k in ("b1", "b2", "b3", "weighted",
+                                             "weighted_transpose")]
+    log(f"async training: substeps per train batch "
+        f"{[b1 for b1, _ in per_batch['train']]}, per validation batch "
+        f"{[b1 for b1, _ in per_batch['valid']]} ({plain} batches on the "
+        f"plain path); launches B1/B2/B3/weighted/transpose {got}, "
+        f"expected {want}")
+    if got != want or not all(want[:2]):
+        raise RuntimeError(f"async training launched the kernels {got} "
+                           f"times, expected {want}")
+    result["substeps_per_batch"] = {name: [b1 for b1, _ in v]
+                                    for name, v in per_batch.items()}
+    result["plain_path_batches"] = plain
+    return runner, result
+
+
+def async_remat_step(runner, batch, loss, grads, launches):
+    """The card's async train step again with `async_remat` on: each
+    substep recomputed in the backward from a buffer that no later write
+    changes, so the same loss and gradients within TOL_REMAT, and B1
+    launched once more a substep."""
+    runner.config["async_remat"] = True
+    zero_launch_counts()
+    loss_remat, _, grads_remat = runner.loss_and_grads(
+        batch.to(runner.device))
+    torch.cuda.synchronize()
+    got = launch_counts()
+    del runner.config["async_remat"]
+    want = (2 * launches[0],) + tuple(launches[1:])
+    loss_err = abs(float(loss_remat) - float(loss)) / abs(float(loss))
+    worst = max(float((grads_remat[n] - g).abs().max())
+                for n, g in grads.items())
+    log(f"async train step on the card, remat on vs off: loss relative "
+        f"error {loss_err:.3e}, worst gradient max abs error {worst:.3e} "
+        f"(limit {TOL_REMAT}); launches B1/B2/B3/weighted/transpose {got}, "
+        f"expected {want}")
+    if not loss_err <= TOL_REMAT or not worst <= TOL_REMAT or got != want:
+        raise RuntimeError("the async step with remat on disagrees with "
+                           "remat off")
+    return {"loss_relative_error": loss_err, "worst_grad_max_abs": worst,
+            "launches": list(got)}
+
+
 def first_batch(runner, want):
     """The first batch of the runner's training split, unshuffled, that
     `want` accepts."""
@@ -981,7 +1215,7 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir):
     for dev, runner in runners.items():
         t0 = time.perf_counter()
         zero_launch_counts()
-        out[dev] = runner.loss_and_grads(batch.to(dev))
+        out[dev] = runner.loss_and_grads(batch.to(runner.device))
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = launch_counts()
@@ -1011,14 +1245,21 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir):
     # transpose once a layer but the first (whose input needs no
     # gradient); no hand kernel on the dense family.
     layers = config.get("num_timesteps")
-    want = ((0, 0, 0, layers, layers - 1) if variant == "gcn"
-            else (0, 0, 0, 0, 0))
+    want = (0, 0, 0, 0, 0)
+    if variant == "gcn":
+        want = (0, 0, 0, layers, layers - 1)
+    elif variant == "async":
+        want = async_launches(batch, config) + (0, 0, 0)
     if variant != "sparse" and launches != want:
         raise RuntimeError(f"the {variant} train step launched "
                            f"{launches}, expected {want}")
-    return {"loss_relative_error": loss_err,
-            "worst_grad_relative_l2": worst, "worst_grad": worst_name,
-            "launches": list(launches)}
+    result = {"loss_relative_error": loss_err,
+              "worst_grad_relative_l2": worst, "worst_grad": worst_name,
+              "launches": list(launches)}
+    if variant == "async":
+        result["remat"] = async_remat_step(runners["cuda"], batch, loss_gpu,
+                                           grads_gpu, launches)
+    return result
 
 
 def profile_phase(runner, batch, steps=5):
@@ -1183,10 +1424,12 @@ def main() -> int:
     weighted = weighted_kernel_phase(
         dev, gen, skewed, lambda: ell_spmm.gather_segment_sum(
             h20k, lane20k.edge_sources_all, off20k, n20k * t20k))
+    async_kernels = async_kernel_phase(dev, gen, *async_batches())
     work_dir = os.path.join(REPO, "build", "chip_smoke")
     serving = serving_phase(work_dir)
     dense_serving = dense_serving_phase(work_dir)
     gcn_serving = gcn_serving_phase(work_dir)
+    async_serving = async_serving_phase(work_dir)
     corpus = (synthetic_molecules(6000, seed=40),
               synthetic_molecules(600, seed=41))
     runner, training = training_phase(corpus,
@@ -1195,6 +1438,8 @@ def main() -> int:
         corpus, os.path.join(work_dir, "train_dense"))
     gcn_runners, gcn_training = gcn_training_phase(
         corpus, os.path.join(work_dir, "train_gcn"))
+    async_runner, async_training = async_training_phase(
+        corpus, os.path.join(work_dir, "train_async"))
     step_corpus = (synthetic_molecules(1300, seed=42),
                    synthetic_molecules(50, seed=43))
     step_dir = os.path.join(work_dir, "step")
@@ -1210,6 +1455,8 @@ def main() -> int:
             is_20k_batch if variant == "gcn" else is_full_v32_batch,
             step_dir)
         for variant in GCN_VARIANTS}
+    async_card_vs_cpu = card_vs_cpu_phase("async", step_corpus,
+                                          is_async_10k_batch, step_dir)
     profile = profile_phase(runner, first_batch(runner, is_20k_batch))
     dense_forward = dense_forward_phase(dense_runners)
     dense_profile = {
@@ -1220,14 +1467,26 @@ def main() -> int:
         variant: profile_phase(runner, first_batch(
             runner, is_20k_batch if variant == "gcn" else is_full_v32_batch))
         for variant, runner in gcn_runners.items()}
+    async_profile = profile_phase(async_runner, first_batch(
+        async_runner, is_async_10k_batch))
 
     # Each kernel's `launches` sums the main paths' runs (the probe,
     # serving and training of every variant), each counted from 0 just
     # before its run; B1, B2 and B3 launch none on the dense and GCN
-    # paths, the weighted instance only on the `gcn` paths.
+    # paths, the weighted instance only on the `gcn` paths, B3 and the
+    # weighted instance none on the async paths.
     dense_paths = {f"{variant} {path}": 0
                    for variant in DENSE_VARIANTS + GCN_VARIANTS
                    for path in ("serving", "training")}
+
+    def async_paths(index, key):
+        return {"async serving": async_serving["launches"][index],
+                "async training": async_training[f"launches_{key}"]}
+
+    def async_record(rec):
+        return {k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms",
+                                    "max_abs_err")}
     gcn_fwd = (gcn_serving["gcn"]["launches"][3]
                + gcn_training["gcn"]["launches_weighted"])
     gcn_bwd = (gcn_serving["gcn"]["launches"][4]
@@ -1239,7 +1498,10 @@ def main() -> int:
         "gcn serving": sum(gcn_serving["gcn"]["launches"][3:]),
         "gcn training": (gcn_training["gcn"]["launches_weighted"]
                          + gcn_training["gcn"]["launches_weighted_transpose"]),
-        "gcn_blocked serving": 0, "gcn_blocked training": 0}
+        "gcn_blocked serving": 0, "gcn_blocked training": 0,
+        "async serving": sum(async_serving["launches"][3:]),
+        "async training": (async_training["launches_weighted"]
+                           + async_training["launches_weighted_transpose"])}
     w_shape = weighted["shapes"][1]   # the 20k-node GCN batch, forward
     main_shape = records[0]
     b2_shape = b2_records[1]          # the training path's 20k-node shape
@@ -1251,11 +1513,16 @@ def main() -> int:
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:51",
-        "launches": serving["launches"][0] + training["launches_b1"],
+        "launches": (serving["launches"][0] + training["launches_b1"]
+                     + sum(async_paths(0, "b1").values())),
         "launches_by_path": {"serving": serving["launches"][0],
                              "training": training["launches_b1"],
-                             **dense_paths},
-        "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]),
+                             **dense_paths, **async_paths(0, "b1")},
+        "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]
+                           + [async_kernels[k]["max_abs_err"]
+                              for k in ("b1", "b1_serving")]),
+        "async_shapes": [async_record(async_kernels[k])
+                         for k in ("b1", "b1_serving")],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -1267,12 +1534,14 @@ def main() -> int:
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:101",
-        "launches": serving["launches"][1] + training["launches_b2"],
+        "launches": (serving["launches"][1] + training["launches_b2"]
+                     + sum(async_paths(1, "b2").values())),
         "launches_by_path": {"serving": serving["launches"][1],
                              "training": training["launches_b2"],
-                             **dense_paths},
+                             **dense_paths, **async_paths(1, "b2")},
         "max_abs_err": max([r["max_abs_err"] for r in b2_records]
-                           + [b2_ell_err]),
+                           + [b2_ell_err, async_kernels["b2"]["max_abs_err"]]),
+        "async_shapes": [async_record(async_kernels["b2"])],
         "ms": b2_shape["ms"],
         "plain_ms": b2_shape["plain_ms"],
         "bound_ms": b2_shape["bound_ms"],
@@ -1285,11 +1554,12 @@ def main() -> int:
         "source": "ggnn_tpu_torch/csrc/gather_floor.cu",
         "replaces": "benchmarks/probes/gather_floor.py:52",
         "launches": (probe["launches"] + serving["launches"][2]
-                     + training["launches_b3"]),
+                     + training["launches_b3"]
+                     + sum(async_paths(2, "b3").values())),
         "launches_by_path": {"probe": probe["launches"],
                              "serving": serving["launches"][2],
                              "training": training["launches_b3"],
-                             **dense_paths},
+                             **dense_paths, **async_paths(2, "b3")},
         "max_abs_err": max(r["max_abs_err"]
                            for recs in probe["shapes"].values()
                            for r in recs),
@@ -1332,7 +1602,12 @@ def main() -> int:
                     "weighted": weighted, "gcn_serving": gcn_serving,
                     "gcn_training": gcn_training,
                     "gcn_card_vs_cpu": gcn_card_vs_cpu,
-                    "gcn_profile": gcn_profile}))
+                    "gcn_profile": gcn_profile,
+                    "async_kernels": async_kernels,
+                    "async_serving": async_serving,
+                    "async_training": async_training,
+                    "async_card_vs_cpu": async_card_vs_cpu,
+                    "async_profile": async_profile}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Command-line entry point of the port: train a GGNN.
 
-    python -m ggnn_tpu_torch.cli sparse|rgcn|dense|blocked|gcn|gcn_blocked
+    python -m ggnn_tpu_torch.cli sparse|rgcn|dense|blocked|gcn|gcn_blocked|async
         [--config-file FILE] [--config JSON] [--log_dir DIR]
         [--data_dir DIR] [--restore FILE] [--freeze-graph-model] [--restrict_data N] [--synthetic N]
         [--quiet] [--save-every-epoch] [--pdb] [--device DEVICE]
@@ -10,16 +10,14 @@ run goes to the GPU unless `--device cpu` is given, and exits non-zero
 without CUDA. `--synthetic N` trains on N synthetic QM9-shaped
 molecules (and validates on N // 10) instead of JSON files.
 
-The `async` variant and the flags of the JAX CLI that are not ported
-yet are accepted and exit non-zero naming the ROADMAP item that ports
-them.
+The flags of the JAX CLI that are not ported yet are accepted and exit
+with code 2 naming the ROADMAP item that ports them.
 """
 
 import argparse
 import sys
 import traceback
 
-_VARIANTS_NOT_PORTED = {"async": "A8"}
 # flag destination -> (flag, ROADMAP item)
 _FLAGS_NOT_PORTED = {
     "evaluate": ("--evaluate", "A9"),
@@ -35,7 +33,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="GGNN training on an NVIDIA GPU (PyTorch port)")
     p.add_argument("variant",
                    choices=["sparse", "rgcn", "dense", "blocked", "gcn",
-                            "gcn_blocked", *_VARIANTS_NOT_PORTED])
+                            "gcn_blocked", "async"])
     p.add_argument("--config-file", dest="config_file", default=None,
                    help="Hyperparameter configuration file path (JSON).")
     p.add_argument("--config", default=None,
@@ -72,10 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _not_ported(args) -> str:
-    """The message for a variant or flag that is not ported, or ''."""
-    if args.variant in _VARIANTS_NOT_PORTED:
-        return (f"variant '{args.variant}' is not ported yet (ROADMAP "
-                f"{_VARIANTS_NOT_PORTED[args.variant]})")
+    """The message for a flag that is not ported, or ''."""
     for dest, (flag, item) in _FLAGS_NOT_PORTED.items():
         if getattr(args, dest):
             return f"{flag} is not ported yet (ROADMAP {item})"

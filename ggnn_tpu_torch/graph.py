@@ -1,8 +1,9 @@
 """Static-shape graph-batch containers: sparse (typed edge lists), dense
-(bucketed adjacency stacks) and GCN (one weighted COO list).
+(bucketed adjacency stacks), GCN (one weighted COO list) and async
+(scheduled propagation, with its segments).
 
-The packers emit a `GraphBatch`, `DenseGraphBatch` or `GCNGraphBatch` of
-numpy arrays;
+The packers emit a `GraphBatch`, `DenseGraphBatch`, `GCNGraphBatch` or
+`AsyncGraphBatch` of numpy arrays;
 `.to(device)` turns it into torch tensors on the device the model runs
 on. Fields, shapes and padding conventions are those of
 `ggnn_tpu/graph.py`, so a batch from either package's packer compares
@@ -30,23 +31,36 @@ import torch
 # Scalar leaves: kept as python ints on the device copy, so reading them
 # never waits for the device.
 _SCALARS = ("num_graphs", "num_nodes")
+# Index leaves the host reads as offsets: kept as tuples of python ints,
+# so that using one costs no device-to-host copy.
+_HOST_INDICES = ("recv_base",)
+
+
+def _move(value, device):
+    if value is None:
+        return None
+    if isinstance(value, tuple):
+        return tuple(_move(v, device) for v in value)
+    if dataclasses.is_dataclass(value):
+        return _to_device(value, device)
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.from_numpy(np.ascontiguousarray(value)).to(device)
 
 
 def _to_device(batch, device):
-    """The same batch (a dataclass of numpy leaves) as torch tensors on
-    `device`; scalar leaves become python ints."""
+    """The same batch (a dataclass of numpy leaves, tuples of them or of
+    nested dataclasses) as torch tensors on `device`; scalar leaves
+    become python ints, host index leaves tuples of them."""
     moved = {}
     for field in dataclasses.fields(batch):
         value = getattr(batch, field.name)
         if field.name in _SCALARS:
             moved[field.name] = int(value)
-        elif value is None:
-            moved[field.name] = None
-        elif isinstance(value, torch.Tensor):
-            moved[field.name] = value.to(device)
+        elif field.name in _HOST_INDICES:
+            moved[field.name] = tuple(int(v) for v in np.asarray(value))
         else:
-            moved[field.name] = torch.from_numpy(
-                np.ascontiguousarray(value)).to(device)
+            moved[field.name] = _move(value, device)
     return type(batch)(**moved)
 
 
@@ -176,3 +190,80 @@ class GCNGraphBatch:
     def to(self, device) -> "GCNGraphBatch":
         """The same batch as torch tensors on `device`."""
         return _to_device(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncGraphBatch:
+    """A packed batch with per-round scheduled-propagation tensors (the
+    async GGNN, chem_tensorflow_async.py): each round r has
+    S = propagation_substeps steps; at step s the edges whose receiver
+    sits at schedule depth s fire, and each receiver is updated once a
+    round.
+
+    Shapes (R = rounds, S = substeps, T = edge types, I / SE / RC = the
+    capacities of initial nodes, sending edges per (step, type) and
+    receiving nodes per step):
+      initial_nodes   [R, I]        int32 — pad -> N (dump)
+      sending_nodes   [R, S, T, SE] int32 — global node ids, pad -> 0
+      msg_targets     [R, S, T, SE] int32 — step-local receiver ids,
+                                            pad -> RC (dump)
+      receiving_nodes [R, S, RC]    int32 — global node ids, pad -> N
+
+    The segmented compact-state layout (data/async_schedule.py), None
+    without a segment plan: round states live in a compact slot space,
+    [0, I) the initial nodes, [I, I + cumulative receivers) the
+    receivers, the dump at M = I + N + the widest RC; the steps are
+    grouped into segments with type-combined, (target, type)-sorted send
+    lanes sized to each segment.
+      seg_rounds    tuple(R) of tuple(AsyncSegment)
+      init_prev     [R, I] int32 — previous-round slots (round 0: node ids)
+      final_compact [N]    int32 — the last round's slot of each node
+    """
+
+    node_features: Any
+    node_graph_ids: Any
+    initial_nodes: Any
+    sending_nodes: Any
+    msg_targets: Any
+    receiving_nodes: Any
+    targets: Any
+    target_mask: Any
+    num_graphs: Any
+    num_nodes: Any
+    seg_rounds: Any = None
+    init_prev: Any = None
+    final_compact: Any = None
+
+    @property
+    def node_capacity(self) -> int:
+        return self.node_features.shape[0]
+
+    @property
+    def graph_capacity(self) -> int:
+        return self.targets.shape[1]
+
+    def to(self, device) -> "AsyncGraphBatch":
+        """The same batch as torch tensors on `device`; each segment's
+        `recv_base` stays a tuple of python ints on the host."""
+        return _to_device(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncSegment:
+    """One segment of one async round (n = the steps it covers).
+
+      send_compact [n, SEA] int32 — compact slots of the senders,
+          type-combined lane sorted by (target, type); pads -> the dump
+      msg_type     [n, SEA] int32 — edge type of each slot, pad -> 0
+      msg_target   [n, SEA] int32 — step-local receiver ids, pad -> RC
+      old_compact  [n, RC]  int32 — the receivers' previous-round slots
+          (round 0: node ids into the feature buffer)
+      recv_base    [n]      int32 — round-cumulative receiver offsets;
+          a tuple of python ints once the batch is on a device
+    """
+
+    send_compact: Any
+    msg_type: Any
+    msg_target: Any
+    old_compact: Any
+    recv_base: Any

@@ -1,38 +1,49 @@
 """Inference serving: checkpoint -> batched predictor on the GPU.
 
-Port of `ggnn_tpu/serving.py:Predictor` for the `sparse`, `rgcn`,
-`dense`, `blocked`, `gcn` and `gcn_blocked` variants. A `Predictor`
+Port of `ggnn_tpu/serving.py:Predictor` for every variant: `sparse`,
+`rgcn`, `dense`, `blocked`, `gcn`, `gcn_blocked` and `async`. A
+`Predictor`
 
   * loads a pickle checkpoint of either package without any training
     data; the edge-type count comes from the saved edge weights (1 for
-    the GCN variants, which discard edge types);
-  * packs sparse-family and `gcn` requests into a fixed serving envelope
-    (`max_nodes`, `max_graphs`), so every batch has the same shapes, and
-    micro-batches requests that exceed it; dense-family requests
-    (`dense`, `blocked`, `gcn_blocked`) are packed bucket by bucket into
-    batches of the config's `batch_size` graphs (the bucket table is the
-    envelope), and the answers are put back in request order;
+    the GCN variants, which discard edge types; the count of per-type
+    leaves, or a legacy stacked array, for `async`);
+  * packs sparse-family, `gcn` and `async` requests into a fixed serving
+    envelope (`max_nodes`, `max_graphs`), so every batch has the same
+    shapes, and micro-batches requests that exceed it; dense-family
+    requests (`dense`, `blocked`, `gcn_blocked`) are packed bucket by
+    bucket into batches of the config's `batch_size` graphs (the bucket
+    table is the envelope), and the answers are put back in request
+    order;
+  * keeps, for `async`, each request topology's schedule and each
+    one-graph request's packed batch, in caches bounded by entries and
+    bytes under one lock, so a molecule scored again skips the schedule
+    and the packing;
   * runs the forward pass on the GPU unless asked otherwise
-    (`device="cpu"`): the sparse family through the gather +
-    segment-sum CUDA kernel, `gcn` through its weighted instance, the
-    dense family through cuBLAS products.
+    (`device="cpu"`): the sparse family and `async` (its plain path,
+    one receiver sum a substep) through the gather + segment-sum CUDA
+    kernel, `gcn` through its weighted instance, the dense family
+    through cuBLAS products.
 
 Example:
     predictor = Predictor.from_checkpoint("run_model_best.pickle",
                                           variant="sparse")
     mu = predictor(molecule_jsons)      # np.ndarray [K, n_graphs]
 
-Not ported yet: the async variant (ROADMAP A8), the native C++ packer
-(A12), the bf16 adjacency of `compute_dtype: bfloat16` (A16), the HTTP
-server and exported artifacts (A10).
+Not ported yet: the native C++ packer (ROADMAP A12), the bf16 adjacency
+of `compute_dtype: bfloat16` (A16), the HTTP server and exported
+artifacts (A10).
 """
 
+import collections
+import dataclasses
+import threading
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ggnn_tpu_torch.data import packing
+from ggnn_tpu_torch.data import async_schedule, packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
 from ggnn_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
@@ -44,28 +55,36 @@ from ggnn_tpu_torch.utils.device import resolve_device
 
 _DENSE_FAMILY = ("dense", "blocked", "gcn_blocked")
 # Packed into the fixed envelope.
-_ENVELOPE_FAMILY = ("sparse", "rgcn", "gcn")
+_ENVELOPE_FAMILY = ("sparse", "rgcn", "gcn", "async")
 _SERVED = _ENVELOPE_FAMILY + _DENSE_FAMILY
 # Where the models keep their edge weights [T, H, H]: the layered ones
-# (sparse, rgcn, blocked) per layer, the reference dense model once.
+# (sparse, rgcn, blocked) per layer, the reference dense model once; a
+# legacy async checkpoint stacks its per-type leaves there too.
 _EDGE_WEIGHT_KEYS = ("['params']['graph']['layers'][0]['edge_weights']",
                      "['params']['graph']['edge_weights']")
+# The async model's per-type [H, H] leaves: <prefix>[t].
+_ASYNC_TYPE_PREFIX = "['params']['graph']['edge_weights']["
 
 
 def _check_variant(variant: str) -> None:
     if variant not in _SERVED:
-        # Raises NotImplementedError naming the ROADMAP item of a known
-        # variant, ValueError for an unknown one.
+        # Raises ValueError for an unknown variant.
         default_params_for(variant)
 
 
 def _infer_geometry(payload: Dict, variant: str, config: Dict):
     """(num_edge_types, hidden): T from the saved edge-weight tensor (1
-    for the GCN variants, which have none), hidden from the config."""
+    for the GCN variants, which have none; for `async` the count of its
+    per-type leaves, or a legacy stacked tensor's rows), hidden from the
+    config."""
     weights = payload["weights"]
     hidden = int(config["hidden_size"])
     if variant in ("gcn", "gcn_blocked"):
         return 1, hidden
+    if variant == "async":
+        count = sum(1 for k in weights if k.startswith(_ASYNC_TYPE_PREFIX))
+        if count:
+            return count, hidden
     if variant in _SERVED:
         for key in _EDGE_WEIGHT_KEYS:
             if key in weights:
@@ -75,9 +94,61 @@ def _infer_geometry(payload: Dict, variant: str, config: Dict):
         f"keys {sorted(weights)[:6]}...")
 
 
+def _nbytes(value) -> int:
+    """Host bytes of the numpy arrays in a batch or schedule (dataclasses
+    and tuples of them)."""
+    if isinstance(value, tuple):
+        return sum(_nbytes(v) for v in value)
+    if dataclasses.is_dataclass(value):
+        return sum(_nbytes(getattr(value, f.name))
+                   for f in dataclasses.fields(value))
+    return int(getattr(value, "nbytes", 0))
+
+
+class _BoundedCache:
+    """An LRU map capped by entries and by the host bytes of its values;
+    a value larger than the byte cap is not kept. Not thread-safe: the
+    Predictor holds its lock around every call."""
+
+    def __init__(self, max_entries: int, max_bytes: int):
+        self.max_entries, self.max_bytes = max_entries, max_bytes
+        self.entries = collections.OrderedDict()
+        self.nbytes = 0
+
+    def get(self, key):
+        hit = self.entries.get(key)
+        if hit is None:
+            return None
+        self.entries.move_to_end(key)
+        return hit[0]
+
+    def put(self, key, value) -> None:
+        size = _nbytes(value)
+        if key in self.entries or size > self.max_bytes:
+            return
+        self.entries[key] = (value, size)
+        self.nbytes += size
+        while (len(self.entries) > self.max_entries
+               or self.nbytes > self.max_bytes):
+            _, (_, old) = self.entries.popitem(last=False)
+            self.nbytes -= old
+
+
+def _topology_key(g: Dict):
+    """A request graph's topology: its node count and edge bytes, the one
+    key of both async caches."""
+    edges = np.asarray(g.get("graph", ()), np.int64).reshape(-1, 3)
+    return len(g["node_features"]), edges.tobytes()
+
+
 class Predictor:
-    """Batched forward pass over a fixed serving envelope (sparse family
-    and `gcn`) or the bucket table (dense family)."""
+    """Batched forward pass over a fixed serving envelope (sparse family,
+    `gcn` and `async`) or the bucket table (dense family)."""
+
+    # The async caches' bounds, those of the JAX Predictor: a schedule per
+    # topology, a packed one-graph batch per topology and width.
+    ASYNC_SCHEDULE_CACHE = (2048, 256 * 2**20)
+    ASYNC_BATCH_CACHE = (256, 256 * 2**20)
 
     def __init__(self, variant: str, config: Dict, meta: DatasetMeta,
                  params: ModelParams, max_nodes: int = 2048,
@@ -95,6 +166,16 @@ class Predictor:
             # bucket, and every graph is answered (no remainder dropping).
             self.adapter = make_adapter(variant, self.config, meta,
                                         drop_remainder=False)
+        elif variant == "async":
+            # No segment plan: the model takes its plain path.
+            self.caps = async_schedule.AsyncCapacities(
+                nodes=max_nodes, graphs=max_graphs,
+                initial_nodes=max_nodes,
+                sending_edges=max(8 * max_nodes, 64),
+                receiving_nodes=max_nodes)
+            self._cache_lock = threading.Lock()
+            self._schedules = _BoundedCache(*self.ASYNC_SCHEDULE_CACHE)
+            self._single_batches = _BoundedCache(*self.ASYNC_BATCH_CACHE)
         else:
             self.caps = packing.PackCapacities(
                 nodes=max_nodes,
@@ -157,13 +238,20 @@ class Predictor:
     # ----------------------------------------------------------- batches
 
     def _batches(self, raw_graphs: Sequence, annotation_size: int):
-        """The envelope batches of a sparse-family or `gcn` request."""
+        """The envelope batches of a sparse-family, `gcn` or `async`
+        request."""
         cfg = self.config
         # The packer's fit check is strict (`offset + n < budget`,
         # reference semantics), so budget = envelope + 1 lets a request
         # graph of exactly max_nodes through — the arrays are sized by
         # caps.nodes either way.
         node_budget = self.caps.nodes + 1
+        if self.variant == "async":
+            processed = [self._async_processed(g) for g in raw_graphs]
+            return async_schedule.pack_async_batches(
+                processed, self.meta.num_edge_types, node_budget, self.caps,
+                cfg["propagation_rounds"], cfg["propagation_substeps"],
+                cfg["hidden_size"], annotation_size, False, None)
         if self.variant == "gcn":
             processed = packing.preprocess_gcn(raw_graphs, self.task_ids,
                                                {}, False)
@@ -215,8 +303,11 @@ class Predictor:
                     f"graph {i}: edge vertex id out of range [0, {n})")
         if self.variant in _DENSE_FAMILY:
             return self._call_dense(raw_graphs, annotation_size)
-        if len(raw_graphs) == 1 and self.variant != "gcn":
+        if len(raw_graphs) == 1 and self.variant in ("sparse", "rgcn"):
             batch = self._pack_single_sparse(raw_graphs[0], annotation_size)
+            return self._forward(batch)[:, :1]
+        if len(raw_graphs) == 1 and self.variant == "async":
+            batch = self._pack_single_async(raw_graphs[0], annotation_size)
             return self._forward(batch)[:, :1]
         outs: List[np.ndarray] = []
         for batch in self._batches(raw_graphs, annotation_size):
@@ -332,6 +423,55 @@ class Predictor:
         targets[:, 0] = values
         target_mask[:, 0] = mask
         return targets, target_mask
+
+    def _async_processed(self, g: Dict) -> Dict:
+        """The processed entry of one async request graph: its flat
+        schedule tables from the topology cache (made once per topology,
+        outside the lock), its features and labels from the request."""
+        cfg = self.config
+        key = _topology_key(g)
+        with self._cache_lock:
+            flat = self._schedules.get(key)
+        if flat is None:
+            schedules = async_schedule.graph_to_propagation_schedules(
+                g.get("graph", ()), self.meta.num_edge_types,
+                cfg["tie_fwd_bkwd"], cfg["propagation_rounds"],
+                cfg["propagation_substeps"],
+                num_nodes=len(g["node_features"]))
+            flat = async_schedule._flatten_schedules(
+                schedules, cfg["propagation_substeps"],
+                self.meta.num_edge_types)
+            with self._cache_lock:
+                self._schedules.put(key, flat)
+        labels = (packing._extract_labels(g, self.task_ids) if "targets" in g
+                  else [None] * len(self.task_ids))
+        return {"init": np.asarray(g["node_features"], dtype=np.float32),
+                "flat_schedules": flat, "labels": labels}
+
+    def _pack_single_async(self, g: Dict, annotation_size: int):
+        """One-graph async batch (the latency path): every schedule leaf
+        depends only on the topology, so a topology seen before takes its
+        cached batch with new features and targets; a new one is packed
+        by `_batches`. The swapped leaves follow the packer's conventions
+        (features zero-padded to [nodes, hidden], targets [K, graphs]
+        with column 0 real), so the batch equals `_batches([g])`'s."""
+        key = _topology_key(g) + (annotation_size,)
+        with self._cache_lock:
+            cached = self._single_batches.get(key)
+        if cached is None:
+            (batch,) = list(self._batches([g], annotation_size))
+            with self._cache_lock:
+                self._single_batches.put(key, batch)
+            return batch
+        n = len(g["node_features"])
+        feats = np.zeros((cached.node_capacity, int(self.config["hidden_size"])),
+                         np.float32)
+        feats[:n, :annotation_size] = np.asarray(g["node_features"],
+                                                 dtype=np.float32)
+        targets, target_mask = self._single_graph_targets(
+            g, cached.graph_capacity)
+        return dataclasses.replace(cached, node_features=feats,
+                                   targets=targets, target_mask=target_mask)
 
     def _pack_single_dense(self, g: Dict,
                            annotation_size: int) -> DenseGraphBatch:

@@ -26,7 +26,11 @@ Restore keeps the reference's semantics (chem_tensorflow.py:330-359):
 the configs must match except `task_ids` and `num_epochs`; every saved
 weight whose name matches is assigned (shape-checked); missing names keep
 their fresh initialization and are reported, the optimizer's moments as
-well as the weights; unused saved names are reported.
+well as the weights; unused saved names are reported. A per-index leaf
+(`...['edge_weights'][t]`, the async model's per-type weights) that an
+older checkpoint stores as one stacked array under the base name takes
+that array's row t, and rows past the model's leaves are reported, as
+`ggnn_tpu/training/checkpoint.py` restores them.
 
 Not ported yet (ROADMAP A17): Orbax directory checkpoints and
 reference-produced TF1 pickles.
@@ -42,6 +46,7 @@ import torch
 from torch import nn
 
 _KEY_PART = re.compile(r"\['([^']+)'\]|\[(\d+)\]")
+_INDEXED_KEY = re.compile(r"(.+)\[(\d+)\]")
 
 
 def _keystr(name: str) -> str:
@@ -103,7 +108,30 @@ def optimizer_entries(optimizer) -> Dict[str, np.ndarray]:
     return out
 
 
-def _restore_optimizer(optimizer, saved: Dict, log) -> set:
+def _saved_value(saved: Dict, key: str, shape, split_rows: Dict, log):
+    """The saved array of `key`; for a per-index leaf `base[i]` that the
+    checkpoint stores stacked under `base` (rows of the leaf's shape),
+    row i of it, with `split_rows[base]` the rows taken so far; else
+    None."""
+    if key in saved:
+        return saved[key]
+    match = _INDEXED_KEY.fullmatch(key)
+    if match is None:
+        return None
+    base, idx = match.group(1), int(match.group(2))
+    stacked = saved.get(base)
+    if (stacked is None or np.ndim(stacked) != len(shape) + 1
+            or idx >= np.shape(stacked)[0]
+            or tuple(np.shape(stacked)[1:]) != tuple(shape)):
+        return None
+    if base not in split_rows:
+        log(f"Splitting legacy stacked {base} across "
+            f"{np.shape(stacked)[0]} per-index leaves.")
+    split_rows[base] = max(split_rows.get(base, 0), idx + 1)
+    return np.asarray(stacked)[idx]
+
+
+def _restore_optimizer(optimizer, saved: Dict, log, split_rows: Dict) -> set:
     """Assign the saved Adam state found under the optimizer's key names;
     returns the keys used."""
     prefix = _opt_prefix(optimizer)
@@ -119,7 +147,8 @@ def _restore_optimizer(optimizer, saved: Dict, log) -> set:
         for moment, state in (("mu", optimizer.mu), ("nu", optimizer.nu)):
             for name, tensor in state.items():
                 key = _moment_key(prefix, moment, name)
-                value = saved.get(key)
+                value = _saved_value(saved, key, tensor.shape, split_rows,
+                                     log)
                 if value is None:
                     log(f"Freshly initializing {key} since no saved value "
                         "was found.")
@@ -215,15 +244,17 @@ def restore_checkpoint(path: str, config: Dict, params: nn.Module,
     _check_config(config, payload["params"])
 
     saved = payload["weights"]
-    bridged = params_from_jax_weights(saved)
     own = dict(params.named_parameters())
+    split_rows = {}
     with torch.no_grad():
         for name, param in own.items():
-            value = bridged.get(name)
+            value = _saved_value(saved, _keystr(name), param.shape,
+                                 split_rows, log)
             if value is None:
                 log(f"Freshly initializing {_keystr(name)} since no saved "
                     "value was found.")
                 continue
+            value = torch.from_numpy(np.array(value))
             if tuple(value.shape) != tuple(param.shape):
                 # Loudly, at restore time: geometry the config check
                 # cannot see (num_edge_types comes from the data).
@@ -235,8 +266,17 @@ def restore_checkpoint(path: str, config: Dict, params: nn.Module,
             param.copy_(value)
     used = set()
     if optimizer is not None:
-        used = _restore_optimizer(optimizer, saved, log)
+        used = _restore_optimizer(optimizer, saved, log, split_rows)
     for key in saved:
-        if _module_name(key) not in own and key not in used:
+        if (_module_name(key) not in own and key not in used
+                and key not in split_rows):
             log(f"Saved weights for {key} not used by model.")
+    for base, rows in split_rows.items():
+        surplus = np.shape(saved[base])[0] - rows
+        if surplus > 0:
+            # A stacked array with more rows than the model has leaves:
+            # part of the checkpoint was not used.
+            log(f"Saved stacked {base} has {surplus} surplus row(s) beyond "
+                f"the model's {rows} per-index leaves; the extra rows were "
+                "not used.")
     return params, payload["train_step"], payload["valid_step"]

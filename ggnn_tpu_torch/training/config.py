@@ -65,6 +65,34 @@ DENSE_DEFAULTS: Dict = {
     "edge_weight_dropout_keep_prob": 1,
 }
 
+# chem_tensorflow_async.py:41-57
+ASYNC_DEFAULTS: Dict = {
+    **BASE_DEFAULTS,
+    "num_nodes": 100000,  # node budget
+    "use_edge_bias": False,
+    "propagation_rounds": 4,
+    "propagation_substeps": 15,
+    "graph_rnn_cell": "GRU",
+    "graph_rnn_activation": "tanh",
+    "graph_state_dropout_keep_prob": 1.0,
+    "task_sample_ratios": {},
+    # Optional keys READ but not defaulted (a new default key would break
+    # the config check of checkpoints written before it existed):
+    #   "pack_margin" (float, 1.05) — capacity headroom of the planner;
+    #   "async_remat" (bool, unset = auto) — recompute each substep in the
+    #       backward; auto turns it on when the estimate of the saved
+    #       activations passes a sixth of the device's free memory at the
+    #       first forward (2.5 GiB where the device reports none);
+    #   "async_compact" (bool, True) — the segmented path for batches with
+    #       a segment plan (models/async_ggnn.py);
+    #   "async_epoch_shuffle" ("graphs" | "batches") — "batches" packs
+    #       each split once and shuffles the batch order every epoch;
+    #       "graphs" re-packs every epoch after a graph shuffle;
+    #   "async_pack_cache" (bool) — JAX's corpus-level pack cache, not
+    #       ported (ROADMAP A12): accepted, and the flat packer, whose
+    #       batches are the same bit for bit, runs either way.
+}
+
 # The JAX package's own variant: the sparse model's feature surface
 # (layers, residuals, attention, averaging, cells) computed on the dense
 # bucketed path (models/dense_ggnn.py, extended mode).
@@ -116,10 +144,6 @@ RGCN_CONFIG: Dict = {
     "graph_rnn_activation": "ReLU",
 }
 
-# Variants of the JAX package that this package does not port yet, and
-# the ROADMAP item that ports each.
-_NOT_PORTED = {"async": "A8"}
-
 _VARIANT_DEFAULTS = {
     "sparse": SPARSE_DEFAULTS,
     "rgcn": {**SPARSE_DEFAULTS, **RGCN_CONFIG},
@@ -127,6 +151,7 @@ _VARIANT_DEFAULTS = {
     "blocked": BLOCKED_DEFAULTS,
     "gcn": GCN_DEFAULTS,
     "gcn_blocked": GCN_BLOCKED_DEFAULTS,
+    "async": ASYNC_DEFAULTS,
 }
 
 
@@ -135,10 +160,6 @@ def default_params_for(variant: str) -> Dict:
         # DEEP copy: the defaults hold nested mutables that a caller
         # must not be able to change for every later config.
         return copy.deepcopy(_VARIANT_DEFAULTS[variant])
-    if variant in _NOT_PORTED:
-        raise NotImplementedError(
-            f"variant '{variant}' is not ported yet "
-            f"(ROADMAP {_NOT_PORTED[variant]})")
     raise ValueError(f"unknown model variant '{variant}'")
 
 

@@ -39,7 +39,8 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.data.loader import infer_metadata, load_graphs_json
-from ggnn_tpu_torch.graph import DenseGraphBatch, GCNGraphBatch
+from ggnn_tpu_torch.graph import (AsyncGraphBatch, DenseGraphBatch,
+                                  GCNGraphBatch)
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss)
 from ggnn_tpu_torch.training.checkpoint import (restore_checkpoint,
@@ -53,11 +54,17 @@ from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
 
 def _batch_edge_count(batch) -> float:
     """Real (unpadded) edge count of one numpy batch: the GCN's counts
-    its COO rows, self-loops included, as the JAX Runner does."""
+    its COO rows, self-loops included, and the async one its real
+    message slots over the rounds (each edge fires once a round), as the
+    JAX Runner does."""
     if isinstance(batch, DenseGraphBatch):
         return float(np.count_nonzero(batch.adjacency))
     if isinstance(batch, GCNGraphBatch):
         return float(np.count_nonzero(batch.edge_weights))
+    if isinstance(batch, AsyncGraphBatch):
+        targets = np.asarray(batch.msg_targets)
+        rc_cap = batch.receiving_nodes.shape[-1]
+        return float((targets < rc_cap).sum()) / max(targets.shape[0], 1)
     return float(np.asarray(batch.edge_mask).sum())
 
 
@@ -137,9 +144,12 @@ class Runner:
         self.restored = restore is not None
 
         # Propagation steps per forward: the edge-messages/s multiplier.
-        self.prop_steps = int(sum(config["layer_timesteps"])
-                              if "layer_timesteps" in config
-                              else config["num_timesteps"])
+        if "layer_timesteps" in config:
+            self.prop_steps = int(sum(config["layer_timesteps"]))
+        elif variant == "async":
+            self.prop_steps = int(config["propagation_rounds"])
+        else:
+            self.prop_steps = int(config["num_timesteps"])
         self.last_edge_msg_per_sec = None
 
     # ------------------------------------------------------------- steps

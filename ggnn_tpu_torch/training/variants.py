@@ -2,25 +2,27 @@
 behind one interface, so the Runner (training/runner.py) is
 model-agnostic. The port of `ggnn_tpu/training/variants.py`: the sparse
 adapter (variants `sparse` and `rgcn`), the dense one (`dense` and
-`blocked`), the GCN one (`gcn`) and the dense GCN one (`gcn_blocked`).
+`blocked`), the GCN one (`gcn`), the dense GCN one (`gcn_blocked`) and
+the async one (`async`).
 
-The adapters pack with the port's numpy packer (data/packing.py), whose
-batches are bit-identical to the JAX package's numpy packer. A config's
-`native_pack` key is accepted and does not change that: the native C++
-packer is not ported yet (ROADMAP A12).
+The adapters pack with the port's numpy packers (data/packing.py,
+data/async_schedule.py), whose batches are bit-identical to the JAX
+package's numpy packers. A config's `native_pack` and `async_pack_cache`
+keys are accepted and do not change that: the native C++ packer and the
+async corpus cache are not ported yet (ROADMAP A12).
 """
 
-from typing import Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-from ggnn_tpu_torch.data import packing
+from ggnn_tpu_torch.data import async_schedule, packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
+from ggnn_tpu_torch.models.async_ggnn import AsyncGGNN
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.gcn import GCN, BlockedGCN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
-from ggnn_tpu_torch.training.config import default_params_for
 
 
 def _nonempty(p) -> bool:
@@ -185,6 +187,77 @@ class GcnBlockedAdapter(DenseAdapter):
         return bucketed
 
 
+class AsyncAdapter:
+    """`async`: DFS schedules packed under the `num_nodes` budget, one
+    capacity and segment plan over every split."""
+    name = "async"
+    # The packed corpora kept for async_epoch_shuffle "batches"; a
+    # Runner holds two (training and validation).
+    _CACHE_CAP = 4
+
+    def __init__(self, config: Dict, meta: DatasetMeta):
+        self.config = config
+        self.meta = meta
+        self.caps = None
+        # id(processed) -> (processed, its packed batches), first in
+        # first out; holding `processed` keeps its id valid.
+        self._batch_caches: Dict[int, Any] = {}
+
+    def build_model(self, generator: torch.Generator) -> AsyncGGNN:
+        return AsyncGGNN(self.config, self.meta.num_edge_types, generator)
+
+    def preprocess(self, raw, is_training: bool,
+                   rng: Optional[np.random.RandomState] = None):
+        return async_schedule.preprocess_async(
+            raw, self.meta.num_edge_types, self.config["tie_fwd_bkwd"],
+            self.config["propagation_rounds"],
+            self.config["propagation_substeps"],
+            self.config["task_ids"], self.config["task_sample_ratios"],
+            is_training, rng)
+
+    def plan(self, *processed_lists) -> async_schedule.AsyncCapacities:
+        # One plan over every split, the segment plan included: training
+        # and validation batches get the same shapes.
+        self.caps = async_schedule.plan_async_capacities_multi(
+            [p for p in processed_lists if p],
+            self.meta.num_edge_types, self.config["num_nodes"],
+            self.config["propagation_rounds"],
+            margin=self.config.get("pack_margin"))
+        return self.caps
+
+    def _pack(self, processed, is_training: bool, rng):
+        return async_schedule.pack_async_batches(
+            processed, self.meta.num_edge_types, self.config["num_nodes"],
+            self.caps, self.config["propagation_rounds"],
+            self.config["propagation_substeps"], self.config["hidden_size"],
+            self.meta.annotation_size, is_training, rng)
+
+    def batches(self, processed, is_training: bool,
+                rng: Optional[np.random.RandomState] = None) -> Iterator:
+        """`async_epoch_shuffle: "graphs"` (the default, the reference's
+        chem_tensorflow_async.py:341) packs every epoch after a graph
+        shuffle; `"batches"` (configs/async_tpu.json) packs a corpus once,
+        in its preprocessed order, and shuffles the batch order each
+        training epoch, holding every packed batch."""
+        mode = self.config.get("async_epoch_shuffle", "graphs")
+        if mode not in ("graphs", "batches"):
+            raise ValueError(
+                f"async_epoch_shuffle must be 'graphs' or 'batches', "
+                f"got {mode!r}")
+        if mode == "graphs":
+            return self._pack(processed, is_training, rng)
+        entry = self._batch_caches.get(id(processed))
+        if entry is None or entry[0] is not processed:
+            entry = (processed, list(self._pack(processed, False, None)))
+            while len(self._batch_caches) >= self._CACHE_CAP:
+                self._batch_caches.pop(next(iter(self._batch_caches)))
+            self._batch_caches[id(processed)] = entry
+        packed = entry[1]
+        if is_training and rng is not None:
+            return (packed[i] for i in rng.permutation(len(packed)))
+        return iter(packed)
+
+
 def make_adapter(variant: str, config: Dict, meta: DatasetMeta,
                  drop_remainder: Optional[bool] = None):
     """The adapter of a variant. `drop_remainder` (dense family only)
@@ -201,7 +274,6 @@ def make_adapter(variant: str, config: Dict, meta: DatasetMeta,
         return GCNAdapter(config, meta)
     if variant == "gcn_blocked":
         return GcnBlockedAdapter(config, meta, drop_remainder)
-    # Raises NotImplementedError naming the ROADMAP item (A8) of a known
-    # variant, ValueError for an unknown one.
-    default_params_for(variant)
+    if variant == "async":
+        return AsyncAdapter(config, meta)
     raise ValueError(f"unknown model variant '{variant}'")

@@ -1,7 +1,9 @@
 """The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, B2, its
 transpose, B3, the gather-floor probe's row gather, and the weighted
 instance of B1's body, the GCN's Â·H) against their plain PyTorch
-versions, the autograd Functions and one training step, on the card; the
+versions, the autograd Functions and one training step, on the card, at
+the sparse, GCN and async shapes (an async substep's sum and transpose,
+its serving forward and its train step, remat on and off); the
 dense family (cuBLAS products, no hand kernel), whose forward and train
 step must match the CPU and launch none of the kernels; and `time_ms`.
 Every test here needs an NVIDIA GPU and skips without one. The file
@@ -790,3 +792,131 @@ def test_gcn_train_step_on_the_card_matches_cpu(cuda, variant, tmp_path):
         g_gpu = grads_gpu[name].cpu()
         rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
         assert rel <= 1e-4, f"{name}: relative L2 error {rel:.3e}"
+
+
+# ------------------------------------------------------------- async
+
+ASYNC_SMALL = {"propagation_substeps": 40, "num_nodes": 2000}
+
+
+def _async_runners(tmp_path, overrides=None):
+    """A Runner of `async` on the card and one on the CPU, same config,
+    same seed, so the same initial weights; 2,000-node batches."""
+    config = resolve_config("async", config_json=json.dumps(
+        {**ASYNC_SMALL, **(overrides or {})}))
+    train = synthetic_molecules(240, seed=7)
+    valid = synthetic_molecules(20, seed=8)
+    return {dev: Runner("async", dict(config), train_data=train,
+                        valid_data=valid, log_dir=str(tmp_path / dev),
+                        quiet=True, device=dev)
+            for dev in ("cuda", "cpu")}
+
+
+def _substeps(batch):
+    return sum(seg.old_compact.shape[0] for segs in batch.seg_rounds
+               for seg in segs)
+
+
+def test_async_substep_kernels_match_plain_and_repeat_bit_for_bit(cuda,
+                                                                   tmp_path):
+    """B1 and B2 at the widest substep of an async training batch: its
+    compact buffer, its (target, type)-sorted send lane and the layouts
+    the model builds once per batch."""
+    from ggnn_tpu_torch.models.async_ggnn import (compact_dump_row,
+                                                  segment_layouts)
+
+    runner = _async_runners(tmp_path)["cpu"]
+    batch = next(iter(runner.adapter.batches(runner.train_processed,
+                                             False))).to(cuda)
+    t_dim = runner.model.num_edge_types
+    m_dump = compact_dump_row(batch)
+    layouts = segment_layouts(batch, t_dim, True)
+    (r, i), seg = max(
+        (((r, i), seg) for r, segs in enumerate(batch.seg_rounds)
+         for i, seg in enumerate(segs)),
+        key=lambda item: item[1].send_compact.shape[1])
+    offsets, bgather, boff = layouts[r][i]
+    k = int(torch.argmax(offsets[:, -1]))
+    num_segments = seg.old_compact.shape[1] * t_dim
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    buf = torch.randn(m_dump + 1, 100, generator=gen, device=cuda)
+    args = (buf, seg.send_compact[k], offsets[k], num_segments)
+    got = ell_spmm.gather_segment_sum(*args)
+    torch.testing.assert_close(got, ell_spmm.gather_segment_sum_reference(
+        *args), **TOL)
+    assert torch.equal(got, ell_spmm.gather_segment_sum(*args))
+    g = torch.randn(num_segments, 100, generator=gen, device=cuda)
+    back = (g, bgather[k], boff[k], m_dump + 1)
+    got = ell_spmm.segment_scatter_sum(*back)
+    torch.testing.assert_close(
+        got, ell_spmm.segment_scatter_sum_reference(*back), **TOL)
+    assert torch.equal(got, ell_spmm.segment_scatter_sum(*back))
+
+
+def test_async_train_step_on_the_card_matches_cpu(cuda, tmp_path):
+    """One Runner train step from the same initial weights on the card
+    and on the CPU (the segmented path): loss at rtol 1e-5, every
+    gradient at a relative L2 error <= 1e-4; B1 once a substep, B2 once a
+    substep but the first of round 0, whose buffer holds only features;
+    and the step with `async_remat` on, whose gradients equal it at 1e-6
+    (B1 again in the backward, where each substep is recomputed)."""
+    runners = _async_runners(tmp_path)
+    batch = next(iter(runners["cpu"].adapter.batches(
+        runners["cpu"].train_processed, False)))
+    substeps = _substeps(batch)
+    results = {}
+    for dev, runner in runners.items():
+        before = _launch_counts()
+        results[dev] = runner.loss_and_grads(batch.to(runner.device))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert [a - b for a, b in zip(_launch_counts(), before)] == [
+                substeps, substeps - 1, 0, 0, 0]
+    loss_gpu, _, grads_gpu = results["cuda"]
+    loss_cpu, _, grads_cpu = results["cpu"]
+    torch.testing.assert_close(loss_gpu.cpu(), loss_cpu, rtol=1e-5, atol=0)
+    for name, g_cpu in grads_cpu.items():
+        g_gpu = grads_gpu[name].cpu()
+        rel = float((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, f"{name}: relative L2 error {rel:.3e}"
+    remat = runners["cuda"]
+    remat.model.config["async_remat"] = True
+    before = _launch_counts()
+    loss, _, grads = remat.loss_and_grads(batch.to(remat.device))
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [
+        2 * substeps, substeps - 1, 0, 0, 0]
+    torch.testing.assert_close(loss, loss_gpu, rtol=1e-6, atol=0)
+    for name, g in grads_gpu.items():
+        torch.testing.assert_close(grads[name], g, rtol=1e-6, atol=1e-6)
+
+
+def test_async_serving_forward_on_the_card_matches_cpu(cuda):
+    """The plain path of a served async batch: B1 once a substep of every
+    round, no B2; the answers at 1e-4."""
+    from ggnn_tpu_torch.data import async_schedule
+    from ggnn_tpu_torch.models.async_ggnn import AsyncGGNN
+
+    config = resolve_config("async", config_json=json.dumps(ASYNC_SMALL))
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(AsyncGGNN(config, 4, gen),
+                         init_output_heads(gen, 100, [0])).eval()
+    caps = async_schedule.AsyncCapacities(
+        nodes=512, graphs=64, initial_nodes=512, sending_edges=4096,
+        receiving_nodes=512)
+    proc = async_schedule.preprocess_async(
+        synthetic_molecules(40, seed=4), 4, True, 4, 40, [0], {}, False)
+    batch = next(async_schedule.pack_async_batches(
+        proc, 4, caps.nodes + 1, caps, 4, 40, 100, 5, False))
+    with torch.no_grad():
+        want = params.graph.readout(params.heads, [0], params.graph(
+            batch.to("cpu")), batch.to("cpu"))
+        params.to(cuda)
+        before = _launch_counts()
+        on_card = batch.to(cuda)
+        got = params.graph.readout(params.heads, [0], params.graph(on_card),
+                                   on_card)
+        torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [
+        4 * 40, 0, 0, 0, 0]
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

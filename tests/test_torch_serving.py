@@ -16,6 +16,7 @@ from ggnn_tpu.serving import Predictor as JaxPredictor
 from ggnn_tpu.training.checkpoint import save_checkpoint as jax_save
 from ggnn_tpu.training.config import resolve_config as jax_resolve_config
 from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+from ggnn_tpu_torch.models.async_ggnn import AsyncGGNN
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.gcn import BlockedGCN
@@ -175,11 +176,26 @@ def test_from_checkpoint_without_device_needs_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("variant,error", [
-    ("async", NotImplementedError), ("nonsense", ValueError)])
+    ("async", None), ("nonsense", ValueError)])
 def test_unserved_variants_raise(tmp_path, variant, error):
-    path = _jax_checkpoint(tmp_path / "jax.pickle", "sparse", SMALL)
-    with pytest.raises(error):
-        Predictor.from_checkpoint(path, variant, device="cpu")
+    """An unknown variant raises; `async`, the last variant ported,
+    serves (tests/test_torch_async.py holds it to the JAX Predictor)."""
+    if error is not None:
+        path = _jax_checkpoint(tmp_path / "jax.pickle", "sparse", SMALL)
+        with pytest.raises(error):
+            Predictor.from_checkpoint(path, variant, device="cpu")
+        return
+    config = resolve_config(variant, config_json=json.dumps(
+        {"hidden_size": 16, "propagation_rounds": 2,
+         "propagation_substeps": 40}))
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(AsyncGGNN(config, 4, gen),
+                         init_output_heads(gen, 16, config["task_ids"]))
+    path = str(tmp_path / "async.pickle")
+    checkpoint.save_checkpoint(path, config, params, 0, 0)
+    out = Predictor.from_checkpoint(path, variant, device="cpu",
+                                    **ENVELOPE)(synthetic_molecules(3))
+    assert out.shape == (1, 3) and np.isfinite(out).all()
 
 
 @pytest.mark.parametrize("request_graphs,message", [

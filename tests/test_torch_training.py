@@ -486,7 +486,7 @@ def test_cli_without_cuda_or_with_unported_options_exits_nonzero(
     assert cli.main(["sparse", *args]) != 0
     assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["async", *args]) != 0
-    assert "A8" in capsys.readouterr().err
+    assert "no CUDA device" in capsys.readouterr().err
     assert cli.main(["rgcn", "--evaluate", *args]) != 0
     assert "A9" in capsys.readouterr().err
 
@@ -610,9 +610,13 @@ def test_cli_trains_the_dense_family_on_the_cpu(tmp_path, variant):
     assert out.shape == (1, 5) and np.isfinite(out).all()
 
 
-@pytest.mark.parametrize("variant,item", [("async", "A8")])
-def test_cli_unported_variants_exit_2(capsys, variant, item):
-    assert cli.main([variant, "--synthetic", "20", "--device", "cpu"]) == 2
+@pytest.mark.parametrize("flag,item", [(["--evaluate"], "A9"),
+                                       (["--export-artifact", "x"], "A10")])
+def test_cli_unported_variants_exit_2(capsys, flag, item):
+    """Every variant is ported; what is not ported yet exits 2 naming its
+    ROADMAP item, for the last variant ported as for the others."""
+    assert cli.main(["async", *flag, "--synthetic", "20", "--device",
+                     "cpu"]) == 2
     assert item in capsys.readouterr().err
 
 
