@@ -103,7 +103,29 @@ Phases, each raising (and so exiting non-zero) on any failure:
      first of round 0 per train step, each counted from the batches;
      one train step on the card against the CPU, and the same step with
      `async_remat` on against off on the card (gradients within 1e-6, B1
-     again in the backward); and a profile.
+     again in the backward); and a profile;
+ 13. attention — at the serving envelope and the 20k-node budget, each
+     new kernel use against its plain version: `edge_dot` for the scores
+     <h[src], h[tgt]> and for the attention weights' gradient (max abs
+     error at most 1e-5 of the dots' magnitude, two calls bit-equal),
+     the weighted instance with the lane's attention weights over
+     target*T + type, B1 over the flattened per-type lanes (exact, rows of
+     eighths: its dump segments sum thousands of pads) and B3 at the
+     per-edge route's [T, E], each with its time, bound, plain time and
+     library call (`torch.sparse.mm`, `index_select`, and for `edge_dot`
+     cuSPARSE's SDDMM, `torch.sparse.sampled_addmm`);
+     configs/sparse_attention.json served as in 4 (edge_dot and the
+     weighted instance once a step of each forward, nothing else),
+     trained for 3 epochs at configs/sparse_tpu.json's 20,000-node
+     batches (per train step 16 edge_dot, 8 weighted and 21 transpose
+     launches), one train step on the card against the CPU (the
+     attention factors' gradients among those held), two card forwards
+     bit-equal, and a profile; and each route besides the combined lane
+     (`combined_edge_lanes: false`, `aggregate_first: false`,
+     `edges_sorted_by_target: false`, the last on the 20k batch with its
+     lanes permuted), attention off and on: a 300-graph request against
+     the CPU and one train step against the CPU, each with the launches
+     `route_launches` gives (B3 exactly on the per-edge route).
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -321,7 +343,7 @@ def kernel_phase(dev, gen, batches, ell, skewed):
     skewed lane, H = 37 (the scalar path; float4 needs H % 4 == 0), and
     its ELL entry point."""
     from ggnn_tpu_torch.ops.kernels import ell_spmm
-    from ggnn_tpu_torch.ops.messages import combined_lane_offsets
+    from ggnn_tpu_torch.ops.messages import EdgeLanes
 
     def rand_h(n, h_dim=HIDDEN):
         return torch.randn(n, h_dim, generator=gen, device=dev)
@@ -333,8 +355,9 @@ def kernel_phase(dev, gen, batches, ell, skewed):
     for label, batch, t_dim in batches:
         n_cap = batch.node_capacity
         b = batch.to(dev)
-        offsets = combined_lane_offsets(b.edge_targets_all,
-                                        b.edge_types_all, t_dim, n_cap)
+        offsets = EdgeLanes.combined(b.edge_sources_all, b.edge_types_all,
+                                     b.edge_targets_all, t_dim,
+                                     n_cap).offsets
         records.append(check(label, rand_h(n_cap), b.edge_sources_all,
                              offsets, n_cap * t_dim))
     records.append(check("hub + empty segments",
@@ -344,7 +367,8 @@ def kernel_phase(dev, gen, batches, ell, skewed):
     num_segments = SKEWED_NODES * EDGE_TYPES
     records.append(check(
         "skewed in-degree", eighths(gen, dev, SKEWED_NODES), src,
-        combined_lane_offsets(tgt, types, EDGE_TYPES, SKEWED_NODES),
+        EdgeLanes.combined(src, types, tgt, EDGE_TYPES,
+                           SKEWED_NODES).offsets,
         num_segments, exact=True))
     rng = np.random.default_rng(26)
     counts = rng.integers(0, 6, 6000)
@@ -372,7 +396,7 @@ def backward_kernel_phase(dev, gen, batches, ell, skewed):
     budget (the training path's shape), a hub source, the skewed lane's
     transpose, and its ELL entry point."""
     from ggnn_tpu_torch.ops.kernels import ell_spmm
-    from ggnn_tpu_torch.ops.messages import combined_lane_transpose
+    from ggnn_tpu_torch.ops.messages import EdgeLanes
 
     def check(*args, **kwargs):
         return check_kernel(ell_spmm, "segment_scatter_sum", *args,
@@ -382,9 +406,9 @@ def backward_kernel_phase(dev, gen, batches, ell, skewed):
     for label, batch, t_dim in batches:
         n_cap = batch.node_capacity
         b = batch.to(dev)
-        bgather, boff = combined_lane_transpose(
+        _, bgather, boff = EdgeLanes.combined(
             b.edge_sources_all, b.edge_types_all, b.edge_targets_all,
-            t_dim, n_cap)
+            t_dim, n_cap).segment_transpose
         g = torch.randn(n_cap * t_dim, HIDDEN, generator=gen, device=dev)
         records.append(check(f"backward of the {label}", g, bgather, boff,
                              n_cap))
@@ -392,8 +416,8 @@ def backward_kernel_phase(dev, gen, batches, ell, skewed):
                          *hub_case(dev, gen, 24, 4096, 4096 * EDGE_TYPES,
                                    2345), 4096, exact=True))
     src, types, tgt = skewed
-    bgather, boff = combined_lane_transpose(src, types, tgt, EDGE_TYPES,
-                                            SKEWED_NODES)
+    _, bgather, boff = EdgeLanes.combined(src, types, tgt, EDGE_TYPES,
+                                          SKEWED_NODES).segment_transpose
     records.append(check(
         "backward of the skewed in-degree",
         eighths(gen, dev, SKEWED_NODES * EDGE_TYPES), bgather, boff,
@@ -497,6 +521,7 @@ def weighted_kernel_phase(dev, gen, skewed, b1_20k):
     registers; and B1 at the 20k-node budget timed again five times."""
     from ggnn_tpu_torch.models.gcn import gcn_edges
     from ggnn_tpu_torch.ops.kernels import ell_spmm
+    from ggnn_tpu_torch.ops.segment import segment_offsets
 
     fwd, bwd = "weighted_gather_segment_sum", "weighted_segment_scatter_sum"
     records, b_records = [], []
@@ -513,7 +538,7 @@ def weighted_kernel_phase(dev, gen, skewed, b1_20k):
     src, _, tgt = skewed
     w = torch.randint(-8, 9, (src.shape[0],), generator=gen,
                       device=dev).float() / 8
-    offsets = ell_spmm.segment_offsets(tgt, SKEWED_NODES)
+    offsets = segment_offsets(tgt, SKEWED_NODES)
     records.append(check_weighted(
         fwd, "skewed in-degree", eighths(gen, dev, SKEWED_NODES), src, w,
         offsets, SKEWED_NODES, exact=True))
@@ -594,18 +619,26 @@ def probe_phase(dev, batches):
 
 # ------------------------------------------------------------ serving
 
+# The launch counters, in the order of `launch_counts`.
+COUNTERS = ("b1", "b2", "b3", "weighted", "weighted_transpose", "edge_dot")
+COUNTER_NAMES = "B1/B2/B3/weighted/transpose/edge_dot"
+NO_LAUNCH = (0,) * len(COUNTERS)
+
+
 def launch_counts():
-    """(B1, B2, B3, weighted, weighted transpose) launch counters."""
-    from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
+    """(B1, B2, B3, weighted, weighted transpose, edge_dot) launch
+    counters."""
+    from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
     return (ell_spmm.launches, ell_spmm.scatter_launches,
             gather_floor.launches, ell_spmm.weighted_launches,
-            ell_spmm.weighted_scatter_launches)
+            ell_spmm.weighted_scatter_launches, edge_dot.launches)
 
 
 def zero_launch_counts():
-    from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
+    from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
     ell_spmm.launches = ell_spmm.scatter_launches = gather_floor.launches = 0
     ell_spmm.weighted_launches = ell_spmm.weighted_scatter_launches = 0
+    edge_dot.launches = 0
 
 
 def serving_requests():
@@ -614,10 +647,10 @@ def serving_requests():
             for i, n in enumerate((1, 300, 3000))}
 
 
-def random_checkpoint(variant, ckpt_dir, overrides=None):
+def random_checkpoint(variant, ckpt_dir, overrides=None, tag=""):
     """The default config of `variant` (with `overrides`) with random
-    weights from torch.Generator seed 0, written as a pickle
-    checkpoint."""
+    weights from torch.Generator seed 0, written as a pickle checkpoint
+    whose name carries `tag`."""
     from ggnn_tpu_torch.data.loader import DatasetMeta
     from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
     from ggnn_tpu_torch.training.checkpoint import save_checkpoint
@@ -634,7 +667,7 @@ def random_checkpoint(variant, ckpt_dir, overrides=None):
         heads=init_output_heads(gen, config["hidden_size"],
                                 config["task_ids"]))
     os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"{variant}_random_seed0.pickle")
+    path = os.path.join(ckpt_dir, f"{variant}{tag}_random_seed0.pickle")
     save_checkpoint(path, config, params, 0, 0)
     return config, path
 
@@ -662,6 +695,12 @@ def check_and_time_answers(label, predictor, cpu_predictor, requests,
                                    atol=TOL_SERVING)
         log(f"{label} {n}-graph request: matches CPU port "
             f"(max_abs_err={err:.3e})")
+    result = {"max_abs_err_vs_cpu": max_err,
+              "requests_held_against_cpu": sorted(
+                  n for n in requests
+                  if cpu_sizes is None or n in cpu_sizes)}
+    if not {1, 3000} <= set(requests):
+        return result
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -676,12 +715,8 @@ def check_and_time_answers(label, predictor, cpu_predictor, requests,
         predictor(requests[1])
         torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
-    result = {"graphs_per_s_3000": 3000 / statistics.median(times),
-              "latency_1_graph_ms": statistics.median(lat[5:]) * 1e3,
-              "max_abs_err_vs_cpu": max_err,
-              "requests_held_against_cpu": sorted(
-                  n for n in requests
-                  if cpu_sizes is None or n in cpu_sizes)}
+    result.update({"graphs_per_s_3000": 3000 / statistics.median(times),
+                   "latency_1_graph_ms": statistics.median(lat[5:]) * 1e3})
     log(f"{label}: {result['graphs_per_s_3000']:.1f} graphs/s on the "
         f"3000-graph request (median of 3, host clock, synchronised); "
         f"1-graph latency {result['latency_1_graph_ms']:.3f} ms "
@@ -697,20 +732,24 @@ def serving_phase(ckpt_dir):
 
     steps = sum(default_params_for("sparse")["layer_timesteps"])
     return counted_serving("sparse", ckpt_dir,
-                           lambda calls: (steps * calls, 0, 0, 0, 0))
+                           lambda calls: (steps * calls, 0, 0, 0, 0, 0))
 
 
 def counted_serving(variant, ckpt_dir, want, overrides=None,
-                    cpu_sizes=None):
+                    cpu_sizes=None, sizes=None, tag=""):
     """The default `variant` (with `overrides`) served from a pickle
     checkpoint on the default device: the kernels' counters set to 0
     before each request and read after it, where `want(forward_calls)`
     gives the counts expected; then the answers against the CPU's (of
-    the requests in `cpu_sizes`, all when None) and the times."""
+    the requests in `cpu_sizes`, all when None) and, when the 1- and
+    3,000-graph requests are among the `sizes` (all three when None),
+    the times."""
     from ggnn_tpu_torch.serving import Predictor
 
     requests = serving_requests()
-    _, path = random_checkpoint(variant, ckpt_dir, overrides)
+    if sizes is not None:
+        requests = {n: requests[n] for n in sizes}
+    _, path = random_checkpoint(variant, ckpt_dir, overrides, tag)
     predictor = Predictor.from_checkpoint(path, variant)
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
@@ -735,14 +774,14 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
         if counts[-1] != want(forward_calls):
             raise RuntimeError(
                 f"{variant} serving of {n} graphs ({forward_calls} forward "
-                f"calls) launched B1/B2/B3/weighted/transpose {counts[-1]}, "
+                f"calls) launched {COUNTER_NAMES} {counts[-1]}, "
                 f"expected {want(forward_calls)}")
     predictor._forward = forward
-    log(f"{variant} serving: launches B1/B2/B3/weighted/transpose around "
-        f"the 1-, 300- and 3000-graph requests {counts}")
+    log(f"{variant}{tag} serving: launches {COUNTER_NAMES} around "
+        f"the {sorted(requests)}-graph requests {counts}")
     return {"forward_calls": calls, "launches_by_request": counts,
             "launches": [sum(c) for c in zip(*counts)],
-            **check_and_time_answers(f"{variant} serving", predictor,
+            **check_and_time_answers(f"{variant}{tag} serving", predictor,
                                      cpu_predictor, requests, answers,
                                      cpu_sizes)}
 
@@ -751,7 +790,7 @@ def dense_serving_phase(ckpt_dir):
     """The default `dense` and `blocked` models served: no hand kernel
     launches (the dense family runs cuBLAS products)."""
     return {variant: counted_serving(variant, ckpt_dir,
-                                     lambda calls: (0, 0, 0, 0, 0))
+                                     lambda calls: NO_LAUNCH)
             for variant in DENSE_VARIANTS}
 
 
@@ -800,16 +839,18 @@ def train_config(variant, overrides=None):
                                                   **(overrides or {})})
 
 
-def train_run(variant, epochs, corpus, log_dir):
+def train_run(variant, epochs, corpus, log_dir, config=None):
     """`epochs` epochs of `variant` through `Runner.train()` on the
     default device: the kernels' counters set to 0 just before `train()`
     and read just after, every loss finite, the last validation loss
     below that of the initial weights; per epoch the losses, MAE,
     error_ratio, graphs/s and the median synchronised train-step time;
-    and the numpy packer alone over one training epoch."""
+    and the numpy packer alone over one training epoch. `config` (with
+    its num_epochs) replaces the variant's training config."""
     from ggnn_tpu_torch.training.runner import Runner
 
-    config = train_config(variant, {"num_epochs": epochs})
+    config = ({**config, "num_epochs": epochs} if config is not None
+              else train_config(variant, {"num_epochs": epochs}))
     train, valid = corpus
     t0 = time.perf_counter()
     runner = Runner(variant, config, train_data=train, valid_data=valid,
@@ -846,12 +887,12 @@ def train_run(variant, epochs, corpus, log_dir):
     history = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    b1, b2, b3, w_fwd, w_bwd = launch_counts()
+    b1, b2, b3, w_fwd, w_bwd, dots = launch_counts()
     runner.train_step, runner.run_epoch = train_step, run_epoch
     log(f"{variant} training: {len(history)} epochs, {runner.train_step_id} "
         f"train steps, {runner.valid_step_id} validation batches in "
         f"{train_s:.2f} s; launches B1 {b1}, B2 {b2}, B3 {b3}, weighted "
-        f"{w_fwd}, weighted transpose {w_bwd}")
+        f"{w_fwd}, weighted transpose {w_bwd}, edge_dot {dots}")
 
     epoch_marks.append(len(step_times))
     epochs_out = []
@@ -894,6 +935,7 @@ def train_run(variant, epochs, corpus, log_dir):
     return runner, {
         "launches_b1": b1, "launches_b2": b2, "launches_b3": b3,
         "launches_weighted": w_fwd, "launches_weighted_transpose": w_bwd,
+        "launches_edge_dot": dots,
         "pack_seconds_per_epoch": pack_s,
         "train_epoch_seconds_median": epoch_s,
         "train_steps": runner.train_step_id,
@@ -918,7 +960,8 @@ def training_phase(corpus, log_dir):
     b1, b2 = result["launches_b1"], result["launches_b2"]
     if (b1 != want_b1 or b2 != want_b2 or b1 == 0 or b2 == 0
             or result["launches_b3"] or result["launches_weighted"]
-            or result["launches_weighted_transpose"]):
+            or result["launches_weighted_transpose"]
+            or result["launches_edge_dot"]):
         raise RuntimeError("the training path did not launch the kernels "
                            "the expected number of times")
     return runner, result
@@ -930,12 +973,10 @@ def dense_training_phase(corpus, log_dir):
     for variant in DENSE_VARIANTS:
         runners[variant], results[variant] = train_run(
             variant, 3, corpus, os.path.join(log_dir, variant))
-        counts = [results[variant][f"launches_{k}"]
-                  for k in ("b1", "b2", "b3", "weighted",
-                            "weighted_transpose")]
+        counts = [results[variant][f"launches_{k}"] for k in COUNTERS]
         if any(counts):
-            raise RuntimeError(f"{variant} training launched B1/B2/B3/"
-                               f"weighted/transpose {counts} times")
+            raise RuntimeError(f"{variant} training launched "
+                               f"{COUNTER_NAMES} {counts} times")
     return runners, results
 
 
@@ -946,9 +987,10 @@ def gcn_serving_phase(ckpt_dir):
 
     layers = default_params_for("gcn")["num_timesteps"]
     return {"gcn": counted_serving(
-                "gcn", ckpt_dir, lambda calls: (0, 0, 0, layers * calls, 0)),
+                "gcn", ckpt_dir,
+                lambda calls: (0, 0, 0, layers * calls, 0, 0)),
             "gcn_blocked": counted_serving(
-                "gcn_blocked", ckpt_dir, lambda calls: (0, 0, 0, 0, 0))}
+                "gcn_blocked", ckpt_dir, lambda calls: NO_LAUNCH)}
 
 
 def gcn_training_phase(corpus, log_dir):
@@ -961,10 +1003,8 @@ def gcn_training_phase(corpus, log_dir):
         runners[variant], result = train_run(
             variant, 3, corpus, os.path.join(log_dir, variant))
         results[variant] = result
-        counts = [result[f"launches_{k}"]
-                  for k in ("b1", "b2", "b3", "weighted",
-                            "weighted_transpose")]
-        want = [0] * 5
+        counts = [result[f"launches_{k}"] for k in COUNTERS]
+        want = [0] * len(COUNTERS)
         if variant == "gcn":
             config = runners[variant].config
             assert config["batch_size"] == 20000
@@ -972,9 +1012,9 @@ def gcn_training_phase(corpus, log_dir):
             want[3] = layers * (result["train_steps"]
                                 + result["valid_batches"])
             want[4] = (layers - 1) * result["train_steps"]
-        log(f"{variant} training: launches B1/B2/B3/weighted/transpose "
+        log(f"{variant} training: launches {COUNTER_NAMES} "
             f"{counts}, expected {want}")
-        if counts != want or (variant == "gcn" and not all(want[3:])):
+        if counts != want or (variant == "gcn" and not all(want[3:5])):
             raise RuntimeError(f"{variant} training launched the kernels "
                                f"{counts} times, expected {want}")
     return runners, results
@@ -1109,7 +1149,7 @@ def async_serving_phase(ckpt_dir):
     steps = (default_params_for("async")["propagation_rounds"]
              * ASYNC_SERVING["propagation_substeps"])
     return counted_serving("async", ckpt_dir,
-                           lambda calls: (steps * calls, 0, 0, 0, 0),
+                           lambda calls: (steps * calls, 0, 0, 0, 0, 0),
                            overrides=ASYNC_SERVING, cpu_sizes=(1, 300))
 
 
@@ -1133,15 +1173,14 @@ def async_training_phase(corpus, log_dir):
                  for name, batches in splits.items()}
     want = [epochs * sum(b1 for b1, _ in per_batch["train"]
                          + per_batch["valid"]),
-            epochs * sum(b2 for _, b2 in per_batch["train"]), 0, 0, 0]
+            epochs * sum(b2 for _, b2 in per_batch["train"]), 0, 0, 0, 0]
     plain = sum(b.seg_rounds is None for batches in splits.values()
                 for b in batches)
-    got = [result[f"launches_{k}"] for k in ("b1", "b2", "b3", "weighted",
-                                             "weighted_transpose")]
+    got = [result[f"launches_{k}"] for k in COUNTERS]
     log(f"async training: substeps per train batch "
         f"{[b1 for b1, _ in per_batch['train']]}, per validation batch "
         f"{[b1 for b1, _ in per_batch['valid']]} ({plain} batches on the "
-        f"plain path); launches B1/B2/B3/weighted/transpose {got}, "
+        f"plain path); launches {COUNTER_NAMES} {got}, "
         f"expected {want}")
     if got != want or not all(want[:2]):
         raise RuntimeError(f"async training launched the kernels {got} "
@@ -1170,7 +1209,7 @@ def async_remat_step(runner, batch, loss, grads, launches):
                 for n, g in grads.items())
     log(f"async train step on the card, remat on vs off: loss relative "
         f"error {loss_err:.3e}, worst gradient max abs error {worst:.3e} "
-        f"(limit {TOL_REMAT}); launches B1/B2/B3/weighted/transpose {got}, "
+        f"(limit {TOL_REMAT}); launches {COUNTER_NAMES} {got}, "
         f"expected {want}")
     if not loss_err <= TOL_REMAT or not worst <= TOL_REMAT or got != want:
         raise RuntimeError("the async step with remat on disagrees with "
@@ -1196,21 +1235,30 @@ def is_full_v32_batch(batch):
     return int(batch.num_graphs) == 256 and batch.num_vertices == 32
 
 
-def card_vs_cpu_phase(variant, corpus, pick, log_dir):
+def card_vs_cpu_phase(variant, corpus, pick, log_dir, config=None,
+                      transform=None, want=None, label=None,
+                      repeat_forward=False):
     """One train step, keep probabilities 1.0, on the card and on the
     CPU from the same initial weights (both Runners draw them from a CPU
-    generator seeded with random_seed), on the batch `pick` accepts."""
+    generator seeded with random_seed), on the batch `pick` accepts
+    (passed through `transform` if given). `config` replaces the
+    variant's training config, `want` the launches expected of a step,
+    `label` the variant's name in the log and the log directory;
+    `repeat_forward` also holds two card forwards of the batch bit-equal."""
     from ggnn_tpu_torch.training.runner import Runner
 
-    config = train_config(variant, {"num_epochs": 1})
+    label = label or variant
+    config = dict(config or train_config(variant, {"num_epochs": 1}))
     config.update({k: v for k, v in NO_DROPOUT.items() if k in config})
     train, valid = corpus
     runners = {dev: Runner(variant, dict(config), train_data=train,
                            valid_data=valid,
-                           log_dir=os.path.join(log_dir, variant, dev),
+                           log_dir=os.path.join(log_dir, label, dev),
                            quiet=True, device=dev)
                for dev in ("cuda", "cpu")}
     batch = first_batch(runners["cpu"], pick)
+    if transform is not None:
+        batch = transform(batch)
     out = {}
     for dev, runner in runners.items():
         t0 = time.perf_counter()
@@ -1219,7 +1267,7 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir):
         if dev == "cuda":
             torch.cuda.synchronize()
             launches = launch_counts()
-        log(f"card vs CPU: {variant} {dev} step (first call) "
+        log(f"card vs CPU: {label} {dev} step (first call) "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     loss_gpu, _, grads_gpu = out["cuda"]
     loss_cpu, _, grads_cpu = out["cpu"]
@@ -1232,39 +1280,55 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir):
             worst, worst_name = rel, name
     what = (f"{int(batch.num_nodes)} nodes" if variant in EDGE_LIST_VARIANTS
             else f"V = {batch.num_vertices}")
-    log(f"card vs CPU, one {variant} train step on {what} "
+    log(f"card vs CPU, one {label} train step on {what} "
         f"({int(batch.num_graphs)} graphs): loss {float(loss_gpu):.8f} vs "
         f"{float(loss_cpu):.8f} (relative error {loss_err:.3e}, limit "
         f"{TOL_STEP_LOSS}); worst gradient relative L2 error {worst:.3e} "
         f"({worst_name}, limit {TOL_STEP_GRAD}) over {len(grads_cpu)} "
-        f"parameters; launches B1/B2/B3/weighted/transpose {launches}")
+        f"parameters; launches {COUNTER_NAMES} {launches}")
     if not loss_err <= TOL_STEP_LOSS or not worst <= TOL_STEP_GRAD:
-        raise RuntimeError(f"the card's {variant} train step disagrees "
+        raise RuntimeError(f"the card's {label} train step disagrees "
                            "with the CPU's")
     # A `gcn` step: the weighted kernel once a layer forward, its
     # transpose once a layer but the first (whose input needs no
     # gradient); no hand kernel on the dense family.
     layers = config.get("num_timesteps")
-    want = (0, 0, 0, 0, 0)
-    if variant == "gcn":
-        want = (0, 0, 0, layers, layers - 1)
+    if want is not None:
+        want = tuple(want)
+    elif variant == "gcn":
+        want = (0, 0, 0, layers, layers - 1, 0)
     elif variant == "async":
-        want = async_launches(batch, config) + (0, 0, 0)
-    if variant != "sparse" and launches != want:
-        raise RuntimeError(f"the {variant} train step launched "
+        want = async_launches(batch, config) + (0, 0, 0, 0)
+    elif variant != "sparse":
+        want = NO_LAUNCH
+    if want is not None and launches != want:
+        raise RuntimeError(f"the {label} train step launched "
                            f"{launches}, expected {want}")
     result = {"loss_relative_error": loss_err,
               "worst_grad_relative_l2": worst, "worst_grad": worst_name,
-              "launches": list(launches)}
+              "launches": list(launches), "parameters": sorted(grads_cpu)}
+    if repeat_forward:
+        model = runners["cuda"].params.graph
+        on_card = batch.to(runners["cuda"].device)
+        with torch.no_grad():
+            first, second = model(on_card), model(on_card)
+        torch.cuda.synchronize()
+        diff = float((first - second).abs().max())
+        result["forward_repeat_max_abs_diff"] = diff
+        log(f"card: two {label} forwards on the same batch differ by at "
+            f"most {diff:.3e} (0 = bit-equal)")
+        if diff != 0.0:
+            raise RuntimeError(f"two {label} forwards on the card differ")
     if variant == "async":
         result["remat"] = async_remat_step(runners["cuda"], batch, loss_gpu,
                                            grads_gpu, launches)
     return result
 
 
-def profile_phase(runner, batch, steps=5):
+def profile_phase(runner, batch, steps=5, label=None):
     """torch.profiler over `steps` train steps on one training batch
-    already on the card (the variant's dropout on)."""
+    already on the card (the variant's dropout on); `label` names the
+    run (the variant by default)."""
     from torch.autograd import DeviceType
 
     batch = batch.to(runner.device)
@@ -1293,8 +1357,9 @@ def profile_phase(runner, batch, steps=5):
     shape = (f"{int(batch.num_nodes)} nodes"
              if hasattr(batch, "num_nodes") else
              f"{int(batch.num_graphs)} graphs, V = {batch.num_vertices}")
+    label = label or runner.variant
     result = {
-        "variant": runner.variant, "batch": shape, "steps": steps,
+        "variant": label, "batch": shape, "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -1303,7 +1368,7 @@ def profile_phase(runner, batch, steps=5):
             {"name": k[0][:80], "ms_per_step": k[1] / 1e3 / steps,
              "calls_per_step": k[2] / steps} for k in kernels[:12]],
     }
-    log(f"profile of a {runner.variant} train step ({shape}): wall "
+    log(f"profile of a {label} train step ({shape}): wall "
         f"{result['wall_ms_per_step']:.3f} ms, device busy "
         f"{result['device_busy_ms_per_step']:.3f} ms, idle share "
         f"{result['device_idle_share']:.3f}, "
@@ -1372,6 +1437,287 @@ def dense_forward_phase(runners):
                                f"{ms} ms over 50 calls, {ms_5_calls} over 5")
     return results
 
+# ------------------------------------------ attention and the A15 routes
+
+ATTENTION_FILE = "sparse_attention.json"
+# The sparse GGNN's routes besides the combined lane, each with the
+# config keys that select it (ggnn_tpu/models/sparse_ggnn.py:214-258).
+ROUTES = {"per-type": {"combined_edge_lanes": False},
+          "per-edge": {"aggregate_first": False},
+          "unsorted": {"edges_sorted_by_target": False}}
+
+
+def config_keys(name):
+    with open(os.path.join(REPO, "configs", name)) as f:
+        return json.load(f)
+
+
+def attention_config(overrides=None):
+    """configs/sparse_attention.json (attention, edge bias, state dropout
+    0.95) at configs/sparse_tpu.json's 20,000-node batches, with
+    `overrides`."""
+    return resolved_config("sparse", ATTENTION_FILE, {
+        **config_keys("sparse_tpu.json"), **(overrides or {})})
+
+
+def route_launches(route, attention, steps, train):
+    """The launches of B1, B2, B3, the weighted instance, its transpose
+    and edge_dot in one forward (`train` False) or one train step of a
+    sparse GGNN of `steps` propagation steps on `route` ("combined",
+    "per-type", "unsorted" or "per-edge"). Forward: the scores are one
+    edge_dot a step; the aggregate-first routes sum through B1, or with
+    attention through the weighted instance; the per-edge route gathers
+    with B3, scales the messages and sums through B1. Backward, the
+    first step's input (node features) needs no gradient: the
+    aggregation's transpose (B2, or the weighted transpose) and the
+    scores' two weighted launches run from the second step on, the
+    weights' gradient (edge_dot) at every step, the per-edge
+    aggregation's B2 at every step (the messages depend on W)."""
+    s, per_edge = steps, route == "per-edge"
+    dots = s if attention else 0
+    if not train:
+        if per_edge:
+            return (s, 0, s, 0, 0, dots)
+        return (0, 0, 0, s, 0, s) if attention else (s, 0, 0, 0, 0, 0)
+    if per_edge:
+        return (s, 2 * s - 1, s, 0, 2 * (s - 1) if attention else 0, dots)
+    if attention:
+        return (0, 0, 0, s, 3 * (s - 1), 2 * s)
+    return (s, s - 1, 0, 0, 0, 0)
+
+
+def sampled_dots(x, a, y, b):
+    """The library's SDDMM for edge_dot: a CSR pattern over y's rows
+    (rows b, columns a) of the real pairs, sorted by (b, a) and built
+    here, outside the timed call, and the call
+    `torch.sparse.sampled_addmm(pattern, y, x.T)`, whose k-th value is
+    <y[b_k], x[a_k]>. Returns (call, order): `order` maps the call's
+    values back to the pairs' positions."""
+    from ggnn_tpu_torch.ops.segment import segment_offsets
+
+    real = torch.nonzero((b >= 0) & (b < y.shape[0])).squeeze(1)
+    rows, cols = b[real].long(), a[real].long()
+    perm = torch.argsort(rows * x.shape[0] + cols)
+    rows, cols = rows[perm], cols[perm]
+    pattern = torch.sparse_csr_tensor(
+        segment_offsets(rows, y.shape[0]).long(), cols,
+        torch.zeros(rows.shape[0], dtype=torch.float32, device=x.device),
+        size=(y.shape[0], x.shape[0]))
+    xt = x.t()
+    return (lambda: torch.sparse.sampled_addmm(pattern, y, xt, beta=0.0),
+            real[perm])
+
+
+def check_edge_dot(label, x, a, y, b):
+    """edge_dot against its plain version on the card at one shape: max
+    abs error at most TOL_KERNEL of the dots' magnitude (f32 sums in
+    another order), two calls bit-equal, the pads (b out of range) 0.
+    The bound counts each row that some pair reads once (x and y the
+    same table: the union of both ids), the ids once and one float an
+    edge written, and two operations an element of the real pairs. The
+    library call is cuSPARSE's SDDMM over the real pairs
+    (`sampled_dots`), held to the same tolerance."""
+    from ggnn_tpu_torch.ops.kernels import edge_dot
+
+    got = edge_dot.edge_dot(x, a, y, b)
+    again = edge_dot.edge_dot(x, a, y, b)
+    want = edge_dot.edge_dot_reference(x, a, y, b)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise RuntimeError(f"edge_dot [{label}]: two calls differ")
+    real = (b >= 0) & (b < y.shape[0])
+    if got[~real].any():
+        raise RuntimeError(f"edge_dot [{label}]: a pad is not 0")
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= TOL_KERNEL * scale:
+        raise RuntimeError(f"edge_dot [{label}]: max abs error {err} past "
+                           f"{TOL_KERNEL} x {scale}")
+    library, order = sampled_dots(x, a, y, b)
+    lib_err = float((library().values() - want[order]).abs().max())
+    if not lib_err <= TOL_KERNEL * scale:
+        raise RuntimeError(f"sampled_addmm [{label}]: max abs error "
+                           f"{lib_err} past {TOL_KERNEL} x {scale}")
+    h_dim = x.shape[1]
+    if x is y:
+        rows = int(torch.unique(torch.cat([a, b[real]])).numel())
+    else:
+        rows = (int(torch.unique(a).numel())
+                + int(torch.unique(b[real]).numel()))
+    edges, used = int(a.shape[0]), int(real.sum())
+    rec = {"shape": label, "E": edges, "real_pairs": used, "H": h_dim,
+           "rows_read": rows, "max_abs_err": err, "dot_scale": scale,
+           "bit_equal_repeat": True, "library_max_abs_err": lib_err,
+           **measure(lambda: edge_dot.edge_dot(x, a, y, b),
+                     lambda: edge_dot.edge_dot_reference(x, a, y, b),
+                     library,
+                     bytes_moved=4 * (rows * h_dim + 3 * edges),
+                     ops=2 * used * h_dim)}
+    log(f"kernel edge_dot [{label}] E={edges} real={used} H={h_dim} "
+        f"rows_read={rows}: {timing_text(rec)}")
+    return rec
+
+
+def check_gather(label, h, src):
+    """B3 (`gather_rows`) at the per-edge route's [T, E] shape and its
+    widest unroll dividing E, equal to its plain version (a copy); the
+    bound counts the rows some id reads, the ids and the output once;
+    the library call is one `index_select`."""
+    from ggnn_tpu_torch.ops.kernels import gather_floor
+
+    unroll = gather_floor.widest_unroll(src.shape[1])
+    got = gather_floor.gather_rows(h, src, unroll)
+    want = gather_floor.gather_rows_reference(h, src)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise RuntimeError(f"gather_rows [{label}] differs from its plain "
+                           "version")
+    flat = src.reshape(-1)
+    rows, h_dim = int(torch.unique(flat).numel()), h.shape[1]
+    rec = {"shape": label, "T": src.shape[0], "E": src.shape[1],
+           "unroll": unroll, "H": h_dim, "rows_read": rows,
+           "max_abs_err": 0.0,
+           **measure(lambda: gather_floor.gather_rows(h, src, unroll),
+                     lambda: gather_floor.gather_rows_reference(h, src),
+                     lambda: torch.index_select(h, 0, flat),
+                     bytes_moved=4 * (rows * h_dim + flat.shape[0]
+                                      + flat.shape[0] * h_dim),
+                     ops=0)}
+    log(f"kernel gather_rows [{label}] T={src.shape[0]} E={src.shape[1]} "
+        f"unroll={unroll} rows_read={rows}: {timing_text(rec)}")
+    return rec
+
+
+def attention_kernel_phase(dev, gen, batches):
+    """At the serving envelope and the 20k-node budget, each kernel of
+    the new paths against its plain version: edge_dot for the scores
+    <h[src], h[tgt]> over the combined lane and for the attention
+    weights' gradient <h[src], g[target*T + type]>; the weighted instance
+    with the lane's attention weights over target*T + type; B1 over the
+    flattened per-type lanes (composite id t*(N+1) + target, the pads in
+    the dump segments; rows of eighths, exact); B3 at the per-edge
+    route's [T, E]."""
+    from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm
+    from ggnn_tpu_torch.ops.messages import (
+        EdgeLanes, propagation_attention_weights_combined)
+
+    out = {"edge_dot": [], "edge_dot_gradient": [], "weighted": [],
+           "per_type_b1": [], "gather_rows": []}
+    for label, batch, t_dim in batches:
+        b = batch.to(dev)
+        n = b.node_capacity
+        lanes = EdgeLanes.combined(b.edge_sources_all, b.edge_types_all,
+                                   b.edge_targets_all, t_dim, n)
+        h = torch.randn(n, HIDDEN, generator=gen, device=dev)
+        out["edge_dot"].append(check_edge_dot(
+            f"scores, {label}", h, b.edge_sources_all, h,
+            b.edge_targets_all))
+        g = torch.randn(n * t_dim, HIDDEN, generator=gen, device=dev)
+        out["edge_dot_gradient"].append(check_edge_dot(
+            f"weights' gradient, {label}", h, b.edge_sources_all, g,
+            lanes.segments))
+        factors = torch.rand(t_dim, generator=gen, device=dev) + 0.5
+        with torch.no_grad():
+            att = propagation_attention_weights_combined(
+                h, b.edge_sources_all, b.edge_targets_all, b.edge_mask_all,
+                b.edge_types_all, factors, n, lanes)
+        out["weighted"].append(check_weighted(
+            "weighted_gather_segment_sum", f"attention weights, {label}", h,
+            b.edge_sources_all, att, lanes.offsets, n * t_dim))
+        # The dump segments sum thousands of pads' copies of row 0, whose
+        # f32 rounding depends on the order past 1e-5: rows of eighths
+        # make every partial sum exact, so the kernel must equal its
+        # plain version.
+        typed = EdgeLanes.typed(b.edge_sources, b.edge_targets, n)
+        out["per_type_b1"].append(check_kernel(
+            ell_spmm, "gather_segment_sum", f"per-type lanes, {label}",
+            eighths(gen, dev, n), typed.src, typed.offsets,
+            t_dim * (n + 1), exact=True))
+        out["gather_rows"].append(check_gather(f"per-edge [T, E], {label}",
+                                               h, b.edge_sources))
+    out["edge_dot_registers"] = {
+        "float4": edge_dot.registers(True, dev),
+        "scalar": edge_dot.registers(False, dev)}
+    log(f"edge_dot: registers a thread {out['edge_dot_registers']}")
+    return out
+
+
+def permuted_lanes(batch, seed=44):
+    """The batch with each type's lane (pads included) permuted by a
+    seeded permutation: no longer target-sorted."""
+    import dataclasses
+
+    rng = np.random.default_rng(seed)
+    perms = np.stack([rng.permutation(batch.edge_sources.shape[1])
+                      for _ in range(batch.edge_sources.shape[0])])
+    return dataclasses.replace(batch, **{
+        name: np.take_along_axis(np.asarray(getattr(batch, name)), perms,
+                                 axis=1)
+        for name in ("edge_sources", "edge_targets", "edge_mask")})
+
+
+def per_request(per_forward):
+    return lambda calls: tuple(c * calls for c in per_forward)
+
+
+def attention_serving_phase(ckpt_dir):
+    """configs/sparse_attention.json served (random weights, factors at
+    their initial ones): edge_dot and the weighted instance once a
+    propagation step of each forward, and nothing else."""
+    steps = sum(attention_config()["layer_timesteps"])
+    return counted_serving(
+        "sparse", ckpt_dir,
+        per_request(route_launches("combined", True, steps, False)),
+        overrides=config_keys(ATTENTION_FILE), tag="_attention")
+
+
+def attention_training_phase(corpus, log_dir):
+    """3 epochs of configs/sparse_attention.json at 20,000-node batches:
+    per train step and validation batch the launches `route_launches`
+    gives, B1, B2 and B3 none."""
+    config = attention_config()
+    runner, result = train_run("sparse", 3, corpus, log_dir, config=config)
+    assert runner.config["use_propagation_attention"]
+    assert runner.config["batch_size"] == 20000
+    steps = sum(config["layer_timesteps"])
+    fwd = route_launches("combined", True, steps, False)
+    trn = route_launches("combined", True, steps, True)
+    want = [t * result["train_steps"] + f * result["valid_batches"]
+            for f, t in zip(fwd, trn)]
+    got = [result[f"launches_{k}"] for k in COUNTERS]
+    log(f"attention training: launches {COUNTER_NAMES} {got}, expected "
+        f"{want} ({trn} a train step, {fwd} a validation batch)")
+    if got != want:
+        raise RuntimeError(f"attention training launched {got}, expected "
+                           f"{want}")
+    return runner, result
+
+
+def routes_phase(step_corpus, ckpt_dir, step_dir):
+    """Each route besides the combined lane, attention off and on: a
+    300-graph request served on the card against the CPU and one train
+    step on the 20k-node batch (its lanes permuted for the unsorted
+    route) on the card against the CPU, each with its launches."""
+    steps = sum(attention_config()["layer_timesteps"])
+    results = {}
+    for route, keys in ROUTES.items():
+        for attention in (False, True):
+            label = f"{route}, attention {'on' if attention else 'off'}"
+            overrides = {**keys, "use_propagation_attention": attention}
+            serving = counted_serving(
+                "sparse", ckpt_dir,
+                per_request(route_launches(route, attention, steps, False)),
+                overrides={**config_keys(ATTENTION_FILE), **overrides},
+                sizes=(300,), tag=f"_{route}_{int(attention)}")
+            step = card_vs_cpu_phase(
+                "sparse", step_corpus, is_20k_batch, step_dir,
+                config=attention_config({**overrides, "num_epochs": 1}),
+                transform=permuted_lanes if route == "unsorted" else None,
+                want=route_launches(route, attention, steps, True),
+                label=f"sparse ({label})")
+            results[label] = {"serving": serving, "train_step": step}
+    return results
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1380,7 +1726,7 @@ def main() -> int:
         return 1
     from ggnn_tpu_torch.data.synthetic import synthetic_molecules
     from ggnn_tpu_torch.ops.kernels import _build, ell_spmm
-    from ggnn_tpu_torch.ops.messages import combined_lane_offsets
+    from ggnn_tpu_torch.ops.messages import EdgeLanes
 
     script_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1390,7 +1736,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
-    sources = ("ell_spmm", "gather_floor")
+    sources = ("ell_spmm", "gather_floor", "edge_dot")
     start = time.perf_counter()
     _build.build_all(sources)
     log(f"build {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
@@ -1418,18 +1764,21 @@ def main() -> int:
     _, lane20k, t20k = batches[1]
     lane20k = lane20k.to(dev)
     n20k = lane20k.node_capacity
-    off20k = combined_lane_offsets(lane20k.edge_targets_all,
-                                   lane20k.edge_types_all, t20k, n20k)
+    off20k = EdgeLanes.combined(lane20k.edge_sources_all,
+                                lane20k.edge_types_all,
+                                lane20k.edge_targets_all, t20k, n20k).offsets
     h20k = torch.randn(n20k, HIDDEN, generator=gen, device=dev)
     weighted = weighted_kernel_phase(
         dev, gen, skewed, lambda: ell_spmm.gather_segment_sum(
             h20k, lane20k.edge_sources_all, off20k, n20k * t20k))
     async_kernels = async_kernel_phase(dev, gen, *async_batches())
+    attention_kernels = attention_kernel_phase(dev, gen, batches)
     work_dir = os.path.join(REPO, "build", "chip_smoke")
     serving = serving_phase(work_dir)
     dense_serving = dense_serving_phase(work_dir)
     gcn_serving = gcn_serving_phase(work_dir)
     async_serving = async_serving_phase(work_dir)
+    attention_serving = attention_serving_phase(work_dir)
     corpus = (synthetic_molecules(6000, seed=40),
               synthetic_molecules(600, seed=41))
     runner, training = training_phase(corpus,
@@ -1440,6 +1789,8 @@ def main() -> int:
         corpus, os.path.join(work_dir, "train_gcn"))
     async_runner, async_training = async_training_phase(
         corpus, os.path.join(work_dir, "train_async"))
+    attention_runner, attention_training = attention_training_phase(
+        corpus, os.path.join(work_dir, "train_attention"))
     step_corpus = (synthetic_molecules(1300, seed=42),
                    synthetic_molecules(50, seed=43))
     step_dir = os.path.join(work_dir, "step")
@@ -1457,6 +1808,16 @@ def main() -> int:
         for variant in GCN_VARIANTS}
     async_card_vs_cpu = card_vs_cpu_phase("async", step_corpus,
                                           is_async_10k_batch, step_dir)
+    steps = sum(attention_runner.config["layer_timesteps"])
+    attention_card_vs_cpu = card_vs_cpu_phase(
+        "sparse", step_corpus, is_20k_batch, step_dir,
+        config=attention_config({"num_epochs": 1}),
+        want=route_launches("combined", True, steps, True),
+        label="sparse_attention", repeat_forward=True)
+    if not any(n.endswith(".attention")
+               for n in attention_card_vs_cpu["parameters"]):
+        raise RuntimeError("the attention factors got no gradient")
+    routes = routes_phase(step_corpus, work_dir, step_dir)
     profile = profile_phase(runner, first_batch(runner, is_20k_batch))
     dense_forward = dense_forward_phase(dense_runners)
     dense_profile = {
@@ -1469,124 +1830,137 @@ def main() -> int:
         for variant, runner in gcn_runners.items()}
     async_profile = profile_phase(async_runner, first_batch(
         async_runner, is_async_10k_batch))
+    attention_profile = profile_phase(attention_runner, first_batch(
+        attention_runner, is_20k_batch), label="sparse_attention")
 
-    # Each kernel's `launches` sums the main paths' runs (the probe,
-    # serving and training of every variant), each counted from 0 just
-    # before its run; B1, B2 and B3 launch none on the dense and GCN
-    # paths, the weighted instance only on the `gcn` paths, B3 and the
-    # weighted instance none on the async paths.
-    dense_paths = {f"{variant} {path}": 0
-                   for variant in DENSE_VARIANTS + GCN_VARIANTS
-                   for path in ("serving", "training")}
+    # Each kernel's `launches` sums the main paths' runs, each counted
+    # from 0 just before it: every variant's serving requests and
+    # training, the attention config's, and each route's served request
+    # and train step (the probe's runs of B3 besides).
+    runs = {"sparse serving": serving["launches"],
+            "sparse training": [training[f"launches_{k}"] for k in COUNTERS],
+            "sparse_attention serving": attention_serving["launches"],
+            "sparse_attention training": [
+                attention_training[f"launches_{k}"] for k in COUNTERS],
+            "async serving": async_serving["launches"],
+            "async training": [async_training[f"launches_{k}"]
+                               for k in COUNTERS]}
+    for variant in DENSE_VARIANTS + GCN_VARIANTS:
+        served = (dense_serving if variant in DENSE_VARIANTS
+                  else gcn_serving)[variant]
+        trained = (dense_training if variant in DENSE_VARIANTS
+                   else gcn_training)[variant]
+        runs[f"{variant} serving"] = served["launches"]
+        runs[f"{variant} training"] = [trained[f"launches_{k}"]
+                                       for k in COUNTERS]
+    for label, rec in routes.items():
+        runs[f"sparse ({label}) serving"] = rec["serving"]["launches"]
+        runs[f"sparse ({label}) train step"] = rec["train_step"]["launches"]
 
-    def async_paths(index, key):
-        return {"async serving": async_serving["launches"][index],
-                "async training": async_training[f"launches_{key}"]}
+    def by_path(*indices):
+        return {path: sum(counts[i] for i in indices)
+                for path, counts in runs.items()}
 
-    def async_record(rec):
-        return {k: rec[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms",
-                                    "max_abs_err")}
-    gcn_fwd = (gcn_serving["gcn"]["launches"][3]
-               + gcn_training["gcn"]["launches_weighted"])
-    gcn_bwd = (gcn_serving["gcn"]["launches"][4]
-               + gcn_training["gcn"]["launches_weighted_transpose"])
-    weighted_paths = {
-        "serving": 0, "training": 0,
-        **{f"{variant} {path}": 0 for variant in DENSE_VARIANTS
-           for path in ("serving", "training")},
-        "gcn serving": sum(gcn_serving["gcn"]["launches"][3:]),
-        "gcn training": (gcn_training["gcn"]["launches_weighted"]
-                         + gcn_training["gcn"]["launches_weighted_transpose"]),
-        "gcn_blocked serving": 0, "gcn_blocked training": 0,
-        "async serving": sum(async_serving["launches"][3:]),
-        "async training": (async_training["launches_weighted"]
-                           + async_training["launches_weighted_transpose"])}
+    def shape_numbers(rec):
+        return {k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+
+    def short(rec):
+        return {"shape": rec["shape"], **shape_numbers(rec),
+                "max_abs_err": rec["max_abs_err"]}
+
+    b1_paths, b2_paths = by_path(0), by_path(1)
+    b3_paths = {"probe": probe["launches"], **by_path(2)}
+    w_paths, dot_paths = by_path(3, 4), by_path(5)
     w_shape = weighted["shapes"][1]   # the 20k-node GCN batch, forward
-    main_shape = records[0]
     b2_shape = b2_records[1]          # the training path's 20k-node shape
     # The JAX probe's shape at unroll 8.
     b3_shape = [r for r in probe["shapes"]["probe shape"]
                 if r["unroll"] == 8][0]
+    dot_shape = attention_kernels["edge_dot"][1]   # scores at 20k
     kernels = [{
         "name": "gather_segment_sum",
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:51",
-        "launches": (serving["launches"][0] + training["launches_b1"]
-                     + sum(async_paths(0, "b1").values())),
-        "launches_by_path": {"serving": serving["launches"][0],
-                             "training": training["launches_b1"],
-                             **dense_paths, **async_paths(0, "b1")},
+        "launches": sum(b1_paths.values()),
+        "launches_by_path": b1_paths,
         "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]
                            + [async_kernels[k]["max_abs_err"]
-                              for k in ("b1", "b1_serving")]),
-        "async_shapes": [async_record(async_kernels[k])
+                              for k in ("b1", "b1_serving")]
+                           + [r["max_abs_err"]
+                              for r in attention_kernels["per_type_b1"]]),
+        "async_shapes": [short(async_kernels[k])
                          for k in ("b1", "b1_serving")],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
+        "per_type_shapes": [short(r)
+                            for r in attention_kernels["per_type_b1"]],
+        **shape_numbers(records[0]),
         "registers": registers,
     }, {
         "name": "segment_scatter_sum",
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
         "replaces": "ggnn_tpu/ops/pallas/ell_spmm.py:101",
-        "launches": (serving["launches"][1] + training["launches_b2"]
-                     + sum(async_paths(1, "b2").values())),
-        "launches_by_path": {"serving": serving["launches"][1],
-                             "training": training["launches_b2"],
-                             **dense_paths, **async_paths(1, "b2")},
+        "launches": sum(b2_paths.values()),
+        "launches_by_path": b2_paths,
         "max_abs_err": max([r["max_abs_err"] for r in b2_records]
                            + [b2_ell_err, async_kernels["b2"]["max_abs_err"]]),
-        "async_shapes": [async_record(async_kernels["b2"])],
-        "ms": b2_shape["ms"],
-        "plain_ms": b2_shape["plain_ms"],
-        "bound_ms": b2_shape["bound_ms"],
-        "bound_by": b2_shape["bound_by"],
-        "library_ms": b2_shape["library_ms"],
+        "async_shapes": [short(async_kernels["b2"])],
+        **shape_numbers(b2_shape),
         "registers": registers,
     }, {
         "name": "gather_rows",
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/gather_floor.cu",
         "replaces": "benchmarks/probes/gather_floor.py:52",
-        "launches": (probe["launches"] + serving["launches"][2]
-                     + training["launches_b3"]
-                     + sum(async_paths(2, "b3").values())),
-        "launches_by_path": {"probe": probe["launches"],
-                             "serving": serving["launches"][2],
-                             "training": training["launches_b3"],
-                             **dense_paths, **async_paths(2, "b3")},
-        "max_abs_err": max(r["max_abs_err"]
-                           for recs in probe["shapes"].values()
-                           for r in recs),
-        "ms": b3_shape["ms"],
-        "plain_ms": b3_shape["plain_ms"],
-        "bound_ms": b3_shape["bound_ms"],
-        "bound_by": b3_shape["bound_by"],
-        "library_ms": b3_shape["library_ms"],
+        "launches": sum(b3_paths.values()),
+        "launches_by_path": b3_paths,
+        "max_abs_err": max([r["max_abs_err"]
+                            for recs in probe["shapes"].values()
+                            for r in recs]
+                           + [r["max_abs_err"]
+                              for r in attention_kernels["gather_rows"]]),
+        "per_edge_shapes": [short(r)
+                            for r in attention_kernels["gather_rows"]],
+        **shape_numbers(b3_shape),
     }, {
         "name": "weighted_gather_segment_sum",
         "route": "cuda",
         "source": "ggnn_tpu_torch/csrc/ell_spmm.cu",
-        "replaces": "XLA segment_sum at ggnn_tpu/models/gcn.py:74, no "
-                    "Pallas kernel",
-        "launches": gcn_fwd + gcn_bwd,
-        "launches_forward": gcn_fwd,
-        "launches_transpose": gcn_bwd,
-        "launches_by_path": weighted_paths,
+        "replaces": "XLA segment_sum at ggnn_tpu/models/gcn.py:74 and "
+                    "ggnn_tpu/ops/messages.py:121-131, :178-183, no Pallas "
+                    "kernel",
+        "launches": sum(w_paths.values()),
+        "launches_forward": sum(by_path(3).values()),
+        "launches_transpose": sum(by_path(4).values()),
+        "launches_by_path": w_paths,
         "max_abs_err": max(r["max_abs_err"] for r in
-                           weighted["shapes"] + weighted["transpose_shapes"]),
-        "ms": w_shape["ms"],
-        "plain_ms": w_shape["plain_ms"],
-        "bound_ms": w_shape["bound_ms"],
-        "bound_by": w_shape["bound_by"],
-        "library_ms": w_shape["library_ms"],
+                           weighted["shapes"] + weighted["transpose_shapes"]
+                           + attention_kernels["weighted"]),
+        "attention_shapes": [short(r) for r in attention_kernels["weighted"]],
+        **shape_numbers(w_shape),
         "registers": weighted["registers"],
+    }, {
+        "name": "edge_dot",
+        "route": "cuda",
+        "source": "ggnn_tpu_torch/csrc/edge_dot.cu",
+        "replaces": "XLA gathers and sum at ggnn_tpu/ops/messages.py:56-70 "
+                    "(scores) and the attention weights' gradient, no "
+                    "Pallas kernel",
+        "launches": sum(dot_paths.values()),
+        "launches_by_path": dot_paths,
+        "max_abs_err": max(r["max_abs_err"] for r in
+                           attention_kernels["edge_dot"]
+                           + attention_kernels["edge_dot_gradient"]),
+        "gradient_shapes": [short(r)
+                            for r in attention_kernels["edge_dot_gradient"]],
+        **shape_numbers(dot_shape),
+        "registers": attention_kernels["edge_dot_registers"],
     }]
+    for k in kernels:
+        if k["launches"] == 0:
+            raise RuntimeError(f"{k['name']} launched no time on the main "
+                               "paths")
     device_line = gpu_name_and_power()
     log(f"chip_smoke: {time.perf_counter() - script_start:.1f} s from the "
         "build to the end")
@@ -1607,7 +1981,13 @@ def main() -> int:
                     "async_serving": async_serving,
                     "async_training": async_training,
                     "async_card_vs_cpu": async_card_vs_cpu,
-                    "async_profile": async_profile}))
+                    "async_profile": async_profile,
+                    "attention_kernels": attention_kernels,
+                    "attention_serving": attention_serving,
+                    "attention_training": attention_training,
+                    "attention_card_vs_cpu": attention_card_vs_cpu,
+                    "attention_profile": attention_profile,
+                    "routes": routes, "launches_by_run": runs}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

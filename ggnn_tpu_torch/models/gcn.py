@@ -36,8 +36,8 @@ from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.models.dense_ggnn import resolve_lane_pad
 from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.ops.kernels.ell_spmm import (WeightedGatherSegmentSum,
-                                                 segment_offsets,
                                                  weighted_transpose_layout)
+from ggnn_tpu_torch.ops.segment import segment_offsets
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
 

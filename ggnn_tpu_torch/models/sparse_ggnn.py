@@ -1,17 +1,26 @@
 """Sparse GGNN — the serving and training model, and the R-GCN host.
 
-Port of the single-device, type-combined-lane branch of
-`ggnn_tpu/models/sparse_ggnn.py` (chem_tensorflow_sparse.py:36-376).
-Per layer (`layer_timesteps` gives the layer count and per-layer step
-count), each propagation step does, over the packed batch:
+Port of the single-device branch of `ggnn_tpu/models/sparse_ggnn.py`
+(chem_tensorflow_sparse.py:36-376). Per layer (`layer_timesteps` gives
+the layer count and per-layer step count), each propagation step does,
+over the packed batch:
 
-  1. aggregate source rows per (target, type) with the gather +
-     segment-sum kernel, then one [N, T*H] x [T*H, H] transform;
-  2. optional edge bias (in-degree counts x [T, H] biases) and optional
+  1. optional propagation attention: per-edge <src, tgt> scores scaled
+     by the layer's per-type factors, segment-softmaxed over each
+     target's incoming edges (chem_tensorflow_sparse.py:170-196);
+  2. the typed messages aggregated into their targets, on one of three
+     routes chosen as the JAX model chooses them: aggregate-then-transform
+     over the type-combined lane (the default, when the batch has the
+     lane and `aggregate_first` and `edges_sorted_by_target` are on),
+     over the per-type lanes (`combined_edge_lanes: false`, a batch
+     without the lane, or `edges_sorted_by_target: false`, whose lanes
+     are sorted by target once per forward), or per edge, transform
+     before aggregation (`aggregate_first: false`);
+  3. optional edge bias (in-degree counts x [T, H] biases) and optional
      in-degree averaging (default on);
-  3. residual concatenation of earlier layers' node states
+  4. residual concatenation of earlier layers' node states
      (`residual_connections`, default {"2":[0],"4":[0,2]});
-  4. RNN cell update (GRU / cuDNN-GRU / basic RNN, tanh or ReLU).
+  5. RNN cell update (GRU / cuDNN-GRU / basic RNN, tanh or ReLU).
 
 The R-GCN of README.md:48-52 is this model with RGCN_CONFIG.
 
@@ -19,15 +28,13 @@ Training (`is_training=True`, with a `torch.Generator`) adds TF1
 dropout: on each layer's edge weights, drawn ONCE per layer and shared
 by all its steps (`edge_weight_dropout_keep_prob`, the JAX model's
 per-layer `rng_w`), and on the cell's new state at every step
-(`graph_state_dropout_keep_prob`). When a gradient will be asked for,
-the forward builds the combined lane's transpose layout once, for B2 in
-every step's backward.
+(`graph_state_dropout_keep_prob`). The attention factors are not
+dropped. The forward's index preparation (`ops/messages.py:EdgeLanes`:
+CSR offsets, sorts, transposes) is made once and reused by every step.
 
 Not ported yet, each raising NotImplementedError with its ROADMAP item:
-propagation attention (A14), the per-type and per-edge paths
-(`aggregate_first: false`, `combined_edge_lanes: false`,
-`edges_sorted_by_target: false`; A15), `compute_dtype: bfloat16` (A16),
-and the edge-partitioned and node-sharded branches (`edge_axis`; A11).
+`compute_dtype: bfloat16` (A16) and the edge-partitioned and
+node-sharded branches (`edge_axis`; A11).
 """
 
 from typing import Dict
@@ -39,11 +46,12 @@ from ggnn_tpu_torch.graph import GraphBatch
 from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.ops.cells import make_cell
 from ggnn_tpu_torch.ops.dropout import dropout
-from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
-                                         average_by_in_degree,
-                                         combined_lane_offsets,
-                                         combined_lane_transpose,
-                                         edge_bias_term)
+from ggnn_tpu_torch.ops.messages import (
+    EdgeLanes, aggregate_messages, aggregate_then_transform,
+    aggregate_then_transform_combined, average_by_in_degree, edge_bias_term,
+    propagation_attention, propagation_attention_weights,
+    propagation_attention_weights_combined, sort_typed_lanes,
+    typed_edge_messages)
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
 
@@ -69,14 +77,6 @@ def _validate_residual_connections(residuals: Dict, n_layers: int) -> None:
 
 def _check_ported(config: Dict, edge_axis) -> None:
     unported = [
-        (config["use_propagation_attention"],
-         "use_propagation_attention: true", "A14"),
-        (not config.get("aggregate_first", True),
-         "aggregate_first: false", "A15"),
-        (not config.get("combined_edge_lanes", True),
-         "combined_edge_lanes: false", "A15"),
-        (not config.get("edges_sorted_by_target", True),
-         "edges_sorted_by_target: false", "A15"),
         (config.get("compute_dtype", "float32") != "float32",
          f"compute_dtype: {config.get('compute_dtype')}", "A16"),
         (edge_axis is not None, "edge_axis (edge-partitioned graphs)",
@@ -91,7 +91,7 @@ def _check_ported(config: Dict, edge_axis) -> None:
 class SparseGGNNLayer(nn.Module):
     def __init__(self, num_edge_types: int, hidden_size: int,
                  input_size: int, new_cell, use_edge_bias: bool,
-                 generator: torch.Generator):
+                 use_attention: bool, generator: torch.Generator):
         super().__init__()
         t, h = num_edge_types, hidden_size
         # The reference draws one glorot [T*H, H] matrix and reshapes
@@ -99,6 +99,10 @@ class SparseGGNNLayer(nn.Module):
         self.edge_weights = nn.Parameter(
             glorot_init(generator, (t * h, h)).reshape(t, h, h))
         self.cell = new_cell(input_size, h, generator)
+        if use_attention:
+            # Per-type score factors, initialised to ones as the JAX
+            # model's init_params does.
+            self.attention = nn.Parameter(torch.ones(t))
         if use_edge_bias:
             self.edge_biases = nn.Parameter(zeros_init(generator, (t, h)))
 
@@ -121,6 +125,10 @@ class SparseGGNN(nn.Module):
         _validate_residual_connections(self.residual_connections,
                                        len(self.layer_timesteps))
         self.use_edge_bias = config["use_edge_bias"]
+        self.use_propagation_attention = config["use_propagation_attention"]
+        self.aggregate_first = bool(config.get("aggregate_first", True))
+        self.edges_sorted = bool(config.get("edges_sorted_by_target", True))
+        self.combined_lanes = bool(config.get("combined_edge_lanes", True))
         self.use_edge_msg_avg_aggregation = \
             config["use_edge_msg_avg_aggregation"]
         self.edge_weight_dropout_keep_prob = \
@@ -131,7 +139,8 @@ class SparseGGNN(nn.Module):
         self.layers = nn.ModuleList(
             SparseGGNNLayer(num_edge_types, self.hidden_size,
                             self._layer_input_size(i), new_cell,
-                            self.use_edge_bias, generator)
+                            self.use_edge_bias,
+                            self.use_propagation_attention, generator)
             for i in range(len(self.layer_timesteps)))
 
     def _layer_input_size(self, layer_idx: int) -> int:
@@ -142,21 +151,23 @@ class SparseGGNN(nn.Module):
                 generator: torch.Generator = None) -> torch.Tensor:
         """Final node representations [N, H]. Training draws its dropout
         masks from `generator`, on the batch's device."""
-        if batch.edge_sources_all is None:
-            raise NotImplementedError(
-                "batch has no type-combined edge lane (caps.edges_all = 0); "
-                "the per-type lanes are not ported yet (ROADMAP A15)")
         n_cap = batch.node_capacity
-        # The lane's CSR offsets: index preparation, once per forward.
-        offsets = combined_lane_offsets(batch.edge_targets_all,
-                                        batch.edge_types_all,
-                                        self.num_edge_types, n_cap)
-        transpose = None
-        if torch.is_grad_enabled() and any(
-                p.requires_grad for p in self.parameters()):
-            transpose = combined_lane_transpose(
+        # JAX's routing (ggnn_tpu/models/sparse_ggnn.py:214-258): the
+        # combined lane only when the batch has it, `aggregate_first` is
+        # on and the lanes are target-sorted (its sums assume the order).
+        use_combined = (self.combined_lanes
+                        and batch.edge_sources_all is not None
+                        and self.aggregate_first and self.edges_sorted)
+        src, tgt, mask = batch.edge_sources, batch.edge_targets, \
+            batch.edge_mask
+        if use_combined:
+            lanes = EdgeLanes.combined(
                 batch.edge_sources_all, batch.edge_types_all,
                 batch.edge_targets_all, self.num_edge_types, n_cap)
+        else:
+            if self.aggregate_first and not self.edges_sorted:
+                tgt, src, mask = sort_typed_lanes(tgt, src, mask)
+            lanes = EdgeLanes.typed(src, tgt, n_cap)
         node_states_per_layer = [batch.node_features]
         for layer_idx, num_timesteps in enumerate(self.layer_timesteps):
             layer = self.layers[layer_idx]
@@ -171,10 +182,35 @@ class SparseGGNN(nn.Module):
             ]
             h = node_states_per_layer[-1]
             for _step in range(num_timesteps):
-                incoming = aggregate_then_transform_combined(
-                    h, batch.edge_sources_all, batch.edge_types_all,
-                    batch.edge_targets_all, edge_weights, n_cap,
-                    offsets=offsets, transpose=transpose)
+                attn = None
+                if use_combined:
+                    if self.use_propagation_attention:
+                        attn = propagation_attention_weights_combined(
+                            h, batch.edge_sources_all,
+                            batch.edge_targets_all, batch.edge_mask_all,
+                            batch.edge_types_all, layer.attention, n_cap,
+                            lanes)
+                    incoming = aggregate_then_transform_combined(
+                        h, batch.edge_sources_all, batch.edge_types_all,
+                        batch.edge_targets_all, edge_weights, n_cap, attn,
+                        lanes)
+                elif self.aggregate_first:
+                    if self.use_propagation_attention:
+                        attn = propagation_attention_weights(
+                            h, src, tgt, mask, layer.attention, n_cap,
+                            lanes=lanes)
+                    incoming = aggregate_then_transform(
+                        h, src, tgt, edge_weights, n_cap, attn,
+                        targets_sorted=True, lanes=lanes)
+                else:
+                    messages = typed_edge_messages(h, src, edge_weights,
+                                                   lanes)
+                    if self.use_propagation_attention:
+                        messages = propagation_attention(
+                            messages, h, src, tgt, mask, layer.attention,
+                            n_cap, lanes=lanes)
+                    incoming = aggregate_messages(messages, tgt, n_cap,
+                                                  lanes)
                 if self.use_edge_bias:
                     incoming = incoming + edge_bias_term(
                         batch.in_degrees, layer.edge_biases)

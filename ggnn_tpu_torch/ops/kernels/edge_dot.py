@@ -1,0 +1,126 @@
+"""Per-edge dot product of two gathered rows: the hand-written CUDA kernel
+(`csrc/edge_dot.cu`), its wrapper, its plain PyTorch version and its
+launch counter.
+
+    out[e] = <x[a[e]], y[b[e]]>, and 0 where b[e] lies outside [0, len(y))
+
+A port-only kernel: it replaces no TPU kernel, since the JAX package
+computes both of its uses in XLA. Those uses are the sparse GGNN's
+propagation attention scores <h[src], h[tgt]> (`ggnn_tpu/ops/messages.py:
+56-70`), and the gradient of the attention weights of the weighted
+aggregation; `ops/attention.py` holds the autograd Functions of both.
+The pads of the packers' lanes point one past the last row of y (target
+N, composite id N*T), so they get 0 without a clamp.
+
+A CPU tensor takes the plain version (two `index_select`s and a sum); a
+CUDA tensor launches the kernel or raises. `launches` counts the
+kernel's launches; a call with no edge launches nothing.
+"""
+
+import ctypes
+import torch
+
+from ggnn_tpu_torch.ops.kernels import _build
+
+launches = 0
+
+_entries = {}
+_ARGTYPES = {
+    # (x, a, y, b, out, num_edges, rows_y, hidden, device, stream)
+    "edge_dot_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                    + [ctypes.c_void_p],
+    # (x, y, hidden)
+    "edge_dot_vectorized": [ctypes.c_void_p] * 2 + [ctypes.c_int],
+    # (vectorized_path, device, regs)
+    "edge_dot_registers": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)],
+}
+
+
+def _kernel(name: str):
+    """The C entry point `name` of csrc/edge_dot.cu, built at first use."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(_build.load("edge_dot"), name)
+        fn.argtypes = _ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _entries[name] = fn
+    return fn
+
+
+def _check(x, a, y, b):
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"x and y must be float32, got {x.dtype} and "
+                        f"{y.dtype} (bf16 is ROADMAP A16)")
+    if a.dtype != torch.int32 or b.dtype != torch.int32:
+        raise TypeError(f"a and b must be int32, got {a.dtype} and "
+                        f"{b.dtype}")
+    if (x.dim() != 2 or y.dim() != 2 or a.dim() != 1 or a.shape != b.shape
+            or x.shape[1] != y.shape[1]):
+        raise ValueError(
+            f"expected x [NX, H], y [NY, H], a and b [E]; got shapes "
+            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(a.shape)}, "
+            f"{tuple(b.shape)}")
+    if not all(t.is_contiguous() for t in (x, a, y, b)):
+        raise ValueError("x, a, y and b must be contiguous")
+    if not x.device == a.device == y.device == b.device:
+        raise ValueError(f"x, a, y and b lie on different devices: "
+                         f"{x.device}, {a.device}, {y.device}, {b.device}")
+
+
+def edge_dot_reference(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
+                       b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device."""
+    real = (b >= 0) & (b < y.shape[0])
+    if y.shape[0] == 0:
+        return torch.zeros(b.shape, dtype=torch.float32, device=b.device)
+    rows = torch.where(real, b, 0).long()
+    dots = (x.index_select(0, a.long()) * y.index_select(0, rows)).sum(-1)
+    return torch.where(real, dots, 0.0)
+
+
+def edge_dot(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """out [E] f32 with out[e] = <x[a[e]], y[b[e]]>, 0 where b[e] lies
+    outside [0, len(y)). x [NX, H] and y [NY, H] f32, a and b [E] int32;
+    a[e] must lie in [0, NX): the kernel does not check it."""
+    global launches
+    _check(x, a, y, b)
+    num_edges, h_dim = a.shape[0], x.shape[1]
+    if x.device.type == "cpu":
+        return edge_dot_reference(x, a, y, b)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    if num_edges == 0 or h_dim == 0:
+        return torch.zeros(num_edges, dtype=torch.float32, device=x.device)
+    out = torch.empty(num_edges, dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = _kernel("edge_dot_f32")(
+        x.data_ptr(), a.data_ptr(), y.data_ptr(), b.data_ptr(),
+        out.data_ptr(), num_edges, y.shape[0], h_dim, x.device.index,
+        stream)
+    if rc != 0:
+        raise RuntimeError(f"edge_dot_f32 kernel launch failed: CUDA "
+                           f"error {rc}")
+    launches += 1
+    return out
+
+
+def vectorized(x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether the kernel takes its float4 path for x and y, by the rule
+    the kernel's launcher applies."""
+    return bool(_kernel("edge_dot_vectorized")(x.data_ptr(), y.data_ptr(),
+                                               x.shape[1]))
+
+
+def registers(vectorized_path: bool, device=None) -> int:
+    """Registers a thread of the kernel's float4 (`vectorized_path`) or
+    scalar instance uses on the card `device`, as the compiler allotted
+    them."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    regs = ctypes.c_int(0)
+    rc = _kernel("edge_dot_registers")(int(vectorized_path), index,
+                                       ctypes.byref(regs))
+    if rc != 0:
+        raise RuntimeError(f"edge_dot_registers failed: CUDA error {rc}")
+    return regs.value

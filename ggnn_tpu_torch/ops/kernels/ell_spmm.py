@@ -34,7 +34,10 @@ is the edge-list GCN's Â·H over its target-sorted COO list
 transpose, its gradient (`weighted_segment_scatter_sum`);
 `WeightedGatherSegmentSum` joins the two. It replaces no TPU kernel: the
 JAX GCN computes Â·H with XLA's sorted `segment_sum`
-(`ggnn_tpu/models/gcn.py:73-75`).
+(`ggnn_tpu/models/gcn.py:73-75`). With propagation attention it is also
+the sparse GGNN's weighted aggregation, out[s] = sum of a[e] * h[src[e]]
+(`ggnn_tpu/ops/messages.py:121-131`, `:178-183`), whose weights get a
+gradient through `ops/attention.py:AttentionGatherSegmentSum`.
 
 A CPU tensor takes the plain version (`index_select` + `index_add_`); a
 CUDA tensor launches the kernel or raises. `launches` counts B1's kernel
@@ -48,10 +51,12 @@ rows), which the wrapper keeps per device and stream (`_scratch_for`).
 """
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from ggnn_tpu_torch.ops.kernels import _build
+from ggnn_tpu_torch.ops.segment import segment_offsets, source_order
 
 launches = 0
 scatter_launches = 0
@@ -94,16 +99,6 @@ def _kernel(name: str):
     return fn
 
 
-def segment_offsets(segment_ids: torch.Tensor,
-                    num_segments: int) -> torch.Tensor:
-    """CSR offsets [num_segments + 1] int32 of a SORTED segment-id
-    vector: segment s owns positions [off[s], off[s+1]). Ids at or past
-    `num_segments` (dump-slot padding) lie past off[num_segments]."""
-    bounds = torch.arange(num_segments + 1, device=segment_ids.device,
-                          dtype=segment_ids.dtype)
-    return torch.searchsorted(segment_ids, bounds).to(torch.int32)
-
-
 def _check(h, src, offsets, num_segments):
     if h.dtype != torch.float32:
         raise TypeError(f"h must be float32, got {h.dtype} (bf16 is "
@@ -140,15 +135,21 @@ def _check_weights(src, weights):
                          f"{weights.device}, {src.device}")
 
 
-def _segment_sum_plain(rows: torch.Tensor, offsets: torch.Tensor,
+def _segment_sum_plain(h: torch.Tensor, src: torch.Tensor, weights,
+                       offsets: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """Row e of `rows` added into its edge's segment by `index_add_`;
-    edges outside [off[0], off[S]) go to a dump row."""
-    positions = torch.arange(rows.shape[0], device=rows.device)
+    """Row h[src[e]] (times weights[e]) of each edge added into its
+    edge's segment by `index_add_`; edges outside [off[0], off[S]),
+    whose ids the kernel never reads, go to a dump row and read row 0."""
+    positions = torch.arange(src.shape[0], device=src.device)
     seg = torch.searchsorted(offsets.long(), positions, right=True) - 1
-    seg = torch.where((seg < 0) | (seg >= num_segments), num_segments, seg)
-    out = torch.zeros(num_segments + 1, rows.shape[1], dtype=torch.float32,
-                      device=rows.device)
+    outside = (seg < 0) | (seg >= num_segments)
+    seg = torch.where(outside, num_segments, seg)
+    rows = h.index_select(0, torch.where(outside, 0, src.long()))
+    if weights is not None:
+        rows = rows * weights[:, None]
+    out = torch.zeros(num_segments + 1, h.shape[1], dtype=torch.float32,
+                      device=h.device)
     out.index_add_(0, seg, rows)
     return out[:num_segments]
 
@@ -159,8 +160,7 @@ def gather_segment_sum_reference(h: torch.Tensor, src: torch.Tensor,
     """Plain PyTorch version of the kernel, on any device: each edge's
     segment from the offsets, then `index_select` + `index_add_` in
     int64. Edges outside [off[0], off[S]) go to a dump row."""
-    return _segment_sum_plain(h.index_select(0, src.long()), offsets,
-                              num_segments)
+    return _segment_sum_plain(h, src, None, offsets, num_segments)
 
 
 def weighted_gather_segment_sum_reference(h: torch.Tensor,
@@ -171,8 +171,7 @@ def weighted_gather_segment_sum_reference(h: torch.Tensor,
     """Plain PyTorch version of the weighted instance, on any device:
     `index_select` * weights, then `index_add_` into a dump-slotted
     output."""
-    return _segment_sum_plain(h.index_select(0, src.long()) * weights[:, None],
-                              offsets, num_segments)
+    return _segment_sum_plain(h, src, weights, offsets, num_segments)
 
 
 def _scratch_for(device: torch.device, stream: int, num_tickets: int,
@@ -325,12 +324,16 @@ def registers(vectorized_path: bool, device=None,
     return regs.value
 
 
-def _source_order(sources: torch.Tensor, num_nodes: int):
-    """(perm, boff): the stable sort of the edges by source, which keeps
-    each source's edges in their forward order, and the CSR offsets over
-    the sources. An edge whose source is num_nodes sorts past boff[N]."""
-    perm = torch.argsort(sources, stable=True)
-    return perm, segment_offsets(sources[perm], num_nodes)
+class SortedEdges(NamedTuple):
+    """Edges stably sorted by a key, for a weighted launch over them:
+    `perm` (int64; None when the edges are already in key order), `ids`
+    [E] int32 the rows the sorted edges read, and `offsets` [K + 1]
+    int32 their CSR offsets over the keys. Edges whose key is K (pads)
+    sort past offsets[K] and are never read; a launch takes its weights
+    as `w[perm]`."""
+    perm: Optional[torch.Tensor]
+    ids: torch.Tensor
+    offsets: torch.Tensor
 
 
 def transpose_layout(sources: torch.Tensor, gather_ids: torch.Tensor,
@@ -338,7 +341,7 @@ def transpose_layout(sources: torch.Tensor, gather_ids: torch.Tensor,
     """(bgather, boff) for B2 from the REAL edges of an aggregation:
     `sources` [E] their source nodes, `gather_ids` [E] the rows of the
     aggregation's output they feed."""
-    perm, boff = _source_order(sources, num_nodes)
+    perm, boff = source_order(sources, num_nodes)
     return gather_ids[perm].to(torch.int32).contiguous(), boff
 
 
@@ -349,7 +352,7 @@ def weighted_transpose_layout(sources: torch.Tensor,
     `transpose_layout`, with the edges' weights permuted by the same
     stable sort. Edges with source `num_nodes` (pads) sort past boff[N]
     and are never read."""
-    perm, boff = _source_order(sources, num_nodes)
+    perm, boff = source_order(sources, num_nodes)
     return (gather_ids[perm].to(torch.int32).contiguous(),
             weights[perm].contiguous(), boff)
 

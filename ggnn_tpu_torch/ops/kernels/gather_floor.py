@@ -10,8 +10,10 @@ the function of the Pallas TPU kernel `_gather_kernel`
 (`benchmarks/probes/gather_floor.py:52`), with the row loads unrolled 1,
 4 or 8 times and the stores plain or streaming (`__stcs`, evict-first).
 It is a pure copy, so the kernel equals its plain version bit for bit.
-Only the probe (`ggnn_tpu_torch/probes/gather_floor.py`)
-calls it; the serving and training paths do not.
+The gather-floor probe (`ggnn_tpu_torch/probes/gather_floor.py`) calls it
+at every unroll, and the sparse GGNN's per-edge route
+(`aggregate_first: false`) gathers its source rows with it through
+`GatherRows`, whose backward is B2 (`ell_spmm.segment_scatter_sum`).
 
 A CPU tensor takes the plain version (`index_select`); a CUDA tensor
 launches the kernel or raises. `launches` counts the kernel's launches.
@@ -21,7 +23,7 @@ import ctypes
 
 import torch
 
-from ggnn_tpu_torch.ops.kernels import _build
+from ggnn_tpu_torch.ops.kernels import _build, ell_spmm
 
 UNROLLS = (1, 4, 8)
 
@@ -131,3 +133,41 @@ def registers(unroll: int, vectorized_path: bool, streaming: bool = False,
     if rc != 0:
         raise RuntimeError(f"gather_rows_registers failed: CUDA error {rc}")
     return regs.value
+
+
+def widest_unroll(ke: int) -> int:
+    """The largest unroll of 8, 4 and 1 that divides KE."""
+    return next(u for u in sorted(UNROLLS, reverse=True) if ke % u == 0)
+
+
+class GatherRows(torch.autograd.Function):
+    """The differentiable row gather of the per-edge route: B3 forward,
+    out [T, E, H] with out[t, e] = h[src[t, e]] at the widest unroll that
+    divides E; backward B2 over the transpose, dh[n] = sum of the rows
+    g[t, e] of the real edges with source n.
+
+    `apply(h, src, bgather, boff)`: (bgather, boff) are
+    `ell_spmm.transpose_layout` of the edges' flat positions t*E + e
+    keyed by source, the pads keyed past the last node, or None where
+    no gradient will be asked for."""
+
+    @staticmethod
+    def forward(ctx, h, src, bgather, boff):
+        ctx.num_nodes = h.shape[0]
+        ctx.save_for_backward(bgather, boff)
+        ctx.has_transpose = bgather is not None
+        return gather_rows(h, src, widest_unroll(src.shape[1]))
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None, None
+        if not ctx.has_transpose:
+            raise RuntimeError(
+                "the row gather's gradient needs its transpose layout "
+                "(bgather, boff); none was given to the forward")
+        bgather, boff = ctx.saved_tensors
+        dh = ell_spmm.segment_scatter_sum(
+            g.reshape(-1, g.shape[-1]).contiguous(), bgather, boff,
+            ctx.num_nodes)
+        return dh, None, None, None

@@ -1,9 +1,12 @@
 """The CUDA kernels of ggnn_tpu_torch (B1, the aggregation, B2, its
-transpose, B3, the gather-floor probe's row gather, and the weighted
-instance of B1's body, the GCN's Â·H) against their plain PyTorch
-versions, the autograd Functions and one training step, on the card, at
-the sparse, GCN and async shapes (an async substep's sum and transpose,
-its serving forward and its train step, remat on and off); the
+transpose, B3, the gather-floor probe's row gather and the per-edge
+route's, the weighted instance of B1's body, the GCN's Â·H and the
+attention-weighted aggregation, and `edge_dot`, the attention scores and
+their weights' gradient) against their plain PyTorch versions, the
+autograd Functions and one training step, on the card, at the sparse,
+attention, per-type, per-edge, GCN and async shapes (an async substep's
+sum and transpose, its serving forward and its train step, remat on and
+off); the
 dense family (cuBLAS products, no hand kernel), whose forward and train
 step must match the CPU and launch none of the kernels; and `time_ms`.
 Every test here needs an NVIDIA GPU and skips without one. The file
@@ -17,6 +20,7 @@ a model forward or a gradient, which chain 8 GRU steps of f32 products
 in another order.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -29,10 +33,10 @@ from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.gcn import GCN, BlockedGCN, gcn_edges
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
-from ggnn_tpu_torch.ops.kernels import ell_spmm, gather_floor
-from ggnn_tpu_torch.ops.messages import (aggregate_then_transform_combined,
-                                         combined_lane_offsets,
-                                         combined_lane_transpose)
+from ggnn_tpu_torch.ops import attention
+from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
+from ggnn_tpu_torch.ops.messages import (EdgeLanes,
+                                         aggregate_then_transform_combined)
 from ggnn_tpu_torch.training.config import (default_params_for,
                                             resolve_config)
 from ggnn_tpu_torch.training.runner import Runner
@@ -63,12 +67,11 @@ def _envelope_batch(n_graphs=200, seed=3):
 
 
 def _lane(batch, device):
-    src = torch.from_numpy(batch.edge_sources_all).to(device)
-    offsets = combined_lane_offsets(
-        torch.from_numpy(batch.edge_targets_all).to(device),
-        torch.from_numpy(batch.edge_types_all).to(device), 4,
-        batch.node_capacity)
-    return src, offsets
+    src, typ, tgt = (torch.from_numpy(a).to(device) for a in (
+        batch.edge_sources_all, batch.edge_types_all,
+        batch.edge_targets_all))
+    return src, EdgeLanes.combined(src, typ, tgt, 4,
+                                   batch.node_capacity).offsets
 
 
 @pytest.mark.parametrize("h_dim,aligned", [(100, True), (37, True),
@@ -153,7 +156,9 @@ def _transpose(batch, device):
     lane = [torch.from_numpy(a).to(device) for a in (
         batch.edge_sources_all, batch.edge_types_all,
         batch.edge_targets_all)]
-    return combined_lane_transpose(*lane, 4, batch.node_capacity)
+    lanes = EdgeLanes.combined(*lane, 4, batch.node_capacity)
+    _, bgather, boff = lanes.segment_transpose
+    return bgather, boff
 
 
 @pytest.mark.parametrize("h_dim,aligned", [(100, True), (37, True),
@@ -395,8 +400,7 @@ def test_aggregation_gradient_on_the_card_matches_plain_autograd(cuda):
          ).requires_grad_(True)
     before = (ell_spmm.launches, ell_spmm.scatter_launches)
     out = aggregate_then_transform_combined(
-        h, *lane, w, n_cap, offsets=offsets,
-        transpose=_transpose(batch, cuda))
+        h, *lane, w, n_cap, lanes=EdgeLanes.combined(*lane, 4, n_cap))
     got_h, got_w = torch.autograd.grad(torch.tanh(out).sum(), (h, w))
     torch.cuda.synchronize()
     assert (ell_spmm.launches, ell_spmm.scatter_launches) == (
@@ -920,3 +924,173 @@ def test_async_serving_forward_on_the_card_matches_cpu(cuda):
     assert [a - b for a, b in zip(_launch_counts(), before)] == [
         4 * 40, 0, 0, 0, 0]
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------- attention, A15 routes
+
+def _pairs(batch, device):
+    """The combined lane's (src, tgt) as int32 on `device` and their
+    EdgeLanes."""
+    lane = [torch.from_numpy(a).to(device) for a in (
+        batch.edge_sources_all, batch.edge_types_all,
+        batch.edge_targets_all)]
+    return lane, EdgeLanes.combined(*lane, 4, batch.node_capacity)
+
+
+@pytest.mark.parametrize("h_dim,aligned", [(100, True), (37, True),
+                                           (100, False)])
+def test_edge_dot_kernel_matches_plain(cuda, h_dim, aligned):
+    """The scores <h[src], h[tgt]> of the envelope's combined lane (the
+    pads, tgt = N, give 0) and a gradient's <h[src], g[comp]> (pads past
+    the rows of g), each one launch, against the plain version; two
+    calls give the same bits."""
+    batch = _envelope_batch(seed=21)
+    n_cap = batch.node_capacity
+    (src, _, tgt), lanes = _pairs(batch, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    flat = torch.randn(n_cap * h_dim + 1, generator=gen, device=cuda)
+    h = (flat[:-1] if aligned else flat[1:]).view(n_cap, h_dim)
+    g = torch.randn(n_cap * 4, h_dim, generator=gen, device=cuda)
+    for x, a, y, b in ((h, src, h, tgt), (h, src, g, lanes.segments)):
+        before = edge_dot.launches
+        got = edge_dot.edge_dot(x, a, y, b)
+        again = edge_dot.edge_dot(x, a, y, b)
+        torch.cuda.synchronize()
+        assert edge_dot.launches - before == 2
+        assert torch.equal(got, again)
+        want = edge_dot.edge_dot_reference(x, a, y, b)
+        scale = want.abs().max()
+        torch.testing.assert_close(got / scale, want / scale, **TOL)
+        assert not got[b >= y.shape[0]].any()
+    assert edge_dot.vectorized(h, h) == (h_dim % 4 == 0 and aligned)
+
+
+def test_edge_dot_counts_one_launch_per_call_and_none_when_empty(cuda):
+    x = torch.randn(10, 8, device=cuda)
+    ids = torch.arange(10, dtype=torch.int32, device=cuda)
+    before = edge_dot.launches
+    edge_dot.edge_dot(x, ids, x, ids)
+    empty = ids[:0]
+    assert edge_dot.edge_dot(x, empty, x, empty).shape == (0,)
+    torch.cuda.synchronize()
+    assert edge_dot.launches - before == 1
+
+
+def test_edge_dot_registers_are_reported(cuda):
+    for vec in (True, False):
+        assert 0 < edge_dot.registers(vec, cuda) <= 255
+
+
+def test_attention_gradients_on_the_card_match_plain_autograd(cuda):
+    """The scores (EdgeDot: the kernel forward, two weighted launches
+    backward) and the attention-weighted aggregation
+    (AttentionGatherSegmentSum: the weighted instance forward, over the
+    transpose and edge_dot backward) against PyTorch's autograd of their
+    plain versions, on the card."""
+    batch = _envelope_batch(seed=22)
+    n_cap = batch.node_capacity
+    (src, _, tgt), lanes = _pairs(batch, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    h = (0.3 * torch.randn(n_cap, 100, generator=gen, device=cuda)
+         ).requires_grad_(True)
+    w = torch.rand(src.shape[0], generator=gen, device=cuda,
+                   requires_grad=True)
+    probe = torch.randn(n_cap * 4, 100, generator=gen, device=cuda)
+    before = (edge_dot.launches, ell_spmm.weighted_launches,
+              ell_spmm.weighted_scatter_launches)
+    scores = attention.EdgeDot.apply(h, src, h, tgt, lanes.source_pairs,
+                                    lanes.target_pairs)
+    per = attention.AttentionGatherSegmentSum.apply(
+        h, src, w * torch.tanh(scores), lanes.offsets, n_cap * 4,
+        lanes.segments, lanes.segment_transpose)
+    got_h, got_w = torch.autograd.grad((torch.tanh(per) * probe).sum(),
+                                       (h, w))
+    torch.cuda.synchronize()
+    assert (edge_dot.launches - before[0],
+            ell_spmm.weighted_launches - before[1],
+            ell_spmm.weighted_scatter_launches - before[2]) == (2, 1, 3)
+    plain_scores = edge_dot.edge_dot_reference(h, src, h, tgt)
+    plain = ell_spmm.weighted_gather_segment_sum_reference(
+        h, src, w * torch.tanh(plain_scores), lanes.offsets, n_cap * 4)
+    want_h, want_w = torch.autograd.grad(
+        (torch.tanh(plain) * probe).sum(), (h, w))
+    torch.testing.assert_close(per, plain, **TOL)
+    torch.testing.assert_close(got_h, want_h, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got_w, want_w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("ke", [96, 100, 37])
+def test_gather_rows_function_on_the_card_matches_plain(cuda, ke):
+    """GatherRows: B3 at the widest unroll dividing KE, B2 backward."""
+    gen = torch.Generator(device=cuda).manual_seed(ke)
+    h = torch.randn(500, 100, generator=gen, device=cuda,
+                    requires_grad=True)
+    src = torch.randint(0, 500, (4, ke), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    flat = src.reshape(-1).long()
+    bgather, boff = ell_spmm.transpose_layout(
+        flat, torch.arange(flat.shape[0], device=cuda), 500)
+    probe = torch.randn(4, ke, 100, generator=gen, device=cuda)
+    before = _launch_counts()
+    out = gather_floor.GatherRows.apply(h, src, bgather, boff)
+    (got,) = torch.autograd.grad((out * probe).sum(), h)
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [
+        0, 1, 1, 0, 0]
+    assert torch.equal(out, h[src.long()])
+    (want,) = torch.autograd.grad((h[src.long()] * probe).sum(), h)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+ROUTES = {"combined": {}, "per-type": {"combined_edge_lanes": False},
+          "per-edge": {"aggregate_first": False},
+          "unsorted": {"edges_sorted_by_target": False}}
+
+
+@pytest.mark.parametrize("attention", [False, True])
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_sparse_ggnn_route_on_the_card_matches_cpu(cuda, route, attention):
+    """Each route of the sparse GGNN, attention off and on, served and
+    differentiated on the card against the CPU at 1e-4; the kernels each
+    route launches in a forward: B3 only on the per-edge route, edge_dot
+    and the weighted instance only with attention (not on the per-edge
+    route, whose attention scales the messages before B1)."""
+    overrides = {**ROUTES[route], "use_propagation_attention": attention,
+                 "use_edge_bias": True}
+    config = resolve_config("sparse", config_json=json.dumps(overrides))
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(SparseGGNN(config, 4, gen),
+                         init_output_heads(gen, 100, [0]))
+    batch = _envelope_batch(seed=23)
+    if route == "unsorted":
+        rng = np.random.default_rng(3)
+        perms = np.stack([rng.permutation(batch.edge_sources.shape[1])
+                          for _ in range(4)])
+        batch = dataclasses.replace(batch, **{
+            k: np.take_along_axis(getattr(batch, k), perms, axis=1)
+            for k in ("edge_sources", "edge_targets", "edge_mask")})
+    cpu_out = params.graph(batch.to("cpu"))
+    torch.tanh(cpu_out).sum().backward()
+    want = {n: p.grad.clone() for n, p in params.named_parameters()
+            if p.grad is not None}
+    params.zero_grad()
+    params.to(cuda)
+    steps = sum(config["layer_timesteps"])
+    before, dots = _launch_counts(), edge_dot.launches
+    with torch.no_grad():
+        served = params.graph(batch.to(cuda))
+    torch.cuda.synchronize()
+    counts = [a - b for a, b in zip(_launch_counts(), before)]
+    weighted = attention and route != "per-edge"
+    assert counts == [0 if weighted else steps, 0,
+                      steps if route == "per-edge" else 0,
+                      steps if weighted else 0, 0]
+    assert edge_dot.launches - dots == (steps if attention else 0)
+    torch.testing.assert_close(served.cpu(), cpu_out.detach(), rtol=1e-4,
+                               atol=1e-4)
+    out = params.graph(batch.to(cuda))
+    torch.tanh(out).sum().backward()
+    for name, g in want.items():
+        got = dict(params.named_parameters())[name].grad.cpu()
+        rel = float((got - g).norm() / g.norm().clamp_min(1e-30))
+        assert rel <= 1e-4, (name, rel)

@@ -113,15 +113,16 @@ def test_segment_scatter_sum_on_combined_lane_matches_jax_transpose():
 
     _, vjp = jax.vjp(per_fn, jnp.zeros((n_cap, 16), jnp.float32))
     want = np.asarray(vjp(jnp.asarray(g))[0])
-    bgather, boff = messages.combined_lane_transpose(
+    _, bgather, boff = messages.EdgeLanes.combined(
         *(torch.from_numpy(a) for a in (batch.edge_sources_all,
                                         batch.edge_types_all,
                                         batch.edge_targets_all)),
-        t_dim, n_cap)
+        t_dim, n_cap).segment_transpose
     assert bgather.dtype == boff.dtype == torch.int32
     assert boff.shape == (n_cap + 1,)
     assert int(boff[-1]) == int((batch.edge_mask_all > 0).sum())
-    assert int(bgather.max()) < n_cap * t_dim
+    # The pads are keyed past the last source: B2 reads no id past boff[N].
+    assert int(bgather[:int(boff[-1])].max()) < n_cap * t_dim
     got = ell_spmm.segment_scatter_sum(torch.from_numpy(g), bgather, boff,
                                        n_cap)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
@@ -216,12 +217,11 @@ def test_combined_path_gradient_matches_jax_and_plain_autograd(seed):
     want_h, want_w = jax.grad(loss_jax, argnums=(0, 1))(jnp.asarray(h),
                                                         jnp.asarray(w))
     src, typ, tgt = _combined_inputs(batch)
-    offsets = messages.combined_lane_offsets(tgt, typ, t_dim, n_cap)
-    transpose = messages.combined_lane_transpose(src, typ, tgt, t_dim, n_cap)
+    lanes = messages.EdgeLanes.combined(src, typ, tgt, t_dim, n_cap)
     x = torch.from_numpy(h).requires_grad_(True)
     wt = torch.from_numpy(w).requires_grad_(True)
     out = messages.aggregate_then_transform_combined(
-        x, src, typ, tgt, wt, n_cap, offsets=offsets, transpose=transpose)
+        x, src, typ, tgt, wt, n_cap, lanes=lanes)
     got_h, got_w = torch.autograd.grad(torch.tanh(out).sum(), (x, wt))
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h),
                                **GRAD_TOL)
@@ -231,7 +231,7 @@ def test_combined_path_gradient_matches_jax_and_plain_autograd(seed):
 
     # The plain version is differentiable by PyTorch's own autograd.
     x2 = torch.from_numpy(h).requires_grad_(True)
-    per = ell_spmm.gather_segment_sum_reference(x2, src, offsets,
+    per = ell_spmm.gather_segment_sum_reference(x2, src, lanes.offsets,
                                                 n_cap * t_dim)
     plain = torch.matmul(per.view(n_cap, -1), wt.detach().reshape(-1, 16))
     (plain_h,) = torch.autograd.grad(torch.tanh(plain).sum(), x2)
@@ -248,9 +248,9 @@ def test_pads_left_in_the_transpose_would_corrupt_node_0():
     src, typ, tgt = _combined_inputs(batch)
     g = torch.from_numpy(np.random.RandomState(9).randn(
         n_cap * t_dim, 16).astype(np.float32))
-    good = ell_spmm.segment_scatter_sum(
-        g, *messages.combined_lane_transpose(src, typ, tgt, t_dim, n_cap),
-        n_cap)
+    _, bgather, boff = messages.EdgeLanes.combined(
+        src, typ, tgt, t_dim, n_cap).segment_transpose
+    good = ell_spmm.segment_scatter_sum(g, bgather, boff, n_cap)
     composite = torch.clamp(tgt.long() * t_dim + typ.long(),
                             max=n_cap * t_dim - 1)
     bad = ell_spmm.segment_scatter_sum(
@@ -269,16 +269,16 @@ def test_backward_skips_b2_when_h_needs_no_gradient(monkeypatch):
     batch, t_dim = _packed_batch()
     n_cap = batch.node_capacity
     src, typ, tgt = _combined_inputs(batch)
-    transpose = messages.combined_lane_transpose(src, typ, tgt, t_dim, n_cap)
+    lanes = messages.EdgeLanes.combined(src, typ, tgt, t_dim, n_cap)
     wt = torch.randn(t_dim, 16, 16, requires_grad=True)
     h = torch.randn(n_cap, 16)
     out = messages.aggregate_then_transform_combined(
-        h, src, typ, tgt, wt, n_cap, transpose=transpose)
+        h, src, typ, tgt, wt, n_cap, lanes=lanes)
     out.sum().backward()
     assert calls == [] and wt.grad is not None
     h.requires_grad_(True)
     out = messages.aggregate_then_transform_combined(
-        h, src, typ, tgt, wt, n_cap, transpose=transpose)
+        h, src, typ, tgt, wt, n_cap, lanes=lanes)
     out.sum().backward()
     assert calls == [1]
 
@@ -288,8 +288,11 @@ def test_backward_without_transpose_layout_raises():
     n_cap = batch.node_capacity
     src, typ, tgt = _combined_inputs(batch)
     h = torch.randn(n_cap, 16, requires_grad=True)
-    out = messages.aggregate_then_transform_combined(
-        h, src, typ, tgt, torch.randn(t_dim, 16, 16), n_cap)
+    # The message functions build their own transpose when h needs one;
+    # the Function given none raises on the backward.
+    lanes = messages.EdgeLanes.combined(src, typ, tgt, t_dim, n_cap)
+    out = ell_spmm.GatherSegmentSum.apply(h, src, lanes.offsets,
+                                          n_cap * t_dim, None, None)
     with pytest.raises(RuntimeError, match="transpose layout"):
         out.sum().backward()
 

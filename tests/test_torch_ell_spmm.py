@@ -21,7 +21,8 @@ from ggnn_tpu.data.loader import infer_metadata
 from ggnn_tpu.data.synthetic import synthetic_molecules
 from ggnn_tpu.ops.pallas import ell_aggregate_by_type as jax_ell_aggregate
 from ggnn_tpu_torch.ops.kernels import ell_spmm
-from ggnn_tpu_torch.ops.messages import combined_lane_offsets
+from ggnn_tpu_torch.ops.messages import EdgeLanes
+from ggnn_tpu_torch.ops.segment import segment_offsets
 
 torch.set_num_threads(1)
 
@@ -79,17 +80,16 @@ def test_gather_segment_sum_on_combined_lane_matches_jax_segment_sum():
     want = jax.ops.segment_sum(jnp.asarray(h)[batch.edge_sources_all],
                                comp, (n_cap + 1) * t_dim,
                                indices_are_sorted=True)[:n_cap * t_dim]
-    tgt = torch.from_numpy(batch.edge_targets_all)
-    offsets = combined_lane_offsets(tgt,
-                                    torch.from_numpy(batch.edge_types_all),
-                                    t_dim, n_cap)
+    src = torch.from_numpy(batch.edge_sources_all)
+    offsets = EdgeLanes.combined(src, torch.from_numpy(batch.edge_types_all),
+                                 torch.from_numpy(batch.edge_targets_all),
+                                 t_dim, n_cap).offsets
     assert offsets.dtype == torch.int32
     assert offsets.shape == (n_cap * t_dim + 1,)
     # The pads (target = N) lie past the last segment's end.
     assert int(offsets[-1]) == int((batch.edge_mask_all > 0).sum())
-    got = ell_spmm.gather_segment_sum(
-        torch.from_numpy(h), torch.from_numpy(batch.edge_sources_all),
-        offsets, n_cap * t_dim)
+    got = ell_spmm.gather_segment_sum(torch.from_numpy(h), src, offsets,
+                                      n_cap * t_dim)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -101,7 +101,7 @@ def test_gather_segment_sum_empty_segments_and_trailing_pads():
     seg = np.array([1, 1, 2, 5, 6, 8, 10, 10, 10, 10, 10], np.int64)
     src = rng.randint(0, n_nodes, size=seg.shape).astype(np.int32)
     h = rng.randn(n_nodes, h_dim).astype(np.float32)
-    offsets = ell_spmm.segment_offsets(torch.from_numpy(seg), n_seg)
+    offsets = segment_offsets(torch.from_numpy(seg), n_seg)
     np.testing.assert_array_equal(offsets.numpy(),
                                   [0, 0, 2, 3, 3, 3, 4, 5, 5, 6, 6])
     got = ell_spmm.gather_segment_sum(torch.from_numpy(h),

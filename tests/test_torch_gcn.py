@@ -46,6 +46,7 @@ from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.models.gcn import GCN, BlockedGCN, gcn_edges
 from ggnn_tpu_torch.ops.kernels import ell_spmm
+from ggnn_tpu_torch.ops.segment import segment_offsets
 from ggnn_tpu_torch.serving import Predictor
 from ggnn_tpu_torch.training import checkpoint
 from ggnn_tpu_torch.training.config import (GCN_BLOCKED_DEFAULTS,
@@ -273,7 +274,7 @@ def test_weighted_transpose_uses_the_real_transpose():
     src = torch.tensor([1, 2, 0, 2], dtype=torch.int32)
     tgt = torch.tensor([0, 0, 1, 2], dtype=torch.int64)
     w = torch.tensor([0.5, 2.0, -1.0, 3.0])
-    offsets = ell_spmm.segment_offsets(tgt, 3)
+    offsets = segment_offsets(tgt, 3)
     bgather, bweights, boff = ell_spmm.weighted_transpose_layout(
         src.long(), tgt, w, 3)
     h = torch.randn(3, 4, requires_grad=True)

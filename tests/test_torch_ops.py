@@ -198,10 +198,25 @@ def test_aggregate_then_transform_combined_matches_jax():
     got = messages.aggregate_then_transform_combined(
         torch.from_numpy(h), *lane, torch.from_numpy(w), b.node_capacity)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="A14"):
-        messages.aggregate_then_transform_combined(
-            torch.from_numpy(h), *lane, torch.from_numpy(w),
-            b.node_capacity, attention=torch.ones(len(b.edge_mask_all)))
+    # With propagation attention (ported): the weights of the combined
+    # lane and the attention-weighted aggregation.
+    factors = rng.uniform(0.5, 1.5, t_dim).astype(np.float32)
+    want_att = jax_messages.propagation_attention_weights_combined(
+        jnp.asarray(h), b.edge_sources_all, b.edge_targets_all,
+        b.edge_mask_all, b.edge_types_all, jnp.asarray(factors),
+        b.node_capacity)
+    want = jax_messages.aggregate_then_transform_combined(
+        jnp.asarray(h), b.edge_sources_all, b.edge_types_all,
+        b.edge_targets_all, jnp.asarray(w), b.node_capacity, want_att)
+    att = messages.propagation_attention_weights_combined(
+        torch.from_numpy(h), lane[0], lane[2],
+        torch.from_numpy(b.edge_mask_all), lane[1],
+        torch.from_numpy(factors), b.node_capacity)
+    np.testing.assert_allclose(att.numpy(), np.asarray(want_att), **TOL)
+    got = messages.aggregate_then_transform_combined(
+        torch.from_numpy(h), *lane, torch.from_numpy(w), b.node_capacity,
+        attention=att)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_glorot_init_limit_and_generator():

@@ -108,7 +108,7 @@ def test_sparse_ggnn_matches_jax(case):
 
 
 GOLDEN_CASES = ["sparse_default", "sparse_one_step", "sparse_three_steps",
-                "rgcn"]
+                "rgcn", "sparse_attention_bias"]
 
 
 @pytest.mark.parametrize("case", GOLDEN_CASES)
@@ -152,9 +152,6 @@ def test_sparse_ggnn_matches_tf1_golden(case):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"use_propagation_attention": True}, "A14"),
-    ({"aggregate_first": False}, "A15"),
-    ({"combined_edge_lanes": False}, "A15"),
     ({"compute_dtype": "bfloat16"}, "A16"),
 ])
 def test_unported_options_raise(extra, item):

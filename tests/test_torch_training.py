@@ -51,7 +51,8 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE_DIR = os.path.join(os.path.dirname(__file__), "fixtures", "tf1")
 GOLDEN_CASES = ["sparse_default", "sparse_one_step", "sparse_three_steps",
-                "rgcn", "sparse_freeze", "sparse_multitask", "dense_default"]
+                "rgcn", "sparse_freeze", "sparse_multitask", "dense_default",
+                "sparse_attention_bias"]
 NO_DROPOUT = {"edge_weight_dropout_keep_prob": 1.0,
               "graph_state_dropout_keep_prob": 1.0,
               "out_layer_dropout_keep_prob": 1.0}
