@@ -125,7 +125,31 @@ Phases, each raising (and so exiting non-zero) on any failure:
      `edges_sorted_by_target: false`, the last on the 20k batch with its
      lanes permuted), attention off and on: a 300-graph request against
      the CPU and one train step against the CPU, each with the launches
-     `route_launches` gives (B3 exactly on the per-edge route).
+     `route_launches` gives (B3 exactly on the per-edge route);
+ 14. TF1 — the reference TF1 fixtures sparse_default, rgcn,
+     sparse_attention_bias, dense_default and gcn_default
+     (tests/fixtures/tf1/) written as reference pickles and served on the
+     card by `Predictor.from_checkpoint` over their validation corpora:
+     the launches of each forward, the answers against the CPU port and
+     against the fixture (the reference's outputs of its first validation
+     batch; gcn_default holds none, so its validation epoch's masked MAE),
+     each at 1e-4;
+ 15. server — `server.PredictionServer` on 127.0.0.1, port 0, over the
+     default sparse model and over configs/sparse_attention.json: 20
+     sequential one-graph requests (p50 over HTTP), then 16 clients
+     sending one-graph requests for 5 s (requests/s, p50, p99, device
+     calls, coalesced requests), every answer within 1e-5 of the
+     Predictor's, the launches the per-forward count times the device
+     calls; the default model again with `max_coalesced_graphs` 4 (no
+     forward over 4 graphs);
+ 16. export — `sparse`, configs/sparse_attention.json, `gcn`, `dense`
+     and `async` (40 substeps) exported on the CPU (`export_predictor`:
+     seconds, bytes) and loaded on the card (`load_predictor`): the 1- and
+     300-graph requests launch what the live card Predictor launches and
+     answer within 1e-6 of it and within 1e-4 of the artifact on the CPU
+     (async: its 1-graph request), the 3,000-graph request timed through
+     the artifact and the live Predictor, and the sparse artifact served
+     through `server.main(["--checkpoint", ...])` for one request.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -641,6 +665,48 @@ def zero_launch_counts():
     edge_dot.launches = 0
 
 
+def per_request(per_forward):
+    return lambda calls: tuple(c * calls for c in per_forward)
+
+
+def served_launches(variant, config):
+    """The launches of one serving forward of `config`: B1 once a
+    propagation step, or with attention edge_dot and the weighted
+    instance; the weighted instance once a GCN layer; B1 once an async
+    substep; none on the dense family."""
+    if variant in ("dense", "blocked", "gcn_blocked"):
+        return NO_LAUNCH
+    if variant == "gcn":
+        return (0, 0, 0, config["num_timesteps"], 0, 0)
+    if variant == "async":
+        return (config["propagation_rounds"]
+                * config["propagation_substeps"], 0, 0, 0, 0, 0)
+    return route_launches("combined", config["use_propagation_attention"],
+                          sum(config["layer_timesteps"]), False)
+
+
+def counted_request(predictor, request):
+    """(answer, launches, forward calls) of one request, the kernels'
+    counters set to 0 just before it and read just after."""
+    forward_calls = 0
+    forward = predictor._forward
+
+    def counted_forward(batch):
+        nonlocal forward_calls
+        forward_calls += 1
+        return forward(batch)
+
+    predictor._forward = counted_forward
+    try:
+        zero_launch_counts()
+        answer = predictor(request)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    finally:
+        del predictor._forward
+    return answer, counts, forward_calls
+
+
 def serving_requests():
     from ggnn_tpu_torch.data.synthetic import synthetic_molecules
     return {n: synthetic_molecules(n, seed=30 + i)
@@ -730,9 +796,8 @@ def serving_phase(ckpt_dir):
     layout)."""
     from ggnn_tpu_torch.training.config import default_params_for
 
-    steps = sum(default_params_for("sparse")["layer_timesteps"])
-    return counted_serving("sparse", ckpt_dir,
-                           lambda calls: (steps * calls, 0, 0, 0, 0, 0))
+    return counted_serving("sparse", ckpt_dir, per_request(
+        served_launches("sparse", default_params_for("sparse"))))
 
 
 def counted_serving(variant, ckpt_dir, want, overrides=None,
@@ -754,29 +819,16 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
     cpu_predictor = Predictor.from_checkpoint(path, variant, device="cpu")
-    forward_calls = 0
-    forward = predictor._forward
-
-    def counted_forward(batch):
-        nonlocal forward_calls
-        forward_calls += 1
-        return forward(batch)
-
-    predictor._forward = counted_forward
     answers, counts, calls = {}, [], 0
     for n, req in requests.items():
-        forward_calls = 0
-        zero_launch_counts()
-        answers[n] = predictor(req)
-        torch.cuda.synchronize()
-        counts.append(launch_counts())
+        answers[n], launched, forward_calls = counted_request(predictor, req)
+        counts.append(launched)
         calls += forward_calls
-        if counts[-1] != want(forward_calls):
+        if launched != want(forward_calls):
             raise RuntimeError(
                 f"{variant} serving of {n} graphs ({forward_calls} forward "
-                f"calls) launched {COUNTER_NAMES} {counts[-1]}, "
+                f"calls) launched {COUNTER_NAMES} {launched}, "
                 f"expected {want(forward_calls)}")
-    predictor._forward = forward
     log(f"{variant}{tag} serving: launches {COUNTER_NAMES} around "
         f"the {sorted(requests)}-graph requests {counts}")
     return {"forward_calls": calls, "launches_by_request": counts,
@@ -790,7 +842,7 @@ def dense_serving_phase(ckpt_dir):
     """The default `dense` and `blocked` models served: no hand kernel
     launches (the dense family runs cuBLAS products)."""
     return {variant: counted_serving(variant, ckpt_dir,
-                                     lambda calls: NO_LAUNCH)
+                                     per_request(NO_LAUNCH))
             for variant in DENSE_VARIANTS}
 
 
@@ -985,12 +1037,9 @@ def gcn_serving_phase(ckpt_dir):
     a forward and no other kernel; `gcn_blocked`: no hand kernel."""
     from ggnn_tpu_torch.training.config import default_params_for
 
-    layers = default_params_for("gcn")["num_timesteps"]
-    return {"gcn": counted_serving(
-                "gcn", ckpt_dir,
-                lambda calls: (0, 0, 0, layers * calls, 0, 0)),
-            "gcn_blocked": counted_serving(
-                "gcn_blocked", ckpt_dir, lambda calls: NO_LAUNCH)}
+    return {variant: counted_serving(variant, ckpt_dir, per_request(
+                served_launches(variant, default_params_for(variant))))
+            for variant in GCN_VARIANTS}
 
 
 def gcn_training_phase(corpus, log_dir):
@@ -1146,10 +1195,9 @@ def async_serving_phase(ckpt_dir):
     = 160 substeps of [4, 16384, 100] products an envelope."""
     from ggnn_tpu_torch.training.config import default_params_for
 
-    steps = (default_params_for("async")["propagation_rounds"]
-             * ASYNC_SERVING["propagation_substeps"])
+    config = {**default_params_for("async"), **ASYNC_SERVING}
     return counted_serving("async", ckpt_dir,
-                           lambda calls: (steps * calls, 0, 0, 0, 0, 0),
+                           per_request(served_launches("async", config)),
                            overrides=ASYNC_SERVING, cpu_sizes=(1, 300))
 
 
@@ -1656,10 +1704,6 @@ def permuted_lanes(batch, seed=44):
         for name in ("edge_sources", "edge_targets", "edge_mask")})
 
 
-def per_request(per_forward):
-    return lambda calls: tuple(c * calls for c in per_forward)
-
-
 def attention_serving_phase(ckpt_dir):
     """configs/sparse_attention.json served (random weights, factors at
     their initial ones): edge_dot and the weighted instance once a
@@ -1717,6 +1761,419 @@ def routes_phase(step_corpus, ckpt_dir, step_dir):
                 label=f"sparse ({label})")
             results[label] = {"serving": serving, "train_step": step}
     return results
+
+
+# ------------------------------ TF1 pickles, the server, the artifacts
+
+# The reference TF1 fixtures served from pickles (tests/fixtures/tf1/).
+TF1_CASES = ("sparse_default", "rgcn", "sparse_attention_bias",
+             "dense_default", "gcn_default")
+TF1_ENVELOPE = dict(max_nodes=512, max_graphs=64, annotation_size=5)
+TOL_ARTIFACT = 1e-6        # artifact vs live Predictor on the card
+TOL_SERVER = 1e-5          # an HTTP answer vs the Predictor's
+SERVER_CLIENTS = 16
+SERVER_SECONDS = 5.0
+CAPPED_SECONDS = 2.0
+
+
+def tf1_pickle(case, ckpt_dir):
+    """The fixture's weights written as a reference TF1 pickle
+    (chem_tensorflow.py:309-323): (path, meta, the fixture's outputs)."""
+    import pickle
+
+    data = np.load(os.path.join(REPO, "tests", "fixtures", "tf1",
+                                f"{case}.npz"))
+    meta = json.loads(str(data["meta"]))
+    weights = {k[2:]: data[k] for k in data.files if k.startswith("w/")}
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"tf1_{case}.pickle")
+    with open(path, "wb") as f:
+        pickle.dump({"params": meta["config"], "weights": weights,
+                     "train_step": 0, "valid_step": 0}, f)
+    return path, meta, np.asarray(data["output"], np.float32).reshape(-1)
+
+
+def tf1_phase(ckpt_dir):
+    """Each TF1 fixture as a reference pickle, served on the card over
+    its validation corpus: the launches of `served_launches` a forward,
+    the answers against the CPU port (1e-4) and against the fixture: the
+    reference's outputs of its first validation batch (last task), or,
+    where the fixture holds none (gcn_default), its validation epoch's
+    masked MAE, each at 1e-4."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.serving import Predictor
+
+    results = {}
+    for case in TF1_CASES:
+        path, meta, ref_out = tf1_pickle(case, ckpt_dir)
+        variant = meta["variant"]
+        card = Predictor.from_checkpoint(path, variant, **TF1_ENVELOPE)
+        if card.device.type != "cuda":
+            raise RuntimeError(f"default device is {card.device}")
+        cpu = Predictor.from_checkpoint(path, variant, device="cpu",
+                                        **TF1_ENVELOPE)
+        corpus = meta["corpus"]
+        valid = synthetic_molecules(corpus["n_valid"],
+                                    seed=corpus["seed"] + 1,
+                                    num_targets=corpus["num_targets"])
+        got, counts, calls = counted_request(card, valid)
+        want_counts = per_request(served_launches(variant,
+                                                  card.config))(calls)
+        if counts != want_counts:
+            raise RuntimeError(f"TF1 {case} launched {COUNTER_NAMES} "
+                               f"{counts}, expected {want_counts}")
+        want = cpu(valid)
+        err_cpu = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, rtol=TOL_SERVING,
+                                   atol=TOL_SERVING)
+        if ref_out.size:
+            graphs = list(range(len(valid)))
+            if variant in ("dense", "blocked", "gcn_blocked"):
+                graphs = card._dense_batches(valid, 5)[0][
+                    :int(card.config["batch_size"])]
+            g = meta["batch_num_graphs"]
+            mine = got[-1, graphs[:g]]
+            reference = ref_out[:g]
+        else:
+            targets = np.asarray([[v["targets"][k][0] for v in valid]
+                                  for k in card.task_ids], np.float32)
+            mine = np.abs(got - targets).mean(axis=1)
+            reference = np.asarray(meta["valid_accuracies"], np.float32)
+        err_ref = float(np.abs(mine - reference).max())
+        np.testing.assert_allclose(mine, reference, rtol=TOL_SERVING,
+                                   atol=TOL_SERVING)
+        results[case] = {
+            "variant": variant, "graphs": len(valid), "launches": counts,
+            "forward_calls": calls, "max_abs_err_vs_cpu": err_cpu,
+            "max_abs_err_vs_fixture": err_ref,
+            "fixture_holds": "outputs" if ref_out.size else "valid MAE"}
+        log(f"TF1 {case} ({variant}): {len(valid)} graphs served on the "
+            f"card, launches {COUNTER_NAMES} {counts}; max abs err vs CPU "
+            f"{err_cpu:.3e}, vs the fixture's "
+            f"{results[case]['fixture_holds']} {err_ref:.3e}")
+    return results
+
+
+def http_predict(base, graphs):
+    """(answer [K, n], seconds) of one POST /predict."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"{base}/predict", data=json.dumps({"graphs": graphs}).encode(),
+        headers={"Content-Type": "application/json"})
+    start = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        out = np.asarray(json.load(r)["outputs"], np.float32)
+    return out, time.perf_counter() - start
+
+
+def http_health(base):
+    import urllib.request
+
+    with urllib.request.urlopen(f"{base}/healthz", timeout=30) as r:
+        return json.load(r)
+
+
+def percentile_ms(seconds, q):
+    return float(np.percentile(np.asarray(seconds), q)) * 1e3
+
+
+def load_clients(base, pool, want, seconds, clients=SERVER_CLIENTS):
+    """`clients` threads, each sending one-graph requests of the pool
+    (client i its graphs i, i + clients, ...) for `seconds`: requests,
+    requests/s, p50 and p99 latency, and the worst error against `want`
+    [K, len(pool)]."""
+    import threading
+
+    latencies, errors, failures = [], [], []
+    lock = threading.Lock()
+    start = threading.Barrier(clients + 1)
+
+    def client(i):
+        start.wait(timeout=60)
+        deadline = time.perf_counter() + seconds
+        k = i
+        try:
+            while time.perf_counter() < deadline:
+                idx = k % len(pool)
+                out, took = http_predict(base, [pool[idx]])
+                err = float(np.abs(out[:, 0] - want[:, idx]).max())
+                with lock:
+                    latencies.append(took)
+                    errors.append(err)
+                k += clients
+        except Exception as exc:  # raised below, in the main thread
+            failures.append(repr(exc))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    for t in threads:
+        t.start()
+    start.wait(timeout=60)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=seconds + 120)
+    wall = time.perf_counter() - t0
+    if failures:
+        raise RuntimeError(f"server clients failed: {failures[:3]}")
+    return {"clients": clients, "requests": len(latencies),
+            "requests_per_s": len(latencies) / wall,
+            "p50_ms": percentile_ms(latencies, 50),
+            "p99_ms": percentile_ms(latencies, 99),
+            "max_abs_err": max(errors)}
+
+
+def server_phase(ckpt_dir):
+    """A `PredictionServer` on 127.0.0.1, port 0, over the default sparse
+    model and over configs/sparse_attention.json (random weights): one
+    client sending 20 sequential one-graph requests (p50 over HTTP), then
+    16 clients sending one-graph requests for 5 s (requests/s, p50, p99,
+    device calls and coalesced requests from /healthz), every answer
+    within 1e-5 of the Predictor's on the same graphs and the kernels'
+    launches `served_launches` times the device calls; and, for the
+    default model, 16 clients for 2 s with `max_coalesced_graphs` 4: no
+    forward over more than 4 graphs."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.server import PredictionServer
+    from ggnn_tpu_torch.serving import Predictor
+
+    pool = synthetic_molecules(400, seed=52)
+    results = {}
+    for label, overrides in (("sparse", None),
+                             ("sparse_attention",
+                              config_keys(ATTENTION_FILE))):
+        _, path = random_checkpoint("sparse", ckpt_dir, overrides,
+                                    tag=f"_server_{label}")
+        predictor = Predictor.from_checkpoint(path, "sparse")
+        want = predictor(pool)
+        per_forward = served_launches("sparse", predictor.config)
+        server = PredictionServer(predictor, port=0)
+        server.warmup()
+        server.start()
+        host, port = server.address
+        base = f"http://{host}:{port}"
+        try:
+            zero_launch_counts()
+            sequential, seq_err = [], 0.0
+            for i in range(20):
+                out, took = http_predict(base, [pool[i]])
+                sequential.append(took)
+                seq_err = max(seq_err, float(np.abs(out[:, 0]
+                                                    - want[:, i]).max()))
+            torch.cuda.synchronize()
+            seq_counts = launch_counts()
+            if seq_counts != per_request(per_forward)(20):
+                raise RuntimeError(f"{label} server: 20 sequential requests "
+                                   f"launched {seq_counts}")
+            before = http_health(base)
+            zero_launch_counts()
+            load = load_clients(base, pool, want, SERVER_SECONDS)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            after = http_health(base)
+        finally:
+            server.shutdown()
+        calls = after["device_calls"] - before["device_calls"]
+        coalesced = (after["coalesced_requests"]
+                     - before["coalesced_requests"])
+        if counts != per_request(per_forward)(calls):
+            raise RuntimeError(
+                f"{label} server: {calls} device calls launched "
+                f"{COUNTER_NAMES} {counts}, expected "
+                f"{per_request(per_forward)(calls)}")
+        if not calls < load["requests"]:
+            raise RuntimeError(f"{label} server: {calls} device calls for "
+                               f"{load['requests']} requests: no coalescing")
+        worst = max(seq_err, load["max_abs_err"])
+        if worst > TOL_SERVER:
+            raise RuntimeError(f"{label} server: an answer is {worst:.3e} "
+                               "off the Predictor's")
+        results[label] = {
+            "sequential_p50_ms": percentile_ms(sequential, 50),
+            "sequential_launches": seq_counts, **load,
+            "device_calls": calls, "coalesced_requests": coalesced,
+            "graphs_per_device_call": load["requests"] / calls,
+            "launches": counts, "max_abs_err_vs_predictor": worst}
+        log(f"{label} server: 1 client p50 "
+            f"{results[label]['sequential_p50_ms']:.3f} ms; "
+            f"{SERVER_CLIENTS} clients {load['requests']} requests in "
+            f"{SERVER_SECONDS} s, {load['requests_per_s']:.1f} requests/s, "
+            f"p50 {load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms, "
+            f"{calls} device calls, {coalesced} coalesced requests; "
+            f"launches {COUNTER_NAMES} {counts}; max abs err vs the "
+            f"Predictor {worst:.3e}")
+        if label == "sparse":
+            results["sparse_capped"] = capped_server(predictor, pool, want)
+    return results
+
+
+def capped_server(predictor, pool, want):
+    """16 clients for 2 s against a server with `max_coalesced_graphs`
+    4: every forward packs at most 4 graphs."""
+    from ggnn_tpu_torch.server import PredictionServer
+
+    sizes = []
+    forward = predictor._forward
+
+    def recorded(batch):
+        sizes.append(int(batch.num_graphs))
+        return forward(batch)
+
+    server = PredictionServer(predictor, port=0, max_coalesced_graphs=4)
+    server.warmup()
+    server.start()
+    host, port = server.address
+    predictor._forward = recorded
+    try:
+        load = load_clients(f"http://{host}:{port}", pool, want,
+                            CAPPED_SECONDS)
+    finally:
+        del predictor._forward
+        server.shutdown()
+    if not sizes or max(sizes) > 4 or load["max_abs_err"] > TOL_SERVER:
+        raise RuntimeError(f"capped server: forwards of {sorted(set(sizes))}"
+                           f" graphs, max abs err {load['max_abs_err']:.3e}")
+    log(f"sparse server, max_coalesced_graphs 4: {load['requests']} "
+        f"requests, {len(sizes)} forwards of at most {max(sizes)} graphs, "
+        f"{load['requests_per_s']:.1f} requests/s, p50 "
+        f"{load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms")
+    return {**load, "forwards": len(sizes), "max_graphs_a_forward":
+            max(sizes)}
+
+
+# label -> (variant, config overrides): the artifacts exported.
+EXPORTED = {"sparse": ("sparse", None),
+            "sparse_attention": ("sparse", "attention"),
+            "gcn": ("gcn", None), "dense": ("dense", None),
+            "async": ("async", ASYNC_SERVING)}
+
+
+def timed_pair(first, second, request, repeats):
+    """Median seconds of `repeats` synchronised calls of each predictor
+    on `request`, in turns first, second, second, first, ... so that a
+    drift of the host's pace reaches both alike."""
+    times = ([], [])
+    for i in range(2 * repeats):
+        which = (i + i // 2) % 2
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (first, second)[which](request)
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+    return statistics.median(times[0]), statistics.median(times[1])
+
+
+def export_phase(ckpt_dir):
+    """Each of EXPORTED (the default configs, random weights) exported on
+    the CPU (`export_predictor` of a CPU Predictor: seconds, bytes) and
+    loaded on the card (`load_predictor`): the 1- and 300-graph requests
+    through the artifact launch what the live card Predictor launches
+    (`served_launches` a forward), their answers within 1e-6 of the live
+    card Predictor's and within 1e-4 of the artifact on the CPU (async:
+    the 1-graph request only, its plain path takes seconds an envelope
+    on the CPU); the 3,000-graph request timed through the artifact and
+    the live Predictor in turns (A B B A ..., median of 3 each; async 1);
+    and the sparse artifact
+    served through `server.main(["--checkpoint", ...])` for one
+    request."""
+    from ggnn_tpu_torch.export import export_predictor, load_predictor
+    from ggnn_tpu_torch.serving import Predictor
+
+    requests = serving_requests()
+    results = {}
+    for label, (variant, overrides) in EXPORTED.items():
+        if overrides == "attention":
+            overrides = config_keys(ATTENTION_FILE)
+        _, path = random_checkpoint(variant, ckpt_dir, overrides,
+                                    tag=f"_export_{label}")
+        cpu = Predictor.from_checkpoint(path, variant, device="cpu")
+        artifact = os.path.join(ckpt_dir, f"{label}.ggnnx")
+        t0 = time.perf_counter()
+        export_predictor(cpu, artifact)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        card = load_predictor(artifact)
+        load_s = time.perf_counter() - t0
+        if card.device.type != "cuda" or card.model is not None:
+            raise RuntimeError(f"{label} artifact on {card.device}")
+        cpu_artifact = load_predictor(artifact, device="cpu")
+        live = Predictor.from_checkpoint(path, variant)
+        per_forward = served_launches(variant, live.config)
+        rec = {"export_s": export_s, "load_s": load_s,
+               "bytes": os.path.getsize(artifact), "requests": {}}
+        for n in (1, 300):
+            got, counts, calls = counted_request(card, requests[n])
+            want, live_counts, live_calls = counted_request(live,
+                                                            requests[n])
+            expected = per_request(per_forward)(calls)
+            if counts != expected or live_counts != expected:
+                raise RuntimeError(
+                    f"{label} artifact, {n} graphs: launched "
+                    f"{COUNTER_NAMES} {counts} ({calls} forwards), the live "
+                    f"Predictor {live_counts}, expected {expected}")
+            err_live = float(np.abs(got - want).max())
+            np.testing.assert_allclose(got, want, rtol=TOL_ARTIFACT,
+                                       atol=TOL_ARTIFACT)
+            err_cpu = None
+            if variant != "async" or n == 1:
+                cpu_want = cpu_artifact(requests[n])
+                err_cpu = float(np.abs(got - cpu_want).max())
+                np.testing.assert_allclose(got, cpu_want, rtol=TOL_SERVING,
+                                           atol=TOL_SERVING)
+            rec["requests"][n] = {"launches": counts, "forward_calls": calls,
+                                  "max_abs_err_vs_live": err_live,
+                                  "bit_equal_to_live": err_live == 0.0,
+                                  "max_abs_err_vs_cpu_artifact": err_cpu}
+        repeats = 1 if variant == "async" else 3
+        artifact_s, live_s = timed_pair(card, live, requests[3000], repeats)
+        rec["artifact_graphs_per_s_3000"] = 3000 / artifact_s
+        rec["live_graphs_per_s_3000"] = 3000 / live_s
+        results[label] = rec
+        log(f"{label} artifact: exported on the CPU in {export_s:.2f} s, "
+            f"{rec['bytes']} bytes, loaded on the card in {load_s:.2f} s; "
+            f"launches {COUNTER_NAMES} a request "
+            f"{[r['launches'] for r in rec['requests'].values()]} as the "
+            f"live Predictor's; max abs err vs live "
+            f"{[r['max_abs_err_vs_live'] for r in rec['requests'].values()]}"
+            f", vs the CPU artifact "
+            f"{[r['max_abs_err_vs_cpu_artifact'] for r in rec['requests'].values()]}; "
+            f"3,000 graphs: artifact {rec['artifact_graphs_per_s_3000']:.1f}"
+            f" graphs/s, live {rec['live_graphs_per_s_3000']:.1f} "
+            f"(median of {repeats} each, in turns)")
+    results["server_main"] = served_artifact(
+        os.path.join(ckpt_dir, "sparse.ggnnx"), requests[1])
+    return results
+
+
+def served_artifact(artifact, request):
+    """`server.main(["--checkpoint", artifact])` on the card, one request
+    over HTTP against the artifact's own answer (1e-6)."""
+    from ggnn_tpu_torch import server as server_module
+    from ggnn_tpu_torch.export import load_predictor
+
+    seen = {}
+
+    def ready(server):
+        host, port = server.address
+        try:
+            seen["answer"], seen["seconds"] = http_predict(
+                f"http://{host}:{port}", request)
+            seen["health"] = http_health(f"http://{host}:{port}")
+        finally:
+            server.shutdown()
+
+    server_module.main(["--checkpoint", artifact, "--port", "0"],
+                       ready=ready)
+    if "answer" not in seen:
+        raise RuntimeError("server.main served no request")
+    want = load_predictor(artifact)(request)
+    err = float(np.abs(seen["answer"] - want).max())
+    np.testing.assert_allclose(seen["answer"], want, rtol=TOL_ARTIFACT,
+                               atol=TOL_ARTIFACT)
+    log(f"server.main --checkpoint {os.path.basename(artifact)}: one "
+        f"request in {seen['seconds'] * 1e3:.3f} ms, max abs err "
+        f"{err:.3e}, /healthz {seen['health']}")
+    return {"max_abs_err": err, "health": seen["health"]}
 
 
 def main() -> int:
@@ -1779,6 +2236,9 @@ def main() -> int:
     gcn_serving = gcn_serving_phase(work_dir)
     async_serving = async_serving_phase(work_dir)
     attention_serving = attention_serving_phase(work_dir)
+    tf1 = tf1_phase(os.path.join(work_dir, "tf1"))
+    server = server_phase(work_dir)
+    exported = export_phase(os.path.join(work_dir, "export"))
     corpus = (synthetic_molecules(6000, seed=40),
               synthetic_molecules(600, seed=41))
     runner, training = training_phase(corpus,
@@ -1856,6 +2316,16 @@ def main() -> int:
     for label, rec in routes.items():
         runs[f"sparse ({label}) serving"] = rec["serving"]["launches"]
         runs[f"sparse ({label}) train step"] = rec["train_step"]["launches"]
+    for case, rec in tf1.items():
+        runs[f"TF1 {case} serving"] = rec["launches"]
+    for label in ("sparse", "sparse_attention"):
+        runs[f"{label} server"] = [
+            a + b for a, b in zip(server[label]["sequential_launches"],
+                                  server[label]["launches"])]
+    for label in EXPORTED:
+        runs[f"{label} artifact serving"] = [
+            sum(c) for c in zip(*(r["launches"] for r in
+                                  exported[label]["requests"].values()))]
 
     def by_path(*indices):
         return {path: sum(counts[i] for i in indices)
@@ -1987,7 +2457,8 @@ def main() -> int:
                     "attention_training": attention_training,
                     "attention_card_vs_cpu": attention_card_vs_cpu,
                     "attention_profile": attention_profile,
-                    "routes": routes, "launches_by_run": runs}))
+                    "routes": routes, "tf1": tf1, "server": server,
+                    "export": exported, "launches_by_run": runs}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -4,11 +4,17 @@
         [--config-file FILE] [--config JSON] [--log_dir DIR]
         [--data_dir DIR] [--restore FILE] [--freeze-graph-model] [--restrict_data N] [--synthetic N]
         [--quiet] [--save-every-epoch] [--pdb] [--device DEVICE]
+        [--export-artifact PATH [--export-max-nodes N] [--export-max-graphs N]]
 
 The flags of `ggnn_tpu/cli.py` for these variants, plus `--device`: the
 run goes to the GPU unless `--device cpu` is given, and exits non-zero
 without CUDA. `--synthetic N` trains on N synthetic QM9-shaped
-molecules (and validates on N // 10) instead of JSON files.
+molecules (and validates on N // 10) instead of JSON files. `--restore`
+takes a pickle of either package or a reference TF1 pickle.
+`--export-artifact PATH` with `--restore` writes a `.ggnnx` deployment
+artifact (export.py) instead of training; `--config` and `--config-file`
+then apply as overrides on the checkpoint's config. Serve it with
+`python -m ggnn_tpu_torch.server --checkpoint PATH`.
 
 The flags of the JAX CLI that are not ported yet are accepted and exit
 with code 2 naming the ROADMAP item that ports them.
@@ -23,7 +29,6 @@ _FLAGS_NOT_PORTED = {
     "evaluate": ("--evaluate", "A9"),
     "profile": ("--profile", "A9"),
     "checkpoint_every_steps": ("--checkpoint-every-steps", "A9"),
-    "export_artifact": ("--export-artifact", "A10"),
 }
 
 
@@ -65,8 +70,43 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every-steps", type=int, default=0,
                    metavar="K", help="Not ported yet (ROADMAP A9).")
     p.add_argument("--export-artifact", default=None, metavar="PATH",
-                   help="Not ported yet (ROADMAP A10).")
+                   help="With --restore: write a .ggnnx deployment "
+                        "artifact (torch.export programs + weights; see "
+                        "ggnn_tpu_torch/export.py) instead of training. "
+                        "Serve it with `python -m ggnn_tpu_torch.server "
+                        "--checkpoint PATH`.")
+    p.add_argument("--export-max-nodes", type=int, default=2048,
+                   help="Serving envelope for --export-artifact "
+                        "(edge-list/async variants).")
+    p.add_argument("--export-max-graphs", type=int, default=256,
+                   help="Serving envelope for --export-artifact.")
     return p
+
+
+def _export(args) -> None:
+    """--export-artifact: the restored checkpoint served by a Predictor,
+    written as an artifact; --config and --config-file override the
+    checkpoint's config on the serving surface."""
+    import json
+    import os
+
+    from ggnn_tpu_torch.export import export_predictor
+    from ggnn_tpu_torch.serving import Predictor
+
+    overrides = {}
+    if args.config_file is not None:
+        with open(args.config_file) as f:
+            overrides.update(json.load(f))
+    if args.config is not None:
+        overrides.update(json.loads(args.config))
+    predictor = Predictor.from_checkpoint(
+        args.restore, args.variant, max_nodes=args.export_max_nodes,
+        max_graphs=args.export_max_graphs,
+        config_overrides=overrides or None, device=args.device)
+    out = export_predictor(predictor, args.export_artifact)
+    if not args.quiet:
+        print(f"wrote {out} ({os.path.getsize(out)} bytes, "
+              "platforms cpu+cuda)")
 
 
 def _not_ported(args) -> str:
@@ -83,9 +123,16 @@ def main(argv=None) -> int:
     if message:
         print(message, file=sys.stderr)
         return 2
+    if args.export_artifact is not None and args.restore is None:
+        print("--export-artifact requires --restore CHECKPOINT",
+              file=sys.stderr)
+        return 2
     # Everything from config parsing onward sits inside the try: --pdb
     # promises post-mortem on any exception.
     try:
+        if args.export_artifact is not None:
+            _export(args)
+            return 0
         from ggnn_tpu_torch.training.config import resolve_config
         from ggnn_tpu_torch.training.runner import Runner
 

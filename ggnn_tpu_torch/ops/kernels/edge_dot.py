@@ -12,15 +12,17 @@ aggregation; `ops/attention.py` holds the autograd Functions of both.
 The pads of the packers' lanes point one past the last row of y (target
 N, composite id N*T), so they get 0 without a clamp.
 
-A CPU tensor takes the plain version (two `index_select`s and a sum); a
-CUDA tensor launches the kernel or raises. `launches` counts the
+The entry point is the op `torch.ops.ggnn_tpu_torch.edge_dot`
+(`_library.register`). A CPU tensor takes the plain version (two
+`index_select`s and a sum); a CUDA tensor launches the kernel or raises. `launches` counts the
 kernel's launches; a call with no edge launches nothing.
 """
 
 import ctypes
+
 import torch
 
-from ggnn_tpu_torch.ops.kernels import _build
+from ggnn_tpu_torch.ops.kernels import _build, _library
 
 launches = 0
 
@@ -78,18 +80,15 @@ def edge_dot_reference(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
     return torch.where(real, dots, 0.0)
 
 
-def edge_dot(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
-             b: torch.Tensor) -> torch.Tensor:
-    """out [E] f32 with out[e] = <x[a[e]], y[b[e]]>, 0 where b[e] lies
-    outside [0, len(y)). x [NX, H] and y [NY, H] f32, a and b [E] int32;
-    a[e] must lie in [0, NX): the kernel does not check it."""
+def _edge_dot_cpu(x, a, y, b):
+    _check(x, a, y, b)
+    return edge_dot_reference(x, a, y, b)
+
+
+def _edge_dot_cuda(x, a, y, b):
     global launches
     _check(x, a, y, b)
     num_edges, h_dim = a.shape[0], x.shape[1]
-    if x.device.type == "cpu":
-        return edge_dot_reference(x, a, y, b)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if num_edges == 0 or h_dim == 0:
         return torch.zeros(num_edges, dtype=torch.float32, device=x.device)
     out = torch.empty(num_edges, dtype=torch.float32, device=x.device)
@@ -103,6 +102,24 @@ def edge_dot(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
                            f"error {rc}")
     launches += 1
     return out
+
+
+def _edge_dot_fake(x, a, y, b):
+    return x.new_empty(a.shape[0])
+
+
+_edge_dot = _library.register(
+    "edge_dot(Tensor x, Tensor a, Tensor y, Tensor b) -> Tensor",
+    _edge_dot_cpu, _edge_dot_cuda, _edge_dot_fake)
+
+
+def edge_dot(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """out [E] f32 with out[e] = <x[a[e]], y[b[e]]>, 0 where b[e] lies
+    outside [0, len(y)). x [NX, H] and y [NY, H] f32, a and b [E] int32;
+    a[e] must lie in [0, NX): the kernel does not check it. The op
+    `torch.ops.ggnn_tpu_torch.edge_dot`."""
+    return _edge_dot(x, a, y, b)
 
 
 def vectorized(x: torch.Tensor, y: torch.Tensor) -> bool:

@@ -39,8 +39,13 @@ the sparse GGNN's weighted aggregation, out[s] = sum of a[e] * h[src[e]]
 (`ggnn_tpu/ops/messages.py:121-131`, `:178-183`), whose weights get a
 gradient through `ops/attention.py:AttentionGatherSegmentSum`.
 
-A CPU tensor takes the plain version (`index_select` + `index_add_`); a
-CUDA tensor launches the kernel or raises. `launches` counts B1's kernel
+Each entry point is an op of the `ggnn_tpu_torch` namespace
+(`_library.register`; `torch.ops.ggnn_tpu_torch.gather_segment_sum`,
+`segment_scatter_sum`, `weighted_gather_segment_sum`,
+`weighted_segment_scatter_sum`), so an exported program records the
+kernel call. A CPU tensor takes the plain version (`index_select` +
+`index_add_`); a CUDA tensor launches the kernel or raises.
+`launches` counts B1's kernel
 launches, `scatter_launches` B2's, `weighted_launches` and
 `weighted_scatter_launches` the weighted instance's forward and
 transpose, so a run can show that its path went through the kernels; a
@@ -55,7 +60,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ggnn_tpu_torch.ops.kernels import _build
+from ggnn_tpu_torch.ops.kernels import _build, _library
 from ggnn_tpu_torch.ops.segment import segment_offsets, source_order
 
 launches = 0
@@ -221,20 +226,65 @@ def _launch(entry: str, h, src, offsets, num_segments, weights=None):
     return out, True
 
 
+def _register(schema: str, entry: str, counter: str, weighted: bool):
+    """The op `schema` over the kernel entry point `entry` of
+    csrc/ell_spmm.cu: on a CPU tensor the plain version, on a CUDA one a
+    launch (none for an empty output), counted in the module's
+    `counter`."""
+
+    def checked(args):
+        """(h, src, weights or None, offsets, num_segments), checked."""
+        if not weighted:
+            h, src, offsets, num_segments = args
+            args = (h, src, None, offsets, num_segments)
+        h, src, weights, offsets, num_segments = args
+        _check(h, src, offsets, num_segments)
+        if weighted:
+            _check_weights(src, weights)
+        return args
+
+    def cpu(*args):
+        return _segment_sum_plain(*checked(args))
+
+    def cuda(*args):
+        h, src, weights, offsets, num_segments = checked(args)
+        out, launched = _launch(entry, h, src, offsets, num_segments,
+                                weights)
+        globals()[counter] += launched
+        return out
+
+    def fake(h, *rest):
+        return h.new_empty(rest[-1], h.shape[1])
+
+    return _library.register(schema, cpu, cuda, fake)
+
+
+_gather_segment_sum = _register(
+    "gather_segment_sum(Tensor h, Tensor src, Tensor offsets, "
+    "int num_segments) -> Tensor", "gather_segment_sum_f32", "launches",
+    False)
+_segment_scatter_sum = _register(
+    "segment_scatter_sum(Tensor g, Tensor bgather, Tensor boff, "
+    "int num_nodes) -> Tensor", "segment_scatter_sum_f32",
+    "scatter_launches", False)
+_weighted_gather_segment_sum = _register(
+    "weighted_gather_segment_sum(Tensor h, Tensor src, Tensor weights, "
+    "Tensor offsets, int num_segments) -> Tensor",
+    "weighted_gather_segment_sum_f32", "weighted_launches", True)
+_weighted_segment_scatter_sum = _register(
+    "weighted_segment_scatter_sum(Tensor g, Tensor bgather, "
+    "Tensor bweights, Tensor boff, int num_nodes) -> Tensor",
+    "weighted_gather_segment_sum_f32", "weighted_scatter_launches", True)
+
+
 def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
                        offsets: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
     """B1: out [S, H] f32 with out[s] = sum of h[src[e]] over the edges
     of segment s (`offsets` from `segment_offsets`). Indices must lie in
-    [0, N): the packers guarantee it, and the kernel does not check."""
-    global launches
-    _check(h, src, offsets, num_segments)
-    if h.device.type == "cpu":
-        return gather_segment_sum_reference(h, src, offsets, num_segments)
-    out, launched = _launch("gather_segment_sum_f32", h, src, offsets,
-                            num_segments)
-    launches += launched
-    return out
+    [0, N): the packers guarantee it, and the kernel does not check. The
+    op `torch.ops.ggnn_tpu_torch.gather_segment_sum`."""
+    return _gather_segment_sum(h, src, offsets, num_segments)
 
 
 def segment_scatter_sum_reference(g: torch.Tensor, bgather: torch.Tensor,
@@ -251,27 +301,9 @@ def segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
     edges e of source n, `bgather` the edges' forward composite ids in
     source order and `boff` [N+1] their CSR offsets over sources (see
     `transpose_layout`). Indices must lie in [0, len(g)): pads must be
-    dropped before, and the kernel does not check."""
-    global scatter_launches
-    _check(g, bgather, boff, num_nodes)
-    if g.device.type == "cpu":
-        return segment_scatter_sum_reference(g, bgather, boff, num_nodes)
-    dh, launched = _launch("segment_scatter_sum_f32", g, bgather, boff,
-                           num_nodes)
-    scatter_launches += launched
-    return dh
-
-
-def _weighted(h, src, weights, offsets, num_segments):
-    """(out, launched) of the weighted instance: the plain version on a
-    CPU tensor, one launch (or none for an empty output) on a CUDA one."""
-    _check(h, src, offsets, num_segments)
-    _check_weights(src, weights)
-    if h.device.type == "cpu":
-        return weighted_gather_segment_sum_reference(
-            h, src, weights, offsets, num_segments), False
-    return _launch("weighted_gather_segment_sum_f32", h, src, offsets,
-                   num_segments, weights)
+    dropped before, and the kernel does not check. The op
+    `torch.ops.ggnn_tpu_torch.segment_scatter_sum`."""
+    return _segment_scatter_sum(g, bgather, boff, num_nodes)
 
 
 def weighted_gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
@@ -281,11 +313,10 @@ def weighted_gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
     weights[e] * h[src[e]] over the edges of segment s (`offsets` from
     `segment_offsets`), the GCN's Â·H over its target-sorted COO list.
     Indices must lie in [0, N): the packers guarantee it, and the kernel
-    does not check."""
-    global weighted_launches
-    out, launched = _weighted(h, src, weights, offsets, num_segments)
-    weighted_launches += launched
-    return out
+    does not check. The op
+    `torch.ops.ggnn_tpu_torch.weighted_gather_segment_sum`."""
+    return _weighted_gather_segment_sum(h, src, weights, offsets,
+                                        num_segments)
 
 
 def weighted_segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
@@ -294,11 +325,10 @@ def weighted_segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
     """The weighted instance over a source-sorted transpose (see
     `weighted_transpose_layout`): dh [N, H] f32 with dh[n] = sum of
     bweights[e] * g[bgather[e]] over the out-edges e of n, the gradient
-    of `weighted_gather_segment_sum`. Counted apart from the forward."""
-    global weighted_scatter_launches
-    dh, launched = _weighted(g, bgather, bweights, boff, num_nodes)
-    weighted_scatter_launches += launched
-    return dh
+    of `weighted_gather_segment_sum`. Counted apart from the forward. The
+    op `torch.ops.ggnn_tpu_torch.weighted_segment_scatter_sum`."""
+    return _weighted_segment_scatter_sum(g, bgather, bweights, boff,
+                                         num_nodes)
 
 
 def split_edges() -> int:

@@ -15,15 +15,16 @@ at every unroll, and the sparse GGNN's per-edge route
 (`aggregate_first: false`) gathers its source rows with it through
 `GatherRows`, whose backward is B2 (`ell_spmm.segment_scatter_sum`).
 
-A CPU tensor takes the plain version (`index_select`); a CUDA tensor
-launches the kernel or raises. `launches` counts the kernel's launches.
+The entry point is the op `torch.ops.ggnn_tpu_torch.gather_rows`
+(`_library.register`). A CPU tensor takes the plain version
+(`index_select`); a CUDA tensor launches the kernel or raises. `launches` counts the kernel's launches.
 """
 
 import ctypes
 
 import torch
 
-from ggnn_tpu_torch.ops.kernels import _build, ell_spmm
+from ggnn_tpu_torch.ops.kernels import _build, _library, ell_spmm
 
 UNROLLS = (1, 4, 8)
 
@@ -80,25 +81,19 @@ def gather_rows_reference(h: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return h.index_select(0, src.reshape(-1)).view(nb, ke, h.shape[1])
 
 
-def gather_rows(h: torch.Tensor, src: torch.Tensor, unroll: int,
-                streaming: bool = False) -> torch.Tensor:
-    """B3: out [NB, KE, H] f32 with out[nb, k] = h[src[nb, k]], the kernel
-    issuing `unroll` row loads before it stores them, with streaming
-    (evict-first) stores if `streaming`. h [NP, H] f32, src [NB, KE]
-    int32, KE a multiple of `unroll`. Ids must lie in [0, NP): the
-    kernel does not check."""
+def _gather_rows_cpu(h, src, unroll, streaming):
+    _check(h, src, unroll)
+    return gather_rows_reference(h, src)
+
+
+def _gather_rows_cuda(h, src, unroll, streaming):
     global launches
     _check(h, src, unroll)
     nb, ke = src.shape
-    if nb * ke == 0 or h.shape[1] == 0:
-        return torch.empty(nb, ke, h.shape[1], dtype=torch.float32,
-                           device=h.device)
-    if h.device.type == "cpu":
-        return gather_rows_reference(h, src)
-    if h.device.type != "cuda":
-        raise ValueError(f"unsupported device {h.device}")
     out = torch.empty(nb, ke, h.shape[1], dtype=torch.float32,
                       device=h.device)
+    if nb * ke == 0 or h.shape[1] == 0:
+        return out
     stream = torch.cuda.current_stream(h.device).cuda_stream
     rc = _kernel("gather_rows_f32")(
         h.data_ptr(), src.data_ptr(), out.data_ptr(), nb * ke, h.shape[1],
@@ -108,6 +103,25 @@ def gather_rows(h: torch.Tensor, src: torch.Tensor, unroll: int,
                            f"error {rc}")
     launches += 1
     return out
+
+
+def _gather_rows_fake(h, src, unroll, streaming):
+    return h.new_empty(src.shape[0], src.shape[1], h.shape[1])
+
+
+_gather_rows = _library.register(
+    "gather_rows(Tensor h, Tensor src, int unroll, bool streaming) -> "
+    "Tensor", _gather_rows_cpu, _gather_rows_cuda, _gather_rows_fake)
+
+
+def gather_rows(h: torch.Tensor, src: torch.Tensor, unroll: int,
+                streaming: bool = False) -> torch.Tensor:
+    """B3: out [NB, KE, H] f32 with out[nb, k] = h[src[nb, k]], the kernel
+    issuing `unroll` row loads before it stores them, with streaming
+    (evict-first) stores if `streaming`. h [NP, H] f32, src [NB, KE]
+    int32, KE a multiple of `unroll`. Ids must lie in [0, NP): the
+    kernel does not check. The op `torch.ops.ggnn_tpu_torch.gather_rows`."""
+    return _gather_rows(h, src, unroll, streaming)
 
 
 def vectorized(h: torch.Tensor, out: torch.Tensor) -> bool:

@@ -4,10 +4,11 @@ Port of `ggnn_tpu/serving.py:Predictor` for every variant: `sparse`,
 `rgcn`, `dense`, `blocked`, `gcn`, `gcn_blocked` and `async`. A
 `Predictor`
 
-  * loads a pickle checkpoint of either package without any training
-    data; the edge-type count comes from the saved edge weights (1 for
-    the GCN variants, which discard edge types; the count of per-type
-    leaves, or a legacy stacked array, for `async`);
+  * loads a pickle checkpoint of either package, or a reference TF1
+    pickle (compat/tf1.py), without any training data; the edge-type
+    count comes from the saved edge weights (1 for the GCN variants,
+    which discard edge types; the count of per-type leaves, or a legacy
+    stacked array, for `async`);
   * packs sparse-family, `gcn` and `async` requests into a fixed serving
     envelope (`max_nodes`, `max_graphs`), so every batch has the same
     shapes, and micro-batches requests that exceed it; dense-family
@@ -30,9 +31,10 @@ Example:
                                           variant="sparse")
     mu = predictor(molecule_jsons)      # np.ndarray [K, n_graphs]
 
-Not ported yet: the native C++ packer (ROADMAP A12), the bf16 adjacency
-of `compute_dtype: bfloat16` (A16), the HTTP server and exported
-artifacts (A10).
+The HTTP server (server.py) and the exported artifacts (export.py) run
+on this Predictor's host pipeline. Not ported yet: the native C++
+packer (ROADMAP A12), the bf16 adjacency of `compute_dtype: bfloat16`
+(A16).
 """
 
 import collections
@@ -64,6 +66,10 @@ _EDGE_WEIGHT_KEYS = ("['params']['graph']['layers'][0]['edge_weights']",
                      "['params']['graph']['edge_weights']")
 # The async model's per-type [H, H] leaves: <prefix>[t].
 _ASYNC_TYPE_PREFIX = "['params']['graph']['edge_weights']["
+# The same in a TF1 reference pickle (compat/tf1.py).
+_TF1_LAYER_WEIGHTS = "graph_model/gnn_layer_0/gnn_edge_weights_0"
+_TF1_DENSE_WEIGHTS = "graph_model/Variable"
+_TF1_ASYNC_TYPE_PREFIX = "graph_model/gnn_edge_weights_typ"
 
 
 def _check_variant(variant: str) -> None:
@@ -76,11 +82,25 @@ def _infer_geometry(payload: Dict, variant: str, config: Dict):
     """(num_edge_types, hidden): T from the saved edge-weight tensor (1
     for the GCN variants, which have none; for `async` the count of its
     per-type leaves, or a legacy stacked tensor's rows), hidden from the
-    config."""
+    config. A TF1 reference pickle names them by TF variable
+    (`ggnn_tpu/serving.py:57-62`): the layered models' first layer
+    [T*H, H], the reference dense model's `Variable` [T, H, H], the
+    async model's per-type `gnn_edge_weights_typ{t}`."""
     weights = payload["weights"]
     hidden = int(config["hidden_size"])
     if variant in ("gcn", "gcn_blocked"):
         return 1, hidden
+    if _looks_tf1(payload):
+        names = {str(k).split(":")[0]: v for k, v in weights.items()}
+        if variant == "async":
+            count = sum(1 for k in names
+                        if k.startswith(_TF1_ASYNC_TYPE_PREFIX))
+            if count:
+                return count, hidden
+        elif _TF1_LAYER_WEIGHTS in names:
+            return int(np.shape(names[_TF1_LAYER_WEIGHTS])[0]) // hidden, hidden
+        elif _TF1_DENSE_WEIGHTS in names:
+            return int(np.shape(names[_TF1_DENSE_WEIGHTS])[0]), hidden
     if variant == "async":
         count = sum(1 for k in weights if k.startswith(_ASYNC_TYPE_PREFIX))
         if count:
@@ -141,6 +161,15 @@ def _topology_key(g: Dict):
     return len(g["node_features"]), edges.tobytes()
 
 
+def serve_forward(params, task_ids, batch) -> torch.Tensor:
+    """Predictions [K, G] of a batch on the parameters' device: the
+    model's forward and readout. `params` has the `ModelParams` layout
+    (`graph`, `heads`); export.py traces this function."""
+    model = params.graph
+    final = model(batch)
+    return model.readout(params.heads, task_ids, final, batch)
+
+
 class Predictor:
     """Batched forward pass over a fixed serving envelope (sparse family,
     `gcn` and `async`) or the bucket table (dense family)."""
@@ -185,16 +214,17 @@ class Predictor:
                 # directions covers molecular graphs with headroom)
                 edges_all=max(8 * max_nodes, 64),
             )
-        self.params = params.to(self.device).eval()
+        self.params = self._place(params)
+
+    def _place(self, params: ModelParams):
+        """The parameters as the forward uses them, on `self.device`."""
+        return params.to(self.device).eval()
 
     def _forward(self, batch) -> np.ndarray:
         """Predictions [K, G] of one packed batch."""
         on_device = batch.to(self.device)
-        model = self.params.graph
         with torch.inference_mode():
-            final = model(on_device)
-            out = model.readout(self.params.heads, self.task_ids, final,
-                                on_device)
+            out = serve_forward(self.params, self.task_ids, on_device)
         return out.cpu().numpy()
 
     # ------------------------------------------------------------ load
@@ -211,11 +241,11 @@ class Predictor:
         _check_variant(variant)
         device = resolve_device(device)
         payload = _load_payload(path)
-        if _looks_tf1(payload):
-            raise NotImplementedError(
-                "serving a TF1 reference checkpoint is not ported yet "
-                "(ROADMAP A17)")
         config = dict(payload["params"])
+        if _looks_tf1(payload):
+            # A TF1 reference pickle may save a partial config: the
+            # variant's defaults fill the rest.
+            config = {**default_params_for(variant), **config}
         num_edge_types, hidden = _infer_geometry(payload, variant, config)
         meta = DatasetMeta(max_num_vertices=max_nodes,
                            num_edge_types=num_edge_types,
@@ -229,7 +259,8 @@ class Predictor:
             heads=init_output_heads(generator, config["hidden_size"],
                                     config["task_ids"]))
         restored, _, _ = restore_checkpoint(
-            path, config, skeleton, log=lambda *a: None, payload=payload)
+            path, config, skeleton, log=lambda *a: None, payload=payload,
+            variant=variant, num_edge_types=num_edge_types)
         if config_overrides:
             config = {**config, **config_overrides}
         return cls(variant, config, meta, restored, max_nodes=max_nodes,

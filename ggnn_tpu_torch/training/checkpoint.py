@@ -32,8 +32,14 @@ older checkpoint stores as one stacked array under the base name takes
 that array's row t, and rows past the model's leaves are reported, as
 `ggnn_tpu/training/checkpoint.py` restores them.
 
-Not ported yet (ROADMAP A17): Orbax directory checkpoints and
-reference-produced TF1 pickles.
+A reference-produced TF1 pickle (chem_tensorflow.py:309-323, weights
+keyed by TF variable name) restores through `compat/tf1.py`, as
+`ggnn_tpu/training/checkpoint.py:225-245` restores it: the configs must
+match on the keys both have, except `task_ids` and `num_epochs`; a task
+head the pickle lacks keeps the fresh one; the optimizer's state stays
+fresh (the reference's TF-Adam slots have no place in it).
+
+Not ported yet (ROADMAP A17): Orbax directory checkpoints.
 """
 
 import os
@@ -76,6 +82,43 @@ def params_from_jax_weights(
         name = _module_name(key)
         if name is not None:
             out[name] = torch.from_numpy(np.array(value))
+    return out
+
+
+def params_tree(module: nn.Module):
+    """A module's parameters as the JAX package's params pytree: nested
+    dicts (by name) and lists (by index) of numpy arrays."""
+    root = {}
+    for name, p in module.named_parameters():
+        *parents, leaf = name.split(".")
+        node = root
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = p.detach().cpu().numpy().copy()
+
+    def materialize(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [materialize(node[str(i)]) for i in range(len(node))]
+        return {k: materialize(v) for k, v in node.items()}
+
+    return materialize(root)
+
+
+def weights_from_tree(tree, prefix: str = "['params']"
+                      ) -> Dict[str, np.ndarray]:
+    """{JAX key path: ndarray} of a params pytree of nested dicts and
+    lists, each path under `prefix`."""
+    if isinstance(tree, dict):
+        items = [(f"['{k}']", v) for k, v in tree.items()]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return {prefix: np.asarray(tree)}
+    out = {}
+    for part, value in items:
+        out.update(weights_from_tree(value, prefix + part))
     return out
 
 
@@ -229,21 +272,55 @@ def _check_config(config: Dict, saved_config: Dict) -> None:
                 f"{saved_config[par]!r}")
 
 
+def _check_tf1_config(config: Dict, saved_config: Dict) -> None:
+    """A TF1 pickle's config may be partial: only the keys it has must
+    match, `task_ids` and `num_epochs` excepted."""
+    for par, par_value in config.items():
+        if par in ("task_ids", "num_epochs") or par not in saved_config:
+            continue
+        if par_value != saved_config[par]:
+            raise AssertionError(
+                f"config mismatch on '{par}': {par_value!r} != "
+                f"{saved_config[par]!r}")
+
+
+def _tf1_weights(payload: Dict, config: Dict, params: nn.Module, log,
+                 variant: Optional[str],
+                 num_edge_types: Optional[int]) -> Dict[str, np.ndarray]:
+    """A TF1 pickle's weights converted to JAX key paths (`compat/
+    tf1.py`); the skeleton's heads stand in for the tasks it lacks."""
+    if variant is None or num_edge_types is None:
+        raise ValueError(
+            "TF1 reference checkpoint detected; restore it through "
+            "Runner/Predictor (variant + metadata required)")
+    from ggnn_tpu_torch.compat.tf1 import params_from_tf1_weights
+    _check_tf1_config(config, payload["params"])
+    tree = params_from_tf1_weights(
+        variant, payload["weights"], config, num_edge_types,
+        fallback_heads=params_tree(params.heads), log=log)
+    return weights_from_tree(tree)
+
+
 def restore_checkpoint(path: str, config: Dict, params: nn.Module,
-                       log=print, *, payload: Dict = None, optimizer=None
+                       log=print, *, payload: Dict = None, optimizer=None,
+                       variant: Optional[str] = None,
+                       num_edge_types: Optional[int] = None
                        ) -> Tuple[nn.Module, int, int]:
     """Assign a checkpoint's weights to `params` in place, and its Adam
     state to `optimizer` when given. Returns (params, train_step,
     valid_step). `payload` skips the load when the caller already holds
-    the loaded checkpoint."""
+    the loaded checkpoint. A TF1 reference pickle needs the `variant`
+    and the data's `num_edge_types`, and leaves `optimizer` fresh."""
     if payload is None:
         payload = _load_payload(path)
-    if _looks_tf1(payload):
-        raise NotImplementedError(
-            "TF1 reference checkpoints are not ported yet (ROADMAP A17)")
-    _check_config(config, payload["params"])
-
-    saved = payload["weights"]
+    tf1 = _looks_tf1(payload)
+    if tf1:
+        saved = _tf1_weights(payload, config, params, log, variant,
+                             num_edge_types)
+        optimizer = None
+    else:
+        _check_config(config, payload["params"])
+        saved = payload["weights"]
     own = dict(params.named_parameters())
     split_rows = {}
     with torch.no_grad():
@@ -279,4 +356,7 @@ def restore_checkpoint(path: str, config: Dict, params: nn.Module,
             log(f"Saved stacked {base} has {surplus} surplus row(s) beyond "
                 f"the model's {rows} per-index leaves; the extra rows were "
                 "not used.")
-    return params, payload["train_step"], payload["valid_step"]
+    if tf1:
+        log(f"Imported TF1 reference checkpoint {path}")
+    return (params, payload.get("train_step", 0),
+            payload.get("valid_step", 0))

@@ -140,7 +140,8 @@ class Runner:
         self.valid_step_id = 0
         if restore is not None:
             _, self.train_step_id, self.valid_step_id = restore_checkpoint(
-                restore, config, self.params, optimizer=self.optimizer)
+                restore, config, self.params, optimizer=self.optimizer,
+                variant=variant, num_edge_types=self.meta.num_edge_types)
         self.restored = restore is not None
 
         # Propagation steps per forward: the edge-messages/s multiplier.

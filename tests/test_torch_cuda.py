@@ -1094,3 +1094,94 @@ def test_sparse_ggnn_route_on_the_card_matches_cpu(cuda, route, attention):
         got = dict(params.named_parameters())[name].grad.cpu()
         rel = float((got - g).norm() / g.norm().clamp_min(1e-30))
         assert rel <= 1e-4, (name, rel)
+
+
+# ------------------------------------------- ops and exported programs
+
+def _op_cases(device):
+    """Each op of the `ggnn_tpu_torch` namespace with inputs at H = 100:
+    the serving envelope's lane for the segment sums and edge_dot, the
+    per-edge [T, E] for B3."""
+    batch = _envelope_batch()
+    src, offsets = _lane(batch, device)
+    num_segments = offsets.shape[0] - 1
+    gen = torch.Generator(device=device).manual_seed(5)
+    h = torch.randn(num_segments, 100, generator=gen, device=device)
+    w = torch.rand(src.shape[0], generator=gen, device=device)
+    tgt = torch.from_numpy(batch.edge_targets_all).to(device)
+    per_edge = torch.from_numpy(batch.edge_sources).to(device)
+    ops = torch.ops.ggnn_tpu_torch
+    return {
+        "gather_segment_sum": (ops.gather_segment_sum.default,
+                               (h, src, offsets, num_segments)),
+        "segment_scatter_sum": (ops.segment_scatter_sum.default,
+                                (h, src, offsets, num_segments)),
+        "weighted_gather_segment_sum": (
+            ops.weighted_gather_segment_sum.default,
+            (h, src, w, offsets, num_segments)),
+        "weighted_segment_scatter_sum": (
+            ops.weighted_segment_scatter_sum.default,
+            (h, src, w, offsets, num_segments)),
+        "gather_rows": (ops.gather_rows.default,
+                        (h[:2048].contiguous(), per_edge, 8, False)),
+        "edge_dot": (ops.edge_dot.default, (h, src, h, tgt)),
+    }
+
+
+OP_NAMES = ("gather_segment_sum", "segment_scatter_sum",
+            "weighted_gather_segment_sum", "weighted_segment_scatter_sum",
+            "gather_rows", "edge_dot")
+
+
+@pytest.mark.parametrize("name", OP_NAMES)
+def test_opcheck_on_the_card(cuda, name):
+    """`torch.library.opcheck` of each op on CUDA tensors, its output
+    against the same op on the CPU (the plain version) at 1e-5, and one
+    launch counted a call."""
+    op, args = _op_cases(cuda)[name]
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+    before = _launch_counts() + (edge_dot.launches,)
+    got = op(*args)
+    torch.cuda.synchronize()
+    after = _launch_counts() + (edge_dot.launches,)
+    assert sum(after) - sum(before) == 1
+    want = op(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                for a in args))
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_exported_sparse_forward_launches_b1_on_the_card(cuda, tmp_path):
+    """A default sparse model exported on the CPU serves on the card: B1
+    once a propagation step of each forward and nothing else, answers
+    equal to the live card Predictor's (1e-6) and to the CPU's (1e-4)."""
+    from ggnn_tpu_torch.data.loader import DatasetMeta
+    from ggnn_tpu_torch.export import export_predictor, load_predictor
+    from ggnn_tpu_torch.serving import Predictor
+    from ggnn_tpu_torch.training.checkpoint import save_checkpoint
+
+    config = default_params_for("sparse")
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(SparseGGNN(config, 4, gen),
+                         init_output_heads(gen, 100, config["task_ids"]))
+    ckpt = str(tmp_path / "sparse.pickle")
+    save_checkpoint(ckpt, config, params, 0, 0)
+    cpu = Predictor.from_checkpoint(ckpt, "sparse", device="cpu")
+    path = str(tmp_path / "sparse.ggnnx")
+    export_predictor(cpu, path)
+    live = Predictor.from_checkpoint(ckpt, "sparse")
+    exported = load_predictor(path)
+    assert exported.device.type == "cuda"
+    request = synthetic_molecules(40, seed=31)
+    steps = sum(config["layer_timesteps"])
+    for batch_request in (request, request[:1]):
+        before = _launch_counts() + (edge_dot.launches,)
+        got = exported(batch_request)
+        torch.cuda.synchronize()
+        counts = [a - b for a, b in
+                  zip(_launch_counts() + (edge_dot.launches,), before)]
+        assert counts == [steps, 0, 0, 0, 0, 0]
+        np.testing.assert_allclose(got, live(batch_request), rtol=1e-6,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got, cpu(batch_request), rtol=1e-4,
+                                   atol=1e-4)

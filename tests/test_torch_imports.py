@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ggnn_tpu_torch, and neither
-chip_smoke.py nor tools/torch_serving_profile.py, imports jax, jaxlib,
-the JAX package ggnn_tpu or the JAX benchmarks."""
+"""The port stands alone: no module of ggnn_tpu_torch, and none of
+chip_smoke.py, tools/torch_serving_profile.py and
+tools/torch_op_host_cost.py, imports jax, jaxlib, the JAX package
+ggnn_tpu or the JAX benchmarks."""
 
 import ast
 import os
@@ -16,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "ggnn_tpu", "benchmarks")
 
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "torch_serving_profile.py")]
+             os.path.join(ROOT, "tools", "torch_serving_profile.py"),
+             os.path.join(ROOT, "tools", "torch_op_host_cost.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ggnn_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -45,7 +47,8 @@ def test_the_scan_sees_the_whole_port():
     assert os.path.join("ggnn_tpu_torch", "serving.py") in files
     for path in (("ops", "kernels", "ell_spmm.py"),
                  ("ops", "kernels", "gather_floor.py"),
-                 ("probes", "gather_floor.py"), ("utils", "timing.py")):
+                 ("probes", "gather_floor.py"), ("utils", "timing.py"),
+                 ("server.py",), ("export.py",), ("compat", "tf1.py")):
         assert os.path.join("ggnn_tpu_torch", *path) in files
 
 
