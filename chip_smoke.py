@@ -149,7 +149,32 @@ Phases, each raising (and so exiting non-zero) on any failure:
      answer within 1e-6 of it and within 1e-4 of the artifact on the CPU
      (async: its 1-graph request), the 3,000-graph request timed through
      the artifact and the live Predictor, and the sparse artifact served
-     through `server.main(["--checkpoint", ...])` for one request.
+     through `server.main(["--checkpoint", ...])` for one request;
+ 17. bf16 (`compute_dtype: bfloat16`) — each kernel's bf16 instance at
+     configs/sparse_wide_bf16.json's width (H 512) against its plain
+     version: B1 at the envelope, the 20k-node budget, a hub and the
+     skewed lane, B2 at their transposes, the weighted instance with
+     attention weights at 20k and its transpose, edge_dot for the scores
+     and the weights' gradient at 20k, B3 at the 20k per-edge [4, 32736]
+     (within one bf16 ulp of each output element, exact on rows of
+     eighths, two calls bit-equal), each with its time, its bound at the
+     bf16 byte widths, the plain version's time and the library call's
+     (`torch.sparse.mm` and `sampled_addmm` in bf16, or their refusal,
+     `index_select`), and the bf16 instances' registers;
+     configs/sparse_wide_bf16.json served (1, 300 and 3,000 graphs
+     against the CPU at 1e-3; B1's bf16 instance once a step of each
+     forward, counted by the bf16 counters) and the same config in f32
+     on this card beside it; trained for 3 epochs at its 20,000-node
+     batches (8 bf16 B1 a train step and validation batch, 7 bf16 B2 a
+     train step) and profiled; one train step on the card against the
+     CPU at 4,000-node batches (loss 1e-5, gradients 5e-3) for the
+     combined lane and for the routes of BF16_ROUTES (each with a
+     300-graph request), their bf16 launches as `bf16_route_launches`
+     gives; `dense`, `blocked` and `gcn_blocked` in bf16 served and
+     stepped against the CPU, the dense forward's time in bf16 against
+     f32 and against the bf16 tensor rate; and the bf16 config exported
+     on the CPU and served on the card, launching what the live
+     Predictor launches.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -199,11 +224,13 @@ def csr_count_matrix(src, offsets, num_segments, num_nodes):
 
 def measure(kernel, plain, library, bytes_moved, ops):
     """Times of a kernel call, its plain version and the library call
-    (see `time_ms`), and the call's bound from the bytes it must move and
-    the operations it must do."""
+    (see `time_ms`; None where the library refused the inputs), and the
+    call's bound from the bytes it must move and the operations it must
+    do."""
     ms, host_ms = time_ms(kernel)
     plain_ms, plain_host_ms = time_ms(plain)
-    library_ms, library_host_ms = time_ms(library)
+    library_ms, library_host_ms = (time_ms(library) if library is not None
+                                   else (None, None))
     byte_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     op_ms = ops / F32_OPS_PER_S * 1e3
     return {
@@ -216,12 +243,30 @@ def measure(kernel, plain, library, bytes_moved, ops):
     }
 
 
+def library_call(label, call, dtype):
+    """(call, None) to time `call` as the library yardstick, or (None,
+    its error's first line) where the library refuses bf16 inputs
+    (cuSPARSE's SDDMM does); a refusal of f32 inputs raises."""
+    try:
+        call()
+        torch.cuda.synchronize()
+        return call, None
+    except (RuntimeError, NotImplementedError) as err:
+        if dtype != torch.bfloat16:
+            raise
+        log(f"library call for {label} refuses bf16: {err}")
+        return None, str(err).strip().splitlines()[0]
+
+
 def timing_text(rec) -> str:
+    def ms(key):   # None: the library refused the call
+        return "-" if rec[key] is None else f"{rec[key]:.6f}"
+
     return (f"device ms={rec['ms']:.6f} bound_us={rec['bound_ms'] * 1e3:.3f}"
             f" ({rec['bound_by']}) plain_ms={rec['plain_ms']:.6f} "
-            f"library_ms={rec['library_ms']:.6f} | host ms per call: kernel "
+            f"library_ms={ms('library_ms')} | host ms per call: kernel "
             f"{rec['host_ms']:.6f} plain {rec['plain_host_ms']:.6f} library "
-            f"{rec['library_host_ms']:.6f} | "
+            f"{ms('library_host_ms')} | "
             f"max_abs_err={rec['max_abs_err']:.3e}")
 
 
@@ -658,11 +703,23 @@ def launch_counts():
             ell_spmm.weighted_scatter_launches, edge_dot.launches)
 
 
+def bf16_launch_counts():
+    """The same six counters of the kernels' bf16 instances alone."""
+    from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
+    return (ell_spmm.launches_bf16, ell_spmm.scatter_launches_bf16,
+            gather_floor.launches_bf16, ell_spmm.weighted_launches_bf16,
+            ell_spmm.weighted_scatter_launches_bf16, edge_dot.launches_bf16)
+
+
 def zero_launch_counts():
     from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
     ell_spmm.launches = ell_spmm.scatter_launches = gather_floor.launches = 0
     ell_spmm.weighted_launches = ell_spmm.weighted_scatter_launches = 0
     edge_dot.launches = 0
+    ell_spmm.launches_bf16 = ell_spmm.scatter_launches_bf16 = 0
+    ell_spmm.weighted_launches_bf16 = 0
+    ell_spmm.weighted_scatter_launches_bf16 = 0
+    gather_floor.launches_bf16 = edge_dot.launches_bf16 = 0
 
 
 def per_request(per_forward):
@@ -685,9 +742,9 @@ def served_launches(variant, config):
                           sum(config["layer_timesteps"]), False)
 
 
-def counted_request(predictor, request):
+def counted_request(predictor, request, counts=launch_counts):
     """(answer, launches, forward calls) of one request, the kernels'
-    counters set to 0 just before it and read just after."""
+    counters set to 0 just before it and `counts()` read just after."""
     forward_calls = 0
     forward = predictor._forward
 
@@ -701,10 +758,10 @@ def counted_request(predictor, request):
         zero_launch_counts()
         answer = predictor(request)
         torch.cuda.synchronize()
-        counts = launch_counts()
+        launched = counts()
     finally:
         del predictor._forward
-    return answer, counts, forward_calls
+    return answer, launched, forward_calls
 
 
 def serving_requests():
@@ -724,10 +781,9 @@ def random_checkpoint(variant, ckpt_dir, overrides=None, tag=""):
     from ggnn_tpu_torch.training.variants import make_adapter
 
     config = {**default_params_for(variant), **(overrides or {})}
-    assert config["hidden_size"] == HIDDEN
     gen = torch.Generator().manual_seed(0)
-    adapter = make_adapter(variant, config,
-                           DatasetMeta(2048, EDGE_TYPES, HIDDEN))
+    adapter = make_adapter(variant, config, DatasetMeta(
+        2048, EDGE_TYPES, config["hidden_size"]))
     params = ModelParams(
         graph=adapter.build_model(gen),
         heads=init_output_heads(gen, config["hidden_size"],
@@ -739,11 +795,11 @@ def random_checkpoint(variant, ckpt_dir, overrides=None, tag=""):
 
 
 def check_and_time_answers(label, predictor, cpu_predictor, requests,
-                           answers, cpu_sizes=None):
+                           answers, cpu_sizes=None, tol=TOL_SERVING):
     """Each request's answer (of the sizes in `cpu_sizes`, all when None)
-    held against the CPU's, then graphs/s of the 3,000-graph request
-    (median of 3) and the 1-graph latency (median of 20), host clock,
-    synchronised."""
+    held against the CPU's (rtol = atol = `tol`), then graphs/s of the
+    3,000-graph request (median of 3) and the 1-graph latency (median of
+    20), host clock, synchronised."""
     max_err = 0.0
     for n, req in requests.items():
         got = answers[n]
@@ -757,10 +813,9 @@ def check_and_time_answers(label, predictor, cpu_predictor, requests,
         want = cpu_predictor(req)
         err = float(np.abs(got - want).max())
         max_err = max(max_err, err)
-        np.testing.assert_allclose(got, want, rtol=TOL_SERVING,
-                                   atol=TOL_SERVING)
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
         log(f"{label} {n}-graph request: matches CPU port "
-            f"(max_abs_err={err:.3e})")
+            f"(max_abs_err={err:.3e}, tolerance {tol})")
     result = {"max_abs_err_vs_cpu": max_err,
               "requests_held_against_cpu": sorted(
                   n for n in requests
@@ -801,14 +856,15 @@ def serving_phase(ckpt_dir):
 
 
 def counted_serving(variant, ckpt_dir, want, overrides=None,
-                    cpu_sizes=None, sizes=None, tag=""):
+                    cpu_sizes=None, sizes=None, tag="", tol=TOL_SERVING,
+                    counts=launch_counts):
     """The default `variant` (with `overrides`) served from a pickle
     checkpoint on the default device: the kernels' counters set to 0
-    before each request and read after it, where `want(forward_calls)`
-    gives the counts expected; then the answers against the CPU's (of
-    the requests in `cpu_sizes`, all when None) and, when the 1- and
-    3,000-graph requests are among the `sizes` (all three when None),
-    the times."""
+    before each request and `counts()` read after it, where
+    `want(forward_calls)` gives the counts expected; then the answers
+    against the CPU's (of the requests in `cpu_sizes`, all when None) at
+    `tol` and, when the 1- and 3,000-graph requests are among the `sizes`
+    (all three when None), the times."""
     from ggnn_tpu_torch.serving import Predictor
 
     requests = serving_requests()
@@ -819,10 +875,11 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
     cpu_predictor = Predictor.from_checkpoint(path, variant, device="cpu")
-    answers, counts, calls = {}, [], 0
+    answers, counted, calls = {}, [], 0
     for n, req in requests.items():
-        answers[n], launched, forward_calls = counted_request(predictor, req)
-        counts.append(launched)
+        answers[n], launched, forward_calls = counted_request(predictor, req,
+                                                              counts)
+        counted.append(launched)
         calls += forward_calls
         if launched != want(forward_calls):
             raise RuntimeError(
@@ -830,12 +887,12 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
                 f"calls) launched {COUNTER_NAMES} {launched}, "
                 f"expected {want(forward_calls)}")
     log(f"{variant}{tag} serving: launches {COUNTER_NAMES} around "
-        f"the {sorted(requests)}-graph requests {counts}")
-    return {"forward_calls": calls, "launches_by_request": counts,
-            "launches": [sum(c) for c in zip(*counts)],
+        f"the {sorted(requests)}-graph requests {counted}")
+    return {"forward_calls": calls, "launches_by_request": counted,
+            "launches": [sum(c) for c in zip(*counted)],
             **check_and_time_answers(f"{variant}{tag} serving", predictor,
                                      cpu_predictor, requests, answers,
-                                     cpu_sizes)}
+                                     cpu_sizes, tol)}
 
 
 def dense_serving_phase(ckpt_dir):
@@ -848,13 +905,14 @@ def dense_serving_phase(ckpt_dir):
 
 # ------------------------------------------------------------ training
 
-def resolved_config(variant, config_file=None, overrides=None):
+def resolved_config(variant, config_file=None, overrides=None,
+                    hidden=HIDDEN):
     from ggnn_tpu_torch.training.config import resolve_config
     config = resolve_config(
         variant, None if config_file is None
         else os.path.join(REPO, "configs", config_file),
         json.dumps(overrides or {}))
-    assert config["hidden_size"] == HIDDEN
+    assert config["hidden_size"] == hidden
     return config
 
 
@@ -891,10 +949,11 @@ def train_config(variant, overrides=None):
                                                   **(overrides or {})})
 
 
-def train_run(variant, epochs, corpus, log_dir, config=None):
+def train_run(variant, epochs, corpus, log_dir, config=None,
+              counts=launch_counts):
     """`epochs` epochs of `variant` through `Runner.train()` on the
     default device: the kernels' counters set to 0 just before `train()`
-    and read just after, every loss finite, the last validation loss
+    and `counts()` read just after, every loss finite, the last validation loss
     below that of the initial weights; per epoch the losses, MAE,
     error_ratio, graphs/s and the median synchronised train-step time;
     and the numpy packer alone over one training epoch. `config` (with
@@ -939,7 +998,7 @@ def train_run(variant, epochs, corpus, log_dir, config=None):
     history = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    b1, b2, b3, w_fwd, w_bwd, dots = launch_counts()
+    b1, b2, b3, w_fwd, w_bwd, dots = counts()
     runner.train_step, runner.run_epoch = train_step, run_epoch
     log(f"{variant} training: {len(history)} epochs, {runner.train_step_id} "
         f"train steps, {runner.valid_step_id} validation batches in "
@@ -1285,14 +1344,17 @@ def is_full_v32_batch(batch):
 
 def card_vs_cpu_phase(variant, corpus, pick, log_dir, config=None,
                       transform=None, want=None, label=None,
-                      repeat_forward=False):
+                      repeat_forward=False, loss_tol=TOL_STEP_LOSS,
+                      grad_tol=TOL_STEP_GRAD, counts=launch_counts):
     """One train step, keep probabilities 1.0, on the card and on the
     CPU from the same initial weights (both Runners draw them from a CPU
     generator seeded with random_seed), on the batch `pick` accepts
-    (passed through `transform` if given). `config` replaces the
-    variant's training config, `want` the launches expected of a step,
-    `label` the variant's name in the log and the log directory;
-    `repeat_forward` also holds two card forwards of the batch bit-equal."""
+    (passed through `transform` if given): the loss at `loss_tol`
+    (relative), each gradient at a relative L2 error of `grad_tol`.
+    `config` replaces the variant's training config, `want` the
+    launches expected of a step (`counts()` read after it), `label` the
+    variant's name in the log and the log directory; `repeat_forward`
+    also holds two card forwards of the batch bit-equal."""
     from ggnn_tpu_torch.training.runner import Runner
 
     label = label or variant
@@ -1314,7 +1376,7 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir, config=None,
         out[dev] = runner.loss_and_grads(batch.to(runner.device))
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = launch_counts()
+            launches = counts()
         log(f"card vs CPU: {label} {dev} step (first call) "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     loss_gpu, _, grads_gpu = out["cuda"]
@@ -1331,10 +1393,10 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir, config=None,
     log(f"card vs CPU, one {label} train step on {what} "
         f"({int(batch.num_graphs)} graphs): loss {float(loss_gpu):.8f} vs "
         f"{float(loss_cpu):.8f} (relative error {loss_err:.3e}, limit "
-        f"{TOL_STEP_LOSS}); worst gradient relative L2 error {worst:.3e} "
-        f"({worst_name}, limit {TOL_STEP_GRAD}) over {len(grads_cpu)} "
+        f"{loss_tol}); worst gradient relative L2 error {worst:.3e} "
+        f"({worst_name}, limit {grad_tol}) over {len(grads_cpu)} "
         f"parameters; launches {COUNTER_NAMES} {launches}")
-    if not loss_err <= TOL_STEP_LOSS or not worst <= TOL_STEP_GRAD:
+    if not loss_err <= loss_tol or not worst <= grad_tol:
         raise RuntimeError(f"the card's {label} train step disagrees "
                            "with the CPU's")
     # A `gcn` step: the weighted kernel once a layer forward, its
@@ -1427,11 +1489,12 @@ def profile_phase(runner, batch, steps=5, label=None):
     return result
 
 
-def dense_forward_flops(model, batch) -> int:
-    """Operations (2 per multiply-add) of the products of one DenseGGNN
-    forward: per step the bmm with the adjacency, the [B*V, T*H] x
-    [T*H, H] transform and the cell's products (each 2-D cell weight is
-    used once per row). The default configs have no attention."""
+def dense_forward_flops(model, batch):
+    """(message, cell) operations (2 per multiply-add) of the products
+    of one DenseGGNN forward: per step the bmm with the adjacency and the
+    [B*V, T*H] x [T*H, H] transform (bf16 under compute_dtype bfloat16),
+    and the cell's products (each 2-D cell weight used once per row;
+    f32 always). The default configs have no attention."""
     b, t, v, _ = batch.adjacency.shape
     h, rows = model.hidden_size, b * v
     if model.extended:
@@ -1439,20 +1502,22 @@ def dense_forward_flops(model, batch) -> int:
                                                       model.layers)]
     else:
         stages = [(model.num_timesteps, model.cell)]
-    total = 0
+    messages = cells = 0
     for steps, cell in stages:
         cell_weights = sum(p.numel() for p in cell.parameters()
                            if p.dim() == 2)
-        total += steps * (2 * b * v * t * v * h + 2 * rows * t * h * h
-                          + 2 * rows * cell_weights)
-    return total
+        messages += steps * (2 * b * v * t * v * h + 2 * rows * t * h * h)
+        cells += steps * 2 * rows * cell_weights
+    return messages, cells
 
 
-def dense_forward_phase(runners):
+def dense_forward_phase(runners, message_ops_per_s=None, rate="f32 SIMT"):
     """Device time of one inference forward and readout of each dense
     variant at a full 256-graph batch of the V = 32 bucket (CUDA events,
-    `time_ms`), against the least time its products need at the f32 rate
-    outside the tensor cores (TF32 is off). A call launches 80-200
+    `time_ms`), against the least time its products need: the message
+    products at `message_ops_per_s` (by default the f32 rate outside the
+    tensor cores: TF32 is off; `rate` names it), the cell's at the f32
+    rate. A call launches 80-200
     kernels, so 50 of them overflow the launch queue; `time_ms` queues
     them in groups that fit, and its time over 50 calls must agree with
     that over 5 (which fit in one group) within 20%."""
@@ -1468,18 +1533,22 @@ def dense_forward_phase(runners):
 
         ms, host_ms = time_ms(forward)
         ms_5_calls = time_ms(forward, iters=5)[0]
-        flops = dense_forward_flops(model, batch)
-        bound_ms = flops / F32_OPS_PER_S * 1e3
-        results[variant] = {"gflop": flops / 1e9, "ms": ms,
+        message_flops, cell_flops = dense_forward_flops(model, batch)
+        flops = message_flops + cell_flops
+        bound_ms = (message_flops / (message_ops_per_s or F32_OPS_PER_S)
+                    + cell_flops / F32_OPS_PER_S) * 1e3
+        results[variant] = {"gflop": flops / 1e9,
+                            "message_gflop": message_flops / 1e9, "ms": ms,
                             "ms_5_calls": ms_5_calls, "host_ms": host_ms,
                             "bound_ms": bound_ms,
                             "share_of_bound": bound_ms / ms}
         log(f"{variant} forward + readout at 256 graphs, V = 32: device "
             f"{ms:.4f} ms over 50 calls, {ms_5_calls:.4f} ms over 5 (host "
             f"{host_ms:.4f} ms a call), {flops / 1e9:.3f} GFLOP of "
-            f"products, bound {bound_ms:.4f} ms at "
-            f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s: "
-            f"{bound_ms / ms:.1%} of the bound")
+            f"products ({message_flops / 1e9:.3f} of messages at "
+            f"{(message_ops_per_s or F32_OPS_PER_S) / 1e12:.0f} TFLOP/s, "
+            f"{rate}; the cell's at {F32_OPS_PER_S / 1e12:.0f}), bound "
+            f"{bound_ms:.4f} ms: {bound_ms / ms:.1%} of the bound")
         if abs(ms - ms_5_calls) > 0.2 * ms_5_calls:
             raise RuntimeError(f"time_ms of the {variant} forward: "
                                f"{ms} ms over 50 calls, {ms_5_calls} over 5")
@@ -1549,7 +1618,7 @@ def sampled_dots(x, a, y, b):
     rows, cols = rows[perm], cols[perm]
     pattern = torch.sparse_csr_tensor(
         segment_offsets(rows, y.shape[0]).long(), cols,
-        torch.zeros(rows.shape[0], dtype=torch.float32, device=x.device),
+        torch.zeros(rows.shape[0], dtype=x.dtype, device=x.device),
         size=(y.shape[0], x.shape[0]))
     xt = x.t()
     return (lambda: torch.sparse.sampled_addmm(pattern, y, xt, beta=0.0),
@@ -1557,14 +1626,15 @@ def sampled_dots(x, a, y, b):
 
 
 def check_edge_dot(label, x, a, y, b):
-    """edge_dot against its plain version on the card at one shape: max
-    abs error at most TOL_KERNEL of the dots' magnitude (f32 sums in
-    another order), two calls bit-equal, the pads (b out of range) 0.
-    The bound counts each row that some pair reads once (x and y the
-    same table: the union of both ids), the ids once and one float an
-    edge written, and two operations an element of the real pairs. The
-    library call is cuSPARSE's SDDMM over the real pairs
-    (`sampled_dots`), held to the same tolerance."""
+    """edge_dot (f32 or bf16 rows) against its plain version on the card
+    at one shape: f32 dots, max abs error at most TOL_KERNEL of their
+    magnitude (f32 sums in another order), two calls bit-equal, the pads
+    (b out of range) 0. The bound counts each row that some pair reads
+    once (x and y the same table: the union of both ids), the ids once
+    and one float an edge written, and two operations an element of the
+    real pairs. The library call is cuSPARSE's SDDMM over the real pairs
+    (`sampled_dots`), held to the same tolerance, or its refusal of the
+    rows' dtype."""
     from ggnn_tpu_torch.ops.kernels import edge_dot
 
     got = edge_dot.edge_dot(x, a, y, b)
@@ -1574,18 +1644,23 @@ def check_edge_dot(label, x, a, y, b):
     if not torch.equal(got, again):
         raise RuntimeError(f"edge_dot [{label}]: two calls differ")
     real = (b >= 0) & (b < y.shape[0])
-    if got[~real].any():
-        raise RuntimeError(f"edge_dot [{label}]: a pad is not 0")
+    if got.dtype != torch.float32 or got[~real].any():
+        raise RuntimeError(f"edge_dot [{label}]: dots of {got.dtype}, or "
+                           "a pad is not 0")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
     if not err <= TOL_KERNEL * scale:
         raise RuntimeError(f"edge_dot [{label}]: max abs error {err} past "
                            f"{TOL_KERNEL} x {scale}")
-    library, order = sampled_dots(x, a, y, b)
-    lib_err = float((library().values() - want[order]).abs().max())
-    if not lib_err <= TOL_KERNEL * scale:
-        raise RuntimeError(f"sampled_addmm [{label}]: max abs error "
-                           f"{lib_err} past {TOL_KERNEL} x {scale}")
+    call, order = sampled_dots(x, a, y, b)
+    library, refused = library_call(f"edge_dot [{label}]", call, x.dtype)
+    lib_err = None
+    if library is not None:
+        lib_err = float((library().values().float()
+                         - want[order]).abs().max())
+        if not lib_err <= TOL_KERNEL * scale:
+            raise RuntimeError(f"sampled_addmm [{label}]: max abs error "
+                               f"{lib_err} past {TOL_KERNEL} x {scale}")
     h_dim = x.shape[1]
     if x is y:
         rows = int(torch.unique(torch.cat([a, b[real]])).numel())
@@ -1596,43 +1671,47 @@ def check_edge_dot(label, x, a, y, b):
     rec = {"shape": label, "E": edges, "real_pairs": used, "H": h_dim,
            "rows_read": rows, "max_abs_err": err, "dot_scale": scale,
            "bit_equal_repeat": True, "library_max_abs_err": lib_err,
+           "library_refused": refused,
            **measure(lambda: edge_dot.edge_dot(x, a, y, b),
                      lambda: edge_dot.edge_dot_reference(x, a, y, b),
                      library,
-                     bytes_moved=4 * (rows * h_dim + 3 * edges),
+                     bytes_moved=(x.element_size() * rows * h_dim
+                                  + 4 * 3 * edges),
                      ops=2 * used * h_dim)}
-    log(f"kernel edge_dot [{label}] E={edges} real={used} H={h_dim} "
-        f"rows_read={rows}: {timing_text(rec)}")
+    log(f"kernel edge_dot [{label}] {x.dtype} E={edges} real={used} "
+        f"H={h_dim} rows_read={rows}: {timing_text(rec)}")
     return rec
 
 
 def check_gather(label, h, src):
-    """B3 (`gather_rows`) at the per-edge route's [T, E] shape and its
-    widest unroll dividing E, equal to its plain version (a copy); the
-    bound counts the rows some id reads, the ids and the output once;
-    the library call is one `index_select`."""
+    """B3 (`gather_rows`, f32 or bf16 rows) at the per-edge route's
+    [T, E] shape and its widest unroll dividing E, equal to its plain
+    version (a copy); the bound counts the rows some id reads, the ids
+    and the output once; the library call is one `index_select`."""
     from ggnn_tpu_torch.ops.kernels import gather_floor
 
     unroll = gather_floor.widest_unroll(src.shape[1])
     got = gather_floor.gather_rows(h, src, unroll)
     want = gather_floor.gather_rows_reference(h, src)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
+    if got.dtype != h.dtype or not torch.equal(got, want):
         raise RuntimeError(f"gather_rows [{label}] differs from its plain "
                            "version")
     flat = src.reshape(-1)
     rows, h_dim = int(torch.unique(flat).numel()), h.shape[1]
     rec = {"shape": label, "T": src.shape[0], "E": src.shape[1],
            "unroll": unroll, "H": h_dim, "rows_read": rows,
-           "max_abs_err": 0.0,
+           "max_abs_err": 0.0, "library_refused": None,
            **measure(lambda: gather_floor.gather_rows(h, src, unroll),
                      lambda: gather_floor.gather_rows_reference(h, src),
                      lambda: torch.index_select(h, 0, flat),
-                     bytes_moved=4 * (rows * h_dim + flat.shape[0]
-                                      + flat.shape[0] * h_dim),
+                     bytes_moved=(h.element_size() * (rows * h_dim
+                                                      + flat.shape[0] * h_dim)
+                                  + 4 * flat.shape[0]),
                      ops=0)}
-    log(f"kernel gather_rows [{label}] T={src.shape[0]} E={src.shape[1]} "
-        f"unroll={unroll} rows_read={rows}: {timing_text(rec)}")
+    log(f"kernel gather_rows [{label}] {h.dtype} T={src.shape[0]} "
+        f"E={src.shape[1]} unroll={unroll} rows_read={rows}: "
+        f"{timing_text(rec)}")
     return rec
 
 
@@ -2176,6 +2255,394 @@ def served_artifact(artifact, request):
     return {"max_abs_err": err, "health": seen["health"]}
 
 
+# ------------------------------------------------ bf16 (ROADMAP A16)
+
+BF16_FILE = "sparse_wide_bf16.json"
+BF16_HIDDEN = 512
+BF16 = {"compute_dtype": "bfloat16"}
+# Dense bf16 products on the tensor cores (NVIDIA H100 SXM data sheet,
+# dense, without sparsity).
+BF16_TENSOR_OPS_PER_S = 989e12
+# The port on the card against the port on the CPU under bf16: both
+# round the same sums to bf16, but cuBLAS's f32 sums (another order than
+# the CPU's) now and then round a bf16 value the other way, and the GRU
+# steps carry it. On an H100 the worst errors were 2.6e-4 (answers,
+# `dense`), 1.8e-7 (a step's loss) and 8.6e-4 (a gradient); JAX pins
+# 0.05 absolute for bf16 against f32 (tests/test_models.py:268-280).
+TOL_BF16_SERVING = 1e-3    # answers, rtol = atol
+TOL_BF16_STEP_LOSS = 1e-5  # a train step's loss, relative
+TOL_BF16_STEP_GRAD = 5e-3  # each gradient, relative L2 error
+# The routes besides the headline's that launch the other bf16
+# instances: the weighted instance, its transpose and edge_dot (combined
+# lane, attention on); B3 and B3's transpose (per edge). The per-type
+# route runs the combined lane's kernels; tests/test_torch_cuda.py holds
+# every route x attention in bf16.
+BF16_ROUTES = {"combined, attention on": ("combined", {}, True),
+               "per-edge, attention on": (
+                   "per-edge", {"aggregate_first": False}, True)}
+
+
+def bf16_config(overrides=None):
+    """configs/sparse_wide_bf16.json (hidden 512, 20,000-node batches,
+    layer_timesteps [2, 2, 1, 2, 1], edge-weight dropout 0.8), with
+    `overrides`."""
+    return resolved_config("sparse", BF16_FILE, overrides,
+                           hidden=BF16_HIDDEN)
+
+
+def bf16_route_launches(route, attention, steps, train):
+    """The launches of the bf16 instances in a forward or train step of
+    a bf16 sparse GGNN on `route`: those of `route_launches`, less the
+    per-edge route's f32 ones (its messages are f32, as JAX's are, so B1
+    and B1's transpose B2 over them run in f32; the gather B3, its
+    transpose B2 and the scores' kernels take the bf16 node states)."""
+    b1, b2, b3, w, wt, dots = route_launches(route, attention, steps, train)
+    if route != "per-edge":
+        return (b1, b2, b3, w, wt, dots)
+    return (0, b2 - steps if train else 0, b3, w, wt, dots)
+
+
+def bf16_ulp_error(got, want):
+    """The largest |got - want| of two bf16 tensors over one bf16 ulp of
+    `want` (or, where a sum cancels to near 0, over 1e-5 of want's
+    largest magnitude): at most 1 passes."""
+    got, want = got.float(), want.float()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    bound = torch.maximum(spacing, 1e-5 * want.abs().max())
+    return float(((got - want).abs() / bound).max()) if got.numel() else 0.0
+
+
+def check_bf16_segment(name, label, x, idx, offsets, num_segments,
+                       weights=None, exact=False):
+    """A bf16 instance of the segment sums (B1 `gather_segment_sum`, B2
+    `segment_scatter_sum`, the weighted instance or its transpose) on
+    bf16 rows against its plain version at one shape: within one bf16
+    ulp of each output element (0 when `exact`: rows of eighths), two
+    calls bit-equal. The bound counts the bf16 rows some edge reads once,
+    the int32 ids and offsets (and the bf16 weights) once and the bf16
+    output once; the library yardstick is `torch.sparse.mm` of the bf16
+    CSR matrix, or its refusal."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    kernel = getattr(ell_spmm, name)
+    if weights is None:
+        args = (x, idx, offsets, num_segments)
+        plain = ell_spmm.gather_segment_sum_reference
+    else:
+        args = (x, idx, weights, offsets, num_segments)
+        plain = ell_spmm.weighted_gather_segment_sum_reference
+    got, again = kernel(*args), kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+        raise RuntimeError(f"{name} bf16 [{label}]: dtype {got.dtype} or "
+                           "two calls differ")
+    ulps = bf16_ulp_error(got, want)
+    if (exact and not torch.equal(got, want)) or ulps > 1.0:
+        raise RuntimeError(f"{name} bf16 [{label}]: {ulps:.3f} ulp from "
+                           "its plain version")
+    rows, h_dim = x.shape
+    begin, end = int(offsets[0].item()), int(offsets[-1].item())
+    used = end - begin
+    rows_read = int(torch.unique(idx[begin:end]).numel())
+    values = (torch.ones(end, dtype=x.dtype, device=x.device)
+              if weights is None else weights[:end])
+    matrix = torch.sparse_csr_tensor(offsets.long(), idx[:end].long(),
+                                     values, size=(num_segments, rows))
+    library, refused = library_call(f"{name} [{label}]",
+                                    lambda: torch.sparse.mm(matrix, x),
+                                    x.dtype)
+    rec = {"shape": label, "dtype": "bf16", "rows_of_input": rows,
+           "H": h_dim, "S": num_segments, "E": int(idx.shape[0]),
+           "edges_used": used, "rows_read": rows_read,
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "max_ulp_err": ulps, "bit_equal_repeat": True,
+           "library_refused": refused,
+           **measure(
+               lambda: kernel(*args), lambda: plain(*args), library,
+               bytes_moved=(2 * (rows_read * h_dim + num_segments * h_dim)
+                            + 4 * (used + num_segments + 1)
+                            + (0 if weights is None else 2 * used)),
+               ops=(1 if weights is None else 2) * used * h_dim)}
+    log(f"kernel {name} bf16 [{label}] rows(input)={rows} H={h_dim} "
+        f"S={num_segments} used={used} rows_read={rows_read} "
+        f"ulp={ulps:.3f}: {timing_text(rec)}")
+    return rec
+
+
+def bf16_rows(gen, dev, rows, h_dim=BF16_HIDDEN, eighths_only=False):
+    """[rows, h_dim] bf16: randn rounded, or multiples of 1/8 in [-2, 2]
+    (every f32 partial sum exact)."""
+    if eighths_only:
+        x = torch.randint(-16, 17, (rows, h_dim), generator=gen,
+                          device=dev).float() / 8
+    else:
+        x = torch.randn(rows, h_dim, generator=gen, device=dev)
+    return x.to(torch.bfloat16)
+
+
+def bf16_kernel_phase(dev, gen, batches, skewed):
+    """Each bf16 instance against its plain version at the bf16 config's
+    width (H 512): B1 at the serving envelope, the 20k-node budget, a hub
+    and the skewed lane, B2 at their transposes; the weighted instance
+    with attention weights at 20k and over its transpose; edge_dot for
+    the scores and the weights' gradient at 20k; B3 at the 20k per-edge
+    [4, 32736]; the registers of each bf16 instance."""
+    from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
+    from ggnn_tpu_torch.ops.messages import (
+        EdgeLanes, propagation_attention_weights_combined)
+
+    out = {"b1": [], "b2": [], "weighted": [], "edge_dot": [],
+           "gather_rows": []}
+    for label, batch, t_dim in batches:
+        b = batch.to(dev)
+        n = b.node_capacity
+        lanes = EdgeLanes.combined(b.edge_sources_all, b.edge_types_all,
+                                   b.edge_targets_all, t_dim, n)
+        h = bf16_rows(gen, dev, n)
+        out["b1"].append(check_bf16_segment(
+            "gather_segment_sum", label, h, b.edge_sources_all,
+            lanes.offsets, n * t_dim))
+        _, bgather, boff = lanes.segment_transpose
+        out["b2"].append(check_bf16_segment(
+            "segment_scatter_sum", f"backward of the {label}",
+            bf16_rows(gen, dev, n * t_dim), bgather, boff, n))
+        if n < 20000:
+            continue
+        factors = torch.rand(t_dim, generator=gen, device=dev) + 0.5
+        with torch.no_grad():
+            att = propagation_attention_weights_combined(
+                h, b.edge_sources_all, b.edge_targets_all, b.edge_mask_all,
+                b.edge_types_all, factors, n, lanes).to(torch.bfloat16)
+        out["weighted"].append(check_bf16_segment(
+            "weighted_gather_segment_sum", f"attention weights, {label}", h,
+            b.edge_sources_all, lanes.offsets, n * t_dim, weights=att))
+        perm, bids, boff = lanes.segment_transpose
+        out["weighted"].append(check_bf16_segment(
+            "weighted_segment_scatter_sum", f"transpose, {label}",
+            bf16_rows(gen, dev, n * t_dim), bids, boff, n,
+            weights=att[perm].contiguous()))
+        out["edge_dot"].append(check_edge_dot(
+            f"scores, {label}", h, b.edge_sources_all, h,
+            b.edge_targets_all))
+        out["edge_dot"].append(check_edge_dot(
+            f"weights' gradient, {label}", h, b.edge_sources_all,
+            bf16_rows(gen, dev, n * t_dim), lanes.segments))
+        out["gather_rows"].append(check_gather(
+            f"per-edge [T, E], {label}", h, b.edge_sources))
+    out["b1"].append(check_bf16_segment(
+        "gather_segment_sum", "hub + empty segments",
+        bf16_rows(gen, dev, 6000, eighths_only=True),
+        *hub_case(dev, gen, 23, 4096, 6000, 1234)[1:], 4096, exact=True))
+    out["b2"].append(check_bf16_segment(
+        "segment_scatter_sum", "hub + empty rows",
+        bf16_rows(gen, dev, 4096 * EDGE_TYPES, eighths_only=True),
+        *hub_case(dev, gen, 24, 4096, 4096 * EDGE_TYPES, 2345)[1:], 4096,
+        exact=True))
+    src, types, tgt = skewed
+    lanes = EdgeLanes.combined(src, types, tgt, EDGE_TYPES, SKEWED_NODES)
+    out["b1"].append(check_bf16_segment(
+        "gather_segment_sum", "skewed in-degree",
+        bf16_rows(gen, dev, SKEWED_NODES, eighths_only=True), src,
+        lanes.offsets, SKEWED_NODES * EDGE_TYPES, exact=True))
+    _, bgather, boff = lanes.segment_transpose
+    out["b2"].append(check_bf16_segment(
+        "segment_scatter_sum", "backward of the skewed in-degree",
+        bf16_rows(gen, dev, SKEWED_NODES * EDGE_TYPES, eighths_only=True),
+        bgather, boff, SKEWED_NODES, exact=True))
+    bf16 = torch.bfloat16
+    out["registers"] = {
+        "ell_spmm": {f"x{e}": ell_spmm.registers(e, dev, dtype=bf16)
+                     for e in (8, 4, 1)},
+        "ell_spmm_weighted": {
+            f"x{e}": ell_spmm.registers(e, dev, weighted=True, dtype=bf16)
+            for e in (8, 4, 1)},
+        "edge_dot": {f"x{e}": edge_dot.registers(e, dev, dtype=bf16)
+                     for e in (8, 4, 1)},
+        "gather_rows_unroll8": {
+            f"x{e}": gather_floor.registers(8, e, False, dev, dtype=bf16)
+            for e in (8, 4, 1)}}
+    log(f"bf16 instances: registers a thread {out['registers']} (f32 B1/B2 "
+        f"float4 / scalar {ell_spmm.registers(True, dev)} / "
+        f"{ell_spmm.registers(False, dev)})")
+    return out
+
+
+def bf16_serving_phase(ckpt_dir):
+    """configs/sparse_wide_bf16.json (random weights, seed 0) served on
+    the card: the 1-, 300- and 3,000-graph requests, B1's bf16 instance
+    once a propagation step of each forward and no other bf16 launch,
+    every answer held against the same checkpoint served on the CPU
+    (TOL_BF16_SERVING), graphs/s and the 1-graph latency; then the same
+    config with compute_dtype float32 on the same card, a plain
+    comparison (its B1 launches f32)."""
+    keys = config_keys(BF16_FILE)
+    steps = sum(keys["layer_timesteps"])
+    served = counted_serving(
+        "sparse", ckpt_dir, per_request((steps, 0, 0, 0, 0, 0)),
+        overrides=keys, tag="_wide_bf16", tol=TOL_BF16_SERVING,
+        counts=bf16_launch_counts)
+    f32 = counted_serving(
+        "sparse", ckpt_dir, per_request((0,) * 6),
+        overrides={**keys, "compute_dtype": "float32"}, tag="_wide_f32",
+        cpu_sizes=(1,), counts=bf16_launch_counts)
+    log(f"sparse_wide_bf16 vs the same config in f32 on this card: "
+        f"{served['graphs_per_s_3000']:.1f} vs "
+        f"{f32['graphs_per_s_3000']:.1f} graphs/s, "
+        f"{served['latency_1_graph_ms']:.3f} vs "
+        f"{f32['latency_1_graph_ms']:.3f} ms (no claim)")
+    return {"bf16": served, "f32": f32}
+
+
+def bf16_training_phase(corpus, log_dir):
+    """3 epochs of configs/sparse_wide_bf16.json (20,000-node batches,
+    edge-weight dropout 0.8) on the card: B1's bf16 instance 8 times a
+    train step and a validation batch, B2's 7 times a train step, no
+    other bf16 launch; then a profile of its train step on a 20k-node
+    batch."""
+    runner, result = train_run("sparse", 3, corpus, log_dir,
+                               config=bf16_config(),
+                               counts=bf16_launch_counts)
+    steps = sum(runner.config["layer_timesteps"])
+    want_b1 = steps * (result["train_steps"] + result["valid_batches"])
+    want_b2 = (steps - 1) * result["train_steps"]
+    got = [result[f"launches_{k}"] for k in COUNTERS]
+    if got != [want_b1, want_b2, 0, 0, 0, 0] or want_b2 == 0:
+        raise RuntimeError(f"sparse_wide_bf16 training launched bf16 "
+                           f"{COUNTER_NAMES} {got}, expected "
+                           f"[{want_b1}, {want_b2}, 0, 0, 0, 0]")
+    result["profile"] = profile_phase(
+        runner, first_batch(runner, is_20k_batch), label="sparse_wide_bf16")
+    return runner, result
+
+
+def bf16_step_config(overrides=None):
+    """The bf16 config at 4,000-node batches for the card-vs-CPU steps:
+    a 20k-node step at H 512 takes the CPU tens of seconds."""
+    return bf16_config({"batch_size": 4000, "num_epochs": 1,
+                        **(overrides or {})})
+
+
+def is_4k_batch(batch):
+    return int(batch.num_nodes) >= 3500
+
+
+def bf16_routes_phase(step_corpus, ckpt_dir, step_dir):
+    """The bf16 config's train step on the card against the CPU (the
+    combined lane without attention: the headline path), then each of
+    BF16_ROUTES: a 300-graph request against the CPU and a train step
+    against the CPU, each with the bf16 launches
+    `bf16_route_launches` gives."""
+    steps = sum(config_keys(BF16_FILE)["layer_timesteps"])
+    tol = dict(loss_tol=TOL_BF16_STEP_LOSS, grad_tol=TOL_BF16_STEP_GRAD,
+               counts=bf16_launch_counts)
+    results = {"combined, attention off": {"train_step": card_vs_cpu_phase(
+        "sparse", step_corpus, is_4k_batch, step_dir,
+        config=bf16_step_config(),
+        want=bf16_route_launches("combined", False, steps, True),
+        label="sparse_wide_bf16", **tol)}}
+    for label, (route, keys, attention) in BF16_ROUTES.items():
+        overrides = {**keys, "use_propagation_attention": attention}
+        serving = counted_serving(
+            "sparse", ckpt_dir, per_request(bf16_route_launches(
+                route, attention, steps, False)),
+            overrides={**config_keys(BF16_FILE), **overrides},
+            sizes=(300,), tag=f"_bf16_{route}_{int(attention)}",
+            tol=TOL_BF16_SERVING, counts=bf16_launch_counts)
+        step = card_vs_cpu_phase(
+            "sparse", step_corpus, is_4k_batch, step_dir,
+            config=bf16_step_config(overrides),
+            want=bf16_route_launches(route, attention, steps, True),
+            label=f"sparse_wide_bf16 ({label})", **tol)
+        results[label] = {"serving": serving, "train_step": step}
+    return results
+
+
+def bf16_dense_phase(step_corpus, ckpt_dir, step_dir, f32_forward):
+    """`dense`, `blocked` and `gcn_blocked` with compute_dtype bfloat16
+    (their default configs otherwise): a 300-graph request against the
+    CPU and one train step against the CPU each, no hand kernel; and the
+    `dense` and `blocked` forward's device time in bf16 at the 256-graph
+    V = 32 batch against the f32 one of `dense_forward_phase` in this
+    run, and against the least time of its products at the bf16 tensor
+    rate."""
+    from ggnn_tpu_torch.training.runner import Runner
+
+    results = {}
+    tol = dict(loss_tol=TOL_BF16_STEP_LOSS, grad_tol=TOL_BF16_STEP_GRAD)
+    for variant in DENSE_VARIANTS + ("gcn_blocked",):
+        serving = counted_serving(variant, ckpt_dir, per_request(NO_LAUNCH),
+                                  overrides=BF16, sizes=(300,),
+                                  tag="_bf16", tol=TOL_BF16_SERVING)
+        step = card_vs_cpu_phase(
+            variant, step_corpus, is_full_v32_batch, step_dir,
+            config=train_config(variant, {"num_epochs": 1, **BF16}),
+            label=f"{variant}_bf16", **tol)
+        results[variant] = {"serving": serving, "train_step": step}
+    runners = {variant: Runner(
+        variant, train_config(variant, {"num_epochs": 1, **BF16}),
+        train_data=step_corpus[0], valid_data=step_corpus[1],
+        log_dir=os.path.join(step_dir, f"{variant}_bf16_forward"),
+        quiet=True) for variant in DENSE_VARIANTS}
+    forward = dense_forward_phase(runners, BF16_TENSOR_OPS_PER_S,
+                                  "bf16 tensor cores")
+    for variant, rec in forward.items():
+        rec["f32_ms_this_run"] = f32_forward[variant]["ms"]
+        log(f"{variant} forward at 256 graphs, V = 32: bf16 {rec['ms']:.4f}"
+            f" ms against f32 {rec['f32_ms_this_run']:.4f} ms in this run; "
+            f"{rec['share_of_bound']:.2%} of the bf16 tensor rate's bound")
+    results["forward"] = forward
+    return results
+
+
+def bf16_export_phase(ckpt_dir):
+    """configs/sparse_wide_bf16.json exported on the CPU and loaded on the
+    card: the 1- and 300-graph requests launch the bf16 instances the
+    live card Predictor launches, answers within TOL_ARTIFACT of it (the
+    program runs cuBLAS's bf16 product through the `product_f32` op, as
+    the live model does) and within TOL_BF16_SERVING of the artifact on
+    the CPU."""
+    from ggnn_tpu_torch.export import export_predictor, load_predictor
+    from ggnn_tpu_torch.serving import Predictor
+
+    requests = serving_requests()
+    _, path = random_checkpoint("sparse", ckpt_dir, config_keys(BF16_FILE),
+                                tag="_export_wide_bf16")
+    artifact = os.path.join(ckpt_dir, "sparse_wide_bf16.ggnnx")
+    t0 = time.perf_counter()
+    export_predictor(Predictor.from_checkpoint(path, "sparse",
+                                               device="cpu"), artifact)
+    export_s = time.perf_counter() - t0
+    card, live = load_predictor(artifact), Predictor.from_checkpoint(
+        path, "sparse")
+    cpu_artifact = load_predictor(artifact, device="cpu")
+    rec = {"export_s": export_s, "bytes": os.path.getsize(artifact),
+           "requests": {}}
+    for n in (1, 300):
+        got, counts, calls = counted_request(card, requests[n],
+                                             bf16_launch_counts)
+        want, live_counts, _ = counted_request(live, requests[n],
+                                               bf16_launch_counts)
+        steps = sum(live.config["layer_timesteps"])
+        if counts != live_counts or counts != (steps * calls, 0, 0, 0, 0, 0):
+            raise RuntimeError(f"bf16 artifact, {n} graphs: launched "
+                               f"{counts}, the live Predictor {live_counts}")
+        err_live = float(np.abs(got - want).max())
+        np.testing.assert_allclose(got, want, rtol=TOL_ARTIFACT,
+                                   atol=TOL_ARTIFACT)
+        cpu_want = cpu_artifact(requests[n])
+        err_cpu = float(np.abs(got - cpu_want).max())
+        np.testing.assert_allclose(got, cpu_want, rtol=TOL_BF16_SERVING,
+                                   atol=TOL_BF16_SERVING)
+        rec["requests"][n] = {"launches": counts, "forward_calls": calls,
+                              "max_abs_err_vs_live": err_live,
+                              "max_abs_err_vs_cpu_artifact": err_cpu}
+    log(f"sparse_wide_bf16 artifact: exported on the CPU in {export_s:.2f}"
+        f" s, {rec['bytes']} bytes; {rec['requests']}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2292,6 +2759,31 @@ def main() -> int:
         async_runner, is_async_10k_batch))
     attention_profile = profile_phase(attention_runner, first_batch(
         attention_runner, is_20k_batch), label="sparse_attention")
+
+    # compute_dtype bfloat16 (A16): the kernels' bf16 instances, then the
+    # bf16 config's main paths, each counted from 0 just before it.
+    bf16_start = time.perf_counter()
+    bf16_seconds = {}
+
+    def bf16_timed(label, phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        bf16_seconds[label] = time.perf_counter() - t0
+        return result
+
+    bf16_kernels = bf16_timed("kernels", bf16_kernel_phase, dev, gen,
+                              batches, skewed)
+    bf16_serving = bf16_timed("serving", bf16_serving_phase, work_dir)
+    _, bf16_training = bf16_timed("training", bf16_training_phase, corpus,
+                                  os.path.join(work_dir, "train_bf16"))
+    bf16_routes = bf16_timed("routes", bf16_routes_phase, step_corpus,
+                             work_dir, step_dir)
+    bf16_dense = bf16_timed("dense", bf16_dense_phase, step_corpus,
+                            work_dir, step_dir, dense_forward)
+    bf16_export = bf16_timed("export", bf16_export_phase,
+                             os.path.join(work_dir, "export"))
+    log(f"bf16 phases: {time.perf_counter() - bf16_start:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in bf16_seconds.items())})")
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -2427,6 +2919,57 @@ def main() -> int:
         **shape_numbers(dot_shape),
         "registers": attention_kernels["edge_dot_registers"],
     }]
+    # The bf16 instances' launches on the bf16 main paths (their own
+    # counters: the per-edge route's B1 and its transpose stay f32).
+    bf16_runs = {
+        "sparse_wide_bf16 serving": bf16_serving["bf16"]["launches"],
+        "sparse_wide_bf16 training": [bf16_training[f"launches_{k}"]
+                                      for k in COUNTERS],
+        "sparse_wide_bf16 artifact serving": [
+            sum(c) for c in zip(*(r["launches"] for r in
+                                  bf16_export["requests"].values()))]}
+    for label, rec in bf16_routes.items():
+        if "serving" in rec:
+            bf16_runs[f"sparse_wide_bf16 ({label}) serving"] = \
+                rec["serving"]["launches"]
+        bf16_runs[f"sparse_wide_bf16 ({label}) train step"] = \
+            rec["train_step"]["launches"]
+
+    def bf16_by_path(*indices):
+        return {path: sum(counts[i] for i in indices)
+                for path, counts in bf16_runs.items()}
+
+    def bf16_entry(name, f32_entry, records, shape, paths):
+        return {
+            "name": f"{name}[bf16]", "route": "cuda",
+            "source": f32_entry["source"], "replaces": f32_entry["replaces"],
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            "max_ulp_err": max(r.get("max_ulp_err", 0.0) for r in records),
+            "library_refused": shape["library_refused"],
+            "shapes": [short(r) for r in records], **shape_numbers(shape)}
+
+    f32_by_name = {k["name"]: k for k in kernels}
+    kernels += [
+        bf16_entry("gather_segment_sum", f32_by_name["gather_segment_sum"],
+                   bf16_kernels["b1"], bf16_kernels["b1"][1],
+                   bf16_by_path(0)),
+        bf16_entry("segment_scatter_sum",
+                   f32_by_name["segment_scatter_sum"], bf16_kernels["b2"],
+                   bf16_kernels["b2"][1], bf16_by_path(1)),
+        bf16_entry("gather_rows", f32_by_name["gather_rows"],
+                   bf16_kernels["gather_rows"],
+                   bf16_kernels["gather_rows"][0], bf16_by_path(2)),
+        bf16_entry("weighted_gather_segment_sum",
+                   f32_by_name["weighted_gather_segment_sum"],
+                   bf16_kernels["weighted"], bf16_kernels["weighted"][0],
+                   bf16_by_path(3, 4)),
+        bf16_entry("edge_dot", f32_by_name["edge_dot"],
+                   bf16_kernels["edge_dot"], bf16_kernels["edge_dot"][0],
+                   bf16_by_path(5)),
+    ]
+    for k in kernels[-5:]:
+        k["registers"] = bf16_kernels["registers"]
     for k in kernels:
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} launched no time on the main "
@@ -2458,7 +3001,14 @@ def main() -> int:
                     "attention_card_vs_cpu": attention_card_vs_cpu,
                     "attention_profile": attention_profile,
                     "routes": routes, "tf1": tf1, "server": server,
-                    "export": exported, "launches_by_run": runs}))
+                    "export": exported, "launches_by_run": runs,
+                    "bf16_kernels": bf16_kernels,
+                    "bf16_serving": bf16_serving,
+                    "bf16_training": bf16_training,
+                    "bf16_routes": bf16_routes, "bf16_dense": bf16_dense,
+                    "bf16_export": bf16_export,
+                    "bf16_launches_by_run": bf16_runs,
+                    "bf16_phase_seconds": bf16_seconds}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

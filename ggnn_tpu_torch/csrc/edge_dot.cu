@@ -33,7 +33,17 @@
 // columns. Each edge's lane sums are added by a butterfly of shuffles
 // (xor 16, 8, 4, 2, 1) and lane 0 stores them. No atomics and a fixed
 // order of every sum: two calls on the same inputs give the same bits.
+//
+// The bf16 instance (`edge_dot_bf16`, `compute_dtype: bfloat16`): x and y
+// bf16, out f32. A lane loads 8 bf16 values (16 bytes) when H % 8 == 0
+// and x and y are 16-byte aligned, 4 (8 bytes) when H % 4 == 0 and they
+// are 8-byte aligned, one otherwise; it widens each to f32 (exact) and
+// multiplies in f32, where a product of two bf16 values is exact, so
+// each dot is the f32 sum of its exact products. The JAX model rounds
+// each product to bf16 before its f32 sum (ggnn_tpu/ops/messages.py:68);
+// the port does not.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -57,7 +67,33 @@ __device__ __forceinline__ float dot(const float4 u, const float4 v) {
   return u.x * v.x + u.y * v.y + u.z * v.z + u.w * v.w;
 }
 
-// V is float or float4; `width` is the row length in units of V. Every
+// bf16 rows, as their bits: 1, 4 or 8 values a lane.
+__device__ __forceinline__ void zero(unsigned short& v) { v = 0; }
+__device__ __forceinline__ void zero(uint2& v) { v = make_uint2(0, 0); }
+__device__ __forceinline__ void zero(uint4& v) { v = make_uint4(0, 0, 0, 0); }
+// The low and the high bf16 value of a 32-bit word, widened (exact).
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ float dot(const unsigned u, const unsigned v) {
+  return bf16_lo(u) * bf16_lo(v) + bf16_hi(u) * bf16_hi(v);
+}
+__device__ __forceinline__ float dot(const unsigned short u,
+                                     const unsigned short v) {
+  return bf16_lo(u) * bf16_lo(v);
+}
+__device__ __forceinline__ float dot(const uint2 u, const uint2 v) {
+  return dot(u.x, v.x) + dot(u.y, v.y);
+}
+__device__ __forceinline__ float dot(const uint4 u, const uint4 v) {
+  return dot(u.x, v.x) + dot(u.y, v.y) + dot(u.z, v.z) + dot(u.w, v.w);
+}
+
+// V is float or float4 (f32 rows), or unsigned short, uint2 or uint4
+// (bf16 rows, as bits); `width` is the row length in units of V. Every
 // branch around a shuffle depends on values that are the same on all
 // lanes of a warp, so every shuffle has its full warp.
 template <typename V>
@@ -121,14 +157,60 @@ edge_dot_kernel(const V* __restrict__ x, const int* __restrict__ a,
   }
 }
 
-bool vectorized(const void* x, const void* y, int hidden) {
-  return hidden % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(y) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-const void* instance(bool vec) {
-  return vec ? reinterpret_cast<const void*>(edge_dot_kernel<float4>)
-             : reinterpret_cast<const void*>(edge_dot_kernel<float>);
+// The values of a row a lane loads at once: f32 4 (float4) when H % 4 ==
+// 0 and x and y are 16-byte aligned, else 1; bf16 8 (16 bytes) when
+// H % 8 == 0 and they are 16-byte aligned, 4 (8 bytes) when H % 4 == 0
+// and they are 8-byte aligned, else 1.
+int vector_elems(const void* x, const void* y, int hidden, bool bf16) {
+  if (!bf16) {
+    return hidden % 4 == 0 && aligned(x, 16) && aligned(y, 16) ? 4 : 1;
+  }
+  if (hidden % 8 == 0 && aligned(x, 16) && aligned(y, 16)) return 8;
+  if (hidden % 4 == 0 && aligned(x, 8) && aligned(y, 8)) return 4;
+  return 1;
+}
+
+// The kernel instance for `elems` values a lane load, or nullptr for a
+// width that has none.
+const void* instance(int elems, bool bf16) {
+  if (!bf16) {
+    switch (elems) {
+      case 1: return reinterpret_cast<const void*>(edge_dot_kernel<float>);
+      case 4: return reinterpret_cast<const void*>(edge_dot_kernel<float4>);
+      default: return nullptr;
+    }
+  }
+  switch (elems) {
+    case 1:
+      return reinterpret_cast<const void*>(edge_dot_kernel<unsigned short>);
+    case 4: return reinterpret_cast<const void*>(edge_dot_kernel<uint2>);
+    case 8: return reinterpret_cast<const void*>(edge_dot_kernel<uint4>);
+    default: return nullptr;
+  }
+}
+
+int launch(const void* x, const void* a, const void* y, const void* b,
+           void* out, int num_edges, int rows_y, int hidden, int device,
+           void* stream, bool bf16) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const int elems = vector_elems(x, y, hidden, bf16);
+  int width = hidden / elems;
+  const int64_t warps = (static_cast<int64_t>(num_edges) + kEdges - 1) /
+                        kEdges;
+  const dim3 blocks(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  // The kernel's parameters by address; the pointers have the same size
+  // and bits whatever V is.
+  void* args[] = {&x, &a, &y, &b, &out, &num_edges, &rows_y, &width};
+  cudaLaunchKernel(instance(elems, bf16), blocks,
+                   dim3(kWarpsPerBlock * kWarp), args, 0,
+                   static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -142,38 +224,37 @@ extern "C" int edge_dot_f32(const void* x, const void* a, const void* y,
                             const void* b, void* out, int num_edges,
                             int rows_y, int hidden, int device,
                             void* stream) {
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const bool vec = vectorized(x, y, hidden);
-  int width = vec ? hidden / 4 : hidden;
-  const int64_t warps = (static_cast<int64_t>(num_edges) + kEdges - 1) /
-                        kEdges;
-  const dim3 blocks(
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  // The kernel's parameters by address; the pointers have the same size
-  // and bits whatever V is.
-  void* args[] = {&x, &a, &y, &b, &out, &num_edges, &rows_y, &width};
-  cudaLaunchKernel(instance(vec), blocks, dim3(kWarpsPerBlock * kWarp), args,
-                   0, static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch(x, a, y, b, out, num_edges, rows_y, hidden, device, stream,
+                false);
 }
 
-// 1 if edge_dot_f32 takes the float4 path for these x and y, else 0.
-extern "C" int edge_dot_vectorized(const void* x, const void* y,
-                                   int hidden) {
-  return vectorized(x, y, hidden) ? 1 : 0;
+// The bf16 instance: x and y bf16, out f32; otherwise as edge_dot_f32.
+extern "C" int edge_dot_bf16(const void* x, const void* a, const void* y,
+                             const void* b, void* out, int num_edges,
+                             int rows_y, int hidden, int device,
+                             void* stream) {
+  return launch(x, a, y, b, out, num_edges, rows_y, hidden, device, stream,
+                true);
 }
 
-// The registers a thread of the float4 (vectorized_path != 0) or scalar
-// instance uses, as the compiler allotted them, into *regs; returns the
-// CUDA error code.
-extern "C" int edge_dot_registers(int vectorized_path, int device,
+// The values a lane loads at once (1, 4 or 8) for these x and y, f32 or
+// bf16 (bf16 != 0).
+extern "C" int edge_dot_vector_elems(const void* x, const void* y,
+                                     int hidden, int bf16) {
+  return vector_elems(x, y, hidden, bf16 != 0);
+}
+
+// The registers a thread of the instance loading `elems` values a lane
+// (1 or 4 for f32; 1, 4 or 8 for bf16) uses, as the compiler allotted
+// them, into *regs; returns the CUDA error code.
+extern "C" int edge_dot_registers(int elems, int bf16, int device,
                                   int* regs) {
+  const void* fn = instance(elems, bf16 != 0);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaFuncAttributes attr;
-  const cudaError_t got = cudaFuncGetAttributes(&attr,
-                                                instance(vectorized_path != 0));
+  const cudaError_t got = cudaFuncGetAttributes(&attr, fn);
   if (got != cudaSuccess) return static_cast<int>(got);
   *regs = attr.numRegs;
   return 0;

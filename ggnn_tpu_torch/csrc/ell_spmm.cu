@@ -52,6 +52,16 @@
 //   every sum, and the same bits from call to call, hold as for B1. The
 //   instances of B1 and B2 (kWeighted false) compile as before.
 //
+// bf16 instances (`*_bf16`, `compute_dtype: bfloat16`): h, out and the
+// weighted instance's w are bf16; everything else is as above. A lane
+// widens each bf16 value it loads to f32 (exact), sums in f32 registers
+// and rounds once, to nearest even, as it stores an output row, so a sum
+// is the f32 sum of its rows rounded once: the JAX model's "bf16 with
+// f32 accumulation" (ggnn_tpu/models/sparse_ggnn.py:102-104). The
+// partial rows of cut segments stay f32, so the fixed order of every sum
+// holds as for the f32 instances. A weight times a row is exact in f32
+// (8 + 8 significant bits).
+//
 // What bounds both on the H100: bytes. Each edge adds one gathered row
 // of H floats (4H bytes read for H adds), about 1/4 flop a byte, far
 // below the card's f32 ridge. The least traffic is each input row that
@@ -97,7 +107,10 @@
 //
 // The lanes stride over the row's columns (float4 loads when H % 4 == 0
 // and h, out and the partial rows are 16-byte aligned, scalar loads
-// otherwise). Sums stay in f32 registers and each output row is written
+// otherwise; bf16: 8 values, 16 bytes, a load when H % 8 == 0 and h and
+// out are 16-byte aligned, 4 values, 8 bytes, when H % 4 == 0 and they
+// are 8-byte aligned, one otherwise: a bf16 row at H = 100 is 200 bytes,
+// 8-byte aligned only). Sums stay in f32 registers and each output row is written
 // once, with a streaming store (`st.global.cs`): the kernel never reads
 // it back, and at the 20,000-node batch the 32 MB output would otherwise
 // push h and the offsets out of L2. Only edges in [off[0], off[S]) are
@@ -124,11 +137,13 @@
 // and every shape was slower on the H100. `ell_spmm_registers` reports
 // what the compiler allotted to each instance.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 #include <climits>
+#include <type_traits>
 
 namespace {
 
@@ -153,16 +168,32 @@ constexpr int kGroup = 16;
 constexpr int kCombineInFlight = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
+// The f32 sum of a lane's 8 bf16 values.
+struct float8 {
+  float4 lo, hi;
+};
+
 __device__ __forceinline__ void zero(float& a) { a = 0.f; }
 __device__ __forceinline__ void zero(float4& a) {
   a = make_float4(0.f, 0.f, 0.f, 0.f);
 }
+__device__ __forceinline__ void zero(float8& a) {
+  zero(a.lo);
+  zero(a.hi);
+}
+__device__ __forceinline__ void zero(unsigned short& a) { a = 0; }
+__device__ __forceinline__ void zero(uint2& a) { a = make_uint2(0, 0); }
+__device__ __forceinline__ void zero(uint4& a) { a = make_uint4(0, 0, 0, 0); }
 __device__ __forceinline__ void add(float& a, const float b) { a += b; }
 __device__ __forceinline__ void add(float4& a, const float4 b) {
   a.x += b.x;
   a.y += b.y;
   a.z += b.z;
   a.w += b.w;
+}
+__device__ __forceinline__ void add(float8& a, const float8& b) {
+  add(a.lo, b.lo);
+  add(a.hi, b.hi);
 }
 // a *= s, rounded as a product alone (no multiply-add with the sum), as
 // the plain version's `index_select * w` rounds it.
@@ -174,6 +205,88 @@ __device__ __forceinline__ void scale(float4& a, const float s) {
   a.y = __fmul_rn(a.y, s);
   a.z = __fmul_rn(a.z, s);
   a.w = __fmul_rn(a.w, s);
+}
+__device__ __forceinline__ void scale(float8& a, const float s) {
+  scale(a.lo, s);
+  scale(a.hi, s);
+}
+// A scratch row's sums, read past L1 (another SM wrote them).
+__device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float4 ldcg(const float4* p) { return __ldcg(p); }
+__device__ __forceinline__ float8 ldcg(const float8* p) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+  return {__ldcg(q), __ldcg(q + 1)};
+}
+
+// bf16 bits to f32 (exact): the low and the high value of a 32-bit word.
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+// f32 to bf16 bits, rounded to nearest even.
+__device__ __forceinline__ unsigned bf16_bits(float a) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(a));
+}
+__device__ __forceinline__ unsigned bf16_pair(float lo, float hi) {
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+// A lane's unit V of a row in memory and its f32 sum: f32 rows are
+// loaded as float or float4 and summed as they are; bf16 rows as 1, 4 or
+// 8 values (unsigned short, uint2, uint4: their bits), widened to f32 as
+// they load and rounded once as a sum is stored.
+template <typename V>
+struct Unit {
+  using Sum = V;
+  __device__ static V widen(const V& v) { return v; }
+  __device__ static V narrow(const V& s) { return s; }
+};
+template <>
+struct Unit<unsigned short> {
+  using Sum = float;
+  __device__ static float widen(unsigned short v) { return bf16_lo(v); }
+  __device__ static unsigned short narrow(float s) {
+    return static_cast<unsigned short>(bf16_bits(s));
+  }
+};
+template <>
+struct Unit<uint2> {
+  using Sum = float4;
+  __device__ static float4 widen(const uint2& v) {
+    return make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y),
+                       bf16_hi(v.y));
+  }
+  __device__ static uint2 narrow(const float4& s) {
+    return make_uint2(bf16_pair(s.x, s.y), bf16_pair(s.z, s.w));
+  }
+};
+template <>
+struct Unit<uint4> {
+  using Sum = float8;
+  __device__ static float8 widen(const uint4& v) {
+    return {Unit<uint2>::widen(make_uint2(v.x, v.y)),
+            Unit<uint2>::widen(make_uint2(v.z, v.w))};
+  }
+  __device__ static uint4 narrow(const float8& s) {
+    const uint2 lo = Unit<uint2>::narrow(s.lo);
+    const uint2 hi = Unit<uint2>::narrow(s.hi);
+    return make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+template <typename V>
+using SumOf = typename Unit<V>::Sum;
+
+// A sum stored to a row of D: a scratch row (D is the sum's type) takes
+// it as it is, an output row (D is V) rounded.
+template <typename V, typename D>
+__device__ __forceinline__ void put(D* dst, const SumOf<V>& s) {
+  if constexpr (std::is_same<D, SumOf<V>>::value) {
+    *dst = s;
+  } else {
+    *dst = Unit<V>::narrow(s);
+  }
 }
 
 int64_t num_chunks(int num_edges) {
@@ -253,15 +366,16 @@ __device__ __forceinline__ int scratch_dst(size_t row) {
 }
 
 // Stores v into column `col` of the row that lane k's `dst` names, an
-// output row with a streaming store; k is the same on every lane.
+// output row (rounded to V) with a streaming store; k is the same on
+// every lane.
 template <typename V>
-__device__ __forceinline__ void store_row(V* out, V* partials, int dst, int k,
-                                          const V& v, int col, int width,
-                                          bool active) {
+__device__ __forceinline__ void store_row(V* out, SumOf<V>* partials, int dst,
+                                          int k, const SumOf<V>& v, int col,
+                                          int width, bool active) {
   const int r = __shfl_sync(kFull, dst, k);
   if (active) {
     if (r >= 0) {
-      __stcs(out + static_cast<size_t>(r) * width + col, v);
+      __stcs(out + static_cast<size_t>(r) * width + col, Unit<V>::narrow(v));
     } else {
       partials[static_cast<size_t>(-1 - r) * width + col] = v;
     }
@@ -274,14 +388,16 @@ __device__ __forceinline__ void store_row(V* out, V* partials, int dst, int k,
 // walked in order, their ids 32 a round, one a lane, and the rows of
 // kRowsInFlight consecutive edges loaded before any is added, across
 // runs; a sum stays in f32 registers and is stored once, when its run
-// ends. kWeighted: each lane loads its edge's weight w[e] beside its id,
-// and a row is scaled by its edge's weight (shuffled from that lane) as
-// it is added. Called by the whole warp.
-template <typename V, bool kWeighted>
+// ends. kWeighted: each lane loads its edge's weight w[e] (of W, float
+// or bf16 bits, widened to f32) beside its id, and a row is scaled by its
+// edge's weight (shuffled from that lane) as it is added. Called by the
+// whole warp.
+template <typename V, typename W, bool kWeighted>
 __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
-                         const float* __restrict__ w, V* out, V* partials,
+                         const W* __restrict__ w, V* out, SumOf<V>* partials,
                          int n, int begin, int count, int dst, int width,
                          int lane) {
+  using S = SumOf<V>;
   int upto = count;  // the edges of runs 0 .. lane
 #pragma unroll
   for (int d = 1; d < kWarp; d *= 2) {
@@ -295,7 +411,7 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
   for (int col0 = 0; col0 < width; col0 += kWarp) {
     const int col = col0 + lane;
     const bool active = col < width;
-    V acc;
+    S acc;
     zero(acc);
     int run = -1;  // the run acc holds
     // The ids of walk positions q0 + lane, r the run of each (the runs
@@ -310,13 +426,15 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
         if (__shfl_sync(kFull, upto, r + step - 1) <= q) r += step;
       }
       const int at = q + __shfl_sync(kFull, skip, r);
-      if constexpr (kWeighted) wt = q < total ? __ldg(w + at) : 0.f;
+      if constexpr (kWeighted) {
+        wt = q < total ? Unit<W>::widen(__ldg(w + at)) : 0.f;
+      }
       return q < total ? __ldg(src + at) : 0;
     };
     int id = load_ids(0);
     // The zero rows are stored while the first ids load.
     for (unsigned z = empty; z != 0; z &= z - 1) {
-      V zero_row;
+      S zero_row;
       zero(zero_row);
       store_row(out, partials, dst, __ffs(static_cast<int>(z)) - 1, zero_row,
                 col, width, active);
@@ -325,6 +443,8 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
       if (q0 > 0) id = load_ids(q0);
       const int m = min(kWarp, total - q0);
       for (int u0 = 0; u0 < m; u0 += kRowsInFlight) {
+        // Held as loaded (bf16 bits take half the registers of their
+        // f32 values) and widened as each is added.
         V rows[kRowsInFlight];
 #pragma unroll
         for (int u = 0; u < kRowsInFlight; ++u) {
@@ -337,8 +457,9 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
 #pragma unroll
         for (int u = 0; u < kRowsInFlight; ++u) {
           const int run_u = __shfl_sync(kFull, r, u0 + u);
+          S value = Unit<V>::widen(rows[u]);
           if constexpr (kWeighted) {
-            scale(rows[u], __shfl_sync(kFull, wt, u0 + u));
+            scale(value, __shfl_sync(kFull, wt, u0 + u));
           }
           if (u0 + u < m) {
             if (run_u != run) {
@@ -348,7 +469,7 @@ __device__ void sum_runs(const V* __restrict__ h, const int* __restrict__ src,
               zero(acc);
               run = run_u;
             }
-            add(acc, rows[u]);
+            add(acc, value);
           }
         }
       }
@@ -388,26 +509,31 @@ __device__ __forceinline__ bool last_ticket(int* ticket, int count,
 }
 
 // dst = the sum of the scratch rows of pieces p = from, from + stride,
-// ... up to `to`, in that order of pieces with kCombineInFlight loads in
-// flight (sum j takes every kCombineInFlight-th piece; the sums are then
-// added in index order): a fixed order.
-template <typename V>
-__device__ void add_pieces(const V* partials, const Cut& cut, int from,
-                           int to, int stride, V* dst, int width, int lane) {
+// ... up to `to`, in that order of pieces with kFlight loads in flight
+// (sum j takes every kFlight-th piece; the sums are then added in index
+// order): a fixed order. kFlight is kCombineInFlight, halved for the
+// 8-float sums of the bf16 x 8 instance to stay within the registers.
+// dst is a scratch row (D is the sum's type) or an output row (D is V).
+template <typename V, typename D>
+__device__ void add_pieces(const SumOf<V>* partials, const Cut& cut, int from,
+                           int to, int stride, D* dst, int width, int lane) {
+  constexpr int kFlight = sizeof(SumOf<V>) > sizeof(float4)
+                              ? kCombineInFlight / 2
+                              : kCombineInFlight;
   for (int col = lane; col < width; col += kWarp) {
-    V sums[kCombineInFlight];
+    SumOf<V> sums[kFlight];
 #pragma unroll
-    for (int j = 0; j < kCombineInFlight; ++j) zero(sums[j]);
-    for (int p0 = from; p0 <= to; p0 += kCombineInFlight * stride) {
+    for (int j = 0; j < kFlight; ++j) zero(sums[j]);
+    for (int p0 = from; p0 <= to; p0 += kFlight * stride) {
 #pragma unroll
-      for (int j = 0; j < kCombineInFlight; ++j) {
+      for (int j = 0; j < kFlight; ++j) {
         const int p = p0 + j * stride;
-        if (p <= to) add(sums[j], __ldcg(partials + cut.row(p) * width + col));
+        if (p <= to) add(sums[j], ldcg(partials + cut.row(p) * width + col));
       }
     }
 #pragma unroll
-    for (int j = 1; j < kCombineInFlight; ++j) add(sums[0], sums[j]);
-    dst[col] = sums[0];
+    for (int j = 1; j < kFlight; ++j) add(sums[0], sums[j]);
+    put<V>(dst + col, sums[0]);
   }
 }
 
@@ -420,8 +546,8 @@ template <typename V>
 __device__ __noinline__ void finish_piece(const Cut& cut, int p,
                                           int* __restrict__ tickets,
                                           int* __restrict__ group_tickets,
-                                          V* partials, V* out_row, int width,
-                                          int lane) {
+                                          SumOf<V>* partials, V* out_row,
+                                          int width, int lane) {
   const int g_first = p / kGroup * kGroup;
   const int g_last = min(g_first + kGroup, cut.pieces) - 1;
   if (!last_ticket(group_tickets + cut.row(g_first), g_last - g_first + 1,
@@ -429,35 +555,37 @@ __device__ __noinline__ void finish_piece(const Cut& cut, int p,
     return;
   }
   if (cut.pieces <= kGroup) {
-    add_pieces(partials, cut, 0, cut.pieces - 1, 1, out_row, width, lane);
+    add_pieces<V>(partials, cut, 0, cut.pieces - 1, 1, out_row, width, lane);
     return;
   }
-  add_pieces(partials, cut, g_first, g_last, 1,
-             partials + cut.row(g_first) * width, width, lane);
+  add_pieces<V>(partials, cut, g_first, g_last, 1,
+                partials + cut.row(g_first) * width, width, lane);
   if (!last_ticket(tickets + cut.head_chunk, (cut.pieces - 1) / kGroup + 1,
                    lane)) {
     return;
   }
-  add_pieces(partials, cut, 0, cut.pieces - 1, kGroup, out_row, width, lane);
+  add_pieces<V>(partials, cut, 0, cut.pieces - 1, kGroup, out_row, width,
+                lane);
 }
 
 // Segments [first, first + n): their sums, the heads of the cut ones to
 // scratch, then the hand-over of those heads.
-template <typename V, bool kWeighted>
+template <typename V, typename W, bool kWeighted>
 __device__ void segment_warp(const V* __restrict__ h,
                              const int* __restrict__ src,
-                             const float* __restrict__ w,
+                             const W* __restrict__ w,
                              const int* __restrict__ off, V* __restrict__ out,
-                             int* tickets, int* group_tickets, V* partials,
-                             int first, int n, int width, int lane) {
+                             int* tickets, int* group_tickets,
+                             SumOf<V>* partials, int first, int n, int width,
+                             int lane) {
   const int b = __ldg(off + first + min(lane, n));
   const int e = __shfl_down_sync(kFull, b, 1);  // lanes < n
   const int len = lane < n ? e - b : 0;
   const bool cut = len > kSplit;
   const int dst = cut ? scratch_dst(2 * static_cast<size_t>(b / kSplit) + 1)
                       : first + lane;
-  sum_runs<V, kWeighted>(h, src, w, out, partials, n, b, min(len, kSplit),
-                         dst, width, lane);
+  sum_runs<V, W, kWeighted>(h, src, w, out, partials, n, b,
+                            min(len, kSplit), dst, width, lane);
   for (unsigned m = __ballot_sync(kFull, cut); m != 0; m &= m - 1) {
     const int k = __ffs(static_cast<int>(m)) - 1;
     const Cut segment(__shfl_sync(kFull, b, k), __shfl_sync(kFull, e, k));
@@ -468,13 +596,14 @@ __device__ void segment_warp(const V* __restrict__ h,
 
 // Chunk c: the piece, past its head, of the cut segment that holds the
 // chunk's first edge, if there is one.
-template <typename V, bool kWeighted>
+template <typename V, typename W, bool kWeighted>
 __device__ void chunk_warp(const V* __restrict__ h,
                            const int* __restrict__ src,
-                           const float* __restrict__ w,
+                           const W* __restrict__ w,
                            const int* __restrict__ off, V* __restrict__ out,
-                           int* tickets, int* group_tickets, V* partials,
-                           int num_segments, int c, int width, int lane) {
+                           int* tickets, int* group_tickets,
+                           SumOf<V>* partials, int num_segments, int c,
+                           int width, int lane) {
   const int a = c * kSplit;
   int b = 0, e = 0;
   const int seg = find_segment(off, num_segments, a, lane, b, e);
@@ -482,58 +611,92 @@ __device__ void chunk_warp(const V* __restrict__ h,
   const int lo = max(a, b + kSplit);
   const int hi = min(a + kSplit, e);
   if (seg < 0 || e - b <= kSplit || lo >= hi) return;
-  sum_runs<V, kWeighted>(h, src, w, out, partials, 1, lo,
-                         lane == 0 ? hi - lo : 0,
-                         scratch_dst(2 * static_cast<size_t>(c)), width, lane);
+  sum_runs<V, W, kWeighted>(h, src, w, out, partials, 1, lo,
+                            lane == 0 ? hi - lo : 0,
+                            scratch_dst(2 * static_cast<size_t>(c)), width,
+                            lane);
   const Cut segment(b, e);
   finish_piece(segment, c - segment.head_chunk, tickets, group_tickets,
                partials, out + static_cast<size_t>(seg) * width, width, lane);
 }
 
-// V is float or float4; `width` is the row length in units of V; `w`
+// V is float or float4 (f32 rows), or unsigned short, uint2 or uint4
+// (bf16 rows); W the weights' type (float, or unsigned short: bf16);
+// `width` is the row length in units of V; `w`
 // holds the edges' weights when kWeighted and is not read otherwise. The
 // first ceil(S / group) warps are segment warps of `group` segments, the
 // next `chunks` chunk warps. `tickets` [chunks] and `group_tickets`
 // [2 * chunks] are 0 on entry and on exit; `partials` hold two rows of
-// `width` a chunk. Every branch depends on values that are the same on
+// `width` f32 sums a chunk. Every branch depends on values that are the same on
 // all lanes of a warp, so the warp leaves together and every shuffle and
 // ballot has its full warp.
-template <typename V, bool kWeighted>
+template <typename V, typename W, bool kWeighted>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp, kMinBlocksPerSm)
 segment_sum_kernel(const V* __restrict__ h, const int* __restrict__ src,
-                   const float* __restrict__ w, const int* __restrict__ off,
+                   const W* __restrict__ w, const int* __restrict__ off,
                    V* __restrict__ out, int* __restrict__ tickets,
-                   int* __restrict__ group_tickets, V* partials,
+                   int* __restrict__ group_tickets, SumOf<V>* partials,
                    int num_segments, int chunks, int group, int width) {
   const int lane = threadIdx.x % kWarp;
   const int warp = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   const int segment_warps = (num_segments + group - 1) / group;
   if (warp < segment_warps) {
     const int first = warp * group;
-    segment_warp<V, kWeighted>(h, src, w, off, out, tickets, group_tickets,
-                               partials, first,
-                               min(group, num_segments - first), width, lane);
+    segment_warp<V, W, kWeighted>(h, src, w, off, out, tickets,
+                                  group_tickets, partials, first,
+                                  min(group, num_segments - first), width,
+                                  lane);
   } else if (warp - segment_warps < chunks) {
-    chunk_warp<V, kWeighted>(h, src, w, off, out, tickets, group_tickets,
-                             partials, num_segments, warp - segment_warps,
-                             width, lane);
+    chunk_warp<V, W, kWeighted>(h, src, w, off, out, tickets, group_tickets,
+                                partials, num_segments, warp - segment_warps,
+                                width, lane);
   }
 }
 
-bool vectorized(const void* h, const void* out, const void* partials,
-                int hidden) {
-  return hidden % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(partials) % 16 == 0;
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-const void* instance(bool vec, bool weighted) {
-  if (weighted) {
-    return vec ? reinterpret_cast<const void*>(segment_sum_kernel<float4, true>)
-               : reinterpret_cast<const void*>(segment_sum_kernel<float, true>);
+// The values of a row a lane loads at once: f32 4 (float4) when H % 4 ==
+// 0 and h, out and the partial rows are 16-byte aligned, else 1; bf16 8
+// (16 bytes) when H % 8 == 0 and h and out are 16-byte aligned, 4 (8
+// bytes) when H % 4 == 0 and they are 8-byte aligned, else 1, the partial
+// rows (f32 sums of 4 or 8) 16-byte aligned in both.
+int vector_elems(const void* h, const void* out, const void* partials,
+                 int hidden, bool bf16) {
+  if (!aligned(partials, 16)) return 1;
+  if (!bf16) {
+    return hidden % 4 == 0 && aligned(h, 16) && aligned(out, 16) ? 4 : 1;
   }
-  return vec ? reinterpret_cast<const void*>(segment_sum_kernel<float4, false>)
-             : reinterpret_cast<const void*>(segment_sum_kernel<float, false>);
+  if (hidden % 8 == 0 && aligned(h, 16) && aligned(out, 16)) return 8;
+  if (hidden % 4 == 0 && aligned(h, 8) && aligned(out, 8)) return 4;
+  return 1;
+}
+
+template <typename V, typename W>
+const void* instance_of(bool weighted) {
+  return weighted
+             ? reinterpret_cast<const void*>(segment_sum_kernel<V, W, true>)
+             : reinterpret_cast<const void*>(segment_sum_kernel<V, W, false>);
+}
+
+// The kernel instance for `elems` values a lane load (vector_elems), or
+// nullptr for a width that has none.
+const void* instance(int elems, bool bf16, bool weighted) {
+  if (!bf16) {
+    switch (elems) {
+      case 1: return instance_of<float, float>(weighted);
+      case 4: return instance_of<float4, float>(weighted);
+      default: return nullptr;
+    }
+  }
+  using Bf16 = unsigned short;
+  switch (elems) {
+    case 1: return instance_of<Bf16, Bf16>(weighted);
+    case 4: return instance_of<uint2, Bf16>(weighted);
+    case 8: return instance_of<uint4, Bf16>(weighted);
+    default: return nullptr;
+  }
 }
 
 // Launches the kernel on `stream` of `device` and returns the CUDA error
@@ -544,10 +707,11 @@ const void* instance(bool vec, bool weighted) {
 // off[S] - off[0], which sizes the grid without reading `off` on the
 // host); `tickets` and `partials` hold the ints, all 0, and the floats
 // that ell_spmm_scratch gives for these sizes. `w` is null for B1 and B2,
-// the edges' weights for the weighted instance.
+// the edges' weights for the weighted instance; h, out and w are bf16
+// when `bf16`, else f32.
 int launch(const void* h, const void* src, const void* w, const void* off,
            void* out, void* tickets, void* partials, int num_segments,
-           int num_edges, int hidden, int device, void* stream) {
+           int num_edges, int hidden, int device, void* stream, bool bf16) {
   if (too_large(num_segments, num_edges)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -557,17 +721,17 @@ int launch(const void* h, const void* src, const void* w, const void* off,
   int group = segments_per_warp(num_segments, num_edges);
   const int64_t warps =
       chunks + (static_cast<int64_t>(num_segments) + group - 1) / group;
-  const bool vec = vectorized(h, out, partials, hidden);
-  int width = vec ? hidden / 4 : hidden;
+  const int elems = vector_elems(h, out, partials, hidden, bf16);
+  int width = hidden / elems;
   const dim3 blocks(static_cast<unsigned>(
       (warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
   // The kernel's parameters by address; the pointers have the same size
-  // and bits whatever V is.
+  // and bits whatever V and W are.
   void* group_tickets = static_cast<int*>(tickets) + chunks;
   void* args[] = {&h,       &src,          &w,        &off,
                   &out,     &tickets,      &group_tickets, &partials,
                   &num_segments, &chunks,  &group,    &width};
-  cudaLaunchKernel(instance(vec, w != nullptr), blocks,
+  cudaLaunchKernel(instance(elems, bf16, w != nullptr), blocks,
                    dim3(kWarpsPerBlock * kWarp), args, 0,
                    static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
@@ -582,7 +746,7 @@ extern "C" int gather_segment_sum_f32(const void* h, const void* src,
                                       int num_segments, int num_edges,
                                       int hidden, int device, void* stream) {
   return launch(h, src, nullptr, off, out, tickets, partials, num_segments,
-                num_edges, hidden, device, stream);
+                num_edges, hidden, device, stream, false);
 }
 
 // B2: dh [num_nodes, hidden] from g, bgather [num_edges] and boff.
@@ -592,7 +756,7 @@ extern "C" int segment_scatter_sum_f32(const void* g, const void* bgather,
                                        int num_nodes, int num_edges,
                                        int hidden, int device, void* stream) {
   return launch(g, bgather, nullptr, boff, dh, tickets, partials, num_nodes,
-                num_edges, hidden, device, stream);
+                num_edges, hidden, device, stream, false);
 }
 
 // The weighted instance: out [num_segments, hidden] from h, src and w
@@ -605,14 +769,44 @@ extern "C" int weighted_gather_segment_sum_f32(
     int num_edges, int hidden, int device, void* stream) {
   if (w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return launch(h, src, w, off, out, tickets, partials, num_segments,
-                num_edges, hidden, device, stream);
+                num_edges, hidden, device, stream, false);
+}
+
+// The bf16 instances of the three: h (g), out (dh) and w bf16, the sums
+// f32, each output value rounded once.
+extern "C" int gather_segment_sum_bf16(const void* h, const void* src,
+                                       const void* off, void* out,
+                                       void* tickets, void* partials,
+                                       int num_segments, int num_edges,
+                                       int hidden, int device, void* stream) {
+  return launch(h, src, nullptr, off, out, tickets, partials, num_segments,
+                num_edges, hidden, device, stream, true);
+}
+
+extern "C" int segment_scatter_sum_bf16(const void* g, const void* bgather,
+                                        const void* boff, void* dh,
+                                        void* tickets, void* partials,
+                                        int num_nodes, int num_edges,
+                                        int hidden, int device, void* stream) {
+  return launch(g, bgather, nullptr, boff, dh, tickets, partials, num_nodes,
+                num_edges, hidden, device, stream, true);
+}
+
+extern "C" int weighted_gather_segment_sum_bf16(
+    const void* h, const void* src, const void* w, const void* off,
+    void* out, void* tickets, void* partials, int num_segments,
+    int num_edges, int hidden, int device, void* stream) {
+  if (w == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch(h, src, w, off, out, tickets, partials, num_segments,
+                num_edges, hidden, device, stream, true);
 }
 
 // The scratch of a launch over num_segments segments, an index array of
-// num_edges entries and rows of `hidden` floats: *tickets ints, 0 at rest
+// num_edges entries and rows of `hidden` values: *tickets ints, 0 at rest
 // (three a chunk: one for the cut segment that starts in it, two for
-// groups of pieces), and *partials floats (two rows a chunk). Returns -1
-// when the launch's warps or positions overflow an int, else 0.
+// groups of pieces), and *partials floats (two rows a chunk; f32 for the
+// bf16 instances too). Returns -1 when the launch's warps or positions
+// overflow an int, else 0.
 extern "C" int ell_spmm_scratch(int num_segments, int num_edges, int hidden,
                                 int64_t* tickets, int64_t* partials) {
   if (too_large(num_segments, num_edges)) return -1;
@@ -625,16 +819,25 @@ extern "C" int ell_spmm_scratch(int num_segments, int num_edges, int hidden,
 // The most edges of a segment that is not cut, and the edges of a chunk.
 extern "C" int ell_spmm_split() { return kSplit; }
 
-// The registers a thread of the float4 (vectorized_path != 0) or scalar
-// instance, weighted (weighted != 0) or not, uses, as the compiler
-// allotted them, into *regs; returns the CUDA error code.
-extern "C" int ell_spmm_registers(int vectorized_path, int weighted,
+// The values a lane loads at once (1, 4 or 8) for these h and out, f32
+// or bf16, with partial rows 16-byte aligned (torch allocations are).
+extern "C" int ell_spmm_vector_elems(const void* h, const void* out,
+                                     int hidden, int bf16) {
+  return vector_elems(h, out, nullptr, hidden, bf16 != 0);
+}
+
+// The registers a thread of the instance loading `elems` values a lane
+// (1 or 4 for f32; 1, 4 or 8 for bf16), weighted (weighted != 0) or not,
+// uses, as the compiler allotted them, into *regs; returns the CUDA
+// error code.
+extern "C" int ell_spmm_registers(int elems, int weighted, int bf16,
                                   int device, int* regs) {
+  const void* fn = instance(elems, bf16 != 0, weighted != 0);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   cudaFuncAttributes attr;
-  const cudaError_t got = cudaFuncGetAttributes(
-      &attr, instance(vectorized_path != 0, weighted != 0));
+  const cudaError_t got = cudaFuncGetAttributes(&attr, fn);
   if (got != cudaSuccess) return static_cast<int>(got);
   *regs = attr.numRegs;
   return 0;

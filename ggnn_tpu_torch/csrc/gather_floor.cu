@@ -39,6 +39,12 @@
 // L2. On an H100 it is faster than plain stores at the probe's shape
 // (a 100 MB output beside a 4 MiB table) and no faster where the output
 // fits in L2 (PERF.md, Findings).
+//
+// The bf16 instance (`gather_rows_bf16`, the per-edge route under
+// `compute_dtype: bfloat16`) copies bf16 rows as their bits: 8 values (16
+// bytes) a lane when H % 8 == 0 and h and out are 16-byte aligned, 4 (8
+// bytes) when H % 4 == 0 and they are 8-byte aligned, one otherwise. The
+// probe stays f32.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -48,7 +54,8 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kWarp = 32;
 
-// V is float or float4; `width` is the row length in units of V. A warp
+// V is float or float4 (f32 rows), or unsigned short, uint2 or uint4
+// (bf16 rows, as bits); `width` is the row length in units of V. A warp
 // owns rows [first, first + 32); 32 is a multiple of every UNROLL, so a
 // shuffle's source lane j + u stays below 32.
 template <typename V, int UNROLL, bool STREAM>
@@ -109,18 +116,65 @@ const void* instance_of(int unroll) {
   }
 }
 
-const void* instance(bool vec, bool streaming, int unroll) {
-  if (vec) {
-    return streaming ? instance_of<float4, true>(unroll)
-                     : instance_of<float4, false>(unroll);
-  }
-  return streaming ? instance_of<float, true>(unroll)
-                   : instance_of<float, false>(unroll);
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-bool vectorized(const void* h, const void* out, int hidden) {
-  return hidden % 4 == 0 && reinterpret_cast<uintptr_t>(h) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(out) % 16 == 0;
+// The values of a row a lane copies at once: f32 4 (float4) when H % 4 ==
+// 0 and h and out are 16-byte aligned, else 1; bf16 8 (16 bytes) when
+// H % 8 == 0 and they are 16-byte aligned, 4 (8 bytes) when H % 4 == 0
+// and they are 8-byte aligned, else 1.
+int vector_elems(const void* h, const void* out, int hidden, bool bf16) {
+  if (!bf16) {
+    return hidden % 4 == 0 && aligned(h, 16) && aligned(out, 16) ? 4 : 1;
+  }
+  if (hidden % 8 == 0 && aligned(h, 16) && aligned(out, 16)) return 8;
+  if (hidden % 4 == 0 && aligned(h, 8) && aligned(out, 8)) return 4;
+  return 1;
+}
+
+template <typename V>
+const void* instance_for(bool streaming, int unroll) {
+  return streaming ? instance_of<V, true>(unroll)
+                   : instance_of<V, false>(unroll);
+}
+
+// The kernel instance for `elems` values a lane, or nullptr for a width
+// or an unroll that has none.
+const void* instance(int elems, bool bf16, bool streaming, int unroll) {
+  if (!bf16) {
+    switch (elems) {
+      case 1: return instance_for<float>(streaming, unroll);
+      case 4: return instance_for<float4>(streaming, unroll);
+      default: return nullptr;
+    }
+  }
+  switch (elems) {
+    case 1: return instance_for<unsigned short>(streaming, unroll);
+    case 4: return instance_for<uint2>(streaming, unroll);
+    case 8: return instance_for<uint4>(streaming, unroll);
+    default: return nullptr;
+  }
+}
+
+int launch(const void* h, const void* src, void* out, int num_rows,
+           int hidden, int unroll, int streaming, int device, void* stream,
+           bool bf16) {
+  const int elems = vector_elems(h, out, hidden, bf16);
+  const void* fn = instance(elems, bf16, streaming != 0, unroll);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  int width = hidden / elems;
+  const int64_t warps = (static_cast<int64_t>(num_rows) + kWarp - 1) / kWarp;
+  const dim3 blocks(
+      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
+  // The kernel's parameters (const V*, const int*, V*, int, int) by
+  // address; the pointers have the same size and bits whatever V is.
+  void* args[] = {&h, &src, &out, &num_rows, &width};
+  cudaLaunchKernel(fn, blocks, dim3(kWarpsPerBlock * kWarp), args, 0,
+                   static_cast<cudaStream_t>(stream));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -133,35 +187,31 @@ bool vectorized(const void* h, const void* out, int hidden) {
 extern "C" int gather_rows_f32(const void* h, const void* src, void* out,
                                int num_rows, int hidden, int unroll,
                                int streaming, int device, void* stream) {
-  const bool vec = vectorized(h, out, hidden);
-  const void* fn = instance(vec, streaming != 0, unroll);
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  int width = vec ? hidden / 4 : hidden;
-  const int64_t warps = (static_cast<int64_t>(num_rows) + kWarp - 1) / kWarp;
-  const dim3 blocks(
-      static_cast<unsigned>((warps + kWarpsPerBlock - 1) / kWarpsPerBlock));
-  // The kernel's parameters (const V*, const int*, V*, int, int) by
-  // address; the pointers have the same size and bits whatever V is.
-  void* args[] = {&h, &src, &out, &num_rows, &width};
-  cudaLaunchKernel(fn, blocks, dim3(kWarpsPerBlock * kWarp), args, 0,
-                   static_cast<cudaStream_t>(stream));
-  return static_cast<int>(cudaGetLastError());
+  return launch(h, src, out, num_rows, hidden, unroll, streaming, device,
+                stream, false);
 }
 
-// 1 if gather_rows_f32 takes the float4 path for these h and out, else 0.
-extern "C" int gather_rows_vectorized(const void* h, const void* out,
-                                      int hidden) {
-  return vectorized(h, out, hidden) ? 1 : 0;
+// The bf16 instance: h and out bf16; otherwise as gather_rows_f32.
+extern "C" int gather_rows_bf16(const void* h, const void* src, void* out,
+                                int num_rows, int hidden, int unroll,
+                                int streaming, int device, void* stream) {
+  return launch(h, src, out, num_rows, hidden, unroll, streaming, device,
+                stream, true);
 }
 
-// The registers a thread of the (vectorized, unroll, streaming) instance
-// uses, as the compiler allotted them, into *regs; returns the CUDA
-// error code.
-extern "C" int gather_rows_registers(int vectorized_path, int unroll,
-                                     int streaming, int device, int* regs) {
-  const void* fn = instance(vectorized_path != 0, streaming != 0, unroll);
+// The values a lane copies at once (1, 4 or 8) for these h and out, f32
+// or bf16 (bf16 != 0).
+extern "C" int gather_rows_vector_elems(const void* h, const void* out,
+                                        int hidden, int bf16) {
+  return vector_elems(h, out, hidden, bf16 != 0);
+}
+
+// The registers a thread of the (elems, unroll, streaming) instance, f32
+// or bf16, uses, as the compiler allotted them, into *regs; returns the
+// CUDA error code.
+extern "C" int gather_rows_registers(int elems, int unroll, int streaming,
+                                     int bf16, int device, int* regs) {
+  const void* fn = instance(elems, bf16 != 0, streaming != 0, unroll);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);

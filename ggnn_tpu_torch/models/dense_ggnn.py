@@ -35,8 +35,15 @@ Parameter names are the JAX key paths (`edge_weights`, `cell.*`,
 `lane_pad` (the JAX model's zero-padding of H to 128 TPU lanes) is
 validated as JAX validates it and changes nothing here: the pad lanes
 provably stay zero (`ggnn_tpu/ops/lanes.py:12-26`), so the padded and
-the unpadded results are equal. `compute_dtype: bfloat16` is not ported
-yet (ROADMAP A16).
+the unpadded results are equal.
+
+`compute_dtype: bfloat16` casts as the JAX model casts
+(`ggnn_tpu/models/dense_ggnn.py:173-224`, `:290-316`): the adjacency (or
+its attention-weighted form), the node states and W_cat go to bf16, both
+products are bf16-in, f32-out (`ops/precision.py:matmul_f32`, cuBLAS on
+the tensor cores), and `gathered` is cast to bf16 again before the
+second. The attention scores, the cell, the biases and the readout stay
+f32.
 """
 
 from typing import Dict
@@ -46,9 +53,11 @@ from torch import nn
 
 from ggnn_tpu_torch.graph import DenseGraphBatch
 from ggnn_tpu_torch.models import base
-from ggnn_tpu_torch.models.sparse_ggnn import _validate_residual_connections
+from ggnn_tpu_torch.models.sparse_ggnn import (
+    _validate_residual_connections, compute_dtype)
 from ggnn_tpu_torch.ops.cells import make_cell
 from ggnn_tpu_torch.ops.dropout import dropout
+from ggnn_tpu_torch.ops.precision import matmul_f32
 from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
 from ggnn_tpu_torch.utils.init import glorot_init, ones_init, zeros_init
 
@@ -124,11 +133,8 @@ class DenseGGNN(nn.Module):
     def __init__(self, config: Dict, num_edge_types: int,
                  generator: torch.Generator):
         super().__init__()
-        if config.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"DenseGGNN with compute_dtype: {config['compute_dtype']} "
-                "is not ported yet (ROADMAP A16)")
         self.config = config
+        self.compute_dtype = compute_dtype(config)
         self.num_edge_types = num_edge_types
         self.hidden_size = h = config["hidden_size"]
         self.lane_pad = resolve_lane_pad(config, h)
@@ -186,7 +192,8 @@ class DenseGGNN(nn.Module):
         adjacency = batch.adjacency
         b, t, v, _ = adjacency.shape
         d = h.shape[-1]
-        a2 = _type_major_rows(adjacency)
+        cdt = self.compute_dtype
+        a2 = _type_major_rows(adjacency).to(cdt)
         bias = None
         if self.use_edge_bias:
             indeg_t = adjacency.sum(dim=3)                     # [B, T, V]
@@ -198,8 +205,9 @@ class DenseGGNN(nn.Module):
             # outside training or at keep probability 1.
             w_cat = (dropout(w_flat, self.edge_weight_dropout_keep_prob,
                              generator) if is_training else w_flat)
-            gathered = torch.bmm(a2, h)                        # [B, V*T, H]
-            acts = torch.matmul(gathered.reshape(b * v, t * d), w_cat)
+            gathered = matmul_f32(a2, h.to(cdt))              # [B, V*T, H]
+            acts = matmul_f32(gathered.reshape(b * v, t * d).to(cdt),
+                              w_cat.to(cdt))
             if bias is not None:
                 acts = acts + bias
             h = self.cell(acts, h.reshape(b * v, d), is_training=is_training,
@@ -212,8 +220,9 @@ class DenseGGNN(nn.Module):
         d = self.hidden_size
         indeg_t = adjacency.sum(dim=3)                         # [B, T, V]
         in_deg = indeg_t.sum(dim=1)                            # [B, V]
+        cdt = self.compute_dtype
         a2_const = (None if self.use_propagation_attention
-                    else _type_major_rows(adjacency))
+                    else _type_major_rows(adjacency).to(cdt))
         node_states_per_layer = [batch.node_features]
         for layer_idx, num_timesteps in enumerate(self.layer_timesteps):
             layer = self.layers[layer_idx]
@@ -223,7 +232,7 @@ class DenseGGNN(nn.Module):
                 edge_weights = dropout(edge_weights,
                                        self.edge_weight_dropout_keep_prob,
                                        generator)
-            w_cat = edge_weights.reshape(t * d, d)
+            w_cat = edge_weights.reshape(t * d, d).to(cdt)
             bias = None
             if self.use_edge_bias:
                 # sum_t indeg_t[v] * bias_t, the sparse model's
@@ -239,9 +248,10 @@ class DenseGGNN(nn.Module):
                 a2 = a2_const
                 if a2 is None:
                     a2 = _type_major_rows(adjacency * dense_attention(
-                        h, adjacency, layer.attention))
-                gathered = torch.bmm(a2, h)                    # [B, V*T, H]
-                incoming = torch.matmul(gathered.reshape(b, v, t * d), w_cat)
+                        h, adjacency, layer.attention)).to(cdt)
+                gathered = matmul_f32(a2, h.to(cdt))          # [B, V*T, H]
+                incoming = matmul_f32(
+                    gathered.reshape(b, v, t * d).to(cdt), w_cat)
                 if bias is not None:
                     incoming = incoming + bias
                 if self.use_edge_msg_avg_aggregation:

@@ -19,12 +19,16 @@ with no RNN cell; edge types are discarded.
     once per forward and shared by every layer. The JAX model runs the
     same sum through XLA's sorted `segment_sum`.
   * `BlockedGCN` (`gcn_blocked`) computes it as one `torch.bmm` of the
-    bucket's [B, V, V] float adjacency, on cuBLAS.
+    bucket's [B, V, V] float adjacency, on cuBLAS. Under `compute_dtype:
+    bfloat16` it casts as the JAX model does (`ggnn_tpu/models/gcn.py:
+    174-189`): the adjacency, H, Â·H and W go to bf16 and both products
+    are bf16-in, f32-out (`ops/precision.py:matmul_f32`). `GCN` has no
+    `compute_dtype`, as in JAX, and runs f32 whatever the key says.
 
 Parameter names are the JAX key paths (`layers.{i}.W`, `layers.{i}.b`), so
 the checkpoint bridge is a rename. Dropout masks come from an explicit
 `torch.Generator`. Not ported yet: the node-sharded branch (`edge_axis`,
-ROADMAP A11) and `compute_dtype: bfloat16` for `gcn_blocked` (A16).
+ROADMAP A11).
 """
 
 from typing import Dict
@@ -34,9 +38,11 @@ from torch import nn
 
 from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.models.dense_ggnn import resolve_lane_pad
+from ggnn_tpu_torch.models.sparse_ggnn import compute_dtype
 from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.ops.kernels.ell_spmm import (WeightedGatherSegmentSum,
                                                  weighted_transpose_layout)
+from ggnn_tpu_torch.ops.precision import matmul_f32
 from ggnn_tpu_torch.ops.segment import segment_offsets
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
@@ -87,6 +93,8 @@ class GCN(nn.Module):
                 "GCN with edge_axis (node-sharded graphs) is not ported yet "
                 "(ROADMAP A11)")
         self.config = config
+        # The edge-list GCN reads no compute_dtype (as in JAX).
+        self.compute_dtype = torch.float32
         self.hidden_size = config["hidden_size"]
         self.num_layers = config["num_timesteps"]
         self.use_bias = config["gcn_use_bias"]
@@ -104,10 +112,11 @@ class GCN(nn.Module):
                 "with graph_state_dropout_keep_prob < 1 and generator=None)")
 
     def _layer_out(self, layer_idx, mixed, is_training, generator):
-        """H · W (+ b), then ReLU and state dropout but on the last
-        layer."""
+        """H · W (+ b), the product's inputs in the compute dtype and its
+        output f32, then ReLU and state dropout but on the last layer."""
         layer = self.layers[layer_idx]
-        new_h = torch.matmul(mixed, layer.W)
+        cdt = self.compute_dtype
+        new_h = matmul_f32(mixed.to(cdt), layer.W.to(cdt))
         if self.use_bias:
             new_h = new_h + layer.b
         if layer_idx < self.num_layers - 1:
@@ -156,20 +165,18 @@ class BlockedGCN(GCN):
 
     def __init__(self, config: Dict, generator: torch.Generator):
         super().__init__(config, generator)
-        if config.get("compute_dtype", "float32") != "float32":
-            raise NotImplementedError(
-                f"BlockedGCN with compute_dtype: {config['compute_dtype']} "
-                "is not ported yet (ROADMAP A16)")
+        self.compute_dtype = compute_dtype(config)
         self.lane_pad = resolve_lane_pad(config, self.hidden_size)
 
     def forward(self, batch, is_training: bool = False,
                 generator: torch.Generator = None) -> torch.Tensor:
         """Final node representations [B, V, H]."""
         self._check_generator(is_training, generator)
-        adjacency = batch.adjacency[:, 0]                      # [B, V, V]
+        cdt = self.compute_dtype
+        adjacency = batch.adjacency[:, 0].to(cdt)              # [B, V, V]
         h = batch.node_features                                # [B, V, H]
         for layer_idx in range(self.num_layers):
-            h = self._layer_out(layer_idx, torch.bmm(adjacency, h),
+            h = self._layer_out(layer_idx, matmul_f32(adjacency, h.to(cdt)),
                                 is_training, generator)
         return h
 

@@ -32,9 +32,19 @@ per-layer `rng_w`), and on the cell's new state at every step
 dropped. The forward's index preparation (`ops/messages.py:EdgeLanes`:
 CSR offsets, sorts, transposes) is made once and reused by every step.
 
-Not ported yet, each raising NotImplementedError with its ROADMAP item:
-`compute_dtype: bfloat16` (A16) and the edge-partitioned and
-node-sharded branches (`edge_axis`; A11).
+`compute_dtype: bfloat16` runs the message path in bf16 as the JAX model
+does (`ggnn_tpu/models/sparse_ggnn.py:211-259`): each layer's (dropped)
+edge weights are cast to bf16 once, the node states at every step; the
+gathers, segment sums and attention-weighted sums run on the kernels'
+bf16 instances (f32 sums, each output rounded once), the transform is a
+bf16-in, f32-out product (`ops/precision.py`), the attention scores and
+softmax are f32 and the weights cast to bf16 on the aggregate-first
+routes, and the incoming messages are cast back to f32 before the edge
+bias, the averaging and the cell. Parameters, the cell, the readout and
+the loss stay f32.
+
+Not ported yet, raising NotImplementedError with its ROADMAP item: the
+edge-partitioned and node-sharded branches (`edge_axis`; A11).
 """
 
 from typing import Dict
@@ -75,17 +85,18 @@ def _validate_residual_connections(residuals: Dict, n_layers: int) -> None:
                     "(earlier layers only)")
 
 
-def _check_ported(config: Dict, edge_axis) -> None:
-    unported = [
-        (config.get("compute_dtype", "float32") != "float32",
-         f"compute_dtype: {config.get('compute_dtype')}", "A16"),
-        (edge_axis is not None, "edge_axis (edge-partitioned graphs)",
-         "A11"),
-    ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"SparseGGNN with {what} is not ported yet (ROADMAP {item})")
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(config: Dict) -> torch.dtype:
+    """The `compute_dtype` key ("float32", the default, or "bfloat16")
+    as a torch dtype; other values raise, as `jnp.dtype` does for a name
+    it does not know."""
+    name = config.get("compute_dtype", "float32")
+    if name not in _COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of "
+                         f"{sorted(_COMPUTE_DTYPES)}, got {name!r}")
+    return _COMPUTE_DTYPES[name]
 
 
 class SparseGGNNLayer(nn.Module):
@@ -114,8 +125,12 @@ class SparseGGNN(nn.Module):
     def __init__(self, config: Dict, num_edge_types: int,
                  generator: torch.Generator, edge_axis: str = None):
         super().__init__()
-        _check_ported(config, edge_axis)
+        if edge_axis is not None:
+            raise NotImplementedError(
+                "SparseGGNN with edge_axis (edge-partitioned graphs) is not "
+                "ported yet (ROADMAP A11)")
         self.config = config
+        self.compute_dtype = compute_dtype(config)
         self.num_edge_types = num_edge_types
         self.hidden_size = config["hidden_size"]
         self.layer_timesteps = list(config["layer_timesteps"])
@@ -168,6 +183,7 @@ class SparseGGNN(nn.Module):
             if self.aggregate_first and not self.edges_sorted:
                 tgt, src, mask = sort_typed_lanes(tgt, src, mask)
             lanes = EdgeLanes.typed(src, tgt, n_cap)
+        cdt = self.compute_dtype
         node_states_per_layer = [batch.node_features]
         for layer_idx, num_timesteps in enumerate(self.layer_timesteps):
             layer = self.layers[layer_idx]
@@ -176,41 +192,42 @@ class SparseGGNN(nn.Module):
                 edge_weights = dropout(edge_weights,
                                        self.edge_weight_dropout_keep_prob,
                                        generator)
+            w_c = edge_weights.to(cdt)
             residual_states = [
                 node_states_per_layer[i]
                 for i in self.residual_connections.get(layer_idx, [])
             ]
             h = node_states_per_layer[-1]
             for _step in range(num_timesteps):
+                h_c = h.to(cdt)
                 attn = None
                 if use_combined:
                     if self.use_propagation_attention:
                         attn = propagation_attention_weights_combined(
-                            h, batch.edge_sources_all,
+                            h_c, batch.edge_sources_all,
                             batch.edge_targets_all, batch.edge_mask_all,
                             batch.edge_types_all, layer.attention, n_cap,
-                            lanes)
+                            lanes).to(cdt)
                     incoming = aggregate_then_transform_combined(
-                        h, batch.edge_sources_all, batch.edge_types_all,
-                        batch.edge_targets_all, edge_weights, n_cap, attn,
-                        lanes)
+                        h_c, batch.edge_sources_all, batch.edge_types_all,
+                        batch.edge_targets_all, w_c, n_cap, attn, lanes)
                 elif self.aggregate_first:
                     if self.use_propagation_attention:
                         attn = propagation_attention_weights(
-                            h, src, tgt, mask, layer.attention, n_cap,
-                            lanes=lanes)
+                            h_c, src, tgt, mask, layer.attention, n_cap,
+                            lanes=lanes).to(cdt)
                     incoming = aggregate_then_transform(
-                        h, src, tgt, edge_weights, n_cap, attn,
+                        h_c, src, tgt, w_c, n_cap, attn,
                         targets_sorted=True, lanes=lanes)
                 else:
-                    messages = typed_edge_messages(h, src, edge_weights,
-                                                   lanes)
+                    messages = typed_edge_messages(h_c, src, w_c, lanes)
                     if self.use_propagation_attention:
                         messages = propagation_attention(
-                            messages, h, src, tgt, mask, layer.attention,
+                            messages, h_c, src, tgt, mask, layer.attention,
                             n_cap, lanes=lanes)
                     incoming = aggregate_messages(messages, tgt, n_cap,
                                                   lanes)
+                incoming = incoming.to(torch.float32)
                 if self.use_edge_bias:
                     incoming = incoming + edge_bias_term(
                         batch.in_degrees, layer.edge_biases)

@@ -8,6 +8,13 @@ of the segment-sum kernel (ops/kernels/ell_spmm.py):
     rows (`ggnn_tpu/ops/messages.py:121-131`, `:178-183`): the weighted
     instance forward, the weighted instance over the transpose and
     `edge_dot` for the weights' gradient backward.
+
+Under `compute_dtype: bfloat16` the rows and the aggregation's weights
+are bf16 (the JAX model casts the attention weights to bf16); the
+scores and the weights' gradient from `edge_dot` are f32 and are cast
+back to the dtype of the tensor they are the gradient of, and the
+scores' f32 cotangent is rounded to bf16 to weight the rows in the
+backward.
 """
 
 import torch
@@ -17,7 +24,8 @@ from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm
 
 def _weighted_sum(table, ds, order):
     """The weighted instance over `order` (an `ell_spmm.SortedEdges`) with
-    the weights ds."""
+    the weights ds, in the table's dtype."""
+    ds = ds.to(table.dtype)
     weights = ds if order.perm is None else ds[order.perm]
     return ell_spmm.weighted_segment_scatter_sum(
         table, order.ids, weights.contiguous(), order.offsets,
@@ -102,5 +110,5 @@ class AttentionGatherSegmentSum(torch.autograd.Function):
                                                        order.offsets,
                                                        h.shape[0])
         if ctx.needs_input_grad[2]:
-            dw = edge_dot.edge_dot(h, src, dout, seg)
+            dw = edge_dot.edge_dot(h, src, dout, seg).to(w.dtype)
         return dh, None, dw, None, None, None, None

@@ -24,6 +24,20 @@ import torch
 NAMESPACE = "ggnn_tpu_torch"
 _LIBRARY = torch.library.Library(NAMESPACE, "FRAGMENT")
 
+# The row dtypes every kernel has an instance of, and the suffix of the
+# instance's C entry point (`gather_segment_sum_bf16`, ...).
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def lane_elems(vectorized_path, dtype: torch.dtype) -> int:
+    """The values of a row a kernel's lane loads at once, as the register
+    queries take it: `vectorized_path` True is the widest load of the
+    dtype (f32 4, a float4; bf16 8, 16 bytes), False one, an int that
+    count (bf16: 1, 4 or 8)."""
+    if isinstance(vectorized_path, bool):
+        return (8 if dtype == torch.bfloat16 else 4) if vectorized_path else 1
+    return int(vectorized_path)
+
 
 def register(schema: str, cpu: Callable, cuda: Callable,
              fake: Callable):

@@ -12,10 +12,16 @@ aggregation; `ops/attention.py` holds the autograd Functions of both.
 The pads of the packers' lanes point one past the last row of y (target
 N, composite id N*T), so they get 0 without a clamp.
 
+x and y are f32 or, under `compute_dtype: bfloat16`, bf16 (the kernel's
+bf16 instance); the dots are f32 either way, each the f32 sum of exact
+products (the JAX package rounds each product to bf16 first,
+`ggnn_tpu/ops/messages.py:68`).
+
 The entry point is the op `torch.ops.ggnn_tpu_torch.edge_dot`
 (`_library.register`). A CPU tensor takes the plain version (two
 `index_select`s and a sum); a CUDA tensor launches the kernel or raises. `launches` counts the
-kernel's launches; a call with no edge launches nothing.
+kernel's launches, `launches_bf16` those of its bf16 instance; a call
+with no edge launches nothing.
 """
 
 import ctypes
@@ -25,16 +31,19 @@ import torch
 from ggnn_tpu_torch.ops.kernels import _build, _library
 
 launches = 0
+launches_bf16 = 0
+
 
 _entries = {}
 _ARGTYPES = {
     # (x, a, y, b, out, num_edges, rows_y, hidden, device, stream)
-    "edge_dot_f32": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                    + [ctypes.c_void_p],
-    # (x, y, hidden)
-    "edge_dot_vectorized": [ctypes.c_void_p] * 2 + [ctypes.c_int],
-    # (vectorized_path, device, regs)
-    "edge_dot_registers": [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)],
+    **{f"edge_dot_{suffix}": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                             + [ctypes.c_void_p]
+       for suffix in _library.DTYPES.values()},
+    # (x, y, hidden, bf16)
+    "edge_dot_vector_elems": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2,
+    # (elems, bf16, device, regs)
+    "edge_dot_registers": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -50,9 +59,9 @@ def _kernel(name: str):
 
 
 def _check(x, a, y, b):
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"x and y must be float32, got {x.dtype} and "
-                        f"{y.dtype} (bf16 is ROADMAP A16)")
+    if x.dtype not in _library.DTYPES or y.dtype != x.dtype:
+        raise TypeError(f"x and y must both be float32 or both bfloat16, "
+                        f"got {x.dtype} and {y.dtype}")
     if a.dtype != torch.int32 or b.dtype != torch.int32:
         raise TypeError(f"a and b must be int32, got {a.dtype} and "
                         f"{b.dtype}")
@@ -71,12 +80,14 @@ def _check(x, a, y, b):
 
 def edge_dot_reference(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
                        b: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel, on any device."""
+    """Plain PyTorch version of the kernel, on any device; bf16 rows
+    are widened to f32 first."""
     real = (b >= 0) & (b < y.shape[0])
     if y.shape[0] == 0:
         return torch.zeros(b.shape, dtype=torch.float32, device=b.device)
     rows = torch.where(real, b, 0).long()
-    dots = (x.index_select(0, a.long()) * y.index_select(0, rows)).sum(-1)
+    dots = (x.index_select(0, a.long()).float()
+            * y.index_select(0, rows).float()).sum(-1)
     return torch.where(real, dots, 0.0)
 
 
@@ -86,26 +97,27 @@ def _edge_dot_cpu(x, a, y, b):
 
 
 def _edge_dot_cuda(x, a, y, b):
-    global launches
+    global launches, launches_bf16
     _check(x, a, y, b)
     num_edges, h_dim = a.shape[0], x.shape[1]
     if num_edges == 0 or h_dim == 0:
         return torch.zeros(num_edges, dtype=torch.float32, device=x.device)
     out = torch.empty(num_edges, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _kernel("edge_dot_f32")(
+    entry = f"edge_dot_{_library.DTYPES[x.dtype]}"
+    rc = _kernel(entry)(
         x.data_ptr(), a.data_ptr(), y.data_ptr(), b.data_ptr(),
         out.data_ptr(), num_edges, y.shape[0], h_dim, x.device.index,
         stream)
     if rc != 0:
-        raise RuntimeError(f"edge_dot_f32 kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     launches += 1
+    launches_bf16 += x.dtype == torch.bfloat16
     return out
 
 
 def _edge_dot_fake(x, a, y, b):
-    return x.new_empty(a.shape[0])
+    return x.new_empty(a.shape[0], dtype=torch.float32)
 
 
 _edge_dot = _library.register(
@@ -116,28 +128,38 @@ _edge_dot = _library.register(
 def edge_dot(x: torch.Tensor, a: torch.Tensor, y: torch.Tensor,
              b: torch.Tensor) -> torch.Tensor:
     """out [E] f32 with out[e] = <x[a[e]], y[b[e]]>, 0 where b[e] lies
-    outside [0, len(y)). x [NX, H] and y [NY, H] f32, a and b [E] int32;
+    outside [0, len(y)). x [NX, H] and y [NY, H] both f32 or both bf16,
+    a and b [E] int32;
     a[e] must lie in [0, NX): the kernel does not check it. The op
     `torch.ops.ggnn_tpu_torch.edge_dot`."""
     return _edge_dot(x, a, y, b)
 
 
+def vector_elems(x: torch.Tensor, y: torch.Tensor) -> int:
+    """The values of a row a lane loads at once (f32: 4 or 1; bf16: 8,
+    4 or 1) for x and y, by the rule the kernel's launcher applies."""
+    return _kernel("edge_dot_vector_elems")(
+        x.data_ptr(), y.data_ptr(), x.shape[1], int(x.dtype == torch.bfloat16))
+
+
 def vectorized(x: torch.Tensor, y: torch.Tensor) -> bool:
-    """Whether the kernel takes its float4 path for x and y, by the rule
-    the kernel's launcher applies."""
-    return bool(_kernel("edge_dot_vectorized")(x.data_ptr(), y.data_ptr(),
-                                               x.shape[1]))
+    """Whether the kernel takes a vector path (more than one value a
+    lane load) for x and y."""
+    return vector_elems(x, y) > 1
 
 
-def registers(vectorized_path: bool, device=None) -> int:
-    """Registers a thread of the kernel's float4 (`vectorized_path`) or
-    scalar instance uses on the card `device`, as the compiler allotted
-    them."""
+def registers(vectorized_path, device=None,
+              dtype: torch.dtype = torch.float32) -> int:
+    """Registers a thread of the kernel's instance of `dtype` loading the
+    values `vectorized_path` gives (True: float4 for f32, 8 bf16 values;
+    False: one; for bf16 also 4) uses on the card `device`, as the
+    compiler allotted them."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     regs = ctypes.c_int(0)
-    rc = _kernel("edge_dot_registers")(int(vectorized_path), index,
-                                       ctypes.byref(regs))
+    rc = _kernel("edge_dot_registers")(
+        _library.lane_elems(vectorized_path, dtype),
+        int(dtype == torch.bfloat16), index, ctypes.byref(regs))
     if rc != 0:
         raise RuntimeError(f"edge_dot_registers failed: CUDA error {rc}")
     return regs.value

@@ -50,6 +50,16 @@ launches, `scatter_launches` B2's, `weighted_launches` and
 `weighted_scatter_launches` the weighted instance's forward and
 transpose, so a run can show that its path went through the kernels; a
 call with an empty output launches nothing and counts nothing. The
+counters count the f32 and the bf16 instances alike; `launches_bf16`,
+`scatter_launches_bf16`, `weighted_launches_bf16` and
+`weighted_scatter_launches_bf16` count the bf16 instances alone.
+
+Rows (and the weighted instance's weights) are f32 or bf16
+(`compute_dtype: bfloat16`), the output of the rows' dtype. Sums are
+f32 either way: a bf16 output is the f32 sum rounded once, in the
+kernel and in the plain version, where the JAX package on the CPU adds
+bf16 rows in bf16 (`ggnn_tpu/ops/segment.py:18-23`; see
+`tests/test_torch_bf16.py`). The
 kernel cuts segments of more than `split_edges()` edges across warps and
 hands their partial sums over through scratch (tickets and partial
 rows), which the wrapper keeps per device and stream (`_scratch_for`).
@@ -67,26 +77,33 @@ launches = 0
 scatter_launches = 0
 weighted_launches = 0
 weighted_scatter_launches = 0
+launches_bf16 = 0
+scatter_launches_bf16 = 0
+weighted_launches_bf16 = 0
+weighted_scatter_launches_bf16 = 0
+
+# (x, idx, offsets, out, tickets, partials, num_segments, num_edges,
+#  hidden, device, stream)
+_UNWEIGHTED = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+# (x, idx, weights, offsets, out, tickets, partials, num_segments,
+#  num_edges, hidden, device, stream)
+_WEIGHTED = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 _entries = {}
 _ARGTYPES = {
-    # (x, idx, offsets, out, tickets, partials, num_segments, num_edges,
-    #  hidden, device, stream)
-    "gather_segment_sum_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                              + [ctypes.c_void_p],
-    "segment_scatter_sum_f32": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                               + [ctypes.c_void_p],
-    # (x, idx, weights, offsets, out, tickets, partials, num_segments,
-    #  num_edges, hidden, device, stream)
-    "weighted_gather_segment_sum_f32": [ctypes.c_void_p] * 7
-                                       + [ctypes.c_int] * 4
-                                       + [ctypes.c_void_p],
+    **{f"{entry}_{suffix}": argtypes
+       for suffix in _library.DTYPES.values()
+       for entry, argtypes in (("gather_segment_sum", _UNWEIGHTED),
+                               ("segment_scatter_sum", _UNWEIGHTED),
+                               ("weighted_gather_segment_sum", _WEIGHTED))},
     # (num_segments, num_edges, hidden, tickets, partials)
     "ell_spmm_scratch": [ctypes.c_int] * 3
                         + [ctypes.POINTER(ctypes.c_int64)] * 2,
     "ell_spmm_split": [],
-    # (vectorized_path, weighted, device, regs)
-    "ell_spmm_registers": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)],
+    # (h, out, hidden, bf16)
+    "ell_spmm_vector_elems": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2,
+    # (elems, weighted, bf16, device, regs)
+    "ell_spmm_registers": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
 }
 # (device index, stream) -> (tickets, partial rows): the kernel's scratch,
 # its int32 tickets 0 between calls (the kernel resets those it takes).
@@ -105,9 +122,8 @@ def _kernel(name: str):
 
 
 def _check(h, src, offsets, num_segments):
-    if h.dtype != torch.float32:
-        raise TypeError(f"h must be float32, got {h.dtype} (bf16 is "
-                        "ROADMAP A16)")
+    if h.dtype not in _library.DTYPES:
+        raise TypeError(f"h must be float32 or bfloat16, got {h.dtype}")
     if src.dtype != torch.int32 or offsets.dtype != torch.int32:
         raise TypeError(f"src and offsets must be int32, got {src.dtype} "
                         f"and {offsets.dtype}")
@@ -126,10 +142,10 @@ def _check(h, src, offsets, num_segments):
                          f"{h.device}, {src.device}, {offsets.device}")
 
 
-def _check_weights(src, weights):
-    if weights.dtype != torch.float32:
-        raise TypeError(f"weights must be float32, got {weights.dtype} "
-                        "(bf16 is ROADMAP A16)")
+def _check_weights(h, src, weights):
+    if weights.dtype != h.dtype:
+        raise TypeError(f"weights must have the rows' dtype {h.dtype}, got "
+                        f"{weights.dtype}")
     if weights.shape != src.shape:
         raise ValueError(f"weights {tuple(weights.shape)} and src "
                          f"{tuple(src.shape)} must have one entry an edge")
@@ -145,18 +161,20 @@ def _segment_sum_plain(h: torch.Tensor, src: torch.Tensor, weights,
                        num_segments: int) -> torch.Tensor:
     """Row h[src[e]] (times weights[e]) of each edge added into its
     edge's segment by `index_add_`; edges outside [off[0], off[S]),
-    whose ids the kernel never reads, go to a dump row and read row 0."""
+    whose ids the kernel never reads, go to a dump row and read row 0.
+    bf16 rows and weights are widened to f32, summed in f32 and the sums
+    rounded once, as the kernel does."""
     positions = torch.arange(src.shape[0], device=src.device)
     seg = torch.searchsorted(offsets.long(), positions, right=True) - 1
     outside = (seg < 0) | (seg >= num_segments)
     seg = torch.where(outside, num_segments, seg)
-    rows = h.index_select(0, torch.where(outside, 0, src.long()))
+    rows = h.index_select(0, torch.where(outside, 0, src.long())).float()
     if weights is not None:
-        rows = rows * weights[:, None]
+        rows = rows * weights.float()[:, None]
     out = torch.zeros(num_segments + 1, h.shape[1], dtype=torch.float32,
                       device=h.device)
     out.index_add_(0, seg, rows)
-    return out[:num_segments]
+    return out[:num_segments].to(h.dtype)
 
 
 def gather_segment_sum_reference(h: torch.Tensor, src: torch.Tensor,
@@ -197,12 +215,14 @@ def _scratch_for(device: torch.device, stream: int, num_tickets: int,
 
 
 def _launch(entry: str, h, src, offsets, num_segments, weights=None):
-    """(out, launched): one launch of a kernel of csrc/ell_spmm.cu on a
-    CUDA tensor, none when the output is empty; the caller has run
-    `_check` (and `_check_weights` for the weighted entry point)."""
+    """(out, launched): one launch of the f32 or bf16 instance (by h's
+    dtype) of a kernel of csrc/ell_spmm.cu on a CUDA tensor, none when
+    the output is empty; the caller has run `_check` (and
+    `_check_weights` for the weighted entry point)."""
     if h.device.type != "cuda":
         raise ValueError(f"unsupported device {h.device}")
-    out = torch.empty(num_segments, h.shape[1], dtype=torch.float32,
+    entry = f"{entry}_{_library.DTYPES[h.dtype]}"
+    out = torch.empty(num_segments, h.shape[1], dtype=h.dtype,
                       device=h.device)
     if num_segments == 0 or h.shape[1] == 0:
         return out, False
@@ -230,7 +250,7 @@ def _register(schema: str, entry: str, counter: str, weighted: bool):
     """The op `schema` over the kernel entry point `entry` of
     csrc/ell_spmm.cu: on a CPU tensor the plain version, on a CUDA one a
     launch (none for an empty output), counted in the module's
-    `counter`."""
+    `counter`, and a bf16 launch also in `counter`_bf16."""
 
     def checked(args):
         """(h, src, weights or None, offsets, num_segments), checked."""
@@ -240,7 +260,7 @@ def _register(schema: str, entry: str, counter: str, weighted: bool):
         h, src, weights, offsets, num_segments = args
         _check(h, src, offsets, num_segments)
         if weighted:
-            _check_weights(src, weights)
+            _check_weights(h, src, weights)
         return args
 
     def cpu(*args):
@@ -251,6 +271,8 @@ def _register(schema: str, entry: str, counter: str, weighted: bool):
         out, launched = _launch(entry, h, src, offsets, num_segments,
                                 weights)
         globals()[counter] += launched
+        if h.dtype == torch.bfloat16:
+            globals()[counter + "_bf16"] += launched
         return out
 
     def fake(h, *rest):
@@ -261,27 +283,28 @@ def _register(schema: str, entry: str, counter: str, weighted: bool):
 
 _gather_segment_sum = _register(
     "gather_segment_sum(Tensor h, Tensor src, Tensor offsets, "
-    "int num_segments) -> Tensor", "gather_segment_sum_f32", "launches",
+    "int num_segments) -> Tensor", "gather_segment_sum", "launches",
     False)
 _segment_scatter_sum = _register(
     "segment_scatter_sum(Tensor g, Tensor bgather, Tensor boff, "
-    "int num_nodes) -> Tensor", "segment_scatter_sum_f32",
+    "int num_nodes) -> Tensor", "segment_scatter_sum",
     "scatter_launches", False)
 _weighted_gather_segment_sum = _register(
     "weighted_gather_segment_sum(Tensor h, Tensor src, Tensor weights, "
     "Tensor offsets, int num_segments) -> Tensor",
-    "weighted_gather_segment_sum_f32", "weighted_launches", True)
+    "weighted_gather_segment_sum", "weighted_launches", True)
 _weighted_segment_scatter_sum = _register(
     "weighted_segment_scatter_sum(Tensor g, Tensor bgather, "
     "Tensor bweights, Tensor boff, int num_nodes) -> Tensor",
-    "weighted_gather_segment_sum_f32", "weighted_scatter_launches", True)
+    "weighted_gather_segment_sum", "weighted_scatter_launches", True)
 
 
 def gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
                        offsets: torch.Tensor,
                        num_segments: int) -> torch.Tensor:
-    """B1: out [S, H] f32 with out[s] = sum of h[src[e]] over the edges
-    of segment s (`offsets` from `segment_offsets`). Indices must lie in
+    """B1: out [S, H] of h's dtype (f32 or bf16) with out[s] = sum of
+    h[src[e]] over the edges of segment s (`offsets` from
+    `segment_offsets`), summed in f32. Indices must lie in
     [0, N): the packers guarantee it, and the kernel does not check. The
     op `torch.ops.ggnn_tpu_torch.gather_segment_sum`."""
     return _gather_segment_sum(h, src, offsets, num_segments)
@@ -297,7 +320,7 @@ def segment_scatter_sum_reference(g: torch.Tensor, bgather: torch.Tensor,
 
 def segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
                         boff: torch.Tensor, num_nodes: int) -> torch.Tensor:
-    """B2: dh [N, H] f32 with dh[n] = sum of g[bgather[e]] over the
+    """B2: dh [N, H] of g's dtype with dh[n] = sum of g[bgather[e]] over the
     edges e of source n, `bgather` the edges' forward composite ids in
     source order and `boff` [N+1] their CSR offsets over sources (see
     `transpose_layout`). Indices must lie in [0, len(g)): pads must be
@@ -309,8 +332,9 @@ def segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
 def weighted_gather_segment_sum(h: torch.Tensor, src: torch.Tensor,
                                 weights: torch.Tensor, offsets: torch.Tensor,
                                 num_segments: int) -> torch.Tensor:
-    """The weighted instance: out [S, H] f32 with out[s] = sum of
-    weights[e] * h[src[e]] over the edges of segment s (`offsets` from
+    """The weighted instance: out [S, H] of h's dtype with out[s] = sum
+    of weights[e] * h[src[e]] (weights of h's dtype) over the edges of
+    segment s (`offsets` from
     `segment_offsets`), the GCN's Â·H over its target-sorted COO list.
     Indices must lie in [0, N): the packers guarantee it, and the kernel
     does not check. The op
@@ -323,7 +347,7 @@ def weighted_segment_scatter_sum(g: torch.Tensor, bgather: torch.Tensor,
                                  bweights: torch.Tensor, boff: torch.Tensor,
                                  num_nodes: int) -> torch.Tensor:
     """The weighted instance over a source-sorted transpose (see
-    `weighted_transpose_layout`): dh [N, H] f32 with dh[n] = sum of
+    `weighted_transpose_layout`): dh [N, H] of g's dtype with dh[n] = sum of
     bweights[e] * g[bgather[e]] over the out-edges e of n, the gradient
     of `weighted_gather_segment_sum`. Counted apart from the forward. The
     op `torch.ops.ggnn_tpu_torch.weighted_segment_scatter_sum`."""
@@ -338,17 +362,27 @@ def split_edges() -> int:
     return _kernel("ell_spmm_split")()
 
 
-def registers(vectorized_path: bool, device=None,
-              weighted: bool = False) -> int:
-    """Registers a thread of the kernel's float4 (`vectorized_path`) or
-    scalar instance, of B1 and B2 or `weighted`, uses on the card
-    `device`, as the compiler allotted them; B1 and B2 share their two
-    instances."""
+def vector_elems(h: torch.Tensor, out: torch.Tensor) -> int:
+    """The values of a row a lane loads at once (1, 4 or 8) for rows h
+    and the output `out`, by the rule the kernel's launcher applies."""
+    return _kernel("ell_spmm_vector_elems")(
+        h.data_ptr(), out.data_ptr(), h.shape[1],
+        int(h.dtype == torch.bfloat16))
+
+
+def registers(vectorized_path, device=None, weighted: bool = False,
+              dtype: torch.dtype = torch.float32) -> int:
+    """Registers a thread of the kernel's instance of `dtype` (f32 or
+    bf16) loading the values `vectorized_path` gives (True: float4 for
+    f32, 8 bf16 values; False: one; for bf16 also 4), of B1 and B2 or
+    `weighted`, uses on the card `device`, as the compiler allotted them;
+    B1 and B2 share their instances."""
     dev = torch.device("cuda" if device is None else device)
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     regs = ctypes.c_int(0)
-    rc = _kernel("ell_spmm_registers")(int(vectorized_path), int(weighted),
-                                       index, ctypes.byref(regs))
+    rc = _kernel("ell_spmm_registers")(
+        _library.lane_elems(vectorized_path, dtype), int(weighted),
+        int(dtype == torch.bfloat16), index, ctypes.byref(regs))
     if rc != 0:
         raise RuntimeError(f"ell_spmm_registers failed: CUDA error {rc}")
     return regs.value
@@ -464,8 +498,9 @@ def ell_aggregate_by_type_reference(h: torch.Tensor, fwd_src: torch.Tensor,
                       t_dim * np_total).reshape(-1)
     out = torch.zeros(t_dim * np_total + 1, h_dim, dtype=torch.float32,
                       device=h.device)
-    out.index_add_(0, seg, h.index_select(0, fwd_src.reshape(-1).long()))
-    return out[:-1].view(t_dim, np_total, h_dim)
+    out.index_add_(0, seg,
+                   h.index_select(0, fwd_src.reshape(-1).long()).float())
+    return out[:-1].view(t_dim, np_total, h_dim).to(h.dtype)
 
 
 def _check_ell(name, a, b):
@@ -512,8 +547,9 @@ def ell_scatter_sum_reference(g: torch.Tensor, bwd_tgt: torch.Tensor,
     dh = torch.zeros(np_total + 1, h_dim, dtype=torch.float32,
                      device=g.device)
     dh.index_add_(0, bwd_src.reshape(-1).long(),
-                  g.reshape(t_dim * np_total, h_dim).index_select(0, rows))
-    return dh[:np_total]
+                  g.reshape(t_dim * np_total, h_dim).index_select(
+                      0, rows).float())
+    return dh[:np_total].to(g.dtype)
 
 
 def ell_scatter_sum(g: torch.Tensor, bwd_tgt: torch.Tensor,

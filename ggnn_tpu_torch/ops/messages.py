@@ -27,6 +27,15 @@ aggregate-first routes scale the gathered source rows by the weights
 (the weighted instance of B1's body, `AttentionGatherSegmentSum`); the
 per-edge route scales the messages, as JAX does.
 
+Under `compute_dtype: bfloat16` the model hands these functions its node
+states and edge weights in bf16, as the JAX model does
+(`ggnn_tpu/models/sparse_ggnn.py:211-259`): the gathers and segment sums
+run on the kernels' bf16 instances (f32 sums, each output rounded
+once), the transforms are `matmul_f32` (bf16 in, f32 out, the
+counterpart of `preferred_element_type=jnp.float32`), the scores are
+f32 dots and the softmax runs in f32. The per-edge route's messages are
+f32, as JAX's are, so its aggregation runs B1 in f32.
+
 Index preparation (sorts, CSR offsets, transposes) lives in `EdgeLanes`,
 which a forward makes once and every step reuses; each function below
 makes its own when none is given.
@@ -42,6 +51,7 @@ from ggnn_tpu_torch.ops.kernels.ell_spmm import (GatherSegmentSum,
                                                  SortedEdges,
                                                  transpose_layout)
 from ggnn_tpu_torch.ops.kernels.gather_floor import GatherRows
+from ggnn_tpu_torch.ops.precision import matmul_f32
 from ggnn_tpu_torch.ops.segment import (SortedSegments, segment_offsets,
                                         segment_softmax, sorted_segments,
                                         source_order)
@@ -208,9 +218,10 @@ def typed_edge_messages(node_states: torch.Tensor,
                         edge_sources: torch.Tensor,
                         edge_weights: torch.Tensor,
                         lanes: Optional[EdgeLanes] = None) -> torch.Tensor:
-    """Gather + transform: per-type messages [T, E, H], the source rows
-    gathered by B3 (`GatherRows`) and multiplied by their type's weight.
-    node_states [N, H]; edge_sources [T, E] int32; edge_weights [T, H, H].
+    """Gather + transform: per-type messages [T, E, H] f32, the source
+    rows gathered by B3 (`GatherRows`) and multiplied by their type's
+    weight (`matmul_f32`). node_states [N, H]; edge_sources [T, E] int32;
+    edge_weights [T, H, H], of node_states' dtype.
     Given `lanes`, the gather's gradient skips the pads (their messages
     reach only the dump slot)."""
     transpose = (None, None)
@@ -223,7 +234,7 @@ def typed_edge_messages(node_states: torch.Tensor,
                 flat, torch.arange(flat.shape[0], device=flat.device),
                 node_states.shape[0])
     gathered = GatherRows.apply(node_states, edge_sources, *transpose)
-    return torch.bmm(gathered, edge_weights)
+    return matmul_f32(gathered, edge_weights)
 
 
 def aggregate_messages(messages: torch.Tensor, edge_targets: torch.Tensor,
@@ -306,7 +317,8 @@ def aggregate_then_transform(node_states: torch.Tensor,
     per-type lanes, aggregate-before-transform: B1 (or, with attention
     [T, E], the weighted instance) over the flattened lanes with
     composite ids t*(N+1) + target, the result viewed [T, N+1, H] with
-    its dump rows dropped, then einsum("tnh,thd->nd"). Unless
+    its dump rows dropped, then einsum("tnh,thd->nd") as one [N, T*H] x
+    [T*H, H] product (`matmul_f32`: f32 out). Unless
     `targets_sorted` (the packers' contract), each type's lane is sorted
     by target first; `lanes` (`EdgeLanes.typed` of sorted lanes) skips
     that."""
@@ -318,7 +330,9 @@ def aggregate_then_transform(node_states: torch.Tensor,
         lanes = EdgeLanes.typed(src, tgt, node_capacity)
     per = _aggregate(node_states, lanes, attention)
     per = per.view(t_dim, node_capacity + 1, h_dim)[:, :node_capacity]
-    return torch.einsum("tnh,thd->nd", per, edge_weights)
+    return matmul_f32(per.transpose(0, 1).reshape(node_capacity,
+                                                  t_dim * h_dim),
+                      edge_weights.reshape(t_dim * h_dim, d_dim))
 
 
 def propagation_attention_weights_combined(node_states: torch.Tensor,
@@ -357,8 +371,9 @@ def aggregate_then_transform_combined(node_states: torch.Tensor,
                                       ) -> torch.Tensor:
     """One propagation step's incoming activations [N, H] over the
     type-COMBINED edge lane (GraphBatch.edge_*_all): the per-(target,
-    type) sums of the source rows, weighted by `attention` [EA] if given,
-    then one [N, T*H] x [T*H, H] product. `lanes` is the lane's
+    type) sums of the source rows, weighted by `attention` [EA] if given
+    (of node_states' dtype), then one [N, T*H] x [T*H, H] product with an
+    f32 output. `lanes` is the lane's
     `EdgeLanes.combined`, made here when not given."""
     t_dim, h_dim, d_dim = edge_weights.shape
     if lanes is None:
@@ -367,9 +382,9 @@ def aggregate_then_transform_combined(node_states: torch.Tensor,
     per = _aggregate(node_states, lanes, attention)          # [N*T, H]
     # Row n of the [N, T*H] view is [per(n, 0) | ... | per(n, T-1)], and
     # row t*H + k of the [T*H, H] view is edge_weights[t, k]: the
-    # product is einsum("nth,thd->nd").
-    return torch.matmul(per.view(node_capacity, t_dim * h_dim),
-                        edge_weights.reshape(t_dim * h_dim, d_dim))
+    # product is einsum("nth,thd->nd"), f32 out.
+    return matmul_f32(per.view(node_capacity, t_dim * h_dim),
+                      edge_weights.reshape(t_dim * h_dim, d_dim))
 
 
 def propagation_attention(messages: torch.Tensor, node_states: torch.Tensor,

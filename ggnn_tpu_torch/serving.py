@@ -32,9 +32,11 @@ Example:
     mu = predictor(molecule_jsons)      # np.ndarray [K, n_graphs]
 
 The HTTP server (server.py) and the exported artifacts (export.py) run
-on this Predictor's host pipeline. Not ported yet: the native C++
-packer (ROADMAP A12), the bf16 adjacency of `compute_dtype: bfloat16`
-(A16).
+on this Predictor's host pipeline. A model with `compute_dtype:
+bfloat16` serves through the same code: its batches stay f32, as the
+numpy packer emits them (the JAX package's bf16 adjacency comes from its
+native packer only), and the model casts. Not ported yet: the native C++
+packer (ROADMAP A12).
 """
 
 import collections

@@ -1185,3 +1185,245 @@ def test_exported_sparse_forward_launches_b1_on_the_card(cuda, tmp_path):
                                    atol=1e-6)
         np.testing.assert_allclose(got, cpu(batch_request), rtol=1e-4,
                                    atol=1e-4)
+
+
+# ------------------------------------------------ bf16 instances (A16)
+#
+# `compute_dtype: bfloat16`: each kernel's bf16 instance against its
+# plain version (bf16 rows widened to f32, summed in f32, rounded once).
+# Tolerance: one bf16 ulp of each output element (two f32 sums of the
+# same terms in another order round to the same or a neighbouring bf16
+# value), or 1e-5 of the output's largest magnitude where a sum cancels
+# to near 0; 0 on rows of eighths and for the gather, a copy. H = 512
+# takes the 8-value (16-byte) path, H = 100 the 4-value (8-byte) path,
+# H = 37 and a view one value into its buffer the scalar path.
+
+BF16_SHAPES = [(512, True, 8), (100, True, 4), (37, True, 1),
+               (100, False, 1)]
+
+
+def _bf16_rows(rows, h_dim, device, aligned=True, seed=0, eighths=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if eighths:
+        flat = torch.randint(-16, 17, (rows * h_dim + 1,), generator=gen,
+                             device=device).float() / 8
+    else:
+        flat = torch.randn(rows * h_dim + 1, generator=gen, device=device)
+    flat = flat.to(torch.bfloat16)
+    return (flat[:-1] if aligned else flat[1:]).view(rows, h_dim)
+
+
+def _assert_within_a_bf16_ulp(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.float(), want.float()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -126))) - 7)
+    bound = torch.maximum(spacing, 1e-5 * want.abs().max())
+    assert bool(((got - want).abs() <= bound).all()), \
+        float(((got - want).abs() / bound).max())
+
+
+def _bf16_segment_call(name, x, idx, offsets, num_segments, weights):
+    kernel = getattr(ell_spmm, name)
+    plain = getattr(ell_spmm, name + "_reference", None)
+    if name.startswith("weighted"):
+        plain = ell_spmm.weighted_gather_segment_sum_reference
+        return (kernel(x, idx, weights, offsets, num_segments),
+                plain(x, idx, weights, offsets, num_segments))
+    return (kernel(x, idx, offsets, num_segments),
+            plain(x, idx, offsets, num_segments))
+
+
+BF16_SEGMENT_KERNELS = KERNELS + W_KERNELS
+
+
+@pytest.mark.parametrize("h_dim,aligned,elems", BF16_SHAPES)
+@pytest.mark.parametrize("name", BF16_SEGMENT_KERNELS)
+def test_bf16_segment_kernels_match_plain(cuda, name, h_dim, aligned, elems):
+    """B1, B2, the weighted instance and its transpose on bf16 rows of
+    the serving envelope's lane: one launch each, the vector path the
+    width gives, a bf16 output within a bf16 ulp of the plain version,
+    the same bits from two calls."""
+    batch = _envelope_batch()
+    n_cap = batch.node_capacity
+    src, offsets = _lane(batch, cuda)
+    x = _bf16_rows(n_cap, h_dim, cuda, aligned, seed=h_dim)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    weights = torch.rand(src.shape[0], generator=gen,
+                         device=cuda).to(torch.bfloat16)
+    before = sum(_launch_counts())
+    got, want = _bf16_segment_call(name, x, src, offsets, n_cap * 4,
+                                   weights)
+    again, _ = _bf16_segment_call(name, x, src, offsets, n_cap * 4, weights)
+    torch.cuda.synchronize()
+    assert sum(_launch_counts()) == before + 2
+    assert ell_spmm.vector_elems(x, got) == elems
+    _assert_within_a_bf16_ulp(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("h_dim,aligned,elems", BF16_SHAPES)
+@pytest.mark.parametrize("name", BF16_SEGMENT_KERNELS)
+def test_bf16_segment_kernels_sum_eighths_exactly(cuda, name, h_dim, aligned,
+                                                  elems):
+    """Rows and weights of eighths (every f32 sum exact), over segments
+    around the split, a 5,000-edge hub and empty segments, ids outside
+    [off[0], off[S]) poisoned: the kernel equals its plain version bit
+    for bit."""
+    rng = np.random.default_rng(h_dim)
+    c = ell_spmm.split_edges()
+    counts = [0, 1, c - 1, c, c + 1, 2 * c + 1, 5000, 0, 3]
+    idx, clean, offsets = _csr(rng, counts, 600, cuda, before=5, after=7)
+    x = _bf16_rows(600, h_dim, cuda, aligned, seed=h_dim, eighths=True)
+    weights = (torch.from_numpy(rng.integers(-8, 9, idx.shape[0]).astype(
+        np.float32) / 8).to(cuda).to(torch.bfloat16))
+    got, _ = _bf16_segment_call(name, x, idx, offsets, len(counts), weights)
+    _, want = _bf16_segment_call(name, x, clean, offsets, len(counts),
+                                 weights)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("h_dim,aligned,elems", BF16_SHAPES)
+def test_bf16_edge_dot_matches_plain(cuda, h_dim, aligned, elems):
+    """edge_dot of bf16 rows: f32 dots of exact products, within 1e-5 of
+    the plain version (f32 sums in another order), pads 0."""
+    batch = _envelope_batch()
+    (src, _, tgt), _ = _pairs(batch, cuda)
+    h = _bf16_rows(batch.node_capacity, h_dim, cuda, aligned, seed=3)
+    got = edge_dot.edge_dot(h, src, h, tgt)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert edge_dot.vector_elems(h, h) == elems
+    want = edge_dot.edge_dot_reference(h, src, h, tgt)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, edge_dot.edge_dot(h, src, h, tgt))
+
+
+@pytest.mark.parametrize("unroll", [1, 4, 8])
+@pytest.mark.parametrize("h_dim,aligned,elems", BF16_SHAPES)
+def test_bf16_gather_rows_equals_plain(cuda, h_dim, aligned, elems, unroll):
+    h = _bf16_rows(2000, h_dim, cuda, aligned, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    src = torch.randint(0, 2000, (33, 16), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    got = gather_floor.gather_rows(h, src, unroll)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert gather_floor.vector_elems(h, got) == elems
+    assert torch.equal(got, gather_floor.gather_rows_reference(h, src))
+
+
+def test_bf16_registers_are_reported_and_within_the_bound(cuda):
+    """Every bf16 instance of the segment kernels keeps to the 64
+    registers a thread that `__launch_bounds__` allows; edge_dot's and
+    B3's bf16 instances report theirs."""
+    for elems in (8, 4, False):
+        for weighted in (False, True):
+            regs = ell_spmm.registers(elems, cuda, weighted=weighted,
+                                      dtype=torch.bfloat16)
+            assert 0 < regs <= 64, (elems, weighted, regs)
+        assert 0 < edge_dot.registers(elems, cuda,
+                                      dtype=torch.bfloat16) <= 255
+        assert 0 < gather_floor.registers(8, elems, False, cuda,
+                                          dtype=torch.bfloat16) <= 255
+
+
+def test_bf16_product_on_the_card_matches_cpu(cuda):
+    """matmul_f32 of bf16 inputs on cuBLAS (f32 out) against the CPU's f32
+    product of the widened inputs, forward and the gradients (bf16 in
+    each input's dtype): 1e-5 of the largest magnitude."""
+    from ggnn_tpu_torch.ops.precision import matmul_f32
+    gen = torch.Generator().manual_seed(6)
+    a = torch.randn(3, 200, 96, generator=gen).to(torch.bfloat16)
+    b = torch.randn(3, 96, 64, generator=gen).to(torch.bfloat16)
+    g = torch.randn(3, 200, 64, generator=gen)
+    results = []
+    for device in ("cpu", cuda):
+        la = a.detach().to(device).requires_grad_(True)
+        lb = b.detach().to(device).requires_grad_(True)
+        out = matmul_f32(la, lb)
+        out.backward(g.to(device))
+        results.append([t.cpu() for t in (out, la.grad, lb.grad)])
+    for got, want in zip(results[1], results[0]):
+        assert got.dtype == want.dtype
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=max(1e-5 * scale,
+                                            2.0 ** -7 * scale
+                                            if got.dtype == torch.bfloat16
+                                            else 0))
+
+
+@pytest.mark.parametrize("name", OP_NAMES + ("product_f32",))
+def test_opcheck_on_the_card_in_bf16(cuda, name):
+    """`torch.library.opcheck` of each op on bf16 CUDA tensors (the
+    weights too; the product's inputs [M, K] x [K, N]), the output's
+    dtype that of the fake registration."""
+    if name == "product_f32":
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        a = torch.randn(64, 96, generator=gen, device=cuda)
+        op, args = torch.ops.ggnn_tpu_torch.product_f32.default, (
+            a.to(torch.bfloat16), a.t().contiguous().to(torch.bfloat16))
+    else:
+        op, args = _op_cases(cuda)[name]
+        args = tuple(a.to(torch.bfloat16) if isinstance(a, torch.Tensor)
+                     and a.is_floating_point() else a for a in args)
+    result = torch.library.opcheck(op, args)
+    assert set(result.values()) == {"SUCCESS"}, result
+    got = op(*args)
+    want_dtype = (torch.float32 if name in ("edge_dot", "product_f32")
+                  else torch.bfloat16)
+    assert got.dtype == want_dtype
+
+
+@pytest.mark.parametrize("attention", [False, True])
+@pytest.mark.parametrize("route", ["combined", "per-type", "per-edge"])
+def test_bf16_sparse_ggnn_on_the_card_matches_cpu(cuda, route, attention):
+    """A bf16 sparse model (hidden 512, the width of
+    configs/sparse_wide_bf16.json) served and differentiated on the card
+    against the CPU: states within 2e-2 (bf16 roundings of sums taken in
+    another order compound over 4 steps; JAX pins 0.05 for bf16 against
+    f32), every gradient within a relative L2 error of 2e-2; the kernels
+    the route launches."""
+    overrides = {**ROUTES[route], "use_propagation_attention": attention,
+                 "use_edge_bias": True, "hidden_size": 512,
+                 "layer_timesteps": [2, 1, 1], "compute_dtype": "bfloat16",
+                 "residual_connections": {"2": [0]}}
+    config = resolve_config("sparse", config_json=json.dumps(overrides))
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(SparseGGNN(config, 4, gen),
+                         init_output_heads(gen, 512, [0]))
+    caps = packing.PackCapacities(nodes=512, edges_per_type=4096,
+                                  graphs=64, edges_all=4096)
+    proc = packing.preprocess_sparse(synthetic_molecules(40, 23), 4, True,
+                                     [0], {}, False)
+    batch = next(packing.pack_sparse_batches(proc, 4, caps.nodes + 1, caps,
+                                             512, 5, False, None))
+    cpu_out = params.graph(batch.to("cpu"))
+    torch.tanh(cpu_out).sum().backward()
+    want = {n: p.grad.clone() for n, p in params.named_parameters()
+            if p.grad is not None}
+    params.zero_grad()
+    params.to(cuda)
+    steps = sum(config["layer_timesteps"])
+    before, dots = _launch_counts(), edge_dot.launches
+    with torch.no_grad():
+        served = params.graph(batch.to(cuda))
+    torch.cuda.synchronize()
+    counts = [a - b for a, b in zip(_launch_counts(), before)]
+    weighted = attention and route != "per-edge"
+    assert counts == [0 if weighted else steps, 0,
+                      steps if route == "per-edge" else 0,
+                      steps if weighted else 0, 0]
+    assert edge_dot.launches - dots == (steps if attention else 0)
+    assert served.dtype == torch.float32
+    torch.testing.assert_close(served.cpu(), cpu_out.detach(), rtol=0,
+                               atol=2e-2)
+    out = params.graph(batch.to(cuda))
+    torch.tanh(out).sum().backward()
+    for name, g in want.items():
+        got = dict(params.named_parameters())[name].grad.cpu()
+        rel = float((got - g).norm() / g.norm().clamp_min(1e-30))
+        assert rel <= 2e-2, (name, rel)

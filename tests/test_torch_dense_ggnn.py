@@ -233,10 +233,16 @@ def test_invalid_lane_pad_raises_as_in_jax(mode):
 
 
 @pytest.mark.parametrize("variant", ["dense", "blocked"])
-def test_bfloat16_raises_naming_a16(variant):
+def test_bfloat16_runs(variant):
+    """compute_dtype: bfloat16 builds and runs in both modes, f32 states
+    out (its numbers against JAX in tests/test_torch_bf16.py)."""
     config = _configs(variant, {"compute_dtype": "bfloat16"})
-    with pytest.raises(NotImplementedError, match="A16"):
-        DenseGGNN(config, 4, torch.Generator().manual_seed(0))
+    model = DenseGGNN(config, 4, torch.Generator().manual_seed(0))
+    assert model.compute_dtype == torch.bfloat16
+    _, batches = _jax_batches(_data(), config)
+    with torch.no_grad():
+        out = model(_port_batch(batches[0]))
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("variant,draws", [("dense", 4), ("blocked", 3)])

@@ -304,7 +304,7 @@ def test_segment_scatter_sum_rejects_bad_inputs(bad):
     boff = torch.tensor([0, 1, 3], dtype=torch.int32)
     num_nodes = 2
     if bad == "g_dtype":
-        g = g.to(torch.bfloat16)
+        g = g.to(torch.float64)
     elif bad == "bgather_dtype":
         bgather = bgather.long()
     else:

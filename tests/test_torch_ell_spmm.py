@@ -134,7 +134,7 @@ def test_gather_segment_sum_rejects_bad_inputs(bad):
     offsets = torch.tensor([0, 1, 3], dtype=torch.int32)
     num_segments = 2
     if bad == "h_dtype":
-        h = h.to(torch.bfloat16)
+        h = h.to(torch.float16)
     elif bad == "src_dtype":
         src = src.long()
     elif bad == "offsets_len":

@@ -514,9 +514,12 @@ def test_unported_options_raise_naming_their_item():
     gen = torch.Generator().manual_seed(0)
     with pytest.raises(NotImplementedError, match="A11"):
         GCN(_configs("gcn", {}), gen, edge_axis="edge")
-    with pytest.raises(NotImplementedError, match="A16"):
-        BlockedGCN(_configs("gcn_blocked", {"compute_dtype": "bfloat16"}),
-                   gen)
+    # compute_dtype: bfloat16 is ported: BlockedGCN computes in it, the
+    # edge-list GCN ignores it, as in JAX (tests/test_torch_bf16.py).
+    bf16 = {"compute_dtype": "bfloat16"}
+    assert BlockedGCN(_configs("gcn_blocked", bf16),
+                      gen).compute_dtype == torch.bfloat16
+    assert GCN(_configs("gcn", bf16), gen).compute_dtype == torch.float32
     with pytest.raises(ValueError, match="lane_pad"):
         BlockedGCN(_configs("gcn_blocked", {"lane_pad": "false"}), gen)
     assert BlockedGCN(_configs("gcn_blocked", {}), gen).lane_pad is True

@@ -151,14 +151,25 @@ def test_sparse_ggnn_matches_tf1_golden(case):
                                **TOL)
 
 
-@pytest.mark.parametrize("extra,item", [
-    ({"compute_dtype": "bfloat16"}, "A16"),
-])
-def test_unported_options_raise(extra, item):
+def test_bfloat16_runs_and_other_compute_dtypes_raise():
+    """compute_dtype: bfloat16 builds and runs (f32 states out; its
+    numbers against JAX in tests/test_torch_bf16.py); a dtype that is
+    neither float32 nor bfloat16 raises a ValueError naming the key."""
     config = resolve_config("sparse", config_json=json.dumps(
-        {**SMALL, **extra}))
-    with pytest.raises(NotImplementedError, match=item):
-        SparseGGNN(config, 4, torch.Generator().manual_seed(0))
+        {**SMALL, "compute_dtype": "bfloat16"}))
+    model = SparseGGNN(config, 4, torch.Generator().manual_seed(0))
+    assert model.compute_dtype == torch.bfloat16
+    batch = next(packing.pack_sparse_batches(
+        packing.preprocess_sparse(synthetic_molecules(3), 4, True, [0], {},
+                                  False),
+        4, 100, packing.PackCapacities(96, 128, 8, 128), 16, 5, False,
+        None)).to("cpu")
+    with torch.no_grad():
+        out = model(batch)
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="compute_dtype"):
+        SparseGGNN(dict(config, compute_dtype="float16"), 4,
+                   torch.Generator().manual_seed(0))
 
 
 def test_edge_axis_and_training_dropout_raise():
