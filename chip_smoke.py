@@ -20,7 +20,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
      CSR count matrix (B1) or of its transpose (B2) (time_ms is
      `ggnn_tpu_torch/utils/timing.py`'s, shared with the probe); the
      edges past which B1/B2 cut a segment and the registers of its
-     float4 and scalar instances;
+     float4 and scalar instances (62 and 51, else the phase fails); and
+     the launch floor: a one-element `zero_` and an empty kernel through
+     the kernels' `ctypes` launch path, timed as the kernels are;
   3. probe — the gather-floor probe's entry point
      (`ggnn_tpu_torch.probes.gather_floor.run`) on the card: kernel B3
      (`gather_rows`) at unroll 1, 4 and 8 at the JAX probe's shape
@@ -109,7 +111,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
      <h[src], h[tgt]> and for the attention weights' gradient (max abs
      error at most 1e-5 of the dots' magnitude, two calls bit-equal),
      the weighted instance with the lane's attention weights over
-     target*T + type, B1 over the flattened per-type lanes (exact, rows of
+     target*T + type and, at 20k, over the three weighted transposes of
+     a train step (`EdgeDot` backward by a and by b, the aggregation's by
+     source), B1 over the flattened per-type lanes (exact, rows of
      eighths: its dump segments sum thousands of pads) and B3 at the
      per-edge route's [T, E], each with its time, bound, plain time and
      library call (`torch.sparse.mm`, `index_select`, and for `edge_dot`
@@ -203,6 +207,9 @@ TOL_STEP_GRAD = 1e-4       # ... and each gradient, relative L2 error
 TOL_REMAT = 1e-6           # async step, remat on vs off on the card
 HIDDEN = 100
 EDGE_TYPES = 4
+# The registers a thread of B1's and B2's float4 and scalar instances
+# compile to.
+B1_REGISTERS = {"float4": 62, "scalar": 51}
 SKEWED_NODES = 20000
 SKEWED_EDGES = 160000
 
@@ -1720,7 +1727,9 @@ def attention_kernel_phase(dev, gen, batches):
     the new paths against its plain version: edge_dot for the scores
     <h[src], h[tgt]> over the combined lane and for the attention
     weights' gradient <h[src], g[target*T + type]>; the weighted instance
-    with the lane's attention weights over target*T + type; B1 over the
+    with the lane's attention weights over target*T + type, and at 20k over
+    the three weighted transposes of an attention train step (`EdgeDot`
+    backward by a and by b, the aggregation's by source); B1 over the
     flattened per-type lanes (composite id t*(N+1) + target, the pads in
     the dump segments; rows of eighths, exact); B3 at the per-edge
     route's [T, E]."""
@@ -1729,7 +1738,7 @@ def attention_kernel_phase(dev, gen, batches):
         EdgeLanes, propagation_attention_weights_combined)
 
     out = {"edge_dot": [], "edge_dot_gradient": [], "weighted": [],
-           "per_type_b1": [], "gather_rows": []}
+           "weighted_transposes": [], "per_type_b1": [], "gather_rows": []}
     for label, batch, t_dim in batches:
         b = batch.to(dev)
         n = b.node_capacity
@@ -1751,6 +1760,20 @@ def attention_kernel_phase(dev, gen, batches):
         out["weighted"].append(check_weighted(
             "weighted_gather_segment_sum", f"attention weights, {label}", h,
             b.edge_sources_all, att, lanes.offsets, n * t_dim))
+        if n >= 20000:
+            # The weighted transposes of an attention train step (ops/
+            # attention.py): EdgeDot's backward by a and by b, and the
+            # aggregation's by source, each weighted by a gradient.
+            ds = torch.randn(lanes.src.shape[0], generator=gen, device=dev)
+            for name, order, table in (
+                    ("EdgeDot backward by a", lanes.source_pairs, h),
+                    ("EdgeDot backward by b", lanes.target_pairs, h),
+                    ("aggregation's by source", lanes.segment_transpose, g)):
+                ws = ds if order.perm is None else ds[order.perm].contiguous()
+                out["weighted_transposes"].append(check_weighted(
+                    "weighted_segment_scatter_sum", f"{name}, {label}",
+                    table, order.ids, ws, order.offsets,
+                    order.offsets.shape[0] - 1))
         # The dump segments sum thousands of pads' copies of row 0, whose
         # f32 rounding depends on the order past 1e-5: rows of eighths
         # make every partial sum exact, so the kernel must equal its
@@ -2681,6 +2704,17 @@ def main() -> int:
     log(f"ell_spmm: segments of more than {ell_spmm.split_edges()} edges "
         f"cut; registers a thread {registers} (B1 and B2 share both "
         "instances)")
+    if registers != B1_REGISTERS:
+        raise RuntimeError(f"B1 and B2 compiled to {registers} registers, "
+                           f"not {B1_REGISTERS}")
+    one = torch.zeros(1, device=dev)
+    launch_floor = {
+        "zero_one_element_ms": time_ms(lambda: one.zero_())[0],
+        "empty_kernel_ms": time_ms(lambda: ell_spmm.empty_launch(dev))[0]}
+    log(f"launch floor: a one-element zero_ "
+        f"{launch_floor['zero_one_element_ms'] * 1e3:.3f} us, an empty "
+        "kernel through the kernels' ctypes path "
+        f"{launch_floor['empty_kernel_ms'] * 1e3:.3f} us")
     probe = probe_phase(dev, batches)
     log(f"B1 at the 20k-node budget: {records[1]['ms'] * 1e3:.3f} us, "
         f"{records[1]['ms'] / probe['b1_output_zero_ms']:.3f} x the zero_ "
@@ -2898,8 +2932,11 @@ def main() -> int:
         "launches_by_path": w_paths,
         "max_abs_err": max(r["max_abs_err"] for r in
                            weighted["shapes"] + weighted["transpose_shapes"]
-                           + attention_kernels["weighted"]),
+                           + attention_kernels["weighted"]
+                           + attention_kernels["weighted_transposes"]),
         "attention_shapes": [short(r) for r in attention_kernels["weighted"]],
+        "attention_transpose_shapes": [
+            short(r) for r in attention_kernels["weighted_transposes"]],
         **shape_numbers(w_shape),
         "registers": weighted["registers"],
     }, {
@@ -2979,6 +3016,7 @@ def main() -> int:
         "build to the end")
     log(json.dumps({"shapes": records, "backward_shapes": b2_records,
                     "split_edges": ell_spmm.split_edges(),
+                    "registers": registers, "launch_floor": launch_floor,
                     "probe": probe, "serving": serving,
                     "dense_serving": dense_serving, "training": training,
                     "dense_training": dense_training,

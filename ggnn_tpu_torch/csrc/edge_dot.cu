@@ -13,7 +13,7 @@
 // attention scores <h[src], h[tgt]> (ggnn_tpu/ops/messages.py:56-70),
 // and the gradient of the attention weights in the weighted aggregation,
 // dw[e] = <h[src[e]], g[comp[e]]>. A plain version materialises two
-// [E, H] gathers for each; this kernel reads each row once into
+// [E, H] gathers for each; this kernel reads each pair's rows into
 // registers and writes one float an edge.
 //
 // What bounds it on the H100: bytes. An edge reads two rows of H floats
@@ -22,17 +22,31 @@
 // the ids read once and one float an edge written. At the 20,000-node
 // training batch h is 8 MB and stays in the 50 MB L2, as do the repeated
 // reads of a row by its several edges. The levers are loads in flight
-// and the warps that hold them.
+// and the warps that hold them: at that batch a launch takes about 9 us,
+// of which about 4.9 us is the launch itself (an empty kernel through the
+// same path), and a design that holds more in registers loses warps.
 //
-// Design: a warp takes kEdges consecutive edges. Lanes 0 .. kEdges-1
-// load their a ids and lanes kEdges .. 2 kEdges-1 their b ids in one
-// load instruction; the warp then loads the rows of all kEdges pairs
+// Design: a warp takes kEdges consecutive edges, one a group of kLanes =
+// 8 lanes. Lanes 0 .. kEdges-1 load their a ids and lanes kEdges ..
+// 2 kEdges-1 their b ids in one load instruction; lane li of a group then
+// loads units li, li + 8, li + 16, li + 24 of its edge's x and y rows
 // (float4 per lane when H % 4 == 0 and x and y are 16-byte aligned,
-// scalar otherwise), 2 kEdges row loads of each lane in flight before
-// any product, each lane's products summed in registers over its
-// columns. Each edge's lane sums are added by a butterfly of shuffles
-// (xor 16, 8, 4, 2, 1) and lane 0 stores them. No atomics and a fixed
-// order of every sum: two calls on the same inputs give the same bits.
+// scalar otherwise; a wider row takes further passes of 4 units a lane),
+// 8 row loads of each lane in flight before any product, so at H = 100
+// every lane loads (25 float4 units over 8 lanes), and its products are
+// summed in registers. An edge's lane sums are added by a butterfly of 3
+// shuffles inside its group (xor 4, 2, 1) and the group's first lane
+// stores them. No atomics and a fixed order of every sum: two calls on
+// the same inputs give the same bits.
+//
+// Designs timed against this one on an H100 and rejected (PERF.md has
+// their numbers): a warp of 32 consecutive edges walked by groups with
+// the y row kept while b repeats and the rows staged by `cp.async` (its
+// per-warp walk is a chain of dependent steps that the small launches
+// cannot hide), and the kernel before this one (all 32 lanes on one edge
+// at a time, a 5-round butterfly an edge, 7 of 32 lanes idle at H = 100)
+// with the y row reused or 8 edges a warp, each of which costs registers
+// and so warps.
 //
 // The bf16 instance (`edge_dot_bf16`, `compute_dtype: bfloat16`): x and y
 // bf16, out f32. A lane loads 8 bf16 values (16 bytes) when H % 8 == 0
@@ -54,6 +68,9 @@ constexpr int kWarpsPerBlock = 8;
 // Edges a warp takes; 2 * kEdges <= 32 ids load in one instruction.
 constexpr int kEdges = 4;
 static_assert(2 * kEdges <= kWarp, "a warp's ids exceed its lanes");
+// The lanes of an edge's group, and the units of a row each loads a pass.
+constexpr int kLanes = kWarp / kEdges;
+constexpr int kUnits = 4;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void zero(float& v) { v = 0.f; }
@@ -93,9 +110,10 @@ __device__ __forceinline__ float dot(const uint4 u, const uint4 v) {
 }
 
 // V is float or float4 (f32 rows), or unsigned short, uint2 or uint4
-// (bf16 rows, as bits); `width` is the row length in units of V. Every
-// branch around a shuffle depends on values that are the same on all
-// lanes of a warp, so every shuffle has its full warp.
+// (bf16 rows, as bits); `width` is the row length in units of V. Lane li
+// of group u holds units li, li + kLanes, ... of edge u's rows, kUnits of
+// them a pass. The branches on an edge's own values (`real`, a column
+// past the row) guard loads only; every shuffle has its full warp.
 template <typename V>
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 edge_dot_kernel(const V* __restrict__ x, const int* __restrict__ a,
@@ -115,46 +133,33 @@ edge_dot_kernel(const V* __restrict__ x, const int* __restrict__ a,
   } else if (lane >= kEdges && lane - kEdges < n) {
     id = __ldg(b + first + lane - kEdges);
   }
-  int ra[kEdges], rb[kEdges];
-  bool real[kEdges];
+  const int u = lane / kLanes;   // the group's edge
+  const int li = lane % kLanes;  // the lane within its group
+  const int ra = __shfl_sync(kFull, id, u);
+  const int rb = __shfl_sync(kFull, id, kEdges + u);
+  const bool real =
+      u < n && static_cast<unsigned>(rb) < static_cast<unsigned>(rows_y);
+  float acc = 0.f;
+  for (int c0 = li; c0 - li < width; c0 += kLanes * kUnits) {
+    V xv[kUnits], yv[kUnits];
 #pragma unroll
-  for (int u = 0; u < kEdges; ++u) {
-    ra[u] = __shfl_sync(kFull, id, u);
-    rb[u] = __shfl_sync(kFull, id, kEdges + u);
-    real[u] = u < n && static_cast<unsigned>(rb[u]) <
-                           static_cast<unsigned>(rows_y);
-  }
-  float acc[kEdges];
-#pragma unroll
-  for (int u = 0; u < kEdges; ++u) acc[u] = 0.f;
-  for (int col = lane; col - lane < width; col += kWarp) {
-    const bool active = col < width;
-    V xv[kEdges], yv[kEdges];
-#pragma unroll
-    for (int u = 0; u < kEdges; ++u) {
-      zero(xv[u]);
-      zero(yv[u]);
-      if (active && real[u]) {
-        xv[u] = __ldg(x + static_cast<size_t>(ra[u]) * width + col);
-        yv[u] = __ldg(y + static_cast<size_t>(rb[u]) * width + col);
+    for (int k = 0; k < kUnits; ++k) {
+      const int col = c0 + k * kLanes;
+      zero(xv[k]);
+      zero(yv[k]);
+      if (real && col < width) {
+        xv[k] = __ldg(x + static_cast<size_t>(ra) * width + col);
+        yv[k] = __ldg(y + static_cast<size_t>(rb) * width + col);
       }
     }
 #pragma unroll
-    for (int u = 0; u < kEdges; ++u) acc[u] += dot(xv[u], yv[u]);
+    for (int k = 0; k < kUnits; ++k) acc += dot(xv[k], yv[k]);
   }
 #pragma unroll
-  for (int u = 0; u < kEdges; ++u) {
-#pragma unroll
-    for (int d = kWarp / 2; d >= 1; d /= 2) {
-      acc[u] += __shfl_xor_sync(kFull, acc[u], d);
-    }
+  for (int d = kLanes / 2; d >= 1; d /= 2) {
+    acc += __shfl_xor_sync(kFull, acc, d);
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int u = 0; u < kEdges; ++u) {
-      if (u < n) out[first + u] = acc[u];
-    }
-  }
+  if (li == 0 && u < n) out[first + u] = acc;
 }
 
 bool aligned(const void* p, int bytes) {

@@ -104,6 +104,8 @@ _ARGTYPES = {
     "ell_spmm_vector_elems": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2,
     # (elems, weighted, bf16, device, regs)
     "ell_spmm_registers": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)],
+    # (device, stream)
+    "ell_spmm_empty_launch": [ctypes.c_int, ctypes.c_void_p],
 }
 # (device index, stream) -> (tickets, partial rows): the kernel's scratch,
 # its int32 tickets 0 between calls (the kernel resets those it takes).
@@ -386,6 +388,19 @@ def registers(vectorized_path, device=None, weighted: bool = False,
     if rc != 0:
         raise RuntimeError(f"ell_spmm_registers failed: CUDA error {rc}")
     return regs.value
+
+
+def empty_launch(device=None) -> None:
+    """Launch an empty kernel through the path every kernel of
+    csrc/ell_spmm.cu takes, on the current stream of the card `device`:
+    timed, the launch floor that each kernel's time includes. Counted
+    nowhere."""
+    dev = torch.device("cuda" if device is None else device)
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = _kernel("ell_spmm_empty_launch")(index, stream)
+    if rc != 0:
+        raise RuntimeError(f"ell_spmm_empty_launch failed: CUDA error {rc}")
 
 
 class SortedEdges(NamedTuple):

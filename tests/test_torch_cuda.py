@@ -9,7 +9,10 @@ sum and transpose, its serving forward and its train step, remat on and
 off); the
 dense family (cuBLAS products, no hand kernel), whose forward and train
 step must match the CPU and launch none of the kernels; and `time_ms`.
-Every test here needs an NVIDIA GPU and skips without one. The file
+The weighted instance and `edge_dot` are held at their edge cases too:
+widths 1 to 512, views off alignment, no edge, empty segments, a hub, the
+skewed lane, lanes whose b repeats, alternates or is all pads. Every test
+here needs an NVIDIA GPU and skips without one. The file
 imports nothing of JAX, so it runs where JAX is not installed:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -37,6 +40,7 @@ from ggnn_tpu_torch.ops import attention
 from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
 from ggnn_tpu_torch.ops.messages import (EdgeLanes,
                                          aggregate_then_transform_combined)
+from ggnn_tpu_torch.ops.segment import segment_offsets
 from ggnn_tpu_torch.training.config import (default_params_for,
                                             resolve_config)
 from ggnn_tpu_torch.training.runner import Runner
@@ -1427,3 +1431,135 @@ def test_bf16_sparse_ggnn_on_the_card_matches_cpu(cuda, route, attention):
         got = dict(params.named_parameters())[name].grad.cpu()
         rel = float((got - g).norm() / g.norm().clamp_min(1e-30))
         assert rel <= 2e-2, (name, rel)
+
+
+# ------------------------------------- weighted instance and edge_dot cases
+#
+# Edge cases of the two port-only kernels: rows and weights of eighths, so
+# the weighted instance must equal its plain version bit for bit in any
+# summation order (f32 at H 1, 37, 100 and 512, a view one value into its
+# buffer, bf16 at H 100, the 8-byte path, and 512), and edge_dot on lanes
+# whose b repeats, alternates, is all pads, or repeats across the lanes of
+# more than one warp.
+
+WEIGHTED_EDGE_SHAPES = [(1, True, torch.float32), (37, True, torch.float32),
+                        (100, True, torch.float32),
+                        (100, False, torch.float32),
+                        (512, True, torch.float32),
+                        (100, True, torch.bfloat16),
+                        (512, True, torch.bfloat16)]
+
+
+def _eighth_rows(rng, rows, h_dim, device, aligned, dtype):
+    return _eighths(rng, rows, h_dim, device, aligned).to(dtype)
+
+
+@pytest.mark.parametrize("h_dim,aligned,dtype", WEIGHTED_EDGE_SHAPES)
+@pytest.mark.parametrize("layout", ["zero edges", "all segments empty",
+                                    "hub of more than kGroup pieces"])
+@pytest.mark.parametrize("name", W_KERNELS)
+def test_weighted_kernel_edge_cases_sum_exactly(cuda, name, layout, h_dim,
+                                                aligned, dtype):
+    """No edge at all (an index array without storage), segments that
+    are all empty, and a 5,000-edge hub (313 pieces of 16 edges, more
+    than the 16 pieces one warp adds before the groups are added) among
+    short segments: each call equals the plain version bit for bit and
+    counts one launch."""
+    rng = np.random.default_rng(h_dim + len(layout))
+    if layout == "zero edges":
+        counts, after = [0] * 70, 0
+    elif layout == "all segments empty":
+        counts, after = [0] * 1000, 9
+    else:
+        counts, after = [0] * 500 + [5000] + [2] * 300 + [0] * 200, 9
+    rows = 600
+    x = _eighth_rows(rng, rows, h_dim, cuda, aligned, dtype)
+    idx, clean, offsets = _csr(rng, counts, rows, cuda, after=after)
+    w = _eighth_weights(rng, idx.shape[0], cuda).to(dtype)
+    before = _launch_counts()
+    got = getattr(ell_spmm, name)(x, idx, w, offsets, len(counts))
+    torch.cuda.synchronize()
+    counter = 3 if name == W_KERNELS[0] else 4
+    assert [a - b for a, b in zip(_launch_counts(), before)] == [
+        int(i == counter) for i in range(5)]
+    want = ell_spmm.weighted_gather_segment_sum_reference(
+        x, clean, w, offsets, len(counts))
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert not got[torch.from_numpy(np.asarray(counts) == 0).to(cuda)].any()
+
+
+@pytest.mark.parametrize("name", W_KERNELS)
+def test_weighted_kernel_on_the_skewed_lane_sums_exactly(cuda, name):
+    """The 160,000-edge lane of skewed in-degrees (targets Zipf 1.1 over
+    20,000 nodes, the top node thousands of edges, cut over hundreds of
+    warps), forward by target and over its transpose by source, rows and
+    weights of eighths: equal to the plain version bit for bit, and two
+    calls give the same bits."""
+    rng = np.random.default_rng(27)
+    n, e = 20000, 160000
+    zipf = 1.0 / np.arange(1, n + 1) ** 1.1
+    tgt = rng.permutation(n)[rng.choice(n, e, p=zipf / zipf.sum())]
+    src = rng.integers(0, n, e)
+    order = np.argsort(tgt, kind="stable")
+    src, tgt = (torch.from_numpy(a[order].astype(np.int32)).to(cuda)
+                for a in (src, tgt))
+    w = _eighth_weights(rng, e, cuda)
+    x = _eighths(rng, n, 100, cuda)
+    if name == W_KERNELS[0]:
+        args = (src, w, segment_offsets(tgt, n))
+    else:
+        args = ell_spmm.weighted_transpose_layout(src, tgt, w, n)
+    kernel = getattr(ell_spmm, name)
+    got = kernel(x, *args, n)
+    again = kernel(x, *args, n)
+    torch.cuda.synchronize()
+    want = ell_spmm.weighted_gather_segment_sum_reference(x, *args, n)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+def _edge_dot_lane(pattern, device, rows=300, edges=200):
+    """(a, b) int32 on `device` of `edges` pairs: a random, b as the
+    pattern makes it (pads are b = rows)."""
+    rng = np.random.default_rng(len(pattern))
+    a = rng.integers(0, rows, edges)
+    if pattern == "one repeated b":
+        b = np.full(edges, 17)
+    elif pattern == "alternating b":
+        b = np.where(np.arange(edges) % 2 == 0, 5, 211)
+    elif pattern == "all pads":
+        b = np.full(edges, rows)
+    else:   # runs of 45 equal b, each crossing 32-edge boundaries
+        b = np.sort(rng.integers(0, rows, edges // 45 + 1)).repeat(45)[:edges]
+    return tuple(torch.from_numpy(v.astype(np.int32)).to(device)
+                 for v in (a, b))
+
+
+@pytest.mark.parametrize("h_dim,aligned,dtype", [
+    (100, True, torch.float32), (37, True, torch.float32),
+    (100, False, torch.float32), (512, True, torch.bfloat16)])
+@pytest.mark.parametrize("pattern", ["one repeated b", "alternating b",
+                                     "all pads", "runs crossing warps"])
+def test_edge_dot_on_repeated_alternating_and_pad_lanes(cuda, pattern,
+                                                        h_dim, aligned,
+                                                        dtype):
+    """edge_dot where b repeats along the lane, alternates, is a pad on
+    every pair, or repeats in runs longer than a warp's share of the
+    lane: within 1e-5 of the dots' magnitude of the plain version (f32
+    sums in another order), pads 0, one launch a call and two calls with
+    the same bits."""
+    rows = 300
+    gen = torch.Generator(device=cuda).manual_seed(h_dim)
+    flat = torch.randn(rows * h_dim + 1, generator=gen, device=cuda)
+    x = (flat[:-1] if aligned else flat[1:]).view(rows, h_dim).to(dtype)
+    y = torch.randn(rows, h_dim, generator=gen, device=cuda).to(dtype)
+    a, b = _edge_dot_lane(pattern, cuda, rows)
+    before = edge_dot.launches
+    got = edge_dot.edge_dot(x, a, y, b)
+    again = edge_dot.edge_dot(x, a, y, b)
+    torch.cuda.synchronize()
+    assert edge_dot.launches - before == 2
+    assert torch.equal(got, again) and got.dtype == torch.float32
+    want = edge_dot.edge_dot_reference(x, a, y, b)
+    scale = max(float(want.abs().max()), 1.0)
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    assert not got[b >= rows].any()

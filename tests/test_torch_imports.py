@@ -1,7 +1,6 @@
 """The port stands alone: no module of ggnn_tpu_torch, and none of
-chip_smoke.py, tools/torch_serving_profile.py and
-tools/torch_op_host_cost.py, imports jax, jaxlib, the JAX package
-ggnn_tpu or the JAX benchmarks."""
+chip_smoke.py and the port's tools (tools/torch_*.py), imports jax,
+jaxlib, the JAX package ggnn_tpu or the JAX benchmarks."""
 
 import ast
 import os
@@ -18,7 +17,8 @@ FORBIDDEN = ("jax", "jaxlib", "ggnn_tpu", "benchmarks")
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "torch_serving_profile.py"),
-             os.path.join(ROOT, "tools", "torch_op_host_cost.py")]
+             os.path.join(ROOT, "tools", "torch_op_host_cost.py"),
+             os.path.join(ROOT, "tools", "torch_kernel_compare.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ggnn_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
