@@ -178,7 +178,25 @@ Phases, each raising (and so exiting non-zero) on any failure:
      stepped against the CPU, the dense forward's time in bf16 against
      f32 and against the bf16 tensor rate; and the bf16 config exported
      on the CPU and served on the card, launching what the live
-     Predictor launches.
+     Predictor launches;
+ 18. training extras — `sparse` at configs/sparse_tpu.json over phase 6's
+     corpus: 2 epochs uninterrupted; the same with a rolling checkpoint
+     every 2 steps (the one at epoch 2, step 2 kept) and every step; the
+     run resumed on the card from the kept checkpoint, its parameters
+     within 1e-6 of the uninterrupted run's (bit-equality reported),
+     graphs/s with a checkpoint every step against none, each run's B1
+     and B2 launches (8 a train step and validation batch, 7 a train
+     step); `cli.main(["sparse", "--profile", DIR, ...])` for one epoch,
+     whose Chrome trace names B1's and B2's ops and kernel
+     (`segment_sum_kernel`, shared) as often as the counters read over
+     the profiled epoch; `Runner.predict` on the card over the
+     validation corpus from the best pickle against the card `Predictor`
+     (1e-5) and the CPU Runner (1e-4), and `cli.main([..., "--restore",
+     best, "--evaluate"])`; a QM9-layout tarball of 40 molecules of
+     tests/test_smiles.py's oracle extracted by `ggnn_tpu_torch.data.qm9`
+     and trained for one epoch through `cli.main(["sparse", "--data_dir",
+     ...])` to a finite loss; and whether tensorboardX imported (then the
+     run's event files must exist).
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -186,6 +204,7 @@ limit (nvidia-smi), one JSON object with the kernels' numbers, and
 the repository, the script fails and prints no result.
 """
 
+import glob
 import json
 import os
 import statistics
@@ -2666,6 +2685,433 @@ def bf16_export_phase(ckpt_dir):
     return rec
 
 
+# ------------------------------------------------------- training extras
+
+TOL_RESUME = 1e-6          # resumed vs uninterrupted parameters on the card
+TOL_PREDICT = 1e-5         # Runner.predict vs the card Predictor
+TOL_PREDICT_CPU = 1e-4     # ... and vs the CPU Runner's predict
+# SMILES of tests/test_smiles.py's oracle, atoms H/C/N/O/F only: the
+# molecules of the QM9-layout tarball phase 18 extracts and trains on.
+ORACLE_SMILES = (
+    "C", "N", "O", "F", "C=O", "CCO", "CC(=O)O", "c1ccccc1", "c1ccncc1",
+    "c1cc[nH]c1", "c1ccoc1", "CC#N", "O=C=O", "C1CC1", "F/C=C/F",
+    "Cc1ccccc1", "[C@@H](N)(O)F", "[13CH4]", "C.C", "C%10CC%10",
+    "c1ccc2ccccc2c1", "c1:c:c:c:c:c1", "C=1CCCCC=1", "C1=CC=CC=C1",
+    "C1=CC=CN1", "C1=CC=CC=N1", "C1=CC=CO1", "C1=CN=CN1",
+    "C1=CC=CC2=CC=CC=C12", "O=C1C=CC=CN1", "C1=CC=C1", "C1=CCCCC1",
+    "C=C1C=CC=C1", "C=CC=C", "FC(F)F", "CC(C)C", "C/C=C/C", "N#Cc1ccccc1",
+    "OCC1OC1", "Cn1cccc1")
+
+
+def params_of(runner):
+    return {n: p.detach().cpu() for n, p in runner.params.named_parameters()}
+
+
+def sparse_launches(steps, train_steps, eval_batches):
+    """The launches (`route_launches` order) of `train_steps` train steps
+    and `eval_batches` forwards of the combined lane without attention:
+    B1 once a propagation step of each, B2 once a step but the first of
+    each train step."""
+    step = route_launches("combined", False, steps, True)
+    forward = route_launches("combined", False, steps, False)
+    return tuple(train_steps * a + eval_batches * b
+                 for a, b in zip(step, forward))
+
+
+def counted_train(label, runner, base_steps=(0, 0)):
+    """`runner.train()` on the card, the counters set to 0 just before
+    and read just after, held to `sparse_launches` over the steps and
+    validation batches the run added to `base_steps`; every loss
+    finite."""
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    history = runner.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = launch_counts()
+    train_steps = runner.train_step_id - base_steps[0]
+    valid_batches = runner.valid_step_id - base_steps[1]
+    steps = sum(runner.config["layer_timesteps"])
+    want = sparse_launches(steps, train_steps, valid_batches)
+    log(f"extras {label}: {len(history)} epochs, {train_steps} train steps, "
+        f"{valid_batches} validation batches in {seconds:.2f} s; launches "
+        f"{COUNTER_NAMES} {launched}, expected {want}; train graphs/s "
+        f"{[round(e['train_results'][3], 1) for e in history]}")
+    if launched != want:
+        raise RuntimeError(f"extras {label} launched {launched}, expected "
+                           f"{want}")
+    for entry in history:
+        if not np.isfinite([entry["train_results"][0],
+                            entry["valid_results"][0]]).all():
+            raise RuntimeError(f"extras {label}: non-finite loss")
+    return {"launches": list(launched), "seconds": seconds,
+            "train_steps": train_steps, "valid_batches": valid_batches,
+            "train_graphs_per_s": [e["train_results"][3] for e in history],
+            "epochs": [e["epoch"] for e in history]}
+
+
+def resume_phase(corpus, log_dir):
+    """2 epochs of `sparse` at configs/sparse_tpu.json (20,000-node
+    batches, edge-weight dropout 0.8) uninterrupted; the same with a
+    rolling checkpoint every 2 steps, the one at epoch 2, step 2 kept,
+    and with one every step, then uninterrupted again (graphs/s with a
+    checkpoint every step against the mean of the runs without); and
+    the run resumed from the kept checkpoint on the card, its final
+    parameters held to the uninterrupted run's."""
+    import shutil
+
+    from ggnn_tpu_torch.training import runner as runner_mod
+    from ggnn_tpu_torch.training.checkpoint import load_iterator_state
+    from ggnn_tpu_torch.training.runner import Runner
+
+    config = train_config("sparse", {"num_epochs": 2})
+    assert config["batch_size"] == 20000
+    assert config["edge_weight_dropout_keep_prob"] == 0.8
+    train, valid = corpus
+
+    def runner(tag, **kwargs):
+        return Runner("sparse", dict(config), train_data=train,
+                      valid_data=valid, log_dir=os.path.join(log_dir, tag),
+                      quiet=True, **kwargs)
+
+    runs = {}
+    ref = runner("uninterrupted")
+    if ref.device.type != "cuda":
+        raise RuntimeError(f"default device is {ref.device}")
+    runs["uninterrupted"] = counted_train("uninterrupted", ref)
+
+    ckpt = os.path.join(log_dir, "epoch2_step2.pickle")
+    save = runner_mod.save_checkpoint
+    save_seconds = []
+
+    def capture(path, *args, iterator_state=None, **kwargs):
+        t0 = time.perf_counter()
+        save(path, *args, iterator_state=iterator_state, **kwargs)
+        if iterator_state is None:   # the best and epoch checkpoints
+            return
+        save_seconds.append(time.perf_counter() - t0)
+        if (iterator_state["epoch"], iterator_state["steps_done"]) == (2, 2):
+            shutil.copy(path, ckpt)
+
+    runner_mod.save_checkpoint = capture
+    try:
+        runs["every_2_steps"] = counted_train("checkpoint every 2 steps",
+                                              runner("every2",
+                                                     checkpoint_every_steps=2))
+        saves_every_2 = len(save_seconds)
+        runs["every_step"] = counted_train("checkpoint every step",
+                                           runner("every1",
+                                                  checkpoint_every_steps=1))
+    finally:
+        runner_mod.save_checkpoint = save
+    # None, every 2, every step, none: the checkpoints' cost against the
+    # runs without on either side.
+    runs["uninterrupted_again"] = counted_train("uninterrupted, again",
+                                                runner("uninterrupted2"))
+    it = load_iterator_state(ckpt)
+    if ((it["epoch"], it["steps_done"]) != (2, 2)
+            or it["torch_generator_device"] != "cuda"):
+        raise RuntimeError(f"the kept checkpoint holds {it}")
+    resumed = runner("resumed", restore=ckpt)
+    base = (resumed.train_step_id, resumed.valid_step_id)
+    runs["resumed"] = counted_train("resumed from epoch 2, step 2", resumed,
+                                    base)
+    if runs["resumed"]["epochs"] != [2] or \
+            resumed.train_step_id != ref.train_step_id:
+        raise RuntimeError("the resumed run did not finish epoch 2 alone")
+    want, got = params_of(ref), params_of(resumed)
+    diff = max(float((got[n] - want[n]).abs().max()) for n in want)
+    bit_equal = all(torch.equal(got[n], want[n]) for n in want)
+    size = os.path.getsize(ckpt)
+    log(f"extras resume: the resumed run's {len(want)} parameters against "
+        f"the uninterrupted run's: max abs difference {diff:.3e} (limit "
+        f"{TOL_RESUME}), bit-equal {bit_equal}; rolling checkpoint "
+        f"{size} bytes, {statistics.median(save_seconds) * 1e3:.2f} ms a "
+        f"save (median of {len(save_seconds)}, host clock)")
+    if not diff <= TOL_RESUME:
+        raise RuntimeError("the resumed run's parameters differ from the "
+                           "uninterrupted run's")
+    none = [(a + b) / 2 for a, b in zip(
+        runs["uninterrupted"]["train_graphs_per_s"],
+        runs["uninterrupted_again"]["train_graphs_per_s"])]
+    ratio = [a / b for a, b in
+             zip(runs["every_step"]["train_graphs_per_s"], none)]
+    log(f"extras: train graphs/s with a checkpoint every step over the mean "
+        f"of the two runs without, epochs 1 and 2: "
+        f"{[round(r, 4) for r in ratio]}")
+    return ref, {"runs": runs, "max_abs_diff": diff, "bit_equal": bit_equal,
+                 "checkpoint_bytes": size,
+                 "save_ms_median": statistics.median(save_seconds) * 1e3,
+                 "saves": {"every_2_steps": saves_every_2,
+                           "every_step": len(save_seconds) - saves_every_2},
+                 "every_step_over_none_graphs_per_s": ratio}
+
+
+def trace_counts(path):
+    """(calls of each `ggnn_tpu_torch::` op, kernels by name, kernels of
+    `segment_sum_kernel` attributed to the op whose call launched them by
+    the launch's correlation id, or None where no launch of them was
+    traced) of a Chrome trace of `torch.profiler`."""
+    import collections
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ops = [e for e in events if e.get("cat") == "cpu_op"
+           and e["name"].startswith("ggnn_tpu_torch::")]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    by_kernel = collections.Counter(
+        "segment_sum_kernel" if "segment_sum_kernel" in e["name"]
+        else e["name"][:60] for e in kernels)
+    launch_op = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and "aunch" in e["name"]:
+            for op in ops:
+                if (op["tid"] == e["tid"] and op["ts"] <= e["ts"]
+                        <= op["ts"] + op["dur"]):
+                    launch_op[e["args"]["correlation"]] = op["name"]
+    attributed = collections.Counter(
+        launch_op.get(e["args"].get("correlation"), "unattributed")
+        for e in kernels if "segment_sum_kernel" in e["name"])
+    if set(attributed) <= {"unattributed"}:
+        attributed = None   # no launch event of these kernels was traced
+    return (collections.Counter(op["name"] for op in ops), by_kernel,
+            None if attributed is None else dict(attributed))
+
+
+def profile_cli_phase(work_dir):
+    """`cli.main(["sparse", "--profile", DIR, ...])` for one epoch on the
+    card at configs/sparse_tpu.json over `--synthetic 6000`: one Chrome
+    trace, whose B1 and B2 op calls and `segment_sum_kernel` launches
+    (B1 and B2 share it) equal the counters of the profiled training
+    epoch."""
+    from ggnn_tpu_torch import cli
+    from ggnn_tpu_torch.training.runner import Runner
+
+    profile_dir = os.path.join(work_dir, "profile")
+    by_epoch = {}
+    run_epoch = Runner.run_epoch
+
+    def counted(self, name, processed, is_training):
+        before = launch_counts()
+        result = run_epoch(self, name, processed, is_training)
+        torch.cuda.synchronize()
+        by_epoch[name] = (tuple(a - b for a, b in
+                                zip(launch_counts(), before)), result[4])
+        return result
+
+    Runner.run_epoch = counted
+    try:
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["sparse", "--synthetic", "6000", "--config-file",
+                       os.path.join(REPO, "configs", "sparse_tpu.json"),
+                       "--config", json.dumps({"num_epochs": 1}),
+                       "--log_dir", work_dir, "--profile", profile_dir,
+                       "--quiet"])
+        seconds = time.perf_counter() - t0
+        launched = launch_counts()
+    finally:
+        Runner.run_epoch = run_epoch
+    traces = os.listdir(profile_dir)
+    if rc != 0 or len(traces) != 1:
+        raise RuntimeError(f"cli --profile returned {rc}, wrote {traces}")
+    (b1, b2, *others), steps = by_epoch["epoch 1 (training)"]
+    ops, kernels, attributed = trace_counts(os.path.join(profile_dir,
+                                                         traces[0]))
+    log(f"extras profile: cli.main --profile {seconds:.2f} s, launches "
+        f"{COUNTER_NAMES} {launched}; the profiled epoch: {steps} steps, "
+        f"B1 {b1}, B2 {b2}; its trace "
+        f"({os.path.getsize(os.path.join(profile_dir, traces[0]))} bytes): "
+        f"ops {dict(ops)}, segment_sum_kernel "
+        f"{kernels['segment_sum_kernel']}, attributed by launch "
+        f"{attributed}; {sum(kernels.values())} kernels in all")
+    want_ops = {"ggnn_tpu_torch::gather_segment_sum": b1,
+                "ggnn_tpu_torch::segment_scatter_sum": b2}
+    if (b1 == 0 or b2 == 0 or any(others) or ops != want_ops
+            or kernels["segment_sum_kernel"] != b1 + b2):
+        raise RuntimeError("the profiled epoch's trace does not name B1 "
+                           "and B2 as often as the counters read")
+    if attributed is not None and attributed != {
+            "ggnn_tpu_torch::gather_segment_sum": b1,
+            "ggnn_tpu_torch::segment_scatter_sum": b2}:
+        raise RuntimeError(f"the trace attributes {attributed} kernels")
+    return {"seconds": seconds, "launches": list(launched),
+            "epoch_steps": steps, "epoch_b1": b1, "epoch_b2": b2,
+            "trace_ops": dict(ops),
+            "trace_segment_sum_kernels": kernels["segment_sum_kernel"],
+            "trace_attributed": attributed,
+            "trace_kernels": sum(kernels.values())}
+
+
+def evaluate_phase(best, corpus, log_dir):
+    """`Runner.predict` on the card over the validation corpus from the
+    run's best pickle, against the card `Predictor` of it and the CPU
+    Runner's predict; then `cli.main([... "--restore", best,
+    "--evaluate"])`."""
+    from ggnn_tpu_torch import cli
+    from ggnn_tpu_torch.serving import Predictor
+    from ggnn_tpu_torch.training.runner import Runner
+
+    config = train_config("sparse", {"num_epochs": 2})
+    valid = corpus[1]
+    runners = {dev: Runner("sparse", dict(config), train_data=valid,
+                           valid_data=valid,
+                           log_dir=os.path.join(log_dir, dev), quiet=True,
+                           restore=best, device=dev)
+               for dev in ("cuda", "cpu")}
+    card = runners["cuda"]
+    card.predict(valid[:10])   # warm-up
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    got = np.concatenate(card.predict(valid), axis=1)
+    seconds = time.perf_counter() - t0
+    launched = launch_counts()
+    batches = sum(1 for _ in card.adapter.batches(
+        card.adapter.preprocess(valid, False), False))
+    want_launches = sparse_launches(sum(config["layer_timesteps"]), 0,
+                                    batches)
+    predictor = Predictor.from_checkpoint(best, "sparse")
+    served = predictor(valid)
+    cpu = np.concatenate(runners["cpu"].predict(valid), axis=1)
+    err, err_cpu = (float(np.abs(got - served).max()),
+                    float(np.abs(got - cpu).max()))
+    log(f"extras evaluate: Runner.predict of {len(valid)} graphs on the "
+        f"card ({batches} batches, {seconds * 1e3:.1f} ms, host clock) "
+        f"launched {COUNTER_NAMES} {launched}, expected {want_launches}; "
+        f"max abs error against the card Predictor {err:.3e} (limit "
+        f"{TOL_PREDICT}), against the CPU Runner {err_cpu:.3e} (limit "
+        f"{TOL_PREDICT_CPU})")
+    if got.shape != (1, len(valid)) or not np.isfinite(got).all():
+        raise RuntimeError(f"Runner.predict gave shape {got.shape}")
+    if launched != want_launches:
+        raise RuntimeError("Runner.predict did not launch B1 once a step")
+    np.testing.assert_allclose(got, served, rtol=TOL_PREDICT,
+                               atol=TOL_PREDICT)
+    np.testing.assert_allclose(got, cpu, rtol=TOL_PREDICT_CPU,
+                               atol=TOL_PREDICT_CPU)
+    zero_launch_counts()
+    rc = cli.main(["sparse", "--synthetic", "60", "--config-file",
+                   os.path.join(REPO, "configs", "sparse_tpu.json"),
+                   "--config", json.dumps({"num_epochs": 2}), "--restore",
+                   best, "--evaluate", "--log_dir",
+                   os.path.join(log_dir, "cli"), "--quiet"])
+    cli_launched = launch_counts()
+    log(f"extras evaluate: cli.main --restore --evaluate returned {rc}, "
+        f"launches {cli_launched}")
+    if rc != 0 or cli_launched[0] == 0:
+        raise RuntimeError(f"cli --evaluate returned {rc}")
+    return {"launches": list(launched), "cli_launches": list(cli_launched),
+            "batches": batches, "predict_ms": seconds * 1e3,
+            "max_abs_err_vs_predictor": err, "max_abs_err_vs_cpu": err_cpu}
+
+
+def write_qm9_tarball(path, mol_ids, seed):
+    """A `.tar.bz2` in the QM9 layout, one `dsgdb9nsd_<id>.xyz` a
+    molecule of ORACLE_SMILES (atom count, tab-separated properties with
+    mu in column 4, atoms, frequencies, the SMILES line, InChI), mu
+    random from `seed`."""
+    import io
+    import tarfile
+
+    rng = np.random.default_rng(seed)
+    with tarfile.open(path, "w:bz2") as tar:
+        for mol_id, text in zip(mol_ids, ORACLE_SMILES):
+            props = ["gdb", str(mol_id), "2", "3",
+                     f"{rng.uniform(0.0, 6.0):.4f}", "5", "6"]
+            lines = ["3", "\t".join(props)]
+            lines += [f"C\t0.0\t0.0\t{i}.0\t0.0" for i in range(3)]
+            lines += ["100.0\t200.0", f"{text}\t{text}", "InChI=1S/none"]
+            data = ("\n".join(lines) + "\n").encode()
+            info = tarfile.TarInfo(f"dsgdb9nsd_{mol_id:06d}.xyz")
+            info.size = len(data)
+            tar.addfile(info, io.BytesIO(data))
+
+
+def ingestion_phase(work_dir):
+    """A QM9-layout tarball of the 40 oracle molecules (10 of them with
+    ids of the split file's validation set) extracted by
+    `python -m ggnn_tpu_torch.data.qm9`'s `main`, then one epoch of
+    `sparse` on the card through `cli.main(["sparse", "--data_dir",
+    ...])`: finite losses, B1 and B2 launched."""
+    from ggnn_tpu_torch import cli
+    from ggnn_tpu_torch.data import qm9
+
+    os.makedirs(work_dir, exist_ok=True)
+    valid_ids = sorted(int(i) for i in qm9.load_valid_idx())[:10]
+    train_ids = [i for i in range(1, 100) if i not in set(valid_ids)][:30]
+    tarball = os.path.join(work_dir, "dsgdb9nsd.xyz.tar.bz2")
+    write_qm9_tarball(tarball, sorted(train_ids + valid_ids), seed=45)
+    out_dir = os.path.join(work_dir, "json")
+    t0 = time.perf_counter()
+    qm9.main(["--tarball", tarball, "--data-dir",
+              os.path.join(work_dir, "data"), "--out-dir", out_dir])
+    extract_s = time.perf_counter() - t0
+    sizes = {}
+    for split in ("train", "valid"):
+        with open(os.path.join(out_dir, f"molecules_{split}.json")) as f:
+            sizes[split] = len(json.load(f))
+    log_dir = os.path.join(work_dir, "log")
+    zero_launch_counts()
+    rc = cli.main(["sparse", "--data_dir", out_dir, "--config",
+                   json.dumps({"num_epochs": 1}), "--log_dir", log_dir,
+                   "--quiet"])
+    launched = launch_counts()
+    logs = [n for n in os.listdir(log_dir) if n.endswith("_log.json")]
+    with open(os.path.join(log_dir, logs[0])) as f:
+        entry = json.load(f)[0]
+    losses = [entry["train_results"][0], entry["valid_results"][0]]
+    log(f"extras ingestion: {sizes} molecules extracted in {extract_s:.2f} "
+        f"s; one epoch through cli.main --data_dir returned {rc}, losses "
+        f"{losses}, launches {COUNTER_NAMES} {launched}")
+    if (rc != 0 or sizes != {"train": 30, "valid": 10}
+            or not np.isfinite(losses).all() or not all(launched[:2])):
+        raise RuntimeError("the QM9 tarball did not train to a finite loss")
+    return {"molecules": sizes, "extract_seconds": extract_s,
+            "losses": losses, "launches": list(launched)}
+
+
+def extras_phase(corpus, work_dir):
+    """Phase 18: mid-epoch resume, `--profile`, evaluation, QM9 ingestion
+    and TensorBoard, each path's launches counted from 0 just before
+    it."""
+    start = time.perf_counter()
+    seconds = {}
+
+    def timed(label, phase, *args):
+        t0 = time.perf_counter()
+        result = phase(*args)
+        seconds[label] = time.perf_counter() - t0
+        return result
+
+    ref, resume = timed("resume", resume_phase, corpus,
+                        os.path.join(work_dir, "resume"))
+    profile = timed("profile", profile_cli_phase,
+                    os.path.join(work_dir, "profile_run"))
+    evaluate = timed("evaluate", evaluate_phase, ref.best_model_file,
+                     corpus, os.path.join(work_dir, "evaluate"))
+    ingestion = timed("ingestion", ingestion_phase,
+                      os.path.join(work_dir, "qm9"))
+    try:
+        import tensorboardX  # noqa: F401
+        tensorboard = True
+    except ImportError:
+        tensorboard = False
+    events = glob.glob(os.path.join(os.path.dirname(ref.log_file), "tb",
+                                    ref.run_id, "*", "events.*"))
+    log(f"extras tensorboard: tensorboardX imported {tensorboard}; event "
+        f"files of the uninterrupted run {len(events)}")
+    if tensorboard and len(events) != 2:
+        raise RuntimeError("the run wrote no TensorBoard events")
+    total = time.perf_counter() - start
+    log(f"extras phases: {total:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())})")
+    return {"resume": resume, "profile": profile, "evaluate": evaluate,
+            "ingestion": ingestion, "tensorboardx": tensorboard,
+            "event_files": len(events), "seconds": seconds,
+            "total_seconds": total}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -2818,6 +3264,7 @@ def main() -> int:
                              os.path.join(work_dir, "export"))
     log(f"bf16 phases: {time.perf_counter() - bf16_start:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in bf16_seconds.items())})")
+    extras = extras_phase(corpus, os.path.join(work_dir, "extras"))
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -2852,6 +3299,12 @@ def main() -> int:
         runs[f"{label} artifact serving"] = [
             sum(c) for c in zip(*(r["launches"] for r in
                                   exported[label]["requests"].values()))]
+    for label, rec in extras["resume"]["runs"].items():
+        runs[f"extras {label} training"] = rec["launches"]
+    runs["extras cli --profile"] = extras["profile"]["launches"]
+    runs["extras Runner.predict"] = extras["evaluate"]["launches"]
+    runs["extras cli --evaluate"] = extras["evaluate"]["cli_launches"]
+    runs["extras QM9 cli"] = extras["ingestion"]["launches"]
 
     def by_path(*indices):
         return {path: sum(counts[i] for i in indices)
@@ -3046,7 +3499,8 @@ def main() -> int:
                     "bf16_routes": bf16_routes, "bf16_dense": bf16_dense,
                     "bf16_export": bf16_export,
                     "bf16_launches_by_run": bf16_runs,
-                    "bf16_phase_seconds": bf16_seconds}))
+                    "bf16_phase_seconds": bf16_seconds,
+                    "extras": extras}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -3,33 +3,29 @@
     python -m ggnn_tpu_torch.cli sparse|rgcn|dense|blocked|gcn|gcn_blocked|async
         [--config-file FILE] [--config JSON] [--log_dir DIR]
         [--data_dir DIR] [--restore FILE] [--freeze-graph-model] [--restrict_data N] [--synthetic N]
-        [--quiet] [--save-every-epoch] [--pdb] [--device DEVICE]
+        [--quiet] [--save-every-epoch] [--checkpoint-every-steps K]
+        [--evaluate] [--profile DIR] [--pdb] [--device DEVICE]
         [--export-artifact PATH [--export-max-nodes N] [--export-max-graphs N]]
 
 The flags of `ggnn_tpu/cli.py` for these variants, plus `--device`: the
 run goes to the GPU unless `--device cpu` is given, and exits non-zero
 without CUDA. `--synthetic N` trains on N synthetic QM9-shaped
-molecules (and validates on N // 10) instead of JSON files. `--restore`
-takes a pickle of either package or a reference TF1 pickle.
+molecules (and validates on N // 10) instead of JSON files (`python -m
+ggnn_tpu_torch.data.qm9` writes QM9's). `--restore` takes a pickle of
+either package or a reference TF1 pickle; a rolling checkpoint of
+`--checkpoint-every-steps` resumes the interrupted epoch at the batch it
+stopped at. `--evaluate` prints the targets and predictions of the
+first 10 validation molecules instead of training. `--profile DIR`
+writes a `torch.profiler` Chrome trace of epoch 1's training epoch.
 `--export-artifact PATH` with `--restore` writes a `.ggnnx` deployment
 artifact (export.py) instead of training; `--config` and `--config-file`
 then apply as overrides on the checkpoint's config. Serve it with
 `python -m ggnn_tpu_torch.server --checkpoint PATH`.
-
-The flags of the JAX CLI that are not ported yet are accepted and exit
-with code 2 naming the ROADMAP item that ports them.
 """
 
 import argparse
 import sys
 import traceback
-
-# flag destination -> (flag, ROADMAP item)
-_FLAGS_NOT_PORTED = {
-    "evaluate": ("--evaluate", "A9"),
-    "profile": ("--profile", "A9"),
-    "checkpoint_every_steps": ("--checkpoint-every-steps", "A9"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -64,11 +60,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Device to run on (default: the GPU; 'cpu' for "
                         "the CPU).")
     p.add_argument("--evaluate", action="store_true",
-                   help="Not ported yet (ROADMAP A9).")
+                   help="Example evaluation using a restored model.")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="Not ported yet (ROADMAP A9).")
+                   help="Write a torch.profiler Chrome trace of the first "
+                        "training epoch to DIR.")
     p.add_argument("--checkpoint-every-steps", type=int, default=0,
-                   metavar="K", help="Not ported yet (ROADMAP A9).")
+                   metavar="K",
+                   help="Mid-epoch preemption recovery: every K training "
+                        "steps, write the rolling checkpoint with the "
+                        "data-iterator state (epoch, stream position, "
+                        "RNG), so --restore resumes the same epoch at the "
+                        "same batch.")
     p.add_argument("--export-artifact", default=None, metavar="PATH",
                    help="With --restore: write a .ggnnx deployment "
                         "artifact (torch.export programs + weights; see "
@@ -109,20 +111,8 @@ def _export(args) -> None:
               "platforms cpu+cuda)")
 
 
-def _not_ported(args) -> str:
-    """The message for a flag that is not ported, or ''."""
-    for dest, (flag, item) in _FLAGS_NOT_PORTED.items():
-        if getattr(args, dest):
-            return f"{flag} is not ported yet (ROADMAP {item})"
-    return ""
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    message = _not_ported(args)
-    if message:
-        print(message, file=sys.stderr)
-        return 2
     if args.export_artifact is not None and args.restore is None:
         print("--export-artifact requires --restore CHECKPOINT",
               file=sys.stderr)
@@ -156,8 +146,17 @@ def main(argv=None) -> int:
             freeze_graph_model=args.freeze_graph_model,
             train_data=train_data, valid_data=valid_data,
             restrict_data=args.restrict_data, quiet=args.quiet,
-            save_every_epoch=args.save_every_epoch, device=args.device)
-        runner.train()
+            profile_dir=args.profile,
+            save_every_epoch=args.save_every_epoch,
+            checkpoint_every_steps=args.checkpoint_every_steps,
+            device=args.device)
+        if args.evaluate:
+            # Without --synthetic, the config's valid_file in --data_dir.
+            runner.example_evaluation(
+                example_molecules=None if valid_data is None
+                else valid_data[:10])
+        else:
+            runner.train()
         return 0
     except Exception:
         traceback.print_exc()

@@ -57,6 +57,14 @@ def infer_metadata(datasets: Sequence[Sequence[Any]],
     return meta
 
 
+def graph_string_to_array(graph_string: str) -> List[List[int]]:
+    """A whitespace graph string, one "src type dst" edge a line, as
+    [[src, type, dst], ...] (an unused helper of the reference,
+    chem_tensorflow.py:125-128)."""
+    return [[int(v) for v in s.split(" ")]
+            for s in graph_string.split("\n")]
+
+
 def load_graphs_json(path: str, restrict: Optional[int] = None) -> List[Any]:
     """A JSON corpus file; `restrict` keeps its first N graphs."""
     with open(path, "r") as f:

@@ -39,6 +39,19 @@ match on the keys both have, except `task_ids` and `num_epochs`; a task
 head the pickle lacks keeps the fresh one; the optimizer's state stays
 fresh (the reference's TF-Adam slots have no place in it).
 
+A rolling checkpoint written mid-epoch (`Runner(checkpoint_every_steps=
+K)`) also holds the data iterator's position, in the JAX package's
+layout, so a run interrupted in one package resumes in the other:
+  "iterator_state": {"epoch": int, "steps_done": int,
+                     "np_rng_state": <numpy RandomState state as of the
+                                      epoch's start>,
+                     "torch_generator_state": <uint8 array>,
+                     "torch_generator_device": "cuda" | "cpu"}
+The last two are the port's dropout stream at the save point; the JAX
+loader ignores them. The JAX package's `key` (its `jax.random` key at
+the save point) is read and not used: the port's dropout stream is a
+`torch.Generator`, not that key.
+
 Not ported yet (ROADMAP A17): Orbax directory checkpoints.
 """
 
@@ -212,8 +225,9 @@ def _is_pickle_path(path: str) -> bool:
 
 def save_checkpoint(path: str, config: Dict, params: nn.Module,
                     train_step: int, valid_step: int,
-                    optimizer=None) -> None:
-    """The model's weights and, when given, the optimizer's state."""
+                    optimizer=None, iterator_state: Dict = None) -> None:
+    """The model's weights and, when given, the optimizer's state and the
+    mid-epoch iterator state (see the module's docstring)."""
     if not _is_pickle_path(path):
         raise NotImplementedError(
             f"'{path}' has no .pickle/.pkl extension, which selects the "
@@ -228,8 +242,45 @@ def save_checkpoint(path: str, config: Dict, params: nn.Module,
         "train_step": train_step,
         "valid_step": valid_step,
     }
+    if iterator_state is not None:
+        payload["iterator_state"] = iterator_state
     with open(path, "wb") as f:
         pickle.dump(payload, f, pickle.HIGHEST_PROTOCOL)
+
+
+def _encode_iterator_state(it: Dict) -> Dict:
+    """JSON-safe encoding (the form of the JAX package's Orbax meta
+    sidecar): the arrays become lists."""
+    out = dict(it)
+    if "np_rng_state" in out:
+        name, keys, pos, has_gauss, gauss = out["np_rng_state"]
+        out["np_rng_state"] = [name, [int(k) for k in keys], int(pos),
+                               int(has_gauss), float(gauss)]
+    for key in ("key", "torch_generator_state"):
+        if key in out:
+            out[key] = [int(x) for x in np.asarray(out[key]).ravel()]
+    return out
+
+
+def _decode_iterator_state(it: Dict) -> Dict:
+    """The inverse of `_encode_iterator_state`; a pickled state passes
+    through unchanged."""
+    out = dict(it)
+    if "np_rng_state" in out and isinstance(out["np_rng_state"], list):
+        name, keys, pos, has_gauss, gauss = out["np_rng_state"]
+        out["np_rng_state"] = (name, np.asarray(keys, np.uint32), pos,
+                               has_gauss, gauss)
+    for key, dtype in (("key", np.uint32),
+                       ("torch_generator_state", np.uint8)):
+        if key in out and isinstance(out[key], list):
+            out[key] = np.asarray(out[key], dtype)
+    return out
+
+
+def load_iterator_state(path: str):
+    """The saved mid-epoch iterator state, or None."""
+    it = _load_payload(path).get("iterator_state")
+    return _decode_iterator_state(it) if it else None
 
 
 def _load_payload(path: str) -> Dict:

@@ -13,7 +13,17 @@ The port of the single-device path of `ggnn_tpu/training/runner.py`
     validation MAE, best-model checkpointing (Adam state included),
     restore-then-revalidate, optional per-epoch rolling checkpoint;
   * `use_graph=False` ablation (zeroes the propagated states);
-  * `--freeze-graph-model` (graph subtree excluded from updates).
+  * `--freeze-graph-model` (graph subtree excluded from updates);
+  * mid-epoch resume: every `checkpoint_every_steps` training steps the
+    rolling checkpoint also holds the iterator state (epoch, steps
+    consumed, the numpy RNG state as of the epoch's start and the
+    dropout generator's state), and a restore from it replays the
+    epoch's batch stream, drops the consumed batches and continues;
+  * TensorBoard scalars (training/summaries.py), written after the
+    epoch's one device-to-host copy;
+  * `profile_dir`: a `torch.profiler` Chrome trace of epoch 1's
+    training epoch;
+  * `predict` and `example_evaluation` (sparse.py:364-376).
 
 It runs on the GPU unless the caller passes `device="cpu"`, and without
 CUDA it raises. The numpy stream is the JAX Runner's:
@@ -22,12 +32,15 @@ split once, then each epoch's pack, so with the same seed both Runners
 see the same batches in the same order. Dropout masks come from a
 `torch.Generator` on the run's device and differ from the JAX masks by
 design; initial weights come from a CPU `torch.Generator`, so a run
-starts from the same weights on either device.
+starts from the same weights on either device. Only training steps draw
+from the generator (validation and prediction run with every keep
+probability at 1.0), so a resumed run that restores the generator's
+state replays the uninterrupted run's dropout masks. A generator state
+saved on another device type (or none, as in a JAX checkpoint) does not
+fit, and the resumed run keeps its seeded stream.
 
-Not ported yet: the mesh paths (ROADMAP A11), `train_on_device` (a CUDA
-graph counterpart, ROADMAP A18), mid-epoch iterator resume, TensorBoard
-summaries (accepted as `tensorboard=`, nothing is written), `--profile`,
-`predict` and `example_evaluation` (A9).
+Not ported yet: the mesh paths (ROADMAP A11) and `train_on_device` (a
+CUDA graph counterpart, ROADMAP A18).
 """
 
 import json
@@ -43,9 +56,11 @@ from ggnn_tpu_torch.graph import (AsyncGraphBatch, DenseGraphBatch,
                                   GCNGraphBatch)
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss)
-from ggnn_tpu_torch.training.checkpoint import (restore_checkpoint,
+from ggnn_tpu_torch.training.checkpoint import (load_iterator_state,
+                                                restore_checkpoint,
                                                 save_checkpoint)
 from ggnn_tpu_torch.training.optimizer import TFAdam
+from ggnn_tpu_torch.training.summaries import SummarySink
 from ggnn_tpu_torch.training.variants import make_adapter
 from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
@@ -78,13 +93,15 @@ class Runner:
                  restrict_data: Optional[int] = None,
                  quiet: bool = False,
                  tensorboard: bool = True,
+                 profile_dir: Optional[str] = None,
                  save_every_epoch: bool = False,
+                 checkpoint_every_steps: int = 0,
                  device=None):
-        del tensorboard  # summaries are not ported yet (ROADMAP A9)
         self.device = resolve_device(device)
         self.variant = variant
         self.config = config
         self.quiet = quiet
+        self.data_dir = data_dir
         self.task_ids = list(config["task_ids"])
 
         # Run management (chem_tensorflow.py:48-54).
@@ -99,6 +116,10 @@ class Runner:
         with open(os.path.join(log_dir, f"{self.run_id}_params.json"),
                   "w") as f:
             json.dump(config, f)
+        # TB scalars under <log_dir>/tb/<run_id>/{train,validation}
+        # (chem_tensorflow.py:53-54,101-102).
+        self.summaries = SummarySink(log_dir, self.run_id,
+                                     enabled=tensorboard)
         if not quiet:
             print(f"Run {self.run_id} starting with following parameters:\n"
                   f"{json.dumps(config)}")
@@ -135,13 +156,22 @@ class Runner:
                                 config["clamp_gradient_norm"],
                                 freeze_graph_model)
 
+        self.profile_dir = profile_dir
         self.save_every_epoch = save_every_epoch
+        self.checkpoint_every_steps = int(checkpoint_every_steps)
         self.train_step_id = 0
         self.valid_step_id = 0
+        # The restored iterator state, the current epoch's (epoch, numpy
+        # RNG state at its start) and the batches of the resumed epoch
+        # to drop.
+        self._resume_iter = None
+        self._epoch_iter_ctx = None
+        self._skip_steps = 0
         if restore is not None:
             _, self.train_step_id, self.valid_step_id = restore_checkpoint(
                 restore, config, self.params, optimizer=self.optimizer,
                 variant=variant, num_edge_types=self.meta.num_edge_types)
+            self._resume_iter = load_iterator_state(restore)
         self.restored = restore is not None
 
         # Propagation steps per forward: the edge-messages/s multiplier.
@@ -155,8 +185,8 @@ class Runner:
 
     # ------------------------------------------------------------- steps
 
-    def _loss_fn(self, batch, is_training: bool):
-        """(loss [], per-task MAE [K]) of one batch on the device."""
+    def _outputs(self, batch, is_training: bool) -> torch.Tensor:
+        """Per-task predictions [K, G] of one batch on the device."""
         if self.config["use_graph"]:
             final = self.model(batch, is_training=is_training,
                                generator=self.generator)
@@ -166,11 +196,15 @@ class Runner:
             final = torch.zeros_like(batch.node_features)
         keep = (self.config["out_layer_dropout_keep_prob"]
                 if is_training else 1.0)
-        computed = self.model.readout(self.params.heads, self.task_ids,
-                                      final, batch, keep_prob=keep,
-                                      generator=self.generator)
+        return self.model.readout(self.params.heads, self.task_ids, final,
+                                  batch, keep_prob=keep,
+                                  generator=self.generator)
+
+    def _loss_fn(self, batch, is_training: bool):
+        """(loss [], per-task MAE [K]) of one batch on the device."""
         return masked_regression_loss(
-            computed, batch.targets, batch.target_mask, self.task_ids,
+            self._outputs(batch, is_training), batch.targets,
+            batch.target_mask, self.task_ids,
             self.config["task_sample_ratios"])
 
     def loss_and_grads(self, batch):
@@ -204,6 +238,8 @@ class Runner:
             self.adapter.batches(processed, is_training,
                                  self.np_rng if is_training else None),
             max_queue_size=5)
+        split = "train" if is_training else "validation"
+        step_base = self.train_step_id if is_training else self.valid_step_id
         # Per-step metrics stay on the device until the epoch ends (one
         # copy for the whole epoch); the verbose progress line reads the
         # loss every batch.
@@ -212,7 +248,16 @@ class Runner:
         processed_graphs = 0
         processed_edges = 0.0
         total_loss = 0.0
+        # Mid-epoch resume: train() reset np_rng to the epoch's start, so
+        # the batch stream is the interrupted epoch's; drop the batches
+        # it consumed (dropping, not slicing the processed data, draws
+        # the numpy stream as the uninterrupted epoch did).
+        skip_steps = 0
+        if is_training:
+            skip_steps, self._skip_steps = self._skip_steps, 0
         for step, batch in enumerate(batch_iter):
+            if step < skip_steps:
+                continue
             num_graphs = int(batch.num_graphs)
             processed_graphs += num_graphs
             processed_edges += _batch_edge_count(batch)
@@ -224,6 +269,17 @@ class Runner:
                 print(f"Running {epoch_name}, batch {step} (has {num_graphs} "
                       f"graphs). Loss so far: "
                       f"{total_loss / processed_graphs:.4f}", end="\r")
+            steps = len(step_metrics)
+            if (is_training and self.checkpoint_every_steps
+                    and self._epoch_iter_ctx is not None
+                    and steps % self.checkpoint_every_steps == 0):
+                self._save(self.last_model_file, self.train_step_id + steps,
+                           iterator_state={
+                               **self._epoch_iter_ctx,
+                               "steps_done": skip_steps + steps,
+                               "torch_generator_state":
+                                   self.generator.get_state().numpy(),
+                               "torch_generator_device": self.device.type})
         if processed_graphs == 0:
             hint = ("the corpus split is empty — check the data files "
                     "and any --restrict_data truncation.")
@@ -237,6 +293,9 @@ class Runner:
                 f"{epoch_name}: no batches produced — {hint}")
         losses = torch.stack([m[0] for m in step_metrics]).cpu().numpy()
         accs_all = torch.stack([m[1] for m in step_metrics]).cpu().numpy()
+        for i, (loss, accs) in enumerate(zip(losses, accs_all)):
+            self.summaries.add_batch(split, step_base + i, float(loss), accs,
+                                     self.task_ids)
         counts = np.asarray(graph_counts, dtype=np.float64)
         mean_loss = float(np.sum(losses * counts)) / processed_graphs
         accuracies = np.sum(accs_all * counts[:, None],
@@ -265,11 +324,74 @@ class Runner:
               f"error_ratio: {errs_str} | instances/sec: "
               f"{speed:.2f}{edge_str}")
 
-    def _save(self, path: str) -> None:
-        save_checkpoint(path, self.config, self.params, self.train_step_id,
-                        self.valid_step_id, optimizer=self.optimizer)
+    def _save(self, path: str, train_step: Optional[int] = None,
+              iterator_state: Optional[Dict] = None) -> None:
+        save_checkpoint(path, self.config, self.params,
+                        self.train_step_id if train_step is None
+                        else train_step, self.valid_step_id,
+                        optimizer=self.optimizer,
+                        iterator_state=iterator_state)
+
+    def _resume_epoch(self) -> int:
+        """Set up the resume from a mid-epoch iterator state; returns the
+        epoch to start at."""
+        it = self._resume_iter
+        start_epoch = int(it["epoch"])
+        self.np_rng.set_state(it["np_rng_state"])
+        self._skip_steps = int(it["steps_done"])
+        state = it.get("torch_generator_state")
+        if (state is not None
+                and it.get("torch_generator_device") == self.device.type):
+            self.generator.set_state(
+                torch.from_numpy(np.asarray(state, np.uint8).copy()))
+        else:
+            print("The checkpoint holds no dropout generator state for "
+                  f"{self.device.type}; the resumed run keeps the seeded "
+                  "dropout stream.")
+        # A rolling checkpoint can land on the epoch's last step: count
+        # the epoch's batches with a clone of the epoch-start RNG and,
+        # when all were consumed, continue at the next epoch with the
+        # clone's post-shuffle state (what the uninterrupted run used).
+        clone = np.random.RandomState()
+        clone.set_state(it["np_rng_state"])
+        total_steps = sum(1 for _ in self.adapter.batches(
+            self.train_processed, True, clone))
+        if self._skip_steps >= total_steps:
+            self.np_rng = clone
+            self._skip_steps = 0
+            self._resume_iter = None
+            if not self.quiet:
+                print(f"Resume checkpoint completed its epoch; continuing "
+                      f"at epoch {start_epoch + 1}")
+            return start_epoch + 1
+        if not self.quiet:
+            print(f"Resuming mid-epoch: epoch {start_epoch}, skipping "
+                  f"{self._skip_steps} consumed batches")
+        return start_epoch
+
+    def _profiled_train_epoch(self, name: str):
+        """`run_epoch` of the training split under `torch.profiler` (CPU,
+        and CUDA on the card), its Chrome trace written into
+        `profile_dir`."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=acts) as prof:
+            result = self.run_epoch(name, self.train_processed, True)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            self.profile_dir, f"{self.run_id}_epoch1_trace.json"))
+        return result
 
     def train(self):
+        """The epoch loop; closes the TensorBoard writers when it
+        returns."""
+        try:
+            return self._train()
+        finally:
+            self.summaries.close()
+
+    def _train(self):
         log_to_save = []
         total_time_start = time.time()
         if self.restored:
@@ -282,13 +404,28 @@ class Runner:
                       f"{best_val_acc:.5f}")
         else:
             best_val_acc = float("+inf")
-        best_val_acc_epoch = 0
-        for epoch in range(1, self.config["num_epochs"] + 1):
+        start_epoch = 1
+        if self._resume_iter is not None:
+            start_epoch = self._resume_epoch()
+        # Patience counts epochs since the last improvement, from the
+        # epoch the run (re)starts at.
+        best_val_acc_epoch = start_epoch - 1
+        for epoch in range(start_epoch, self.config["num_epochs"] + 1):
             if not self.quiet:
                 print(f"== Epoch {epoch}")
+            resumed = epoch == start_epoch and self._resume_iter is not None
+            self._epoch_iter_ctx = {
+                "epoch": epoch,
+                "np_rng_state": (self._resume_iter["np_rng_state"] if resumed
+                                 else self.np_rng.get_state())}
+            name = f"epoch {epoch} (training)"
+            if self.profile_dir is not None and epoch == 1:
+                epoch_result = self._profiled_train_epoch(name)
+            else:
+                epoch_result = self.run_epoch(name, self.train_processed,
+                                              True)
             train_loss, train_accs, train_errs, train_speed, train_steps = (
-                self.run_epoch(f"epoch {epoch} (training)",
-                               self.train_processed, True))
+                epoch_result)
             self.train_step_id += train_steps
             self._report("Train", train_loss, train_accs, train_errs,
                          train_speed, self.last_edge_msg_per_sec)
@@ -309,6 +446,7 @@ class Runner:
             })
             with open(self.log_file, "w") as f:
                 json.dump(log_to_save, f, indent=4)
+            self.summaries.flush()  # TB scalars reach the disk each epoch
             if self.save_every_epoch:
                 self._save(self.last_model_file)
 
@@ -327,3 +465,62 @@ class Runner:
                           f"epochs without improvement on validation accuracy.")
                 break
         return log_to_save
+
+    # ------------------------------------------------------------- eval
+
+    def predict(self, raw_graphs) -> List[np.ndarray]:
+        """Model outputs for raw graphs on the Runner's device, every keep
+        probability at 1.0 (the reference's `evaluate_one_batch`): a
+        [K, n] array a packed batch of n graphs, or for the dense family
+        one [K, len(raw_graphs)] array in request order."""
+        # The dense variant drops bucket remainders in training epochs (a
+        # reference quirk); a prediction covers every graph asked for.
+        saved_drop = getattr(self.adapter, "drop_remainder", None)
+        if saved_drop is not None:
+            self.adapter.drop_remainder = False
+        try:
+            processed = self.adapter.preprocess(raw_graphs, False)
+            order = self._dense_request_order(processed)
+            outputs = []
+            with torch.no_grad():
+                for batch in self.adapter.batches(processed, False):
+                    computed = self._outputs(batch.to(self.device), False)
+                    outputs.append(
+                        computed.cpu().numpy()[:, :int(batch.num_graphs)])
+        finally:
+            if saved_drop is not None:
+                self.adapter.drop_remainder = saved_drop
+        if order is not None:
+            # Dense bucketing reorders the graphs; row i of the result is
+            # raw_graphs[i]'s prediction, as in serving.Predictor.
+            packed = np.concatenate(outputs, axis=1)
+            result = np.empty_like(packed)
+            result[:, np.asarray(order)] = packed
+            return [result]
+        return outputs
+
+    def _dense_request_order(self, processed):
+        """Request indices of the packed dense-family graphs in pack
+        order, or None where packing keeps the request order (the
+        edge-list variants pack sequentially)."""
+        if getattr(self.adapter, "drop_remainder", None) is None:
+            return None
+        return [int(g["graph_id"]) for bucket in processed.values()
+                for g in bucket]
+
+    def example_evaluation(self, valid_file: Optional[str] = None,
+                           n_example_molecules: int = 10,
+                           example_molecules: Optional[List] = None):
+        """The reference's example_evaluation (sparse.py:364-376): the
+        targets, then the predictions, of the first validation
+        molecules."""
+        if example_molecules is None:
+            if valid_file is None:
+                valid_file = os.path.join(self.data_dir,
+                                          self.config["valid_file"])
+            with open(valid_file, "r") as f:
+                example_molecules = json.load(f)[:n_example_molecules]
+        for mol in example_molecules:
+            print(mol["targets"])
+        for out in self.predict(example_molecules):
+            print(out)

@@ -27,13 +27,13 @@ import pytest
 import torch
 
 from ggnn_tpu.compat.tf1 import params_from_tf1_weights
-from ggnn_tpu.data.synthetic import async_fixture_molecules, \
-    synthetic_molecules
+from ggnn_tpu.data.synthetic import synthetic_molecules
 from ggnn_tpu.serving import Predictor as JaxPredictor
 from ggnn_tpu.training.checkpoint import _flatten_named
 from ggnn_tpu.training.checkpoint import save_checkpoint as jax_save
 from ggnn_tpu.training.runner import Runner as JaxRunner
 from ggnn_tpu_torch import cli
+from ggnn_tpu_torch.data.synthetic import async_fixture_molecules
 from ggnn_tpu_torch.serving import Predictor
 from ggnn_tpu_torch.training.checkpoint import (optimizer_entries,
                                                 params_from_jax_weights)

@@ -23,13 +23,15 @@ import pytest
 import torch
 
 from ggnn_tpu.compat import tf1 as jax_tf1
-from ggnn_tpu.data.synthetic import async_fixture_molecules
+from ggnn_tpu.data.synthetic import \
+    async_fixture_molecules as jax_async_fixture
 from ggnn_tpu.data.synthetic import synthetic_molecules as jax_molecules
 from ggnn_tpu.training.checkpoint import _flatten_named
 from ggnn_tpu.training.config import resolve_config as jax_resolve_config
 from ggnn_tpu.training.runner import Runner as JaxRunner
 from ggnn_tpu_torch.compat import tf1
-from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+from ggnn_tpu_torch.data.synthetic import (async_fixture_molecules,
+                                            synthetic_molecules)
 from ggnn_tpu_torch.serving import Predictor
 from ggnn_tpu_torch.training import checkpoint
 from ggnn_tpu_torch.training.config import resolve_config
@@ -229,7 +231,7 @@ def _runner_data(meta, jax_side):
     corpus = meta["corpus"]
     kw = dict(num_targets=corpus["num_targets"])
     if corpus.get("kind") == "async_fixture":
-        make = async_fixture_molecules
+        make = jax_async_fixture if jax_side else async_fixture_molecules
     else:
         make = jax_molecules if jax_side else synthetic_molecules
     return (make(corpus["n_train"], seed=corpus["seed"], **kw),
