@@ -7,7 +7,11 @@ Phases, each raising (and so exiting non-zero) on any failure:
 
   1. setup — TF32 off for matmuls and cuDNN; build the CUDA kernels from
      ggnn_tpu_torch/csrc into build/kernels/, one nvcc for each source,
-     all started together, and report the build times;
+     all started together, and beside them the native host packer
+     (ggnn_tpu_torch/native/packer.cpp, g++, into build/native/), and
+     report the build times; the run fails where the native packer does
+     not build or GGNN_TPU_NO_NATIVE is set, so every later phase packs
+     as the default config does;
   2. kernels — every kernel of the serving and training paths against
      its plain PyTorch version on the card, at the shapes those paths
      give it, at a full-width lane with skewed in-degrees (N 20,000, T 4,
@@ -57,8 +61,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
      default config plus configs/blocked_tpu.json (no B1, B2 or B3 for
      either); every loss finite, the last validation loss below that of
      the initial weights; per epoch the losses, MAE, error_ratio,
-     graphs/s and the median synchronised train-step time, and the numpy
-     packer alone over one epoch;
+     graphs/s and the median synchronised train-step time, and the packer
+     alone over one epoch (the native one: the phase fails where a
+     variant but `async` packed with numpy);
   7. card against CPU — one train step, every keep probability 1.0, from
      the same initial weights on the card and on the CPU, for `sparse`
      on one 20k-node batch and for `dense` and `blocked` on one
@@ -196,7 +201,26 @@ Phases, each raising (and so exiting non-zero) on any failure:
      tests/test_smiles.py's oracle extracted by `ggnn_tpu_torch.data.qm9`
      and trained for one epoch through `cli.main(["sparse", "--data_dir",
      ...])` to a finite loss; and whether tensorboardX imported (then the
-     run's event files must exist).
+     run's event files must exist);
+ 19. native packer — its build (seconds, g++'s version, the library's
+     path, the host's cores); each native packer (`sparse` and `gcn` at
+     20,000-node budgets, `dense` with the buckets [16, 32], `blocked`,
+     `gcn_blocked`, each at its phase-6 or phase-11 training config)
+     against the port's numpy packer over one epoch of phase 6's training
+     corpus, in eval mode and in training mode from the same RandomState,
+     every leaf equal; the packer alone over a training epoch, native
+     against numpy, median of 3, in seconds and as a share of the
+     variant's median train epoch; the dense family's bf16 adjacency
+     (compute_dtype bfloat16) against the f32 one cast; the async corpus
+     cache's packer against the flat packer over configs/async_tpu.json's
+     training corpus (eval, two training epochs), bit-equal, with both
+     packers' times; the default sparse model with `native_pack` on and
+     off: the 3,000-graph request's pack and request time, the 1-graph
+     latency, the answers equal; the default `dense` model in bf16
+     served on the card with the native bf16 adjacency against the CPU
+     (TOL_BF16_SERVING, no hand kernel); and `sparse`, `gcn` and `dense`
+     trained for 2 epochs with the numpy and the native packer in turns
+     (numpy, native, native, numpy): set-up seconds and train graphs/s.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -204,12 +228,14 @@ limit (nvidia-smi), one JSON object with the kernels' numbers, and
 the repository, the script fails and prints no result.
 """
 
+import dataclasses
 import glob
 import json
 import os
 import statistics
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -1058,27 +1084,46 @@ def train_run(variant, epochs, corpus, log_dir, config=None,
             f"{variant}: validation loss after training "
             f"{epochs_out[-1]['valid_loss']} is not below the initial "
             f"{init_loss}")
-    # The numpy packer alone over one epoch's training split (the Runner
-    # runs it in a prefetch thread beside the steps).
+    # The packer alone over one epoch's training split (the Runner runs
+    # it in a prefetch thread beside the steps): the native one where the
+    # config packs natively, which every variant but async must.
+    packer = packer_kind(runner)
+    if variant != "async" and config.get("native_pack", True) \
+            and packer != "native":
+        raise RuntimeError(f"{variant} training packed with {packer}, not "
+                           "the native packer")
     t0 = time.perf_counter()
     packed = sum(1 for _ in runner.adapter.batches(
         runner.train_processed, True, np.random.RandomState(0)))
     pack_s = time.perf_counter() - t0
     epoch_s = len(train) / statistics.median(
         e["train_graphs_per_s"] for e in epochs_out)
-    log(f"{variant} training: the numpy packer alone packs one epoch "
+    log(f"{variant} training: the {packer} packer alone packs one epoch "
         f"({packed} batches) in {pack_s:.3f} s, {pack_s / epoch_s:.1%} of "
         f"the median train epoch's {epoch_s:.3f} s")
     return runner, {
         "launches_b1": b1, "launches_b2": b2, "launches_b3": b3,
         "launches_weighted": w_fwd, "launches_weighted_transpose": w_bwd,
         "launches_edge_dot": dots,
-        "pack_seconds_per_epoch": pack_s,
+        "pack_seconds_per_epoch": pack_s, "packer": packer,
         "train_epoch_seconds_median": epoch_s,
         "train_steps": runner.train_step_id,
         "valid_batches": runner.valid_step_id,
         "initial_valid_loss": init_loss, "train_seconds": train_s,
         "setup_seconds": setup_s, "epochs": epochs_out}
+
+
+def packer_kind(runner) -> str:
+    """The packer a Runner's training split went through: "native" (the
+    C++ library), "numpy" or, for `async`, "async numpy"."""
+    from ggnn_tpu_torch.data import native_pack
+
+    if runner.variant == "async":
+        return "async numpy"
+    native_kinds = (native_pack.SparseProcessed, native_pack.DenseProcessed,
+                    native_pack.GCNProcessed)
+    return ("native" if isinstance(runner.train_processed, native_kinds)
+            else "numpy")
 
 
 def training_phase(corpus, log_dir):
@@ -3112,6 +3157,355 @@ def extras_phase(corpus, work_dir):
             "total_seconds": total}
 
 
+# ------------------------------------------- the native packer (A12)
+
+# The packers that the native library replaces, each at its training
+# config; `async` keeps numpy and gains the corpus cache.
+NATIVE_VARIANTS = ("sparse", "gcn", "dense", "blocked", "gcn_blocked")
+HOST_REPEATS = 3
+
+
+def native_build():
+    """The native packer (ggnn_tpu_torch/native/packer.cpp) built with
+    g++ into build/native/, or loaded where this checkout built it: the
+    seconds, g++'s version and the library's path. Fails where
+    GGNN_TPU_NO_NATIVE is set or the build fails, so that no phase packs
+    with numpy in its place."""
+    import subprocess
+
+    from ggnn_tpu_torch import native
+
+    if native._no_native_env():
+        raise RuntimeError("GGNN_TPU_NO_NATIVE is set: the native packer "
+                           "would not run")
+    t0 = time.perf_counter()
+    native.require_lib()
+    seconds = time.perf_counter() - t0
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    return {"seconds": seconds, "gxx_seconds": native.build_info["seconds"],
+            "path": os.path.relpath(native.build_info["path"], REPO),
+            "gxx": gxx}
+
+
+def same_batch(a, b) -> bool:
+    """Leaf for leaf, dtypes included, through nested segments and
+    tuples; a bf16 leaf is a torch tensor."""
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            same_batch(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(same_batch(x, y) for x, y in zip(a, b)))
+    if a is None or b is None:
+        return a is b
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        a, b = torch.as_tensor(a), torch.as_tensor(b)
+        return a.dtype == b.dtype and torch.equal(a, b)
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def check_stream(label, got, want):
+    got, want = list(got), list(want)
+    if len(got) != len(want) or not got:
+        raise RuntimeError(f"{label}: {len(got)} batches against "
+                           f"{len(want)}")
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not same_batch(a, b)]
+    if bad:
+        raise RuntimeError(f"{label}: batches {bad[:5]} differ")
+    return len(got)
+
+
+def median_seconds(fn, repeats=HOST_REPEATS):
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def native_bits_phase(corpus, epoch_seconds, card):
+    """Each native packer against the port's numpy packer over one epoch
+    of phase 6's training corpus at the variant's training config, in
+    eval mode and in training mode from the same RandomState: every leaf
+    equal; then the packer alone over a training epoch, native against
+    numpy (median of 3), in seconds and as a share of the variant's
+    median train epoch in phases 6 and 11; and the bf16 adjacency of the
+    dense family under compute_dtype bfloat16 against the f32 one cast."""
+    from ggnn_tpu_torch.data import native_pack
+    from ggnn_tpu_torch.data.loader import infer_metadata
+    from ggnn_tpu_torch.training.variants import make_adapter
+
+    native_kinds = (native_pack.SparseProcessed, native_pack.DenseProcessed,
+                    native_pack.GCNProcessed)
+    train = corpus[0]
+    results = {}
+    for variant in NATIVE_VARIANTS:
+        config = train_config(variant, {"num_epochs": 1})
+        meta = infer_metadata([train], config["tie_fwd_bkwd"])
+        pair = {on: make_adapter(variant, {**config, "native_pack": on},
+                                 meta) for on in (True, False)}
+        rec = {"batches": {}}
+        for training in (False, True):
+            mode = "training" if training else "eval"
+            processed, streams = {}, {}
+            for on, adapter in pair.items():
+                t0 = time.perf_counter()
+                processed[on] = adapter.preprocess(
+                    train, training,
+                    np.random.RandomState(0) if training else None)
+                adapter.plan(processed[on])
+                rec[f"preprocess_s_{'native' if on else 'numpy'}_{mode}"] = \
+                    time.perf_counter() - t0
+                if isinstance(processed[on], native_kinds) is not on:
+                    raise RuntimeError(f"{variant}: native_pack {on} "
+                                       f"preprocessed {type(processed[on])}")
+                streams[on] = adapter.batches(
+                    processed[on], training,
+                    np.random.RandomState(1) if training else None)
+            rec["batches"][mode] = check_stream(
+                f"{variant} {mode}: native against numpy", streams[True],
+                streams[False])
+        for on, adapter in pair.items():
+            rec[f"pack_s_{'native' if on else 'numpy'}"] = median_seconds(
+                lambda: sum(1 for _ in adapter.batches(
+                    processed[on], True, np.random.RandomState(2))))
+        epoch_s = epoch_seconds[variant]
+        rec.update(epoch_s=epoch_s,
+                   share_native=rec["pack_s_native"] / epoch_s,
+                   share_numpy=rec["pack_s_numpy"] / epoch_s,
+                   speedup=rec["pack_s_numpy"] / rec["pack_s_native"])
+        log(f"native {variant}: {rec['batches']} batches (eval, training) "
+            "bit-equal to the numpy packer's; one training epoch packs in "
+            f"{rec['pack_s_native']:.4f} s natively against "
+            f"{rec['pack_s_numpy']:.4f} s with numpy (median of "
+            f"{HOST_REPEATS}, {rec['speedup']:.2f}x): "
+            f"{rec['share_native']:.1%} against {rec['share_numpy']:.1%} of "
+            f"the median train epoch's {epoch_s:.3f} s; {card}")
+        results[variant] = rec
+    for variant in ("dense", "blocked"):
+        config = train_config(variant, {"num_epochs": 1})
+        meta = infer_metadata([train], config["tie_fwd_bkwd"])
+        f32 = make_adapter(variant, config, meta)
+        b16 = make_adapter(variant, {**config, **BF16}, meta)
+        count = 0
+        for a, b in zip(f32.batches(f32.preprocess(train, False), False),
+                        b16.batches(b16.preprocess(train, False), False)):
+            cast = torch.from_numpy(a.adjacency).to(torch.bfloat16)
+            if (b.adjacency.dtype != torch.bfloat16
+                    or not torch.equal(b.adjacency, cast)
+                    or not same_batch(dataclasses.replace(b, adjacency=cast),
+                                      dataclasses.replace(a,
+                                                          adjacency=cast))):
+                raise RuntimeError(f"{variant} bf16 batch {count} is not "
+                                   "the f32 batch with its adjacency cast")
+            count += 1
+        results[f"{variant}_bf16_batches"] = count
+        log(f"native {variant} bf16: {count} batches, each adjacency the "
+            "f32 one cast to bf16 bit for bit, the other leaves equal; "
+            f"{card}")
+    return results
+
+
+def native_async_phase(runner, card):
+    """The async corpus cache over configs/async_tpu.json's training
+    corpus (phase 12's, preprocessed by its Runner): the cached packer
+    against the flat packer in eval mode and over two training epochs
+    from one RandomState, every leaf equal; the cache's build and both
+    packers over a training epoch (median of 3)."""
+    from ggnn_tpu_torch.data import async_schedule
+
+    cfg, caps = runner.config, runner.adapter.caps
+    processed = runner.train_processed
+    R, S = cfg["propagation_rounds"], cfg["propagation_substeps"]
+    T = runner.meta.num_edge_types
+    t0 = time.perf_counter()
+    cache = async_schedule.build_async_pack_cache(processed, R, S, T)
+    build_s = time.perf_counter() - t0
+    if cache is None or not cache.matches(processed, R, S, T):
+        raise RuntimeError("the async corpus cache does not match its corpus")
+
+    def pack(training, rng, with_cache):
+        return async_schedule.pack_async_batches(
+            processed, T, cfg["num_nodes"], caps, R, S, cfg["hidden_size"],
+            runner.meta.annotation_size, training, rng,
+            cache=cache if with_cache else None)
+
+    batches = check_stream("async eval: cached against flat",
+                           pack(False, None, True), pack(False, None, False))
+    rngs = np.random.RandomState(3), np.random.RandomState(3)
+    for epoch in range(2):
+        check_stream(f"async training epoch {epoch}: cached against flat",
+                     pack(True, rngs[0], True), pack(True, rngs[1], False))
+    rec = {"batches": batches, "cache_build_s": build_s}
+    for label, with_cache in (("cached", True), ("flat", False)):
+        rec[f"pack_s_{label}"] = median_seconds(lambda: sum(
+            1 for _ in pack(True, np.random.RandomState(4), with_cache)))
+    log(f"native async: {batches} batches bit-equal, cached against flat, "
+        "in eval mode and over two training epochs; the cache builds in "
+        f"{build_s:.3f} s; a training epoch packs in "
+        f"{rec['pack_s_cached']:.4f} s cached against "
+        f"{rec['pack_s_flat']:.4f} s flat (median of {HOST_REPEATS}); {card}")
+    return rec
+
+
+def native_serving_phase(ckpt_dir, card):
+    """The default sparse model on the card with `native_pack` on and
+    off, in turns (numpy, native, native, numpy): the 3,000-graph
+    request's pack (`Predictor._batches`, the profile tool's `pack` span;
+    median of 3) and whole request (median of 3), the one-graph pack
+    (`_pack_single_sparse`, median of 200) and the 1-graph latency
+    (median of 20), each the median over the turns, the answers equal;
+    then the default `dense` model in bf16 served on the card with the
+    native bf16 adjacency (no hand kernel), against the CPU at
+    TOL_BF16_SERVING."""
+    from ggnn_tpu_torch.serving import Predictor
+    from ggnn_tpu_torch.training.variants import _use_native
+
+    requests = serving_requests()
+    big, one = requests[3000], requests[1]
+    ann = len(big[0]["node_features"][0])
+    _, path = random_checkpoint("sparse", ckpt_dir, tag="_native")
+    predictors = {on: Predictor.from_checkpoint(
+        path, "sparse", config_overrides={"native_pack": on})
+        for on in (True, False)}
+    for on, predictor in predictors.items():
+        if _use_native(predictor.config) is not on:
+            raise RuntimeError(f"native_pack {on} did not select its packer")
+
+    def request(predictor, graphs):
+        torch.cuda.synchronize()
+        out = predictor(graphs)
+        torch.cuda.synchronize()
+        return out
+
+    answers = {on: request(p, big) for on, p in predictors.items()}
+    for predictor in predictors.values():
+        for _ in range(5):
+            request(predictor, one)
+    turns = {}
+    for on in (False, True, True, False):
+        p, label = predictors[on], "native" if on else "numpy"
+        for key, value in (
+                ("pack_ms_3000", 1e3 * median_seconds(
+                    lambda: list(p._batches(big, ann)))),
+                ("request_ms_3000", 1e3 * median_seconds(
+                    lambda: request(p, big))),
+                ("single_pack_us", 1e6 * median_seconds(
+                    lambda: p._pack_single_sparse(one[0], ann), repeats=200)),
+                ("latency_ms_1", 1e3 * median_seconds(
+                    lambda: request(p, one), repeats=20))):
+            turns.setdefault(f"{key}_{label}", []).append(value)
+    rec = {key: statistics.median(values) for key, values in turns.items()}
+    rec["turns"] = turns
+    err = float(np.abs(answers[True] - answers[False]).max())
+    if err > TOL_ARTIFACT:
+        raise RuntimeError(f"native and numpy packs answer {err} apart")
+    rec["max_abs_err_native_vs_numpy"] = err
+    log("native serving, sparse, in turns (numpy, native, native, numpy; "
+        "each the median of the two turns): 3,000 graphs: pack "
+        f"{rec['pack_ms_3000_native']:.3f} ms native against "
+        f"{rec['pack_ms_3000_numpy']:.3f} ms numpy, request "
+        f"{rec['request_ms_3000_native']:.3f} against "
+        f"{rec['request_ms_3000_numpy']:.3f} ms (median of {HOST_REPEATS}); "
+        f"one-graph pack {rec['single_pack_us_native']:.1f} against "
+        f"{rec['single_pack_us_numpy']:.1f} us (median of 200); 1-graph "
+        f"latency {rec['latency_ms_1_native']:.3f} against "
+        f"{rec['latency_ms_1_numpy']:.3f} ms (median of 20); answers "
+        f"{err:.3e} apart; {card}; turns {turns}")
+    _, bf16_path = random_checkpoint("dense", ckpt_dir, BF16,
+                                     tag="_bf16_native")
+    predictor = Predictor.from_checkpoint(bf16_path, "dense")
+    single = predictor._pack_single_dense(one[0], ann)
+    _, dense_batches = predictor._dense_batches(requests[300], ann)
+    dtypes = {single.adjacency.dtype} | {b.adjacency.dtype
+                                         for b in dense_batches}
+    if dtypes != {torch.bfloat16}:
+        raise RuntimeError(f"bf16 dense serving packed adjacencies {dtypes}")
+    rec["dense_bf16"] = counted_serving(
+        "dense", ckpt_dir, per_request(NO_LAUNCH), overrides=BF16,
+        sizes=(1, 300), tag="_bf16_native", tol=TOL_BF16_SERVING)
+    log("native serving, dense bf16: the adjacency of every batch bf16 "
+        f"(native), max abs error against the CPU "
+        f"{rec['dense_bf16']['max_abs_err_vs_cpu']:.3e} (tolerance "
+        f"{TOL_BF16_SERVING}); {card}")
+    return rec
+
+
+def native_training_phase(corpus, log_dir, card):
+    """End to end: `sparse`, `gcn` and `dense` at their training configs,
+    2 epochs each with the numpy and with the native packer in turns
+    (numpy, native, native, numpy): the Runner's set-up seconds
+    (preprocess and plan) and train graphs/s per epoch."""
+    from ggnn_tpu_torch.training.runner import Runner
+
+    train, valid = corpus
+    results = {}
+    for variant in ("sparse", "gcn", "dense"):
+        runs = {"native": [], "numpy": []}
+        for i, on in enumerate((False, True, True, False)):
+            label = "native" if on else "numpy"
+            t0 = time.perf_counter()
+            runner = Runner(variant, train_config(
+                variant, {"num_epochs": 2, "native_pack": on}),
+                train_data=train, valid_data=valid, quiet=True,
+                log_dir=os.path.join(log_dir, f"{variant}_{i}_{label}"))
+            setup_s = time.perf_counter() - t0
+            if packer_kind(runner) != label:
+                raise RuntimeError(f"{variant}: native_pack {on} packed "
+                                   f"with {packer_kind(runner)}")
+            history = runner.train()
+            runs[label].append({
+                "setup_s": setup_s,
+                "train_graphs_per_s": [e["train_results"][3]
+                                       for e in history]})
+        summary = {label: {
+            "setup_s_median": statistics.median(r["setup_s"] for r in rec),
+            "train_graphs_per_s_median": statistics.median(
+                g for r in rec for g in r["train_graphs_per_s"])}
+            for label, rec in runs.items()}
+        results[variant] = {"runs": runs, **summary}
+        log(f"native training, {variant}: train graphs/s (median of 4 "
+            "epochs in turns) "
+            f"{summary['native']['train_graphs_per_s_median']:.1f} native "
+            f"against {summary['numpy']['train_graphs_per_s_median']:.1f} "
+            f"numpy; set-up {summary['native']['setup_s_median']:.3f} s "
+            f"against {summary['numpy']['setup_s_median']:.3f} s; {card}")
+    return results
+
+
+def native_phase(build, corpus, epoch_seconds, async_runner, work_dir):
+    """Phase 19: the native packer's build, its bits and host time against
+    the numpy packers, the async cache, and native serving on the card."""
+    from ggnn_tpu_torch import native
+
+    start = time.perf_counter()
+    if native._no_native_env() or not native.native_available():
+        raise RuntimeError("the native packer is not available")
+    card = gpu_name_and_power()
+    gxx_s = build["gxx_seconds"]
+    log(f"native build: {build['gxx']}; {build['path']}; "
+        + (f"g++ {gxx_s:.2f} s" if gxx_s is not None
+           else "built before this run")
+        + f", {build['seconds']:.2f} s to build and load; "
+        f"{os.cpu_count()} host cores, 4 packing threads; {card}")
+    bits = native_bits_phase(corpus, epoch_seconds, card)
+    async_rec = native_async_phase(async_runner, card)
+    serving = native_serving_phase(work_dir, card)
+    training = native_training_phase(corpus, os.path.join(work_dir, "train"),
+                                     card)
+    seconds = time.perf_counter() - start
+    log(f"native phase: {seconds:.1f} s; {card}")
+    return {"build": build, "card": card, "host_cores": os.cpu_count(),
+            "bits": bits,
+            "async": async_rec, "serving": serving, "training": training,
+            "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3131,9 +3525,14 @@ def main() -> int:
 
     sources = ("ell_spmm", "gather_floor", "edge_dot")
     start = time.perf_counter()
-    _build.build_all(sources)
+    # The host packer's g++ build runs beside the kernels' nvcc builds.
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_future = pool.submit(native_build)
+        _build.build_all(sources)
+        native = native_future.result()
     log(f"build {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
-        f"in parallel): {time.perf_counter() - start:.2f} s")
+        f"in parallel) and the native packer (g++): "
+        f"{time.perf_counter() - start:.2f} s")
     for name in sources:
         seconds, output = _build.build_info.get(name, (0.0, "prebuilt"))
         log(f"{name}.cu: nvcc {seconds:.2f} s\n{output.strip()}")
@@ -3265,6 +3664,12 @@ def main() -> int:
     log(f"bf16 phases: {time.perf_counter() - bf16_start:.1f} s "
         f"({', '.join(f'{k} {v:.1f} s' for k, v in bf16_seconds.items())})")
     extras = extras_phase(corpus, os.path.join(work_dir, "extras"))
+    epoch_seconds = {"sparse": training["train_epoch_seconds_median"],
+                     **{v: rec["train_epoch_seconds_median"]
+                        for v, rec in {**dense_training,
+                                       **gcn_training}.items()}}
+    native = native_phase(native, corpus, epoch_seconds, async_runner,
+                          os.path.join(work_dir, "native"))
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -3500,7 +3905,7 @@ def main() -> int:
                     "bf16_export": bf16_export,
                     "bf16_launches_by_run": bf16_runs,
                     "bf16_phase_seconds": bf16_seconds,
-                    "extras": extras}))
+                    "extras": extras, "native": native}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -24,11 +24,13 @@ Three latent reference bugs stay fixed, as in the JAX package:
     type while the receiver numbering is shared; here all types of a
     (round, step) share the step's receiver offset.
 
-Not ported yet (ROADMAP A12): the corpus-level `AsyncPackCache` and its
-cached packer, and the legacy per-graph loop packer. The JAX cache is
-bit-identical to the flat packer, so nothing changes for a corpus made
-by `preprocess_async`; a corpus without matching flat tables, for which
-JAX would fall back to its loop packer, raises a ValueError.
+Three packers, as in JAX, give the same batches bit for bit:
+`pack_async_batches` takes the corpus-level `AsyncPackCache` when one
+matching the corpus is passed (whole-batch gathers and scatters, no
+per-graph Python), else the flat packer over each graph's flat schedule
+tables, else (a corpus whose graphs lack matching flat tables: stripped,
+or preprocessed under another config) the legacy per-graph loop packer
+over the nested schedules rebuilt from whatever each graph carries.
 """
 
 import dataclasses
@@ -43,12 +45,6 @@ from ggnn_tpu_torch.data.packing import (DEFAULT_PACK_MARGIN,
                                          _labels_to_values_and_mask)
 from ggnn_tpu_torch.graph import AsyncGraphBatch, AsyncSegment
 from ggnn_tpu_torch.utils.padding import pad_to, round_up
-
-_NO_FLAT_TABLES = (
-    "processed async graphs without matching flat schedule tables (from "
-    "another config, or stripped) need the loop packer, which is not "
-    "ported yet (ROADMAP A12); re-run preprocess_async on this corpus")
-
 
 @dataclasses.dataclass(frozen=True)
 class AsyncCapacities:
@@ -330,6 +326,46 @@ def _flatten_schedules(prop_schedules, substeps: int, num_edge_types: int):
         depth=depth)
 
 
+def nested_schedules_from_flat(flat: "_FlatSchedules"):
+    """Exact inverse of `_flatten_schedules`: rebuild the nested
+    per-round (initial, sending, msg_targets, receiving) tuples from the
+    flat tables. Used so `preprocess_async` only has to store the flat
+    form (halving host memory for the async corpus) while the legacy
+    planner/packer/oracle paths still see nested schedules on demand."""
+    R, _S, T = flat.counts_st.shape
+    rounds = []
+    for r in range(R):
+        d = int(flat.depth[r])
+        st_sizes = flat.counts_st[r, :d].reshape(-1)
+        send_parts = np.split(flat.send[r], np.cumsum(st_sizes)[:-1])
+        tgt_parts = np.split(flat.tgt[r], np.cumsum(st_sizes)[:-1])
+        recv_parts = np.split(flat.recv_node[r],
+                              np.cumsum(flat.counts_r[r, :d])[:-1])
+        sending = [[send_parts[s * T + t] for t in range(T)]
+                   for s in range(d)]
+        msg_targets = [[tgt_parts[s * T + t] for t in range(T)]
+                       for s in range(d)]
+        receiving = [recv_parts[s] for s in range(d)]
+        rounds.append((flat.initial[r], sending, msg_targets, receiving))
+    return rounds
+
+
+def get_prop_schedules(g: dict):
+    """Nested schedules for one processed graph; reconstructed (and
+    cached on the dict) from the flat tables when not stored."""
+    sched = g.get("prop_schedules")
+    if sched is None:
+        flat = g.get("flat_schedules")
+        if flat is None:
+            raise ValueError(
+                "processed async graph carries neither prop_schedules "
+                "nor flat_schedules — it cannot be packed; re-run "
+                "preprocess_async on this corpus")
+        sched = nested_schedules_from_flat(flat)
+        g["prop_schedules"] = sched
+    return sched
+
+
 def _grouped_cumcount(key: np.ndarray) -> np.ndarray:
     """Each row's rank within its key group, row order kept (the scatter
     position inside each fixed-capacity lane)."""
@@ -383,26 +419,77 @@ def plan_async_capacities(processed: Sequence[dict], num_edge_types: int,
 def plan_async_capacities_multi(processed_lists, num_edge_types: int,
                                 node_budget: int, propagation_rounds: int,
                                 margin: float = None) -> AsyncCapacities:
-    """Shared capacities and segment plan over several splits (training
-    and validation get the same shapes)."""
+    """Shared capacities + segmented-scan plan over several splits
+    (train + valid must compile to the same shapes)."""
     if margin is None:
         margin = DEFAULT_PACK_MARGIN
     first = next((g for p in processed_lists for g in p), None)
-    if first is None:
-        # Nothing to plan over: the plan JAX's planner gives an empty
-        # corpus (one-step profiles of zeros, no segment).
+    flat0 = first.get("flat_schedules") if first is not None else None
+    if (flat0 is not None and flat0.counts_st.shape[0] == propagation_rounds
+            and flat0.counts_st.shape[2] == num_edge_types
+            and _all_flat_compatible(processed_lists, propagation_rounds,
+                                     flat0.counts_st.shape[1],
+                                     num_edge_types)):
         return _plan_async_capacities_flat(
-            [], node_budget, propagation_rounds, margin, 1, num_edge_types)
-    flat0 = first.get("flat_schedules")
-    if flat0 is None:
-        raise ValueError(_NO_FLAT_TABLES)
-    substeps = flat0.counts_st.shape[1]
-    if not _all_flat_compatible(processed_lists, propagation_rounds,
-                                substeps, num_edge_types):
-        raise ValueError(_NO_FLAT_TABLES)
-    return _plan_async_capacities_flat(
-        processed_lists, node_budget, propagation_rounds, margin, substeps,
-        num_edge_types)
+            processed_lists, node_budget, propagation_rounds, margin,
+            flat0.counts_st.shape[1], num_edge_types)
+    max_graphs = 1
+    max_init, max_send, max_recv = 1, 1, 1
+
+    def fresh():
+        return {"graphs": 0, "nodes": 0,
+                "init": [0] * propagation_rounds,
+                "send": {}, "recv": {}}
+
+    stats = []
+    for processed in processed_lists:
+        cur = fresh()
+        for g in processed:
+            n = len(g["init"])
+            if cur["nodes"] + n >= node_budget and cur["graphs"] > 0:
+                stats.append(cur)
+                cur = fresh()
+            cur["graphs"] += 1
+            cur["nodes"] += n
+            for r, (initial, sending, _mt, receiving) in enumerate(
+                    get_prop_schedules(g)):
+                cur["init"][r] += len(initial)
+                for s in range(len(receiving)):
+                    cur["recv"][(r, s)] = (cur["recv"].get((r, s), 0)
+                                           + len(receiving[s]))
+                    for t in range(num_edge_types):
+                        cur["send"][(r, s, t)] = (
+                            cur["send"].get((r, s, t), 0)
+                            + len(sending[s][t]))
+        stats.append(cur)
+    s_dim = 1 + max((s for st in stats for (_r, s) in st["recv"]),
+                    default=0)
+    send_prof = np.zeros((propagation_rounds, s_dim), np.int64)
+    recv_prof = np.zeros((propagation_rounds, s_dim), np.int64)
+    for st in stats:
+        max_graphs = max(max_graphs, st["graphs"])
+        max_init = max(max_init, max(st["init"]))
+        if st["send"]:
+            max_send = max(max_send, max(st["send"].values()))
+        if st["recv"]:
+            max_recv = max(max_recv, max(st["recv"].values()))
+        for (r, s), v in st["recv"].items():
+            recv_prof[r, s] = max(recv_prof[r, s], v)
+        combined: Dict = {}
+        for (r, s, _t), v in st["send"].items():
+            combined[(r, s)] = combined.get((r, s), 0) + v
+        for (r, s), v in combined.items():
+            send_prof[r, s] = max(send_prof[r, s], v)
+    plan = tuple(plan_segments(send_prof[r], recv_prof[r], margin)
+                 for r in range(propagation_rounds))
+    return AsyncCapacities(
+        nodes=round_up(node_budget, 8),
+        graphs=round_up(int(np.ceil(max_graphs * margin)), 8),
+        initial_nodes=round_up(int(np.ceil(max_init * margin)), 8),
+        sending_edges=round_up(int(np.ceil(max_send * margin)), 8),
+        receiving_nodes=round_up(int(np.ceil(max_recv * margin)), 8),
+        plan=plan,
+    )
 
 
 def _all_flat_compatible(processed_lists, rounds: int, substeps: int,
@@ -562,20 +649,42 @@ def pack_async_batches(processed: List[dict], num_edge_types: int,
                        propagation_rounds: int, propagation_substeps: int,
                        hidden_size: int, annotation_size: int,
                        is_training: bool,
-                       rng: Optional[np.random.RandomState] = None
+                       rng: Optional[np.random.RandomState] = None,
+                       use_flat: Optional[bool] = None,
+                       cache: Optional["AsyncPackCache"] = None
                        ) -> Iterator[AsyncGraphBatch]:
-    """Packed async batches over the graphs' flat tables (grouped
-    scatters, no per-edge Python). Training shuffles a copy of the
-    graph order with `rng` first."""
+    """Packed async batches. Dispatches to the corpus-cached epoch
+    packer (whole-batch gathers/scatters over `cache`, bit-identical —
+    tests/test_torch_async_cache.py) when a matching `AsyncPackCache` is passed,
+    else to the vectorized per-graph fast path (grouped scatters over
+    preprocess-time flat tables) whenever the processed graphs carry
+    matching `flat_schedules`; the legacy per-(graph, step, type) loop
+    remains as the fallback/oracle."""
     if not processed:
+        # Zero batches, not an IndexError from the loop packer's
+        # processed[0] — an empty validation split is a supported input
+        # (the planner handles it explicitly).
         return iter(())
-    if not _all_flat_compatible([processed], propagation_rounds,
-                                propagation_substeps, num_edge_types):
-        raise ValueError(_NO_FLAT_TABLES)
-    return _pack_async_batches_flat(
-        processed, num_edge_types, node_budget, caps, propagation_rounds,
-        propagation_substeps, hidden_size, annotation_size, is_training,
-        rng)
+    if (cache is not None and use_flat is not False
+            and cache.matches(processed, propagation_rounds,
+                              propagation_substeps, num_edge_types)):
+        return _pack_async_batches_cached(
+            cache, num_edge_types, node_budget, caps, propagation_rounds,
+            propagation_substeps, hidden_size, annotation_size,
+            is_training, rng)
+    flat_ok = (
+        use_flat is not False
+        and bool(processed)
+        # EVERY graph must carry a matching flat table — same check the
+        # planner makes; a heterogeneous corpus (mixed configs, stripped
+        # tables) falls back to the legacy loop instead of crashing on
+        # graph k mid-epoch.
+        and _all_flat_compatible([processed], propagation_rounds,
+                                 propagation_substeps, num_edge_types))
+    packer = _pack_async_batches_flat if flat_ok else _pack_async_batches_loop
+    return packer(processed, num_edge_types, node_budget, caps,
+                  propagation_rounds, propagation_substeps, hidden_size,
+                  annotation_size, is_training, rng)
 
 
 def _pack_async_batches_flat(processed: List[dict], num_edge_types: int,
@@ -685,6 +794,463 @@ def _pack_async_batches_flat(processed: List[dict], num_edge_types: int,
             graphs_in_batch, node_offset, initial_nodes, sending_nodes,
             msg_targets, receiving_nodes, recv_totals,
             node_features=node_features, node_graph_ids=node_graph_ids)
+
+
+def _run_ranks(comp: np.ndarray) -> np.ndarray:
+    """Rank within contiguous equal-value runs of `comp` (the static
+    within-(graph, lane) scatter position — rows are lane-sorted within
+    each graph, so runs are contiguous by construction)."""
+    n = len(comp)
+    if n == 0:
+        return np.zeros(0, np.int32)
+    idx = np.arange(n)
+    starts = np.r_[True, comp[1:] != comp[:-1]]
+    run_start = np.maximum.accumulate(np.where(starts, idx, 0))
+    return (idx - run_start).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncPackCache:
+    """Corpus-level relayout cache for the async epoch packer.
+
+    Shuffling permutes BATCH COMPOSITION, not per-graph schedules — so
+    everything except the batch split and the final scatters is
+    epoch-invariant and computed ONCE here: the per-graph flat tables
+    concatenated into whole-corpus arrays (with per-graph offsets), the
+    stacked count tables the batch split needs, and the static
+    within-(graph, lane) scatter ranks. An epoch then reduces to, per
+    batch, one window cumsum (split), a handful of index-arithmetic
+    gathers and one grouped scatter per slab — no per-graph python.
+    Replaces the reference's per-epoch feed-dict assembly
+    (chem_tensorflow_async.py:337-455).
+
+    Labels are snapshotted at build time; build the cache AFTER
+    task_sample_ratios blanking (preprocess_async does this), and
+    rebuild if labels are mutated afterwards.
+    """
+    num_graphs: int
+    R: int
+    S: int
+    T: int
+    s_used: int              # max schedule depth over the corpus (<= S)
+    # Batch-split operands, stacked over the corpus (step axis trimmed
+    # to s_used — steps past the deepest schedule are identically 0):
+    n_nodes: np.ndarray      # [G] int64
+    counts_st: np.ndarray    # [G, R, s_used, T] int32
+    counts_r: np.ndarray     # [G, R, s_used] int32
+    counts_init: np.ndarray  # [G, R] int32
+    values: np.ndarray       # [G, K] float32
+    masks: np.ndarray        # [G, K] float32
+    # Node features, corpus-concatenated:
+    feats: np.ndarray        # [N_all, A] float32
+    fstart: np.ndarray       # [G + 1] int64
+    # Per-round corpus-concatenated schedule rows (tuples over R):
+    ekey: tuple              # [E_r] int32, s * T + t
+    ekey_s: tuple            # [E_r] int32
+    esend: tuple             # [E_r] int32 graph-local sender ids
+    etgt: tuple              # [E_r] int32 per-(graph, step) target idx
+    erank: tuple             # [E_r] int32 rank within (graph, key) run
+    egstart: tuple           # [G + 1] int64 row offsets per graph
+    rkey_s: tuple            # [RC_r] int32 step per receiver
+    rnode: tuple             # [RC_r] int32 graph-local receiver ids
+    rrank: tuple             # [RC_r] int32 rank within (graph, step) run
+    rgstart: tuple           # [G + 1] int64
+    inits: tuple             # [I_r] int32 graph-local initial nodes
+    igstart: tuple           # [G + 1] int64
+
+    def matches(self, processed, rounds: int, substeps: int,
+                num_edge_types: int) -> bool:
+        """Corpus fingerprint: a cache built for a DIFFERENT corpus
+        must fall back to a rebuild, not silently emit batches for the
+        wrong graphs. Checked per graph: node counts, exact labels
+        (values AND masks), float64 feature sums, and every round's
+        edge/receiver/initial table lengths, once per pack call.
+        Residual blind spot
+        (documented): an edit that preserves ALL of those — e.g.
+        permuting edge targets within one graph's schedule step — can
+        still slip; in-repo callers additionally guard by cache object
+        identity (AsyncAdapter)."""
+        G = len(processed)
+        if not (self.num_graphs == G
+                and (self.R, self.S, self.T)
+                == (rounds, substeps, num_edge_types)):
+            return False
+        if not np.array_equal(
+                self.n_nodes,
+                np.fromiter((len(g["init"]) for g in processed),
+                            np.int64, G)):
+            return False
+        for g_idx, g in enumerate(processed):
+            v, m = _labels_to_values_and_mask(g["labels"])
+            # Stored values were cast f32 on assignment at build time;
+            # compare post-cast or exact labels would spuriously reject.
+            if (not np.array_equal(self.values[g_idx],
+                                   np.asarray(v, np.float32))
+                    or not np.array_equal(self.masks[g_idx],
+                                          np.asarray(m, np.float32))):
+                return False
+        # Per-graph sums via cumsum-diff, NOT np.add.reduceat: reduceat
+        # misbehaves on repeated indices (a zero-node graph would read
+        # its neighbour's first row) and raises when the final index
+        # equals len(feats).
+        row_cum = np.concatenate(
+            [[0.0], np.cumsum(self.feats.sum(axis=1, dtype=np.float64))])
+        feat_sums = row_cum[self.fstart[1:]] - row_cum[self.fstart[:-1]]
+        got_sums = np.fromiter(
+            (float(np.asarray(g["init"], np.float64).sum())
+             for g in processed), np.float64, G)
+        # allclose, not equality: the two sides reduce in different
+        # orders (reduceat vs pairwise); a last-ulp difference must not
+        # spuriously reject the cache (that would silently disable it).
+        if not np.allclose(feat_sums, got_sums, rtol=1e-9, atol=1e-6):
+            return False
+        for r in range(self.R):
+            if not (np.array_equal(
+                        np.diff(self.egstart[r]),
+                        np.fromiter((len(g["flat_schedules"].key[r])
+                                     for g in processed), np.int64, G))
+                    and np.array_equal(
+                        np.diff(self.rgstart[r]),
+                        np.fromiter((len(g["flat_schedules"].recv_s[r])
+                                     for g in processed), np.int64, G))
+                    and np.array_equal(
+                        np.diff(self.igstart[r]),
+                        np.fromiter((len(g["flat_schedules"].initial[r])
+                                     for g in processed), np.int64, G))):
+                return False
+        return True
+
+
+def build_async_pack_cache(processed: List[dict], propagation_rounds: int,
+                           propagation_substeps: int, num_edge_types: int
+                           ) -> Optional[AsyncPackCache]:
+    """Build the epoch-packing cache (one pass over the corpus), or
+    None when any graph lacks a matching flat table (the heterogeneous
+    fallback cases keep the per-graph packers)."""
+    R, S, T = propagation_rounds, propagation_substeps, num_edge_types
+    if not processed or not _all_flat_compatible([processed], R, S, T):
+        return None
+    G = len(processed)
+    n_nodes = np.zeros(G, np.int64)
+    counts_st = np.zeros((G, R, S, T), np.int32)
+    counts_r = np.zeros((G, R, S), np.int32)
+    counts_init = np.zeros((G, R), np.int32)
+    values = np.zeros((G, len(processed[0]["labels"])), np.float32)
+    masks = np.zeros_like(values)
+    feats_list = []
+    ekey = [[] for _ in range(R)]
+    esend = [[] for _ in range(R)]
+    etgt = [[] for _ in range(R)]
+    rkey_s = [[] for _ in range(R)]
+    rnode = [[] for _ in range(R)]
+    inits = [[] for _ in range(R)]
+    egstart = np.zeros((R, G + 1), np.int64)
+    rgstart = np.zeros((R, G + 1), np.int64)
+    igstart = np.zeros((R, G + 1), np.int64)
+    for g_idx, g in enumerate(processed):
+        flat = g["flat_schedules"]
+        n_nodes[g_idx] = len(g["init"])
+        counts_st[g_idx] = flat.counts_st
+        counts_r[g_idx] = flat.counts_r
+        counts_init[g_idx] = flat.counts_init
+        v, m = _labels_to_values_and_mask(g["labels"])
+        values[g_idx] = v
+        masks[g_idx] = m
+        feats_list.append(np.asarray(g["init"], np.float32))
+        for r in range(R):
+            ekey[r].append(flat.key[r])
+            esend[r].append(flat.send[r])
+            etgt[r].append(flat.tgt[r])
+            rkey_s[r].append(flat.recv_s[r])
+            rnode[r].append(flat.recv_node[r])
+            inits[r].append(flat.initial[r])
+            egstart[r, g_idx + 1] = egstart[r, g_idx] + len(flat.key[r])
+            rgstart[r, g_idx + 1] = rgstart[r, g_idx] + len(flat.recv_s[r])
+            igstart[r, g_idx + 1] = igstart[r, g_idx] + len(flat.initial[r])
+
+    def cat(parts):
+        return (np.concatenate(parts) if parts else np.zeros(0, np.int32))
+
+    ekey_c, ekey_s_c, erank_c = [], [], []
+    rkey_c, rrank_c = [], []
+    for r in range(R):
+        key = cat(ekey[r])
+        ekey_c.append(key)
+        ekey_s_c.append((key // T).astype(np.int32))
+        # Static scatter rank: rows are (graph, key)-run contiguous.
+        gid = np.repeat(np.arange(G, dtype=np.int64),
+                        np.diff(egstart[r]))
+        erank_c.append(_run_ranks(gid * (S * T) + key))
+        ks = cat(rkey_s[r])
+        rkey_c.append(ks)
+        gid_r = np.repeat(np.arange(G, dtype=np.int64),
+                          np.diff(rgstart[r]))
+        rrank_c.append(_run_ranks(gid_r * S + ks))
+    feats = (np.concatenate(feats_list, axis=0) if feats_list
+             else np.zeros((0, 0), np.float32))
+    s_used = max(1, int(max((int(g["flat_schedules"].depth.max(initial=0))
+                             for g in processed), default=1)))
+    return AsyncPackCache(
+        num_graphs=G, R=R, S=S, T=T, s_used=s_used, n_nodes=n_nodes,
+        counts_st=np.ascontiguousarray(counts_st[:, :, :s_used]),
+        counts_r=np.ascontiguousarray(counts_r[:, :, :s_used]),
+        counts_init=counts_init, values=values,
+        masks=masks, feats=feats,
+        fstart=np.r_[0, np.cumsum(n_nodes)],
+        ekey=tuple(ekey_c), ekey_s=tuple(ekey_s_c),
+        esend=tuple(cat(esend[r]) for r in range(R)),
+        etgt=tuple(cat(etgt[r]) for r in range(R)),
+        erank=tuple(erank_c), egstart=tuple(egstart),
+        rkey_s=tuple(rkey_c),
+        rnode=tuple(cat(rnode[r]) for r in range(R)),
+        rrank=tuple(rrank_c), rgstart=tuple(rgstart),
+        inits=tuple(cat(inits[r]) for r in range(R)),
+        igstart=tuple(igstart))
+
+
+def _window_rows(gstart: np.ndarray, win: np.ndarray):
+    """Corpus row indices for the graphs `win`, graph-major — the
+    vectorized form of per-graph slice concatenation. Returns
+    (rows, rep_g, within): source rows, per-row window-graph index,
+    per-row within-graph position."""
+    starts = gstart[win]
+    cnts = (gstart[win + 1] - starts).astype(np.int64)
+    total = int(cnts.sum())
+    rep_g = np.repeat(np.arange(len(win)), cnts)
+    off = np.r_[0, np.cumsum(cnts)[:-1]]
+    within = np.arange(total, dtype=np.int64) - np.repeat(off, cnts)
+    return starts[rep_g] + within, rep_g, within
+
+
+def _pack_async_batches_cached(cache: AsyncPackCache, num_edge_types: int,
+                               node_budget: int, caps: AsyncCapacities,
+                               propagation_rounds: int,
+                               propagation_substeps: int, hidden_size: int,
+                               annotation_size: int, is_training: bool,
+                               rng: Optional[np.random.RandomState] = None
+                               ) -> Iterator[AsyncGraphBatch]:
+    """Epoch packing over the corpus cache: per batch, ONE window
+    cumsum finds the split (same greedy fits() as the per-graph
+    packers — all conditions are monotone in the prefix length), then
+    whole-batch gathers/scatters assemble the slabs. Bit-identical to
+    `_pack_async_batches_flat` including the shuffle stream (the
+    Fisher-Yates draw count depends only on the corpus length)."""
+    R, S, T = propagation_rounds, propagation_substeps, num_edge_types
+    su = cache.s_used
+    G = cache.num_graphs
+    order = list(range(G))
+    if is_training and rng is not None:
+        rng.shuffle(order)  # same RandomState consumption as the
+        # flat packer's rng.shuffle(processed) — length-only algorithm
+    order = np.asarray(order, np.int64)
+    num_tasks = cache.values.shape[1]
+
+    seg_sea_cap, seg_rc_cap = _expand_seg_caps(caps, R, su)
+    rc_eff = np.minimum(seg_rc_cap, caps.receiving_nodes)  # [R, su]
+
+    i = 0
+    while i < G:
+        win_all = order[i:i + int(caps.graphs)]
+        # Inclusive cumulative capacity tables over the window; every
+        # fits() condition is monotone in the prefix, so the batch is
+        # the longest all-True prefix. (int32 is safe: counts are
+        # bounded by the per-batch capacities, all < 2^31.)
+        cn = np.cumsum(cache.n_nodes[win_all])
+        ci = np.cumsum(cache.counts_init[win_all], axis=0,
+                       dtype=np.int32)
+        cr = np.cumsum(cache.counts_r[win_all], axis=0, dtype=np.int32)
+        cst = np.cumsum(cache.counts_st[win_all], axis=0,
+                        dtype=np.int32)
+        ok = ((cn < node_budget)
+              & (ci <= caps.initial_nodes).all(axis=1)
+              & (cr <= rc_eff).all(axis=(1, 2))
+              & (cst <= caps.sending_edges).all(axis=(1, 2, 3))
+              & (cst.sum(axis=3, dtype=np.int64)
+                 <= seg_sea_cap).all(axis=(1, 2)))
+        if not ok[0]:
+            raise ValueError(f"graph exceeds async capacities {caps}")
+        nb = len(win_all) if ok.all() else int(np.argmin(ok))
+        win = win_all[:nb]
+        i += nb
+
+        n = cache.n_nodes[win]
+        node_off = np.r_[0, np.cumsum(n)[:-1]]
+        node_total = int(cn[nb - 1])
+        # Exclusive per-graph cumulative tables (scatter bases / the
+        # receiver offsets each graph's targets shift by).
+        cst_w = cst[:nb] - cache.counts_st[win]      # [nb, R, su, T]
+        cr_w = cr[:nb] - cache.counts_r[win]         # [nb, R, su]
+        ci_w = ci[:nb] - cache.counts_init[win]      # [nb, R]
+        # recv_offsets for _finalize is [R, S] (plan segments may
+        # reference steps past s_used; they hold zero receivers).
+        recv_totals = np.zeros((R, S), np.int64)
+        recv_totals[:, :su] = cr[nb - 1]              # inclusive sums
+
+        node_features = np.zeros((caps.nodes, hidden_size), np.float32)
+        frows, _f_rep, _f_within = _window_rows(cache.fstart, win)
+        node_features[:node_total, :annotation_size] = cache.feats[frows]
+        node_graph_ids = np.full((caps.nodes,), caps.graphs, np.int32)
+        node_graph_ids[:node_total] = np.repeat(
+            np.arange(nb, dtype=np.int32), n)
+
+        initial_nodes = np.full((R, caps.initial_nodes), caps.nodes,
+                                np.int32)
+        sending_nodes = np.zeros((R, S, T, caps.sending_edges), np.int32)
+        msg_targets = np.full((R, S, T, caps.sending_edges),
+                              caps.receiving_nodes, np.int32)
+        receiving_nodes = np.full((R, S, caps.receiving_nodes),
+                                  caps.nodes, np.int32)
+        for r in range(R):
+            rows, rep_g, _w = _window_rows(cache.egstart[r], win)
+            if len(rows):
+                key = cache.ekey[r][rows]
+                cst_w_r = cst_w[:, r].reshape(nb, su * T)
+                pos = cst_w_r[rep_g, key] + cache.erank[r][rows]
+                flat_send = sending_nodes[r].reshape(S * T, -1)
+                flat_tgt = msg_targets[r].reshape(S * T, -1)
+                flat_send[key, pos] = (cache.esend[r][rows]
+                                       + node_off[rep_g])
+                flat_tgt[key, pos] = (
+                    cache.etgt[r][rows]
+                    + cr_w[rep_g, r, cache.ekey_s[r][rows]])
+            rrows, rrep_g, _w = _window_rows(cache.rgstart[r], win)
+            if len(rrows):
+                ks = cache.rkey_s[r][rrows]
+                posr = cr_w[rrep_g, r, ks] + cache.rrank[r][rrows]
+                receiving_nodes[r][ks, posr] = (cache.rnode[r][rrows]
+                                                + node_off[rrep_g])
+            irows, irep_g, iwithin = _window_rows(cache.igstart[r], win)
+            if len(irows):
+                initial_nodes[r, ci_w[irep_g, r] + iwithin] = (
+                    cache.inits[r][irows] + node_off[irep_g])
+
+        yield _finalize_async_batch(
+            caps, R, S, T, num_tasks, cache.values[win], cache.masks[win],
+            nb, node_total, initial_nodes, sending_nodes, msg_targets,
+            receiving_nodes, recv_totals,
+            node_features=node_features, node_graph_ids=node_graph_ids)
+
+
+def _pack_async_batches_loop(processed: List[dict], num_edge_types: int,
+                             node_budget: int, caps: AsyncCapacities,
+                             propagation_rounds: int,
+                             propagation_substeps: int, hidden_size: int,
+                             annotation_size: int, is_training: bool,
+                             rng: Optional[np.random.RandomState] = None
+                             ) -> Iterator[AsyncGraphBatch]:
+    if is_training and rng is not None:
+        processed = list(processed)  # copy: epoch shuffles must not compose
+        rng.shuffle(processed)
+    num_tasks = len(processed[0]["labels"])
+    R, S, T = propagation_rounds, propagation_substeps, num_edge_types
+    # Per-step segment caps from the plan become part of the fits()
+    # check below, so a shuffled batch can never overflow a planned
+    # segment mid-epoch (the _SegmentOverflow fallback would change the
+    # batch pytree structure, which the stacked mesh paths cannot absorb).
+    seg_sea_cap, seg_rc_cap = _expand_seg_caps(caps, R, S)
+    idx = 0
+    while idx < len(processed):
+        feats, graph_ids, values, masks = [], [], [], []
+        init_lists = [[] for _ in range(R)]
+        send_lists = [[[[] for _ in range(T)] for _ in range(S)] for _ in range(R)]
+        target_lists = [[[[] for _ in range(T)] for _ in range(S)] for _ in range(R)]
+        recv_lists = [[[] for _ in range(S)] for _ in range(R)]
+        recv_offsets = np.zeros((R, S), dtype=np.int64)
+        send_totals = np.zeros((R, S), dtype=np.int64)
+        # Incremental counters for fits(): re-summing the append lists
+        # per candidate graph would be O(graphs^2) per batch (the
+        # reference-default 100k-node budget packs ~5k molecules).
+        send_type_totals = np.zeros((R, S, T), dtype=np.int64)
+        init_totals = np.zeros((R,), dtype=np.int64)
+        node_offset, graphs_in_batch = 0, 0
+
+        def fits(g) -> bool:
+            n = len(g["init"])
+            if node_offset + n >= node_budget or graphs_in_batch + 1 > caps.graphs:
+                return False
+            for r, (initial, sending, _mt, receiving) in enumerate(
+                    get_prop_schedules(g)):
+                if init_totals[r] + len(initial) > caps.initial_nodes:
+                    return False
+                for s in range(len(receiving)):
+                    new_recv = recv_offsets[r, s] + len(receiving[s])
+                    if new_recv > caps.receiving_nodes or new_recv > seg_rc_cap[r, s]:
+                        return False
+                    g_send = 0
+                    for t in range(T):
+                        if (send_type_totals[r, s, t] + len(sending[s][t])
+                                > caps.sending_edges):
+                            return False
+                        g_send += len(sending[s][t])
+                    if send_totals[r, s] + g_send > seg_sea_cap[r, s]:
+                        return False
+            return True
+
+        while idx < len(processed):
+            g = processed[idx]
+            if not fits(g):
+                if graphs_in_batch == 0:
+                    raise ValueError(f"graph exceeds async capacities {caps}")
+                break
+            n = len(g["init"])
+            feats.append(np.pad(g["init"],
+                                ((0, 0), (0, hidden_size - annotation_size))))
+            graph_ids.append(np.full(n, graphs_in_batch, dtype=np.int32))
+            for r, (initial, sending, msg_targets, receiving) in enumerate(
+                    get_prop_schedules(g)):
+                init_lists[r].append(initial + node_offset)
+                init_totals[r] += len(initial)
+                for s in range(len(receiving)):
+                    step_offset = recv_offsets[r, s]
+                    for t in range(T):
+                        send_lists[r][s][t].append(sending[s][t] + node_offset)
+                        send_type_totals[r, s, t] += len(sending[s][t])
+                        # All types share the step's receiver offset —
+                        # the fixed version of async.py:399-401.
+                        target_lists[r][s][t].append(
+                            msg_targets[s][t] + step_offset)
+                    recv_lists[r][s].append(receiving[s] + node_offset)
+                    recv_offsets[r, s] += len(receiving[s])
+                    send_totals[r, s] += sum(len(sending[s][t])
+                                             for t in range(T))
+            v, m = _labels_to_values_and_mask(g["labels"])
+            values.append(v)
+            masks.append(m)
+            idx += 1
+            graphs_in_batch += 1
+            node_offset += n
+
+        # Assemble fixed-shape arrays with dump-slot padding.
+        initial_nodes = np.full((R, caps.initial_nodes), caps.nodes, np.int32)
+        sending_nodes = np.zeros((R, S, T, caps.sending_edges), np.int32)
+        msg_targets = np.full((R, S, T, caps.sending_edges),
+                              caps.receiving_nodes, np.int32)
+        receiving_nodes = np.full((R, S, caps.receiving_nodes),
+                                  caps.nodes, np.int32)
+        for r in range(R):
+            if init_lists[r]:
+                arr = np.concatenate(init_lists[r])
+                initial_nodes[r, :len(arr)] = arr
+            for s in range(S):
+                if recv_lists[r][s]:
+                    arr = np.concatenate(recv_lists[r][s])
+                    receiving_nodes[r, s, :len(arr)] = arr
+                for t in range(T):
+                    if send_lists[r][s][t]:
+                        arr = np.concatenate(send_lists[r][s][t])
+                        sending_nodes[r, s, t, :len(arr)] = arr
+                        tgt = np.concatenate(target_lists[r][s][t])
+                        msg_targets[r, s, t, :len(tgt)] = tgt
+
+        yield _finalize_async_batch(
+            caps, R, S, T, num_tasks, values, masks,
+            graphs_in_batch, node_offset, initial_nodes, sending_nodes,
+            msg_targets, receiving_nodes, recv_offsets,
+            node_features=pad_to(
+                np.concatenate(feats, axis=0).astype(np.float32),
+                caps.nodes),
+            node_graph_ids=pad_to(np.concatenate(graph_ids), caps.nodes,
+                                  fill=caps.graphs))
 
 
 def _finalize_async_batch(caps, R, S, T, num_tasks,

@@ -134,12 +134,27 @@ def _leaf_fields(batch) -> Tuple[str, ...]:
     return tuple(fields)
 
 
+def _dtype_name(value) -> str:
+    """A leaf's dtype as the signature names it: numpy's name ("float32",
+    "int32"), and for a torch leaf (the native packer's bf16 adjacency;
+    numpy has no bf16) torch's without its prefix ("bfloat16")."""
+    if isinstance(value, torch.Tensor):
+        return str(value.dtype).replace("torch.", "")
+    return str(np.asarray(value).dtype)
+
+
 def _batch_signature(batch) -> Tuple:
     """Hashable (shape, dtype) over the batch's program inputs: the
     dispatch key between packed batches and programs."""
     return tuple((tuple(np.shape(getattr(batch, f))),
-                  str(np.asarray(getattr(batch, f)).dtype))
+                  _dtype_name(getattr(batch, f)))
                  for f in _leaf_fields(batch))
+
+
+def _as_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.ascontiguousarray(value))
 
 
 def _sig_to_json(sig: Tuple) -> List:
@@ -233,8 +248,7 @@ def export_predictor(predictor: Predictor, path: str) -> str:
         fields = _leaf_fields(batch)
         served = _Served(predictor.params, predictor.task_ids, type(batch),
                          fields)
-        leaves = tuple(torch.from_numpy(np.ascontiguousarray(
-            getattr(batch, f))) for f in fields)
+        leaves = tuple(_as_tensor(getattr(batch, f)) for f in fields)
         with torch.no_grad():
             program = torch.export.export(served, (params, leaves),
                                           strict=False)
@@ -287,6 +301,18 @@ class ExportedPredictor(Predictor):
     def _place(self, params: Dict[str, torch.Tensor]):
         return {name: value.to(self.device)
                 for name, value in sorted(params.items())}
+
+    def _dense_adjacency_dtype(self):
+        """The artifact's adjacency dtype, read from its programs'
+        signatures (the adjacency is a dense batch's one 4-d leaf):
+        whether this host has the native library must not change the
+        dispatch key the artifact was exported with."""
+        for sig in self._programs:
+            for shape, dtype in sig:
+                if len(shape) == 4:
+                    return torch.bfloat16 if dtype == "bfloat16" \
+                        else np.float32
+        return super()._dense_adjacency_dtype()
 
     def _forward(self, batch) -> np.ndarray:
         sig = _batch_signature(batch)

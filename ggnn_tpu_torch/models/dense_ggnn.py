@@ -43,7 +43,9 @@ its attention-weighted form), the node states and W_cat go to bf16, both
 products are bf16-in, f32-out (`ops/precision.py:matmul_f32`, cuBLAS on
 the tensor cores), and `gathered` is cast to bf16 again before the
 second. The attention scores, the cell, the biases and the readout stay
-f32.
+f32. The native packer gives such a model a bf16 adjacency (as JAX's
+does); its in-degrees are then summed in bf16 (exact: small integers)
+and promoted where they meet an f32 operand, as JAX's are.
 """
 
 from typing import Dict
@@ -75,6 +77,12 @@ def resolve_lane_pad(config: Dict, hidden_size: int) -> bool:
         raise ValueError(
             f"lane_pad must be true, false, or \"auto\"; got {mode!r}")
     return mode
+
+
+def _promoted(x: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """`x` in the type it promotes to beside `other` (a bf16 in-degree
+    count meeting f32 biases becomes f32, as jnp.einsum promotes)."""
+    return x.to(torch.promote_types(x.dtype, other.dtype))
 
 
 def dense_attention(h: torch.Tensor, adjacency: torch.Tensor,
@@ -197,8 +205,9 @@ class DenseGGNN(nn.Module):
         bias = None
         if self.use_edge_bias:
             indeg_t = adjacency.sum(dim=3)                     # [B, T, V]
-            bias = torch.matmul(indeg_t.transpose(1, 2),
-                                self.edge_biases[:, 0, :]).reshape(b * v, d)
+            bias = torch.matmul(
+                _promoted(indeg_t, self.edge_biases).transpose(1, 2),
+                self.edge_biases[:, 0, :]).reshape(b * v, d)
         w_flat = self.edge_weights.reshape(t * d, d)
         for _step in range(self.num_timesteps):
             # A fresh mask at every step (dense.py:104); the identity
@@ -237,8 +246,9 @@ class DenseGGNN(nn.Module):
             if self.use_edge_bias:
                 # sum_t indeg_t[v] * bias_t, the sparse model's
                 # in-degree counts @ edge_biases.
-                bias = torch.matmul(indeg_t.transpose(1, 2),
-                                    layer.edge_biases)         # [B, V, H]
+                bias = torch.matmul(
+                    _promoted(indeg_t, layer.edge_biases).transpose(1, 2),
+                    layer.edge_biases)                         # [B, V, H]
             residual_states = [
                 node_states_per_layer[i]
                 for i in self.residual_connections.get(layer_idx, [])

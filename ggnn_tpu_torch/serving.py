@@ -32,11 +32,14 @@ Example:
     mu = predictor(molecule_jsons)      # np.ndarray [K, n_graphs]
 
 The HTTP server (server.py) and the exported artifacts (export.py) run
-on this Predictor's host pipeline. A model with `compute_dtype:
-bfloat16` serves through the same code: its batches stay f32, as the
-numpy packer emits them (the JAX package's bf16 adjacency comes from its
-native packer only), and the model casts. Not ported yet: the native C++
-packer (ROADMAP A12).
+on this Predictor's host pipeline. As in JAX, the sparse family and
+`gcn` pack through the native C++ packer (data/native_pack.py; a
+one-graph sparse request through its `pack_single_sparse`) when the
+config's `native_pack` is true (the default) and the library builds, and
+through the numpy packers otherwise; the dense family packs through the
+adapter, which makes the same choice. A model with `compute_dtype:
+bfloat16` serves the dense family a bf16 adjacency when the native
+packer runs (as JAX's does), else f32; the model casts either way.
 """
 
 import collections
@@ -47,14 +50,16 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ggnn_tpu_torch.data import async_schedule, packing
+from ggnn_tpu_torch.data import async_schedule, native_pack, packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
 from ggnn_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
+from ggnn_tpu_torch.native import get_lib
 from ggnn_tpu_torch.training.checkpoint import (_load_payload, _looks_tf1,
                                                 restore_checkpoint)
 from ggnn_tpu_torch.training.config import default_params_for
-from ggnn_tpu_torch.training.variants import make_adapter
+from ggnn_tpu_torch.training.variants import (_dense_adjacency_dtype,
+                                              _use_native, make_adapter)
 from ggnn_tpu_torch.utils.device import resolve_device
 
 _DENSE_FAMILY = ("dense", "blocked", "gcn_blocked")
@@ -161,6 +166,20 @@ def _topology_key(g: Dict):
     key of both async caches."""
     edges = np.asarray(g.get("graph", ()), np.int64).reshape(-1, 3)
     return len(g["node_features"]), edges.tobytes()
+
+
+def _with_dtype(adjacency, dtype):
+    """A dense batch's adjacency in `dtype` (np.float32 or
+    torch.bfloat16; both hold its 0/1 or normalised entries as the JAX
+    package's batches do): numpy has no bf16, so a bf16 adjacency is a
+    host torch tensor."""
+    if dtype == torch.bfloat16:
+        if isinstance(adjacency, torch.Tensor):
+            return adjacency.to(torch.bfloat16)
+        return torch.from_numpy(adjacency).to(torch.bfloat16)
+    if isinstance(adjacency, torch.Tensor):
+        return adjacency.to(torch.float32).numpy()
+    return adjacency
 
 
 def serve_forward(params, task_ids, batch) -> torch.Tensor:
@@ -286,11 +305,25 @@ class Predictor:
                 cfg["propagation_rounds"], cfg["propagation_substeps"],
                 cfg["hidden_size"], annotation_size, False, None)
         if self.variant == "gcn":
+            if _use_native(cfg):
+                processed = native_pack.preprocess_gcn_native(
+                    raw_graphs, self.task_ids, {}, False)
+                return native_pack.pack_gcn_batches_native(
+                    processed, node_budget, self.caps, cfg["hidden_size"],
+                    annotation_size, False, None)
             processed = packing.preprocess_gcn(raw_graphs, self.task_ids,
                                                {}, False)
             return packing.pack_gcn_batches(
                 processed, node_budget, self.caps, cfg["hidden_size"],
                 annotation_size, False, None)
+        if _use_native(cfg):
+            processed = native_pack.preprocess_sparse_native(
+                raw_graphs, self.meta.num_edge_types, cfg["tie_fwd_bkwd"],
+                self.task_ids, {}, False)
+            return native_pack.pack_sparse_batches_native(
+                processed, self.meta.num_edge_types, cfg["tie_fwd_bkwd"],
+                node_budget, self.caps, cfg["hidden_size"], annotation_size,
+                False, None)
         processed = packing.preprocess_sparse(
             raw_graphs, self.meta.num_edge_types, cfg["tie_fwd_bkwd"],
             self.task_ids, {}, False)
@@ -347,16 +380,81 @@ class Predictor:
             outs.append(self._forward(batch)[:, :int(batch.num_graphs)])
         return np.concatenate(outs, axis=1)
 
+    def _pack_single_sparse_native(self, g: Dict, edges: np.ndarray,
+                                   n: int, annotation_size: int):
+        """The native one-graph pack (native/packer.cpp:
+        pack_single_sparse): one C call fills every array. None when the
+        config's `native_pack` is false, the library is unavailable or
+        the envelope exceeds the C code's 21-bit id fields (rc -4); the
+        numpy pack then takes over."""
+        if not _use_native(self.config):
+            return None
+        lib = get_lib()
+        caps = self.caps
+        t_dim = self.meta.num_edge_types
+        hidden = self.config["hidden_size"]
+        ea = int(caps.edges_all or 0)
+        edge_sources = np.empty((t_dim, caps.edges_per_type), np.int32)
+        edge_targets = np.empty_like(edge_sources)
+        edge_mask = np.empty((t_dim, caps.edges_per_type), np.float32)
+        comb_src = np.empty(max(ea, 1), np.int32)
+        comb_typ = np.empty_like(comb_src)
+        comb_tgt = np.empty_like(comb_src)
+        comb_mask = np.empty(max(ea, 1), np.float32)
+        in_degrees = np.empty((caps.nodes, t_dim), np.float32)
+        node_features = np.empty((caps.nodes, hidden), np.float32)
+        node_graph_ids = np.empty(caps.nodes, np.int32)
+        feats = np.ascontiguousarray(g["node_features"], dtype=np.float32)
+        edges_c = np.ascontiguousarray(edges)
+        rc = lib.pack_single_sparse(
+            edges_c.ctypes.data, len(edges), feats.ctypes.data, n,
+            annotation_size, t_dim, int(self.config["tie_fwd_bkwd"]),
+            caps.nodes, caps.edges_per_type, ea, hidden, caps.graphs,
+            edge_sources.ctypes.data, edge_targets.ctypes.data,
+            edge_mask.ctypes.data,
+            comb_src.ctypes.data, comb_typ.ctypes.data,
+            comb_tgt.ctypes.data, comb_mask.ctypes.data,
+            in_degrees.ctypes.data, node_features.ctypes.data,
+            node_graph_ids.ctypes.data)
+        if rc == -4:
+            return None  # ids exceed the C code's key fields
+        if rc == -3:
+            num_fwd = t_dim if self.config["tie_fwd_bkwd"] else t_dim // 2
+            raise ValueError(
+                f"edge type out of range [1, {num_fwd}] in request graph")
+        if rc == -5:
+            raise ValueError(
+                f"edge vertex id out of range [0, {n}) in request graph")
+        if rc == -6:
+            raise ValueError(
+                f"request feature width {annotation_size} exceeds the "
+                f"model hidden size {hidden}")
+        if rc != 0:
+            raise ValueError(
+                f"graph with {2 * len(edges)} directed edges exceeds "
+                f"pack capacities {self.caps}")
+        targets, target_mask = self._single_graph_targets(g, caps.graphs)
+        extra = {}
+        if ea:
+            extra = dict(edge_sources_all=comb_src, edge_types_all=comb_typ,
+                         edge_targets_all=comb_tgt, edge_mask_all=comb_mask)
+        return GraphBatch(
+            node_features=node_features, node_graph_ids=node_graph_ids,
+            edge_sources=edge_sources, edge_targets=edge_targets,
+            edge_mask=edge_mask, in_degrees=in_degrees,
+            targets=targets, target_mask=target_mask,
+            num_graphs=np.int32(1), num_nodes=np.int32(n), **extra)
+
     def _pack_single_sparse(self, g: Dict,
                             annotation_size: int) -> GraphBatch:
-        """Vectorized one-graph pack (the latency path): the same batch,
-        bit for bit, as `_batches` on a 1-graph request, assembled with
-        numpy array ops instead of the per-graph corpus pipeline.
-        Semantics mirrored from data/packing.py: 0-based types with
-        tied/untied backward edges, per-type lanes (target, source)-sorted
-        with dump-slot padding, the type-combined (target, type)-sorted
-        lane, per-type in-degrees, and the labels->values/mask
-        convention."""
+        """One-graph pack (the latency path): the same batch, bit for
+        bit, as `_batches` on a 1-graph request, from the native
+        `pack_single_sparse` where it serves, else assembled with numpy
+        array ops instead of the per-graph corpus pipeline. Semantics
+        mirrored from data/packing.py: 0-based types with tied/untied
+        backward edges, per-type lanes (target, source)-sorted with
+        dump-slot padding, the type-combined (target, type)-sorted lane,
+        per-type in-degrees, and the labels->values/mask convention."""
         caps = self.caps
         t_dim = self.meta.num_edge_types
         tie = self.config["tie_fwd_bkwd"]
@@ -368,6 +466,10 @@ class Predictor:
                 f"graph with {n} nodes exceeds pack capacities {caps}")
 
         edges = np.asarray(g.get("graph", ()), dtype=np.int32).reshape(-1, 3)
+        native = self._pack_single_sparse_native(g, edges, n,
+                                                 annotation_size)
+        if native is not None:
+            return native
         raw_t = edges[:, 1]
         if raw_t.size and not (1 <= raw_t.min() and raw_t.max() <= num_fwd):
             bad = raw_t[(raw_t < 1) | (raw_t > num_fwd)][0]
@@ -550,9 +652,21 @@ class Predictor:
                 edges, v, t_dim, cfg["tie_fwd_bkwd"])
         targets, target_mask = self._single_graph_targets(g, b_cap)
         return DenseGraphBatch(
-            node_features=init, adjacency=adjacency, node_mask=node_mask,
-            targets=targets, target_mask=target_mask,
+            node_features=init,
+            adjacency=_with_dtype(adjacency, self._dense_adjacency_dtype()),
+            node_mask=node_mask, targets=targets, target_mask=target_mask,
             num_graphs=np.int32(1))
+
+    def _dense_adjacency_dtype(self):
+        """The dense-family serving batches' adjacency dtype: the
+        training pipeline's (bf16 under `compute_dtype: bfloat16` when
+        the native packer runs, else f32; `gcn_blocked` f32 always). The
+        ExportedPredictor reads it from its artifact instead: whether the
+        serving host has the native library must not change the dispatch
+        key an artifact was exported with."""
+        if self.variant != "gcn_blocked" and _use_native(self.config):
+            return _dense_adjacency_dtype(self.config)
+        return np.float32
 
     def _dense_batches(self, raw_graphs: Sequence, annotation_size: int):
         """(order, batches): the dense family's bucket batches of a
@@ -565,10 +679,19 @@ class Predictor:
             num_edge_types=self.meta.num_edge_types,
             annotation_size=annotation_size), drop_remainder=False)
         processed = adapter.preprocess(list(raw_graphs), False)
-        # Bucketing re-orders graphs; each keeps its request index.
-        order = [int(g["graph_id"]) for bucket in processed.values()
-                 for g in bucket]
-        return order, adapter.batches(processed, False)
+        # Bucketing re-orders graphs; each keeps its request index (the
+        # native packer's buckets hold the indices themselves).
+        if isinstance(processed, native_pack.DenseProcessed):
+            order = [int(i) for ids in processed.bucket_order for i in ids]
+        else:
+            order = [int(g["graph_id"]) for bucket in processed.values()
+                     for g in bucket]
+        dtype = self._dense_adjacency_dtype()
+        # The predictor's adjacency dtype, whichever packer ran: an
+        # artifact's dispatch must not depend on this host's packer.
+        return order, (
+            dataclasses.replace(b, adjacency=_with_dtype(b.adjacency, dtype))
+            for b in adapter.batches(processed, False))
 
     def _call_dense(self, raw_graphs: Sequence,
                     annotation_size: int) -> np.ndarray:

@@ -88,9 +88,9 @@ ASYNC_DEFAULTS: Dict = {
     #   "async_epoch_shuffle" ("graphs" | "batches") — "batches" packs
     #       each split once and shuffles the batch order every epoch;
     #       "graphs" re-packs every epoch after a graph shuffle;
-    #   "async_pack_cache" (bool) — JAX's corpus-level pack cache, not
-    #       ported (ROADMAP A12): accepted, and the flat packer, whose
-    #       batches are the same bit for bit, runs either way.
+    #   "async_pack_cache" (bool, True) — pack each corpus through its
+    #       corpus-level AsyncPackCache (data/async_schedule.py); false
+    #       packs with the flat packer (the same batches, bit for bit).
 }
 
 # The JAX package's own variant: the sparse model's feature surface

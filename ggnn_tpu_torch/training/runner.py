@@ -51,6 +51,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ggnn_tpu_torch.data import native_pack
 from ggnn_tpu_torch.data.loader import infer_metadata, load_graphs_json
 from ggnn_tpu_torch.graph import (AsyncGraphBatch, DenseGraphBatch,
                                   GCNGraphBatch)
@@ -73,6 +74,8 @@ def _batch_edge_count(batch) -> float:
     message slots over the rounds (each edge fires once a round), as the
     JAX Runner does."""
     if isinstance(batch, DenseGraphBatch):
+        if isinstance(batch.adjacency, torch.Tensor):  # the bf16 one
+            return float(torch.count_nonzero(batch.adjacency))
         return float(np.count_nonzero(batch.adjacency))
     if isinstance(batch, GCNGraphBatch):
         return float(np.count_nonzero(batch.edge_weights))
@@ -505,6 +508,8 @@ class Runner:
         edge-list variants pack sequentially)."""
         if getattr(self.adapter, "drop_remainder", None) is None:
             return None
+        if isinstance(processed, native_pack.DenseProcessed):
+            return [int(i) for ids in processed.bucket_order for i in ids]
         return [int(g["graph_id"]) for bucket in processed.values()
                 for g in bucket]
 

@@ -5,11 +5,15 @@ adapter (variants `sparse` and `rgcn`), the dense one (`dense` and
 `blocked`), the GCN one (`gcn`), the dense GCN one (`gcn_blocked`) and
 the async one (`async`).
 
-The adapters pack with the port's numpy packers (data/packing.py,
-data/async_schedule.py), whose batches are bit-identical to the JAX
-package's numpy packers. A config's `native_pack` and `async_pack_cache`
-keys are accepted and do not change that: the native C++ packer and the
-async corpus cache are not ported yet (ROADMAP A12).
+As in JAX, every adapter but `async` packs through the native C++
+packer (data/native_pack.py over ggnn_tpu_torch/native) when the config's
+`native_pack` is true (the default) and the library builds, and through
+the numpy packers (data/packing.py) otherwise or under
+GGNN_TPU_NO_NATIVE=1; under `compute_dtype: bfloat16` the native dense
+batches carry a bf16 adjacency, as JAX's do. `async` packs with
+data/async_schedule.py, through a corpus-level `AsyncPackCache` unless
+`async_pack_cache` is false. Every batch equals the JAX package's batch
+of the same config bit for bit.
 """
 
 from typing import Any, Dict, Iterator, Optional
@@ -17,12 +21,28 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from ggnn_tpu_torch.data import async_schedule, packing
+from ggnn_tpu_torch.data import async_schedule, native_pack, packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
 from ggnn_tpu_torch.models.async_ggnn import AsyncGGNN
 from ggnn_tpu_torch.models.dense_ggnn import DenseGGNN
 from ggnn_tpu_torch.models.gcn import GCN, BlockedGCN
 from ggnn_tpu_torch.models.sparse_ggnn import SparseGGNN
+from ggnn_tpu_torch.native import native_available
+
+
+def _use_native(config: Dict) -> bool:
+    """The native C++ batch assembly (data/native_pack.py): on by default
+    when the library builds; `"native_pack": false` (or
+    GGNN_TPU_NO_NATIVE=1) selects the numpy packers."""
+    return bool(config.get("native_pack", True)) and native_available()
+
+
+def _dense_adjacency_dtype(config: Dict):
+    """The native dense batches' adjacency dtype: bf16 under
+    `compute_dtype: bfloat16` (0/1 entries, exact), else f32."""
+    if config.get("compute_dtype", "float32") == "bfloat16":
+        return torch.bfloat16
+    return np.float32
 
 
 def _nonempty(p) -> bool:
@@ -59,6 +79,11 @@ class SparseAdapter:
 
     def preprocess(self, raw, is_training: bool,
                    rng: Optional[np.random.RandomState] = None):
+        if _use_native(self.config):
+            return native_pack.preprocess_sparse_native(
+                raw, self.meta.num_edge_types, self.config["tie_fwd_bkwd"],
+                self.config["task_ids"], self.config["task_sample_ratios"],
+                is_training, rng)
         return packing.preprocess_sparse(
             raw, self.meta.num_edge_types, self.config["tie_fwd_bkwd"],
             self.config["task_ids"], self.config["task_sample_ratios"],
@@ -69,13 +94,23 @@ class SparseAdapter:
         # Merge every field across splits: dropping edges_all would
         # disable the type-combined lane the model needs.
         self.caps = _merged_caps([
-            packing.plan_capacities(p, self.meta.num_edge_types,
-                                    self.config["batch_size"], margin=margin)
+            native_pack.plan_capacities_native(
+                p, self.config["batch_size"], margin=margin)
+            if isinstance(p, native_pack.SparseProcessed)
+            else packing.plan_capacities(p, self.meta.num_edge_types,
+                                         self.config["batch_size"],
+                                         margin=margin)
             for p in processed_lists if _nonempty(p)])
         return self.caps
 
     def batches(self, processed, is_training: bool,
                 rng: Optional[np.random.RandomState] = None) -> Iterator:
+        if isinstance(processed, native_pack.SparseProcessed):
+            return native_pack.pack_sparse_batches_native(
+                processed, self.meta.num_edge_types,
+                self.config["tie_fwd_bkwd"], self.config["batch_size"],
+                self.caps, self.config["hidden_size"],
+                self.meta.annotation_size, is_training, rng)
         return packing.pack_sparse_batches(
             processed, self.meta.num_edge_types, self.config["batch_size"],
             self.caps, self.config["hidden_size"], self.meta.annotation_size,
@@ -111,6 +146,13 @@ class DenseAdapter:
 
     def preprocess(self, raw, is_training: bool,
                    rng: Optional[np.random.RandomState] = None):
+        if _use_native(self.config):
+            return native_pack.preprocess_dense_native(
+                raw, self.config["task_ids"],
+                self.config["task_sample_ratios"], is_training, rng,
+                bucket_sizes=self._bucket_sizes(),
+                num_edge_types=self.meta.num_edge_types,
+                tie_fwd_bkwd=self.config["tie_fwd_bkwd"])
         bucketed, self.bucket_sizes = packing.preprocess_dense(
             raw, self.meta.num_edge_types, self.config["tie_fwd_bkwd"],
             self.config["task_ids"], self.config["task_sample_ratios"],
@@ -122,6 +164,13 @@ class DenseAdapter:
 
     def batches(self, processed, is_training: bool,
                 rng: Optional[np.random.RandomState] = None) -> Iterator:
+        if isinstance(processed, native_pack.DenseProcessed):
+            return native_pack.pack_dense_batches_native(
+                processed, self.config["batch_size"],
+                self.config["hidden_size"], self.meta.annotation_size,
+                self.meta.num_edge_types, self.config["tie_fwd_bkwd"],
+                is_training, rng, drop_remainder=self.drop_remainder,
+                adjacency_dtype=_dense_adjacency_dtype(self.config))
         return packing.pack_dense_batches(
             processed, self.bucket_sizes, self.config["batch_size"],
             self.config["hidden_size"], self.meta.annotation_size,
@@ -143,6 +192,10 @@ class GCNAdapter:
 
     def preprocess(self, raw, is_training: bool,
                    rng: Optional[np.random.RandomState] = None):
+        if _use_native(self.config):
+            return native_pack.preprocess_gcn_native(
+                raw, self.config["task_ids"],
+                self.config["task_sample_ratios"], is_training, rng)
         return packing.preprocess_gcn(
             raw, self.config["task_ids"], self.config["task_sample_ratios"],
             is_training, rng)
@@ -150,13 +203,21 @@ class GCNAdapter:
     def plan(self, *processed_lists) -> packing.PackCapacities:
         margin = self.config.get("pack_margin")
         self.caps = _merged_caps([
-            packing.plan_gcn_capacities(p, self.config["batch_size"],
-                                        margin=margin)
+            native_pack.plan_gcn_capacities_native(
+                p, self.config["batch_size"], margin=margin)
+            if isinstance(p, native_pack.GCNProcessed)
+            else packing.plan_gcn_capacities(p, self.config["batch_size"],
+                                             margin=margin)
             for p in processed_lists if _nonempty(p)])
         return self.caps
 
     def batches(self, processed, is_training: bool,
                 rng: Optional[np.random.RandomState] = None) -> Iterator:
+        if isinstance(processed, native_pack.GCNProcessed):
+            return native_pack.pack_gcn_batches_native(
+                processed, self.config["batch_size"], self.caps,
+                self.config["hidden_size"], self.meta.annotation_size,
+                is_training, rng)
         return packing.pack_gcn_batches(
             processed, self.config["batch_size"], self.caps,
             self.config["hidden_size"], self.meta.annotation_size,
@@ -181,27 +242,51 @@ class GcnBlockedAdapter(DenseAdapter):
 
     def preprocess(self, raw, is_training: bool,
                    rng: Optional[np.random.RandomState] = None):
+        if _use_native(self.config):
+            return native_pack.preprocess_gcn_dense_native(
+                raw, self.config["task_ids"],
+                self.config["task_sample_ratios"], is_training, rng,
+                bucket_sizes=self._bucket_sizes())
         bucketed, self.bucket_sizes = packing.preprocess_gcn_dense(
             raw, self.config["task_ids"], self.config["task_sample_ratios"],
             is_training, rng, bucket_sizes=self._bucket_sizes())
         return bucketed
+
+    def batches(self, processed, is_training: bool,
+                rng: Optional[np.random.RandomState] = None) -> Iterator:
+        """The normalised [B, 1, V, V] batches (f32 under any
+        compute_dtype, as in JAX: the model casts)."""
+        if isinstance(processed, native_pack.DenseProcessed):
+            return native_pack.pack_gcn_dense_batches_native(
+                processed, self.config["batch_size"],
+                self.config["hidden_size"], self.meta.annotation_size,
+                is_training, rng, drop_remainder=self.drop_remainder)
+        return super().batches(processed, is_training, rng)
 
 
 class AsyncAdapter:
     """`async`: DFS schedules packed under the `num_nodes` budget, one
     capacity and segment plan over every split."""
     name = "async"
-    # The packed corpora kept for async_epoch_shuffle "batches"; a
-    # Runner holds two (training and validation).
+    # The corpora kept in each cache; a Runner holds two (training and
+    # validation).
     _CACHE_CAP = 4
 
     def __init__(self, config: Dict, meta: DatasetMeta):
         self.config = config
         self.meta = meta
         self.caps = None
-        # id(processed) -> (processed, its packed batches), first in
-        # first out; holding `processed` keeps its id valid.
+        # id(processed) -> (processed, its AsyncPackCache), and for
+        # async_epoch_shuffle "batches" -> (processed, its packed
+        # batches); first in first out, holding `processed` keeps its id
+        # valid.
+        self._pack_caches: Dict[int, Any] = {}
         self._batch_caches: Dict[int, Any] = {}
+
+    def _cache_put(self, caches: Dict[int, Any], key: int, value) -> None:
+        while len(caches) >= self._CACHE_CAP:
+            caches.pop(next(iter(caches)))
+        caches[key] = value
 
     def build_model(self, generator: torch.Generator) -> AsyncGGNN:
         return AsyncGGNN(self.config, self.meta.num_edge_types, generator)
@@ -225,12 +310,29 @@ class AsyncAdapter:
             margin=self.config.get("pack_margin"))
         return self.caps
 
+    def _pack_cache(self, processed):
+        """The corpus's `AsyncPackCache` (data/async_schedule.py), built
+        on first use; `"async_pack_cache": false` opts out (a corpus
+        mutated between epochs)."""
+        if not self.config.get("async_pack_cache", True):
+            return None
+        entry = self._pack_caches.get(id(processed))
+        if entry is not None and entry[0] is processed:
+            return entry[1]
+        cache = async_schedule.build_async_pack_cache(
+            processed, self.config["propagation_rounds"],
+            self.config["propagation_substeps"], self.meta.num_edge_types)
+        self._cache_put(self._pack_caches, id(processed),
+                        (processed, cache))
+        return cache
+
     def _pack(self, processed, is_training: bool, rng):
         return async_schedule.pack_async_batches(
             processed, self.meta.num_edge_types, self.config["num_nodes"],
             self.caps, self.config["propagation_rounds"],
             self.config["propagation_substeps"], self.config["hidden_size"],
-            self.meta.annotation_size, is_training, rng)
+            self.meta.annotation_size, is_training, rng,
+            cache=self._pack_cache(processed))
 
     def batches(self, processed, is_training: bool,
                 rng: Optional[np.random.RandomState] = None) -> Iterator:
@@ -249,9 +351,7 @@ class AsyncAdapter:
         entry = self._batch_caches.get(id(processed))
         if entry is None or entry[0] is not processed:
             entry = (processed, list(self._pack(processed, False, None)))
-            while len(self._batch_caches) >= self._CACHE_CAP:
-                self._batch_caches.pop(next(iter(self._batch_caches)))
-            self._batch_caches[id(processed)] = entry
+            self._cache_put(self._batch_caches, id(processed), entry)
         packed = entry[1]
         if is_training and rng is not None:
             return (packed[i] for i in rng.permutation(len(packed)))

@@ -231,15 +231,21 @@ def test_pack_with_serving_caps_and_on_segment_overflow_identical_to_jax():
 
 
 def test_corpus_without_flat_tables_raises_naming_its_item():
-    proc, _ = _both_preprocessed(synthetic_molecules(4, seed=1))
-    stripped = [{k: v for k, v in g.items() if k != "flat_schedules"}
-                for g in proc]
+    """A graph with neither schedule form cannot be packed: both packages
+    raise, naming the fix (the loop packer takes graphs that carry their
+    nested schedules: tests/test_torch_async_cache.py)."""
+    proc, ref = _both_preprocessed(synthetic_molecules(4, seed=1))
     caps = async_schedule.plan_async_capacities(proc, T, 200, 2)
-    with pytest.raises(ValueError, match="A12"):
-        async_schedule.plan_async_capacities(stripped, T, 200, 2)
-    with pytest.raises(ValueError, match="A12"):
-        async_schedule.pack_async_batches(stripped, T, 200, caps, 2, S, H, 5,
-                                          False)
+    jax_caps = jax_async.AsyncCapacities(**dataclasses.asdict(caps))
+    for mod, corpus, c in ((async_schedule, proc, caps),
+                           (jax_async, ref, jax_caps)):
+        stripped = [{k: v for k, v in g.items() if k != "flat_schedules"}
+                    for g in corpus]
+        with pytest.raises(ValueError, match="re-run preprocess_async"):
+            mod.plan_async_capacities(stripped, T, 200, 2)
+        with pytest.raises(ValueError, match="re-run preprocess_async"):
+            list(mod.pack_async_batches(stripped, T, 200, c, 2, S, H, 5,
+                                        False))
 
 
 def test_batch_to_device_keeps_recv_base_on_the_host():

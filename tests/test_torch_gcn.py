@@ -39,7 +39,7 @@ from ggnn_tpu.training.checkpoint import _flatten_named
 from ggnn_tpu.training.checkpoint import save_checkpoint as jax_save
 from ggnn_tpu.training.config import resolve_config as jax_resolve_config
 from ggnn_tpu.training.runner import Runner as JaxRunner
-from ggnn_tpu_torch.data import packing
+from ggnn_tpu_torch.data import native_pack, packing
 from ggnn_tpu_torch.data.loader import DatasetMeta
 from ggnn_tpu_torch.graph import DenseGraphBatch, GCNGraphBatch
 from ggnn_tpu_torch.models import base
@@ -596,8 +596,12 @@ def test_tf1_golden(case, variant, tmp_path):
         np.testing.assert_allclose(final[:ref_states.shape[0]], ref_states,
                                    **TOL)
     else:
-        order = [g["graph_id"] for b in runner.valid_processed.values()
-                 for g in b]
+        processed = runner.valid_processed
+        if isinstance(processed, native_pack.DenseProcessed):
+            # The native packer (the default) keeps each bucket's ids.
+            order = [int(i) for ids in processed.bucket_order for i in ids]
+        else:
+            order = [g["graph_id"] for b in processed.values() for g in b]
         starts = np.concatenate([[0], np.cumsum(
             [len(g["node_features"]) for g in valid])])
         for row, graph_id in enumerate(order):

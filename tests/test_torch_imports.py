@@ -50,7 +50,8 @@ def test_the_scan_sees_the_whole_port():
                  ("probes", "gather_floor.py"), ("utils", "timing.py"),
                  ("server.py",), ("export.py",), ("compat", "tf1.py"),
                  ("training", "summaries.py"), ("data", "smiles.py"),
-                 ("data", "qm9.py"), ("__init__.py",)):
+                 ("data", "qm9.py"), ("data", "native_pack.py"),
+                 ("native", "__init__.py"), ("__init__.py",)):
         assert os.path.join("ggnn_tpu_torch", *path) in files
 
 
