@@ -220,7 +220,34 @@ Phases, each raising (and so exiting non-zero) on any failure:
      served on the card with the native bf16 adjacency against the CPU
      (TOL_BF16_SERVING, no hand kernel); and `sparse`, `gcn` and `dense`
      trained for 2 epochs with the numpy and the native packer in turns
-     (numpy, native, native, numpy): set-up seconds and train graphs/s.
+     (numpy, native, native, numpy): set-up seconds and train graphs/s;
+ 20. train on device (ROADMAP A18) — (a) every configuration that
+     `Runner.train_on_device` takes (`sparse` at configs/sparse_tpu.json,
+     `dense` at bench.py's buckets, `gcn`, configs/sparse_attention.json,
+     `blocked`, `gcn_blocked`, `async` at configs/async_tpu.json, each
+     other route of the sparse GGNN with attention off and on,
+     configs/sparse_wide_bf16.json on the combined lane and per edge
+     with attention), every keep probability 1.0, on
+     synthetic_molecules(1300, seed=42): `train_on_device(2)` against the
+     same steps run eagerly on a twin Runner, both under deterministic
+     algorithms, each parameter within 1e-5 and the loss at rtol 1e-5;
+     (b) the kernel launches each replay holds, from its graph's capture
+     (B1 8 and B2 7 a sparse step, 68 and 67 an async one at 10k nodes,
+     the weighted instance 4 + 3 a `gcn` step, edge_dot 16 and the
+     weighted 8 + 21 an attention step, B3 8 a per-edge step, bf16
+     B1/B2 8/7, 0 for the dense family; `route_launches` for each
+     route), the counters over the call equal to 2 x (the warm-up step
+     and the capture) each graph's launches (no replay launches a kernel
+     eagerly) and the eager twin's to 2 epochs of the replays'; (c) train
+     graphs/s, ms a step and idle share through `time_epochs`, in turns
+     with the eager Runner epoch (eager, graph, eager, graph), for
+     `dense` at bench.py's workload (synthetic_molecules(25600, seed=0),
+     100 batches in 2 shapes) and for phase 6's `sparse`, `gcn`,
+     attention and `async` Runners, the busy ms from a profiled epoch of
+     replays; (d) `dense` with edge weights kept at 0.8: graphs against
+     eager steps within 1e-5 (the same masks), the validation loss
+     falling, a later eager step agreeing, and a dropout mask from the
+     Runner's generator fresh every replay and equal to the eager draw.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -228,6 +255,7 @@ limit (nvidia-smi), one JSON object with the kernels' numbers, and
 the repository, the script fails and prints no result.
 """
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -3506,6 +3534,372 @@ def native_phase(build, corpus, epoch_seconds, async_runner, work_dir):
             "seconds": seconds}
 
 
+# ------------------------------------ train on device (ROADMAP A18)
+
+# Graphs against eager steps, both under torch's deterministic
+# algorithms: each parameter, max abs, and the loss, rtol. Without them
+# the readout's index_add_ atomics alone part two eager bf16 runs by up
+# to 3.6e-4 after 2 epochs (Adam turns flipped bf16 roundings into
+# O(lr) steps), so no limit of this size could hold there.
+TOL_GRAPH_PARAM = 1e-5
+TOL_GRAPH_LOSS = 1e-5
+# The ops.kernels counters that chip_smoke's six-tuples hold, in order
+# (`launch_counts`): the first six of `ggnn_tpu_torch.ops.kernels.COUNTERS`.
+KERNEL_COUNTERS = ("ell_spmm.launches", "ell_spmm.scatter_launches",
+                   "gather_floor.launches", "ell_spmm.weighted_launches",
+                   "ell_spmm.weighted_scatter_launches", "edge_dot.launches")
+
+
+def graph_configs():
+    """(label, variant, config) of every configuration `train_on_device`
+    takes in phase 20, every keep probability 1.0: each variant at its
+    phase-6 training config (`dense` at bench.py's buckets [16, 32] and
+    256 graphs a batch), configs/sparse_attention.json at 20,000 nodes,
+    async at configs/async_tpu.json, each other route of the sparse GGNN
+    with attention off and on (as phase 13 steps them) and
+    configs/sparse_wide_bf16.json on the combined lane and per edge with
+    attention (as phase 17 steps them)."""
+    configs = [("sparse", "sparse", train_config("sparse", NO_DROPOUT)),
+               ("dense", "dense", train_config("dense", NO_DROPOUT)),
+               ("gcn", "gcn", train_config("gcn", NO_DROPOUT)),
+               ("sparse_attention", "sparse", attention_config(NO_DROPOUT)),
+               ("blocked", "blocked", train_config("blocked", NO_DROPOUT)),
+               ("gcn_blocked", "gcn_blocked",
+                train_config("gcn_blocked", NO_DROPOUT)),
+               ("async", "async", train_config("async", NO_DROPOUT))]
+    for route, keys in ROUTES.items():
+        for attention in (False, True):
+            configs.append((
+                f"sparse ({route}, attention {'on' if attention else 'off'})",
+                "sparse", attention_config({
+                    **keys, "use_propagation_attention": attention,
+                    **NO_DROPOUT})))
+    configs.append(("sparse_wide_bf16", "sparse", bf16_config(NO_DROPOUT)))
+    configs.append(("sparse_wide_bf16 (per-edge, attention on)", "sparse",
+                    bf16_config({"aggregate_first": False,
+                                 "use_propagation_attention": True,
+                                 **NO_DROPOUT})))
+    return configs
+
+
+def route_of(config):
+    """The message route a sparse config takes (`ROUTES`' keys, or
+    "combined")."""
+    for route, keys in ROUTES.items():
+        if all(config.get(k, True) == v for k, v in keys.items()):
+            return route
+    return "combined"
+
+
+def replay_tuple(launches):
+    """A {"module.counter": n} of ops.kernels as chip_smoke's six-tuple."""
+    return tuple(launches.get(k, 0) for k in KERNEL_COUNTERS)
+
+
+def step_launches_wanted(variant, config, batch, launches=route_launches):
+    """What a replay of one train step of `batch` must launch, as
+    chip_smoke's six-tuple: a step's kernels (`launches` of the sparse
+    route, `route_launches` or for the bf16 counters
+    `bf16_route_launches`; the GCN's layers; the async substeps) or none
+    for the dense family."""
+    if variant in ("dense", "blocked", "gcn_blocked"):
+        return NO_LAUNCH
+    if variant == "gcn":
+        layers = config["num_timesteps"]
+        return (0, 0, 0, layers, layers - 1, 0)
+    if variant == "async":
+        b1, b2 = async_launches(batch, config)
+        return (b1, b2, 0, 0, 0, 0)
+    return launches(route_of(config), config["use_propagation_attention"],
+                    sum(config["layer_timesteps"]), True)
+
+
+def eager_epochs(runner, epochs):
+    """`train_on_device`'s steps run eagerly on the card: one pack, JAX's
+    groups in their order; (last loss, the numpy batches in step
+    order)."""
+    from ggnn_tpu_torch.utils.timing import shape_groups
+
+    batches = list(runner.adapter.batches(runner.train_processed, True,
+                                          runner.np_rng))
+    steps = [b for group in shape_groups(batches) for b in group]
+    on_card = [b.to(runner.device) for b in steps]
+    for _ in range(epochs):
+        for batch in on_card:
+            loss, _ = runner.train_step(batch)
+    runner.train_step_id += epochs * len(steps)
+    torch.cuda.synchronize()
+    return float(loss), steps
+
+
+def max_param_error(a, b):
+    want = dict(b.params.named_parameters())
+    return max(float((p - want[n]).abs().max().detach())
+               for n, p in a.params.named_parameters())
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """`torch.use_deterministic_algorithms` (warnings only) inside the
+    block: index_add_ sums in a fixed order, so a graph and the eager
+    steps it replays can agree bit for bit."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def graph_vs_eager(label, variant, config, corpus, log_dir):
+    """(a) and (b) for one configuration: `train_on_device(2)` on one
+    Runner against the same steps run eagerly on a twin (same seed:
+    same weights, pack and order), both under deterministic algorithms
+    (`deterministic_algorithms`); the launches each replay holds, from
+    its graph's capture, against what its step must launch; the counters
+    over the call against 2 x (one warm-up step and the capture) each
+    graph's launches,
+    so no replay launched a kernel eagerly; and the eager twin's
+    counters against 2 epochs of the replays' launches."""
+    from ggnn_tpu_torch.ops.kernels import launch_counts as all_counts
+    from ggnn_tpu_torch.training.runner import Runner
+
+    config = {**config, "num_epochs": 2}
+    train, valid = corpus
+    graph, eager = (Runner(variant, dict(config), train_data=train,
+                           valid_data=valid, log_dir=os.path.join(log_dir, n),
+                           quiet=True, tensorboard=False)
+                    for n in ("graph", "eager"))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        loss = graph.train_on_device(2)
+        torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    counted = all_counts()
+    graphs = list(graph._epochs_fn.graphs.values())
+    held = {k: sum(g.launches.get(k, 0) for g in graphs) for k in counted}
+    if any(counted[k] != 2 * held[k] for k in counted):
+        raise RuntimeError(f"{label}: the counters read {counted} over "
+                           f"train_on_device, not 2 x (a warm-up step and "
+                           f"a capture) the graphs' {held}: a replay "
+                           "launched eagerly")
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        want_loss, steps = eager_epochs(eager, 2)
+    eager_s = time.perf_counter() - t0
+    eager_counts = all_counts()
+    replays = graph.replay_launches
+    if len(replays) != len(steps):
+        raise RuntimeError(f"{label}: {len(replays)} replays an epoch for "
+                           f"{len(steps)} steps")
+    for k in eager_counts:
+        if eager_counts[k] != 2 * sum(r.get(k, 0) for r in replays):
+            raise RuntimeError(f"{label}: the eager steps launched "
+                               f"{eager_counts}, the graphs hold {replays}:"
+                               " a kernel of the step is not in its graph")
+    per_step = [replay_tuple(r) for r in replays]
+    want = [step_launches_wanted(variant, config, b) for b in steps]
+    bf16_per_step = [tuple(r.get(k + "_bf16", 0) for k in KERNEL_COUNTERS)
+                     for r in replays]
+    want_bf16 = ([step_launches_wanted(variant, config, b,
+                                       bf16_route_launches) for b in steps]
+                 if config.get("compute_dtype") == "bfloat16"
+                 else [NO_LAUNCH] * len(steps))
+    if per_step != want or bf16_per_step != want_bf16:
+        raise RuntimeError(f"{label}: launches a replay {per_step} (bf16 "
+                           f"{bf16_per_step}), expected {want} (bf16 "
+                           f"{want_bf16})")
+    param_err = max_param_error(graph, eager)
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    log(f"train_on_device {label} (deterministic algorithms): "
+        f"{len(steps)} steps an epoch in "
+        f"{len(graphs)} graphs; 2 epochs {graph_s:.2f} s (capture "
+        f"included) against eager {eager_s:.2f} s; loss {loss:.6f} against "
+        f"{want_loss:.6f}, relative error {loss_err:.3e} (limit "
+        f"{TOL_GRAPH_LOSS}); parameters max abs error {param_err:.3e} "
+        f"(limit {TOL_GRAPH_PARAM}); launches a replay {COUNTER_NAMES} "
+        f"{sorted(set(per_step))}")
+    if not (loss_err <= TOL_GRAPH_LOSS and param_err <= TOL_GRAPH_PARAM
+            and graph.train_step_id == eager.train_step_id
+            == graph.optimizer.count == 2 * len(steps)):
+        raise RuntimeError(f"{label}: train_on_device disagrees with its "
+                           "eager steps")
+    return graph, {"steps_per_epoch": len(steps), "graphs": len(graphs),
+                   "seconds": graph_s, "eager_seconds": eager_s,
+                   "loss": loss, "eager_loss": want_loss,
+                   "loss_relative_error": loss_err,
+                   "param_max_abs_error": param_err,
+                   "launches_per_replay": sorted(set(per_step)),
+                   "launches_over_call": counted}
+
+
+def replay_busy_ms(epochs_fn, groups, steps):
+    """Device-busy ms a step from `torch.profiler` over one epoch of
+    replays; None where the trace holds no device kernel."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        epochs_fn(groups, 1)
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+    return busy_us / 1e3 / steps if busy_us > 0 else None
+
+
+def graph_timing(label, runner, eager_profile):
+    """(c) for one Runner: train graphs/s and ms a step of the Runner's
+    eager training epoch (`run_epoch`, its packer thread included) and of
+    `train_on_device`'s replays (`time_epochs`, 1 and 3 epochs
+    differenced over one pack), in turns (eager, graph, eager, graph);
+    each one's idle share, 1 - busy / wall ms a step, the busy ms from a
+    profiled epoch of replays (or from the eager profile of phase 9 where
+    the trace shows no graph kernel) and from the eager profile."""
+    from ggnn_tpu_torch.utils.timing import time_epochs
+
+    turns = []
+    for kind in ("eager", "graph", "eager", "graph"):
+        if kind == "eager":
+            t0 = time.perf_counter()
+            _, _, _, graphs_per_s, steps = runner.run_epoch(
+                f"{label} eager", runner.train_processed, True)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            turns.append({"kind": kind, "graphs_per_s": graphs_per_s,
+                          "ms_per_step": epoch_s * 1e3 / steps,
+                          "steps": steps})
+            continue
+        epochs_fn, groups, steps = runner.device_epochs()
+        graphs = sum(int(b.num_graphs) for g in groups for b in g)
+        seconds, loss = time_epochs(epochs_fn, groups)
+        runner.train_step_id += (1 + 1 + 3) * steps
+        if not np.isfinite(loss):
+            raise RuntimeError(f"{label}: train_on_device loss {loss}")
+        turns.append({"kind": kind, "graphs_per_s": graphs / seconds,
+                      "ms_per_step": seconds * 1e3 / steps, "steps": steps,
+                      "graphs": graphs, "loss": loss})
+    busy = replay_busy_ms(epochs_fn, groups, steps)
+    source = "replay profile"
+    if busy is None:
+        busy, source = eager_profile["device_busy_ms_per_step"], \
+            "eager profile (phase 9): the trace shows no graph kernel"
+    eager_busy = eager_profile["device_busy_ms_per_step"]
+    for t in turns:
+        t["idle_share"] = 1.0 - (busy if t["kind"] == "graph"
+                                 else eager_busy) / t["ms_per_step"]
+    text = ", ".join(f"{t['kind']} {t['graphs_per_s']:.1f} graphs/s "
+                     f"{t['ms_per_step']:.3f} ms a step idle "
+                     f"{t['idle_share']:.3f}" for t in turns)
+    log(f"train_on_device timing {label} ({turns[1]['steps']} steps an "
+        f"epoch): {text}; busy {busy:.3f} ms a replayed step ({source}), "
+        f"{eager_busy:.3f} eager (phase 9 profile)")
+    return {"turns": turns, "graph_busy_ms_per_step": busy,
+            "graph_busy_source": source,
+            "eager_busy_ms_per_step": eager_busy}
+
+
+def graph_dropout(corpus, log_dir):
+    """(d): `dense` with edge weights kept at 0.8 (the `sparse` and
+    `blocked` default; `dense`'s own is 1.0) trained by
+    `train_on_device(2)` and its eager twin: the parameters agree within
+    TOL_GRAPH_PARAM (the replays drew the masks the eager steps draw:
+    fresh ones every step), the validation loss falls, and one later
+    eager step on each Runner agrees again (the seeded stream goes on);
+    then a dropout mask drawn from the Runner's generator in a replayed
+    step differs from replay to replay and equals the eager draw."""
+    from ggnn_tpu_torch.ops.dropout import dropout
+    from ggnn_tpu_torch.training.runner import Runner
+    from ggnn_tpu_torch.utils.timing import make_epochs_fn
+
+    config = train_config("dense", {"edge_weight_dropout_keep_prob": 0.8,
+                                    "num_epochs": 2})
+    train, valid = corpus
+    graph, eager = (Runner("dense", dict(config), train_data=train,
+                           valid_data=valid, log_dir=os.path.join(log_dir, n),
+                           quiet=True, tensorboard=False)
+                    for n in ("graph", "eager"))
+    before = graph.run_epoch("valid", graph.valid_processed, False)[0]
+    graph.train_on_device(2)
+    eager_epochs(eager, 2)
+    after = graph.run_epoch("valid", graph.valid_processed, False)[0]
+    err = max_param_error(graph, eager)
+    batch = next(iter(graph.adapter.batches(graph.train_processed, False)))
+    for runner in (graph, eager):
+        runner.train_step(batch.to(runner.device))
+    later_err = max_param_error(graph, eager)
+    state = graph.generator.get_state()
+    probe, twin = (torch.Generator(device=graph.device) for _ in range(2))
+    probe.set_state(state)
+    twin.set_state(state)
+    ones = torch.ones(4096, device=graph.device)
+    mask = torch.zeros_like(ones)
+
+    def step(_):
+        mask.copy_(dropout(ones, 0.8, probe))
+        return mask.sum()
+
+    epochs_fn = make_epochs_fn(step, state=[mask], generators=[probe])
+    masks = []
+    for _ in range(3):
+        epochs_fn([[ones]], 1)
+        masks.append(mask.clone())
+    fresh = all(not torch.equal(masks[i], masks[i + 1]) for i in range(2))
+    eager_equal = all(torch.equal(m, dropout(ones, 0.8, twin))
+                      for m in masks)
+    log(f"train_on_device dropout (dense, edge weights kept at 0.8): "
+        f"validation loss {before:.6f} -> {after:.6f}; graph against eager "
+        f"parameters {err:.3e}, after one more eager step each "
+        f"{later_err:.3e} (limit {TOL_GRAPH_PARAM}); masks of 3 replays "
+        f"fresh each replay: {fresh}, equal to the eager draws: "
+        f"{eager_equal}; kept share {float(masks[0].ne(0).float().mean()):.4f}")
+    if not (after < before and err <= TOL_GRAPH_PARAM
+            and later_err <= TOL_GRAPH_PARAM and fresh and eager_equal):
+        raise RuntimeError("train_on_device's dropout is not the eager "
+                           "stream's")
+    return {"valid_loss_before": before, "valid_loss_after": after,
+            "param_max_abs_error": err,
+            "param_max_abs_error_after_eager_step": later_err,
+            "masks_fresh_each_replay": fresh,
+            "masks_equal_eager": eager_equal}
+
+
+def train_on_device_phase(step_corpus, corpus, runners, profiles, work_dir):
+    """Phase 20: (a) + (b) every configuration through `train_on_device`
+    against its eager steps, (c) train graphs/s in turns with the eager
+    Runner epoch, (d) dropout."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.training.runner import Runner
+
+    start = time.perf_counter()
+    card = gpu_name_and_power()
+    checks = {}
+    for label, variant, config in graph_configs():
+        _, checks[label] = graph_vs_eager(label, variant, config,
+                                          step_corpus,
+                                          os.path.join(work_dir, label))
+    checks_s = time.perf_counter() - start
+    # bench.py's workload: 25,600 molecules, buckets [16, 32], 256 graphs
+    # a batch: 100 batches in 2 shapes.
+    bench = Runner("dense", train_config("dense", {"num_epochs": 1}),
+                   train_data=synthetic_molecules(25600, seed=0),
+                   valid_data=synthetic_molecules(256, seed=1),
+                   log_dir=os.path.join(work_dir, "bench"), quiet=True,
+                   tensorboard=False)
+    timing = {"dense (bench.py workload)": graph_timing(
+        "dense (bench.py workload)", bench, profiles["dense"])}
+    for label in ("sparse", "gcn", "sparse_attention", "async"):
+        timing[label] = graph_timing(label, runners[label], profiles[label])
+    timing_s = time.perf_counter() - start - checks_s
+    dropout_rec = graph_dropout(corpus, os.path.join(work_dir, "dropout"))
+    seconds = time.perf_counter() - start
+    log(f"train_on_device phase: {seconds:.1f} s (checks {checks_s:.1f}, "
+        f"timing {timing_s:.1f}); {card}")
+    return {"checks": checks, "timing": timing, "dropout": dropout_rec,
+            "card": card, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -3670,6 +4064,14 @@ def main() -> int:
                                        **gcn_training}.items()}}
     native = native_phase(native, corpus, epoch_seconds, async_runner,
                           os.path.join(work_dir, "native"))
+    on_device = train_on_device_phase(
+        step_corpus, corpus,
+        {"sparse": runner, "gcn": gcn_runners["gcn"],
+         "sparse_attention": attention_runner, "async": async_runner},
+        {"sparse": profile, "dense": dense_profile["dense"],
+         "gcn": gcn_profile["gcn"], "sparse_attention": attention_profile,
+         "async": async_profile},
+        os.path.join(work_dir, "on_device"))
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -3905,7 +4307,8 @@ def main() -> int:
                     "bf16_export": bf16_export,
                     "bf16_launches_by_run": bf16_runs,
                     "bf16_phase_seconds": bf16_seconds,
-                    "extras": extras, "native": native}))
+                    "extras": extras, "native": native,
+                    "train_on_device": on_device}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -118,19 +118,31 @@ def dense_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
     return torch.stack(outs, dim=0)
 
 
+def task_rescale(task_ids: Sequence[int], task_sample_ratios: Dict,
+                 device) -> torch.Tensor:
+    """The per-task loss weights [K], 1 / the task's sample ratio (ratios
+    looked up by integer task id), on `device`."""
+    return torch.tensor(
+        [1.0 / (task_sample_ratios.get(task_id) or 1.0)
+         for task_id in task_ids],
+        dtype=torch.float32, device=device)
+
+
 def masked_regression_loss(computed: torch.Tensor, targets: torch.Tensor,
                            target_mask: torch.Tensor,
                            task_ids: Sequence[int],
-                           task_sample_ratios: Dict
+                           task_sample_ratios: Dict,
+                           rescale: torch.Tensor = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Total loss [] and per-task masked MAE [K] over a [K, G] prediction
-    block."""
+    block. `rescale` is `task_rescale(task_ids, task_sample_ratios,
+    computed.device)`, made here when None: a caller that steps many
+    times passes it, since making it copies from the host, which a CUDA
+    graph capture refuses."""
     diff = (computed - targets) * target_mask
     task_target_num = target_mask.sum(dim=1) + SMALL_NUMBER
     accuracies = diff.abs().sum(dim=1) / task_target_num
     task_losses = (0.5 * diff.square()).sum(dim=1) / task_target_num
-    rescale = torch.tensor(
-        [1.0 / (task_sample_ratios.get(task_id) or 1.0)
-         for task_id in task_ids],
-        dtype=torch.float32, device=computed.device)
+    if rescale is None:
+        rescale = task_rescale(task_ids, task_sample_ratios, computed.device)
     return (task_losses * rescale).sum(), accuracies

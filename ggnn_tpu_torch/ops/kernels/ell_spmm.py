@@ -204,16 +204,39 @@ def _scratch_for(device: torch.device, stream: int, num_tickets: int,
     """(tickets, partials) for a launch on `stream`: at least
     `num_tickets` int32 tickets, all 0, and `num_partials` f32, kept
     between calls. The kernel leaves its tickets at 0, so they are zeroed
-    only when made or grown."""
+    only when made or grown.
+
+    A CUDA graph keeps the pointers it captured, so a launch onto a
+    stream that is capturing must find its scratch made and large enough
+    (the step ran eagerly on that stream first) and raises otherwise;
+    making or growing it there would put it in the graph's memory pool.
+    The graph keeps the scratch it captured alive (`scratch_of`)."""
     key = (device.index, stream)
     tickets, partials = _scratch.get(key, (None, None))
-    if tickets is None or tickets.numel() < num_tickets:
+    grow_tickets = tickets is None or tickets.numel() < num_tickets
+    grow_partials = partials is None or partials.numel() < num_partials
+    if ((grow_tickets or grow_partials)
+            and torch.cuda.is_current_stream_capturing()):
+        raise RuntimeError(
+            f"B1/B2 scratch of {num_tickets} tickets and {num_partials} "
+            "partials is not made on the capturing stream: run the step "
+            "eagerly on that stream before its capture")
+    if grow_tickets:
         tickets = torch.zeros(num_tickets, dtype=torch.int32, device=device)
-    if partials is None or partials.numel() < num_partials:
+    if grow_partials:
         partials = torch.empty(num_partials, dtype=torch.float32,
                                device=device)
     _scratch[key] = (tickets, partials)
     return tickets, partials
+
+
+def scratch_of(device: torch.device, stream: int):
+    """The (tickets, partials) that launches on `stream` of `device` use
+    now, or None: what a CUDA graph captured on that stream must keep
+    alive while it may replay."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _scratch.get((index, stream))
 
 
 def _launch(entry: str, h, src, offsets, num_segments, weights=None):

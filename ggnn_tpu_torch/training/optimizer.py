@@ -13,14 +13,18 @@ corrections into the step size and keeps eps outside them:
 which `torch.optim.Adam` (eps inside the correction) does not compute,
 so the update is written out here.
 
+The step count lives in a float64 tensor on the parameters' device, and
+`lr_t` is computed there from it in float64, so a step captured into a
+CUDA graph counts and scales each replay as an eager step does;
+`count` reads and sets it as an int (the checkpoint's JAX layout).
+
 `--freeze-graph-model` removes the graph-model subtree from the
 trainable set (chem_tensorflow.py:174-182): its parameters get no update
 and no Adam state, as `optax.multi_transform` with `set_to_zero` gives
 in the JAX package.
 """
 
-import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
@@ -53,15 +57,33 @@ class TFAdam:
         self.params: Dict[str, nn.Parameter] = {
             name: p for name, p in params.named_parameters()
             if not (freeze_graph_model and name.startswith("graph."))}
-        self.count = 0
+        device = next(params.parameters()).device
+        # float64 holds every count a run reaches exactly, and gives
+        # lr_t the double arithmetic of the host's `math` version.
+        self._count = torch.zeros((), dtype=torch.float64, device=device)
         self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
 
+    @property
+    def count(self) -> int:
+        """Updates applied so far (a host read of the device count)."""
+        return int(self._count)
+
+    @count.setter
+    def count(self, value: int) -> None:
+        self._count.fill_(int(value))
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor `step` updates besides the parameters: the count
+        and the moments."""
+        return [self._count, *self.mu.values(), *self.nu.values()]
+
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
-        self.count += 1
-        t = self.count
-        lr_t = self.learning_rate * math.sqrt(1 - B2 ** t) / (1 - B1 ** t)
+        t = self._count.add_(1)
+        # lr * sqrt(1 - b2^t) / (1 - b1^t) in float64 on the device; the
+        # product below rounds it to float32 as a Python float would be.
+        lr_t = self.learning_rate * torch.sqrt(1 - B2 ** t) / (1 - B1 ** t)
         for name, p in self.params.items():
             g = grads.get(name)
             if g is None:

@@ -39,8 +39,12 @@ state replays the uninterrupted run's dropout masks. A generator state
 saved on another device type (or none, as in a JAX checkpoint) does not
 fit, and the resumed run keeps its seeded stream.
 
-Not ported yet: the mesh paths (ROADMAP A11) and `train_on_device` (a
-CUDA graph counterpart, ROADMAP A18).
+`train_on_device` is the compiled fast path of the JAX Runner: the
+training split packed once, every epoch's steps replayed as CUDA graphs
+on the card (`utils/timing.py:make_epochs_fn`), with one host read at
+the end.
+
+Not ported yet: the mesh paths (ROADMAP A11).
 """
 
 import json
@@ -56,7 +60,7 @@ from ggnn_tpu_torch.data.loader import infer_metadata, load_graphs_json
 from ggnn_tpu_torch.graph import (AsyncGraphBatch, DenseGraphBatch,
                                   GCNGraphBatch)
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
-                                        masked_regression_loss)
+                                        masked_regression_loss, task_rescale)
 from ggnn_tpu_torch.training.checkpoint import (load_iterator_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -66,6 +70,7 @@ from ggnn_tpu_torch.training.variants import make_adapter
 from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
 from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
+from ggnn_tpu_torch.utils.timing import make_epochs_fn, shape_groups
 
 
 def _batch_edge_count(batch) -> float:
@@ -158,6 +163,16 @@ class Runner:
         self.optimizer = TFAdam(self.params, config["learning_rate"],
                                 config["clamp_gradient_norm"],
                                 freeze_graph_model)
+        # The loss's per-task weights, made once: a captured step cannot
+        # copy them from the host.
+        self.loss_rescale = task_rescale(
+            self.task_ids, config["task_sample_ratios"], self.device)
+        # train_on_device's epochs function, whose graphs live with the
+        # Runner, and the kernel launches a replay of each step of its
+        # last call held ({"module.counter": n}, in step order; None on
+        # the CPU).
+        self._epochs_fn = None
+        self.replay_launches = None
 
         self.profile_dir = profile_dir
         self.save_every_epoch = save_every_epoch
@@ -208,7 +223,7 @@ class Runner:
         return masked_regression_loss(
             self._outputs(batch, is_training), batch.targets,
             batch.target_mask, self.task_ids,
-            self.config["task_sample_ratios"])
+            self.config["task_sample_ratios"], self.loss_rescale)
 
     def loss_and_grads(self, batch):
         """(loss, MAE, {name: gradient}) of one training batch, the
@@ -468,6 +483,45 @@ class Runner:
                           f"epochs without improvement on validation accuracy.")
                 break
         return log_to_save
+
+    # ---------------------------------------------------- on the device
+
+    def device_epochs(self):
+        """(epochs_fn, groups, steps) for whole epochs on the device: the
+        training split packed once (the numpy stream advances as one
+        epoch's pack does), the batches grouped by the shapes of their
+        leaves in JAX's order (`shape_groups`) and uploaded once, and the
+        Runner's `make_epochs_fn` over `train_step`, which keeps its
+        captured graphs from call to call. `steps` is the batch count."""
+        batches = list(self.adapter.batches(self.train_processed, True,
+                                            self.np_rng))
+        groups = [[b.to(self.device) for b in group]
+                  for group in shape_groups(batches)]
+        if self._epochs_fn is None:
+            self._epochs_fn = make_epochs_fn(
+                lambda batch: self.train_step(batch)[0],
+                state=[*self.params.parameters(),
+                       *self.optimizer.state_tensors()],
+                generators=[self.generator])
+        return self._epochs_fn, groups, len(batches)
+
+    def train_on_device(self, num_epochs: int) -> float:
+        """The counterpart of the JAX Runner's `train_on_device`
+        (`ggnn_tpu/training/runner.py:891`): `num_epochs` epochs over one
+        fixed pack of the training split, every step a replay of a CUDA
+        graph on the card (an eager step on the CPU), and one host read
+        at the end. No per-epoch logging, patience, summary or
+        checkpoint. Returns the final step's loss; adds num_epochs x the
+        batches to `train_step_id`. Dropout draws are fresh every step
+        and epoch (the generator is registered with each graph).
+        `replay_launches` then holds each step's kernel launches a
+        replay, from its graph's capture."""
+        epochs_fn, groups, steps = self.device_epochs()
+        loss = float(epochs_fn(groups, num_epochs))
+        if self.device.type == "cuda" and num_epochs > 0:
+            self.replay_launches = epochs_fn.step_launches(groups)
+        self.train_step_id += num_epochs * steps
+        return loss
 
     # ------------------------------------------------------------- eval
 

@@ -11,7 +11,11 @@ dense family (cuBLAS products, no hand kernel), whose forward and train
 step must match the CPU and launch none of the kernels; and `time_ms`.
 The weighted instance and `edge_dot` are held at their edge cases too:
 widths 1 to 512, views off alignment, no edge, empty segments, a hub, the
-skewed lane, lanes whose b repeats, alternates or is all pads. Every test
+skewed lane, lanes whose b repeats, alternates or is all pads.
+`train_on_device`'s CUDA graphs are held to the same steps run eagerly
+(sparse, gcn, async; dense with dropout), with the launches they hold,
+the B1/B2 scratch a graph keeps across a larger capture, the refusal of
+a step that synchronises, and fresh dropout draws each replay. Every test
 here needs an NVIDIA GPU and skips without one. The file
 imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -1563,3 +1567,181 @@ def test_edge_dot_on_repeated_alternating_and_pad_lanes(cuda, pattern,
     scale = max(float(want.abs().max()), 1.0)
     assert float((got - want).abs().max()) <= 1e-5 * scale
     assert not got[b >= rows].any()
+
+
+# ------------------------------------------------ train_on_device (A18)
+
+NO_DROPOUT = {"edge_weight_dropout_keep_prob": 1.0,
+              "graph_state_dropout_keep_prob": 1.0,
+              "out_layer_dropout_keep_prob": 1.0}
+# Small cards of each captured path: sparse at 2,000-node batches, gcn
+# at its default, async at 2,000-node batches.
+GRAPH_CASES = {"sparse": {"batch_size": 2000},
+               "gcn": {"batch_size": 2000},
+               "async": ASYNC_SMALL}
+
+
+def _twin_runners(variant, overrides, tmp_path):
+    """Two Runners on the card, same config and seed: the same weights,
+    numpy stream and dropout stream."""
+    config = resolve_config(variant, config_json=json.dumps(overrides))
+    train = synthetic_molecules(240, seed=7)
+    valid = synthetic_molecules(20, seed=8)
+    return [Runner(variant, dict(config), train_data=train,
+                   valid_data=valid, log_dir=str(tmp_path / name),
+                   quiet=True, tensorboard=False, device="cuda")
+            for name in ("graph", "eager")]
+
+
+def _eager_epochs(runner, epochs):
+    """`train_on_device`'s steps run eagerly: one pack, JAX's groups, in
+    order; returns the last loss."""
+    from ggnn_tpu_torch.utils.timing import shape_groups
+    batches = list(runner.adapter.batches(runner.train_processed, True,
+                                          runner.np_rng))
+    steps = [b.to(runner.device) for g in shape_groups(batches) for b in g]
+    for _ in range(epochs):
+        for batch in steps:
+            loss, _ = runner.train_step(batch)
+    runner.train_step_id += epochs * len(steps)
+    return float(loss)
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_CASES))
+def test_train_on_device_replays_equal_eager_steps(cuda, variant, tmp_path):
+    """Two epochs replayed as CUDA graphs against the same steps run
+    eagerly on the card: loss at rtol 1e-5 and every parameter within
+    1e-5 (the readout's index_add_ atomics sum in another order); the
+    same count of updates; the graphs hold the step's kernel launches,
+    and replays launch none eagerly."""
+    from ggnn_tpu_torch.ops.kernels import launch_counts
+    graph, eager = _twin_runners(variant,
+                                 {**GRAPH_CASES[variant], **NO_DROPOUT},
+                                 tmp_path)
+    before = launch_counts()
+    loss = graph.train_on_device(2)
+    torch.cuda.synchronize()
+    during = {k: v - before[k] for k, v in launch_counts().items()}
+    want = _eager_epochs(eager, 2)
+    torch.cuda.synchronize()
+    assert graph.optimizer.count == eager.optimizer.count == \
+        graph.train_step_id == eager.train_step_id
+    assert loss == pytest.approx(want, rel=1e-5)
+    wants = dict(eager.params.named_parameters())
+    for name, p in graph.params.named_parameters():
+        torch.testing.assert_close(p, wants[name], rtol=0, atol=1e-5)
+    kernel = {"sparse": "ell_spmm.launches", "async": "ell_spmm.launches",
+              "gcn": "ell_spmm.weighted_launches"}[variant]
+    assert all(step.get(kernel, 0) > 0 for step in graph.replay_launches)
+    # Every launch of the call was a warm-up step's or a capture's.
+    graphs = graph._epochs_fn.graphs.values()
+    assert during == {k: 2 * sum(g.launches.get(k, 0) for g in graphs)
+                      for k in during}
+
+
+def test_graph_keeps_its_scratch_across_a_larger_capture(cuda):
+    """A graph over B1 with a hub (a cut segment: tickets and partials),
+    then a larger hub captured on the same side stream, which grows the
+    scratch, then the first graph replayed on new rows: each output
+    equal to the plain version (integer rows: exact sums)."""
+    from ggnn_tpu_torch.utils.timing import make_epochs_fn
+    result = torch.zeros(2, 100, device=cuda)
+
+    def hub(edges, seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        h = torch.randint(-4, 5, (64, 100), generator=gen, device=cuda,
+                          dtype=torch.float32)
+        src = torch.randint(0, 64, (edges,), generator=gen, device=cuda,
+                            dtype=torch.int32)
+        off = torch.tensor([0, edges, edges], dtype=torch.int32,
+                           device=cuda)
+        return (h, src, off)
+
+    def step(batch):
+        out = ell_spmm.gather_segment_sum(*batch, 2)
+        result.copy_(out)
+        return out.sum()
+
+    epochs_fn = make_epochs_fn(step, state=[result])
+    for batch in (hub(2000, 0), hub(400_000, 1), hub(2000, 2)):
+        epochs_fn([[batch]], 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            result, ell_spmm.gather_segment_sum_reference(*batch, 2),
+            rtol=0, atol=0)
+    assert len(epochs_fn.graphs) == 2
+
+
+def test_a_step_that_synchronises_raises_and_trains_nothing(cuda):
+    """A step the capture cannot hold raises, naming where, and leaves
+    the state as it was: a host read in the warm-up, a device
+    synchronisation in the capture itself."""
+    from ggnn_tpu_torch.utils.timing import make_epochs_fn
+    total = torch.zeros((), device=cuda)
+    calls = []
+
+    def reads(batch):
+        total.add_(batch.sum())
+        return total * float(batch[0])
+
+    def syncs_in_capture(batch):
+        calls.append(1)
+        total.add_(batch.sum())
+        if len(calls) > 1:   # past the warm-up step: the capture
+            torch.cuda.synchronize()
+        return total.clone()
+
+    batch = torch.ones(4, device=cuda)
+    with pytest.raises(RuntimeError, match="warm-up.*aten"):
+        make_epochs_fn(reads, state=[total])([[batch]], 3)
+    assert float(total) == 0.0
+    with pytest.raises(RuntimeError, match="capture"):
+        make_epochs_fn(syncs_in_capture, state=[total])([[batch]], 3)
+    torch.cuda.synchronize()
+    assert float(total) == 0.0 and len(calls) == 2
+
+
+def test_replays_draw_fresh_dropout_masks_from_the_generator(cuda):
+    """A registered generator gives each replay new draws, the draws an
+    eager step would make from the same state; after the replays the
+    generator continues the same stream eagerly."""
+    from ggnn_tpu_torch.utils.timing import make_epochs_fn
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    mask = torch.zeros(1000, device=cuda)
+
+    def step(batch):
+        mask.copy_(torch.rand(1000, generator=gen, device=cuda) < batch)
+        return mask.sum()
+
+    epochs_fn = make_epochs_fn(step, state=[mask], generators=[gen])
+    batch = torch.full((1000,), 0.8, device=cuda)
+    replays = []
+    for _ in range(3):
+        epochs_fn([[batch]], 1)
+        replays.append(mask.clone())
+    after = torch.rand(8, generator=gen, device=cuda)
+    twin = torch.Generator(device=cuda).manual_seed(5)
+    for got in replays:
+        want = torch.rand(1000, generator=twin, device=cuda) < 0.8
+        torch.testing.assert_close(got, want.float(), rtol=0, atol=0)
+    assert not torch.equal(replays[0], replays[1])
+    torch.testing.assert_close(after, torch.rand(8, generator=twin,
+                                                 device=cuda))
+
+
+def test_dense_dropout_replays_match_eager_steps(cuda, tmp_path):
+    """`dense` with edge weights kept at 0.8 (the `sparse` and `blocked`
+    default; `dense`'s own is 1.0): graphs and eager steps from one seed
+    draw the same masks, so the parameters agree within 1e-5; a later
+    eager step on each Runner draws the same stream."""
+    graph, eager = _twin_runners(
+        "dense", {"batch_size": 16, "edge_weight_dropout_keep_prob": 0.8},
+        tmp_path)
+    graph.train_on_device(1)
+    _eager_epochs(eager, 1)
+    batch = next(iter(graph.adapter.batches(graph.train_processed, False)))
+    for runner in (graph, eager):
+        runner.train_step(batch.to(runner.device))
+    wants = dict(eager.params.named_parameters())
+    for name, p in graph.params.named_parameters():
+        torch.testing.assert_close(p, wants[name], rtol=0, atol=1e-5)
