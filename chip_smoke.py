@@ -247,7 +247,32 @@ Phases, each raising (and so exiting non-zero) on any failure:
      replays; (d) `dense` with edge weights kept at 0.8: graphs against
      eager steps within 1e-5 (the same masks), the validation loss
      falling, a later eager step agreeing, and a dropout mask from the
-     Runner's generator fresh every replay and equal to the eager draw.
+     Runner's generator fresh every replay and equal to the eager draw;
+ 21. mesh (ROADMAP A11) — ranks of one `torch.distributed` gloo group
+     sharing cuda:0 (`parallel/launch.py:RankPool`, one spawn a world
+     size; point-to-point sends copied through the host, which gloo
+     needs for CUDA tensors and the phase prints), every keep
+     probability 1.0: `sparse` at configs/sparse_tpu.json's 20,000-node
+     budget, H 100, at (2,1), and node-sharded at (1,2) and (2,2) under
+     each of the alltoall, shift and ragged exchanges; type-TP at (1,2);
+     configs/sparse_attention.json node-sharded at (1,2); `gcn` at (1,2)
+     and (2,1); `dense`, `blocked`, `gcn_blocked` (one V 32 bucket) and
+     `async` (configs/async_tpu.json) at (2,1). Each case: one train step
+     of `make_parallel_steps` over the step corpus' first two batches
+     against the single-device step over both on the card (loss rtol
+     1e-5, every gradient leaf rtol 2e-4 / atol 1e-6), each rank's
+     launches as `mesh_step_launches` predicts; 2 epochs of phase 6's
+     corpus through `Runner(mesh=)`: the weights bit-equal across ranks
+     after each epoch, the validation loss below the initial weights',
+     each rank's counters over `train()` (set to 0 just before it) equal
+     to the prediction summed over its steps (a node shard: twice the
+     single-device route's launches a propagation step); ms a mesh
+     train step beside a single-device step over the same batches, for
+     the record only (the ranks share one card: no scaling number).
+     Then one rank over `nccl` (its collectives on the world's group):
+     `sparse` through `Runner(mesh=make_mesh(1, 1))` for 1 epoch of the
+     step corpus against the plain Runner, both under deterministic
+     algorithms (1e-6).
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -258,12 +283,14 @@ the repository, the script fails and prints no result.
 import contextlib
 import dataclasses
 import glob
+import itertools
 import json
 import os
 import statistics
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -3900,6 +3927,480 @@ def train_on_device_phase(step_corpus, corpus, runners, profiles, work_dir):
             "card": card, "seconds": seconds}
 
 
+# ------------------------------------------------------------ mesh (A11)
+
+TOL_MESH_LOSS = 1e-5                        # mesh vs single step: rtol
+TOL_MESH_GRAD = {"rtol": 2e-4, "atol": 1e-6}  # every gradient leaf
+TOL_NCCL = 1e-6                             # one nccl rank vs plain Runner
+# Gloo moves CUDA tensors in all-reduce, all-to-all and all-gather but
+# not point to point: the shift exchange copies through the host.
+MESH_STAGED = ("p2p",)
+MESH_DEVICE = "cuda:0"
+MESH_ATTENTION = "sparse_attention"
+# (label, variant, config overrides, n_data, n_edge). The mesh's dense
+# family packs one bucket shape (stack_dense_batches refuses two).
+MESH_CASES = (
+    [("sparse 2x1", "sparse", {}, 2, 1)]
+    + [(f"sparse 1x2 {x}", "sparse", {"boundary_exchange": x}, 1, 2)
+       for x in ("alltoall", "shift", "ragged")]
+    + [("sparse 1x2 type_tp", "sparse", {"edge_parallelism": "type_tp"},
+        1, 2),
+       ("sparse_attention 1x2", MESH_ATTENTION, {}, 1, 2),
+       ("gcn 1x2", "gcn", {}, 1, 2), ("gcn 2x1", "gcn", {}, 2, 1)]
+    + [(f"{v} 2x1", v, {"dense_bucket_sizes": [32]}, 2, 1)
+       for v in ("dense", "blocked", "gcn_blocked")]
+    + [("async 2x1", "async", {}, 2, 1)]
+    + [(f"sparse 2x2 {x}", "sparse", {"boundary_exchange": x}, 2, 2)
+       for x in ("alltoall", "shift", "ragged")])
+
+
+def mesh_config(variant, overrides):
+    """The variant's training config (configs/sparse_tpu.json's 20,000
+    nodes for `sparse`, the attention config at them), every keep
+    probability 1.0, 2 epochs, with `overrides`."""
+    over = {**NO_DROPOUT, "num_epochs": 2, **overrides}
+    if variant == MESH_ATTENTION:
+        return attention_config(over)
+    return train_config(variant, over)
+
+
+def model_variant(variant):
+    return "sparse" if variant == MESH_ATTENTION else variant
+
+
+def mesh_step_launches(variant, kind, config, batch, train, n_edge):
+    """What one rank launches for one of its batches in a mesh step (the
+    prediction PERF.md states): the single-device route's launches, twice
+    a propagation step on a node shard (its local and boundary lanes);
+    type-TP's per-type route over the rank's types; none for the dense
+    family."""
+    if kind == "dense":
+        return NO_LAUNCH
+    if variant == "async":
+        b1, b2 = async_launches(batch, config)
+        return (b1, b2 if train else 0, 0, 0, 0, 0)
+    lanes = 2 if n_edge > 1 and kind in ("sparse", "gcn") else 1
+    if variant == "gcn":
+        layers = config["num_timesteps"]
+        return (0, 0, 0, lanes * layers,
+                lanes * (layers - 1) if train else 0, 0)
+    one = route_launches("per-type" if kind == "sparse_tp" else "combined",
+                         config["use_propagation_attention"],
+                         sum(config["layer_timesteps"]), train)
+    return tuple(lanes * x for x in one)
+
+
+def _add(total, counts):
+    return [a + b for a, b in zip(total, counts)]
+
+
+def _tf32_off():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def mesh_params(variant, config, meta, weights, device, edge_axis=None):
+    from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
+    from ggnn_tpu_torch.training.variants import make_adapter
+    adapter = make_adapter(model_variant(variant), config, meta)
+    gen = torch.Generator().manual_seed(0)
+    model = (adapter.build_model(gen, edge_axis=edge_axis)
+             if edge_axis is not None else adapter.build_model(gen))
+    params = ModelParams(model, init_output_heads(
+        gen, config["hidden_size"], config["task_ids"]))
+    params.load_state_dict({k: torch.from_numpy(v)
+                            for k, v in weights.items()})
+    return params.to(device)
+
+
+def single_step(variant, config, meta, weights, batches, device):
+    """The single-device step over every batch as one batch: (loss, MAE,
+    {name: gradient}, ms of the step with its Adam update, median of 5
+    after 2 warm-ups)."""
+    from ggnn_tpu_torch.training.optimizer import TFAdam
+    from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
+    params = mesh_params(variant, config, meta, weights, device)
+    batches = [b.to(device) for b in batches]
+    named = list(params.named_parameters())
+
+    def loss_of():
+        abs_s = sq_s = mask_s = 0.0
+        for b in batches:
+            out = params.graph.readout(params.heads, config["task_ids"],
+                                       params.graph(b), b)
+            diff = (out - b.targets) * b.target_mask
+            abs_s = abs_s + diff.abs().sum(1)
+            sq_s = sq_s + (0.5 * diff.square()).sum(1)
+            mask_s = mask_s + b.target_mask.sum(1)
+        count = mask_s + SMALL_NUMBER
+        return (sq_s / count).sum(), abs_s / count
+
+    loss, accs = loss_of()
+    grads = torch.autograd.grad(loss, [p for _, p in named],
+                                allow_unused=True)
+    result = (float(loss.detach()), accs.detach().cpu().numpy(),
+              {n: (torch.zeros_like(p) if g is None else g).cpu().numpy()
+               for (n, p), g in zip(named, grads)})
+    opt = TFAdam(params, config["learning_rate"],
+                 config["clamp_gradient_norm"])
+
+    def step():
+        loss, _ = loss_of()
+        opt.step(dict(zip([n for n, _ in named], torch.autograd.grad(
+            loss, [p for _, p in named], allow_unused=True))))
+    return result + (median_ms(step),)
+
+
+def median_ms(step, warm=2, reps=5):
+    for _ in range(warm):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rank_mesh(n_data, n_edge):
+    from ggnn_tpu_torch.parallel.mesh import make_mesh
+    _tf32_off()
+    mesh = make_mesh(n_data, n_edge, device=MESH_DEVICE,
+                     host_staged=MESH_STAGED)
+    if mesh.device.type != "cuda" or mesh.backend != "gloo":
+        raise RuntimeError(f"rank {mesh.rank} runs {mesh.backend} on "
+                           f"{mesh.device}")
+    return mesh
+
+
+def mesh_step_rank(variant, config, meta, weights, batches, n_data, n_edge,
+                   kind, exchange):
+    """One train step of `make_parallel_steps` on this rank (gloo on the
+    card): its metrics, gradients, launches and the launches its batches
+    predict."""
+    from ggnn_tpu_torch.parallel import tp
+    from ggnn_tpu_torch.parallel.step import (local_batches,
+                                              make_parallel_steps,
+                                              plan_caps, stack_for)
+    from ggnn_tpu_torch.training.optimizer import TFAdam
+    mesh = rank_mesh(n_data, n_edge)
+    edge_axis = (mesh.edge if n_edge > 1 and kind in ("sparse", "gcn",
+                                                      "sparse_tp")
+                 else None)
+    params = mesh_params(variant, config, meta, weights, mesh.device,
+                         edge_axis)
+    type_tp = kind == "sparse_tp"
+    opt = TFAdam(params, config["learning_rate"],
+                 config["clamp_gradient_norm"],
+                 tp_axis=mesh.edge if type_tp else None,
+                 tp_is_sharded=tp.is_tp_sharded_path if type_tp else None)
+    types = None
+    if type_tp:
+        tp.shard_parameters(params, opt, mesh.edge, meta.num_edge_types)
+        tr = tp.type_range(meta.num_edge_types, mesh.edge)
+        types = (tr.start, tr.stop)
+    train_step, _ = make_parallel_steps(
+        params, opt, config, config["task_ids"], mesh, return_grads=True,
+        batch_kind=kind)
+    caps = (plan_caps(kind, batches, n_edge)
+            if kind in ("sparse", "gcn") and n_edge > 1 else None)
+    local = local_batches(stack_for(kind, batches, n_data, caps, exchange,
+                                    n_edge == 1), mesh, kind)
+    want = NO_LAUNCH
+    for b in local:
+        want = _add(want, mesh_step_launches(variant, kind, config, b, True,
+                                             n_edge))
+    zero_launch_counts()
+    metrics = train_step(local, torch.Generator(
+        device=mesh.device).manual_seed(1))
+    torch.cuda.synchronize()
+    return {"loss": float(metrics["loss"]),
+            "accuracies": metrics["accuracies"].cpu().numpy(),
+            "grads": {n: g.cpu().numpy()
+                      for n, g in metrics["grads"].items()},
+            "types": types, "launches": list(launch_counts()),
+            "want": list(want), "device": str(mesh.device)}
+
+
+def params_digest(runner):
+    """sha256 of the Runner's whole weights (gathered under type-TP)."""
+    import hashlib
+    digest = hashlib.sha256()
+    with runner._whole_weights():
+        for name, p in runner.params.named_parameters():
+            digest.update(name.encode())
+            digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir):
+    """2 epochs through `Runner(mesh=)` on this rank: the validation loss
+    of the initial weights and after each epoch, the weights' digest
+    after each training epoch, the kernels' counters over `train()` and
+    the launches its steps' batches predict, the exchange, and ms a
+    mesh train step (median of 5, synchronised)."""
+    from ggnn_tpu_torch.training.runner import Runner
+    mesh = rank_mesh(n_data, n_edge)
+    train, valid = corpus
+    t0 = time.perf_counter()
+    runner = Runner(model_variant(variant), config, train_data=train,
+                    valid_data=valid, log_dir=log_dir, quiet=True,
+                    tensorboard=False, mesh=mesh)
+    setup_s = time.perf_counter() - t0
+    if runner.device != mesh.device:
+        raise RuntimeError(f"the mesh Runner runs on {runner.device}")
+    init_loss = runner.run_epoch("initial validation",
+                                 runner.valid_processed, False)[0]
+    want, digests, last = list(NO_LAUNCH), [], {}
+
+    def counted(step, train):
+        def run(batches, *args):
+            nonlocal want
+            for b in batches:
+                want = _add(want, mesh_step_launches(
+                    variant, runner._mesh_kind, config, b, train, n_edge))
+            if train:
+                last["batches"] = batches
+            return step(batches, *args)
+        return run
+
+    mesh_train = runner._mesh_train
+    runner._mesh_train = counted(mesh_train, True)
+    runner._mesh_eval = counted(runner._mesh_eval, False)
+    run_epoch = runner.run_epoch
+
+    def epoch_then_digest(name, processed, is_training):
+        out = run_epoch(name, processed, is_training)
+        if is_training:
+            digests.append(params_digest(runner))
+        return out
+
+    runner.run_epoch = epoch_then_digest
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    log_rec = runner.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = list(launch_counts())
+    gen = torch.Generator(device=mesh.device).manual_seed(2)
+    step_ms = median_ms(lambda: mesh_train(last["batches"], gen))
+    return {"kind": runner._mesh_kind,
+            "exchange": (runner._resolve_exchange()
+                         if runner._nodeshard_caps is not None else None),
+            "setup_s": setup_s, "train_s": train_s,
+            "initial_valid_loss": init_loss,
+            "valid_losses": [e["valid_results"][0] for e in log_rec],
+            "train_losses": [e["train_results"][0] for e in log_rec],
+            "train_steps": runner.train_step_id,
+            "valid_steps": runner.valid_step_id,
+            "digests": digests, "launches": launches, "want": want,
+            "step_ms": step_ms, "device": str(mesh.device)}
+
+
+def nccl_rank(config, corpus, log_dir):
+    """`sparse` for 1 epoch through `Runner(mesh=make_mesh(1, 1))` over a
+    one-rank nccl group, against the plain Runner from the same seed,
+    both under deterministic algorithms: the largest parameter
+    difference, the losses and the mesh run's launches."""
+    from ggnn_tpu_torch.parallel.mesh import make_mesh
+    from ggnn_tpu_torch.training.runner import Runner
+    _tf32_off()
+    mesh = make_mesh(1, 1, device=MESH_DEVICE)
+    if mesh.backend != "nccl" or mesh.world.group is None:
+        raise RuntimeError(f"the one-rank mesh runs {mesh.backend}")
+    train, valid = corpus
+    runs = {}
+    with deterministic_algorithms():
+        for label, kwargs in (("plain", {"device": MESH_DEVICE}),
+                              ("mesh", {"mesh": mesh})):
+            zero_launch_counts()
+            runner = Runner("sparse", config, train_data=train,
+                            valid_data=valid, log_dir=log_dir, quiet=True,
+                            tensorboard=False, **kwargs)
+            log_rec = runner.train()
+            torch.cuda.synchronize()
+            runs[label] = (runner, log_rec, list(launch_counts()))
+    plain, meshed = runs["plain"][0], runs["mesh"][0]
+    by_name = dict(meshed.params.named_parameters())
+    diffs = [float((p.detach() - by_name[n].detach()).abs().max())
+             for n, p in plain.params.named_parameters()]
+    return {"max_abs_param_diff": max(diffs),
+            "bit_equal": max(diffs) == 0.0,
+            "train_loss": [runs[k][1][0]["train_results"][0]
+                           for k in ("plain", "mesh")],
+            "valid_loss": [runs[k][1][0]["valid_results"][0]
+                           for k in ("plain", "mesh")],
+            "launches": {k: runs[k][2] for k in runs},
+            "backend": mesh.backend, "device": str(mesh.device)}
+
+
+def check_mesh_step(label, results, oracle):
+    """Every rank's step against the single-device step on the card."""
+    loss, accs, grads = oracle[:3]
+    worst = 0.0
+    for rank, out in enumerate(results):
+        if abs(out["loss"] - loss) > TOL_MESH_LOSS * abs(loss):
+            raise RuntimeError(f"mesh {label} rank {rank}: loss "
+                               f"{out['loss']} against {loss}")
+        np.testing.assert_allclose(out["accuracies"], accs,
+                                   rtol=TOL_MESH_LOSS,
+                                   err_msg=f"mesh {label} rank {rank}")
+        for name, got in out["grads"].items():
+            want = grads[name]
+            if out["types"] is not None and name.endswith(
+                    ("edge_weights", "attention")) and ".layers." in name:
+                want = want[out["types"][0]:out["types"][1]]
+            np.testing.assert_allclose(
+                got, want, err_msg=f"mesh {label} rank {rank} {name}",
+                **TOL_MESH_GRAD)
+            scale = float(np.abs(want).max()) or 1.0
+            worst = max(worst, float(np.abs(got - want).max()) / scale)
+        if out["launches"] != out["want"]:
+            raise RuntimeError(f"mesh {label} rank {rank} step launched "
+                               f"{out['launches']}, predicted "
+                               f"{out['want']} ({COUNTER_NAMES})")
+    return worst
+
+
+def check_mesh_runner(label, results, devices=None):
+    """The ranks' 2-epoch runs: the weights alike after each epoch, each
+    rank's launches as predicted and on its device (`devices`, by rank;
+    MESH_DEVICE for every rank by default), the validation loss falling."""
+    first = results[0]
+    devices = devices or [MESH_DEVICE] * len(results)
+    for rank, out in enumerate(results):
+        if out["digests"] != first["digests"] or len(out["digests"]) != 2:
+            raise RuntimeError(f"mesh {label}: rank {rank}'s weights "
+                               "differ after an epoch")
+        if out["launches"] != out["want"]:
+            raise RuntimeError(f"mesh {label} rank {rank}: train() "
+                               f"launched {out['launches']}, predicted "
+                               f"{out['want']} ({COUNTER_NAMES})")
+        if out["device"] != devices[rank]:
+            raise RuntimeError(f"mesh {label} rank {rank} ran on "
+                               f"{out['device']}")
+    losses = [first["initial_valid_loss"]] + first["valid_losses"]
+    if not all(np.isfinite(losses)) or losses[-1] >= losses[0]:
+        raise RuntimeError(f"mesh {label}: validation loss {losses} did "
+                           "not fall")
+
+
+def mesh_phase(corpus, step_corpus, work_dir):
+    """Phase 21 (see the module docstring)."""
+    from ggnn_tpu_torch.data.loader import infer_metadata
+    from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
+    from ggnn_tpu_torch.parallel.launch import RankPool
+    from ggnn_tpu_torch.training.runner import mesh_kind
+    from ggnn_tpu_torch.training.variants import make_adapter
+    # The ranks import the functions they run by module name; run as a
+    # script, this file's own are __main__'s, which a rank cannot import.
+    import chip_smoke as ranks
+    start = time.perf_counter()
+    dev = torch.device(MESH_DEVICE)
+    torch.cuda.empty_cache()   # the earlier phases' cached blocks
+    log(f"mesh phase: gloo ranks sharing {MESH_DEVICE}; collectives copied "
+        f"through the host: {', '.join(MESH_STAGED)} (gloo sends no CUDA "
+        "tensor point to point); all-reduce, all-to-all and all-gather "
+        "move CUDA tensors")
+    cases, worlds = {}, {}
+    for label, variant, over, n_data, n_edge in MESH_CASES:
+        worlds.setdefault(n_data * n_edge, []).append(
+            (label, variant, over, n_data, n_edge))
+    spawn_s = {}
+    for world, group in sorted(worlds.items()):
+        t0 = time.perf_counter()
+        with RankPool(world, "gloo", python_path=[REPO],
+                      timeout=600) as pool:
+            spawn_s[world] = time.perf_counter() - t0
+            for label, variant, over, n_data, n_edge in group:
+                t_case = time.perf_counter()
+                config = mesh_config(variant, over)
+                train, valid = step_corpus
+                meta = infer_metadata([train, valid],
+                                      config["tie_fwd_bkwd"])
+                adapter = make_adapter(model_variant(variant), config, meta)
+                processed = adapter.preprocess(train, False)
+                adapter.plan(processed)
+                batches = list(itertools.islice(
+                    adapter.batches(processed, False), 2))
+                gen = torch.Generator().manual_seed(0)
+                weights = {n: p.detach().numpy() for n, p in ModelParams(
+                    adapter.build_model(gen), init_output_heads(
+                        gen, config["hidden_size"],
+                        config["task_ids"])).named_parameters()}
+                kind = mesh_kind(model_variant(variant), config,
+                                 SimpleNamespace(shape={"data": n_data,
+                                                        "edge": n_edge}),
+                                 meta.num_edge_types)
+                exchange = config.get("boundary_exchange", "alltoall")
+                oracle = single_step(variant, config, meta, weights,
+                                     batches, dev)
+                steps = pool.run(ranks.mesh_step_rank, variant, config,
+                                 meta, weights, batches, n_data, n_edge,
+                                 kind, exchange)
+                worst = check_mesh_step(label, steps, oracle)
+                runs = pool.run(ranks.mesh_runner_rank, variant, config,
+                                corpus, n_data, n_edge, os.path.join(
+                                    work_dir, label.replace(" ", "_")))
+                check_mesh_runner(label, runs)
+                first = runs[0]
+                rec = {
+                    "shape": [n_data, n_edge], "kind": kind,
+                    "exchange": first["exchange"],
+                    "batch_graphs": [int(b.num_graphs) for b in batches],
+                    "step_loss": steps[0]["loss"], "single_loss": oracle[0],
+                    "step_max_rel_grad_err": worst,
+                    "step_launches": [s["launches"] for s in steps],
+                    "runner_launches": [r["launches"] for r in runs],
+                    "train_steps": first["train_steps"],
+                    "valid_steps": first["valid_steps"],
+                    "initial_valid_loss": first["initial_valid_loss"],
+                    "valid_losses": first["valid_losses"],
+                    "train_losses": first["train_losses"],
+                    "weights_equal_across_ranks": True,
+                    "setup_s": max(r["setup_s"] for r in runs),
+                    "train_s": max(r["train_s"] for r in runs),
+                    "mesh_step_ms": max(r["step_ms"] for r in runs),
+                    "single_step_ms": oracle[3],
+                    "seconds": time.perf_counter() - t_case}
+                cases[label] = rec
+                log(f"mesh {label} ({kind}, {rec['exchange']}): step loss "
+                    f"{rec['step_loss']:.6f} vs single {oracle[0]:.6f}, "
+                    f"gradients within {worst:.2e} of the largest; "
+                    f"launches a rank {rec['runner_launches'][0]} "
+                    f"({COUNTER_NAMES}) as predicted; validation loss "
+                    f"{rec['initial_valid_loss']:.5f} -> "
+                    f"{rec['valid_losses'][-1]:.5f}; weights bit-equal "
+                    f"across ranks each epoch; ms a step: mesh "
+                    f"{rec['mesh_step_ms']:.3f}, single "
+                    f"{rec['single_step_ms']:.3f}; {rec['seconds']:.1f} s")
+    t0 = time.perf_counter()
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with RankPool(1, "nccl", python_path=[REPO], timeout=600,
+                  env=env) as pool:
+        nccl = pool.run(ranks.nccl_rank,
+                        mesh_config("sparse", {"num_epochs": 1}),
+                        step_corpus, os.path.join(work_dir, "nccl"))[0]
+    nccl["seconds"] = time.perf_counter() - t0
+    if nccl["max_abs_param_diff"] > TOL_NCCL:
+        raise RuntimeError(f"the one-rank nccl mesh Runner is "
+                           f"{nccl['max_abs_param_diff']} from the plain "
+                           "Runner")
+    if nccl["launches"]["mesh"] != nccl["launches"]["plain"]:
+        raise RuntimeError(f"nccl mesh launches {nccl['launches']}")
+    log(f"mesh nccl 1x1: parameters {nccl['max_abs_param_diff']:.3g} from "
+        f"the plain Runner (bit-equal: {nccl['bit_equal']}), launches "
+        f"{nccl['launches']['mesh']}; {nccl['seconds']:.1f} s")
+    seconds = time.perf_counter() - start
+    log(f"mesh phase: {seconds:.1f} s (rank spawns "
+        f"{', '.join(f'{w} ranks {s:.1f} s' for w, s in spawn_s.items())})"
+        "; ranks share one card, so no time here is a scaling number")
+    return {"cases": cases, "nccl": nccl, "staged": list(MESH_STAGED),
+            "spawn_s": spawn_s, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -4072,6 +4573,7 @@ def main() -> int:
          "gcn": gcn_profile["gcn"], "sparse_attention": attention_profile,
          "async": async_profile},
         os.path.join(work_dir, "on_device"))
+    mesh = mesh_phase(corpus, step_corpus, os.path.join(work_dir, "mesh"))
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -4112,6 +4614,11 @@ def main() -> int:
     runs["extras Runner.predict"] = extras["evaluate"]["launches"]
     runs["extras cli --evaluate"] = extras["evaluate"]["cli_launches"]
     runs["extras QM9 cli"] = extras["ingestion"]["launches"]
+    # The mesh Runners' launches, summed over their ranks.
+    for label, rec in mesh["cases"].items():
+        runs[f"mesh {label} training"] = [
+            sum(c) for c in zip(*rec["runner_launches"])]
+    runs["mesh nccl 1x1 training"] = mesh["nccl"]["launches"]["mesh"]
 
     def by_path(*indices):
         return {path: sum(counts[i] for i in indices)
@@ -4308,7 +4815,7 @@ def main() -> int:
                     "bf16_launches_by_run": bf16_runs,
                     "bf16_phase_seconds": bf16_seconds,
                     "extras": extras, "native": native,
-                    "train_on_device": on_device}))
+                    "train_on_device": on_device, "mesh": mesh}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ points run on the GPU unless the caller asks for the CPU
 build on first use (`ops/kernels/_build.py`).
 
 The top-level names are those of `ggnn_tpu/__init__.py`. `Runner`,
-`Predictor`, `resolve_config` and `synthetic_molecules` load on first
-access, so `import ggnn_tpu_torch` stays light; `make_mesh` waits for
-multi-GPU (ROADMAP A11).
+`Predictor`, `resolve_config`, `synthetic_molecules` and `make_mesh`
+(multi-GPU training, parallel/) load on first access, so
+`import ggnn_tpu_torch` stays light.
 """
 
 __version__ = "0.1.0"
@@ -32,7 +32,6 @@ def __getattr__(name):
         from ggnn_tpu_torch.data.synthetic import synthetic_molecules
         return synthetic_molecules
     if name == "make_mesh":
-        raise AttributeError(
-            "ggnn_tpu_torch.make_mesh is not ported yet: multi-GPU "
-            "training is ROADMAP A11")
+        from ggnn_tpu_torch.parallel.mesh import make_mesh
+        return make_mesh
     raise AttributeError(f"module 'ggnn_tpu_torch' has no attribute '{name}'")

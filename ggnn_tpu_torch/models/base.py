@@ -32,6 +32,7 @@ import torch
 from torch import nn
 
 from ggnn_tpu_torch.ops.mlp import mlp_apply, mlp_init
+from ggnn_tpu_torch.parallel.collectives import reduce_to_replicated
 from ggnn_tpu_torch.ops.segment import segment_sum
 from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
 
@@ -85,10 +86,14 @@ def segment_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
                     init_features: torch.Tensor,
                     node_graph_ids: torch.Tensor, graph_capacity: int, *,
                     keep_prob: float = 1.0,
-                    generator: torch.Generator = None) -> torch.Tensor:
+                    generator: torch.Generator = None,
+                    psum_axis=None) -> torch.Tensor:
     """Per-task gated segment-sum pooling [K, G] — the readout of the
-    edge-list variants. The JAX package's `psum_axis` (node-sharded
-    batches) waits for multi-GPU (ROADMAP A11)."""
+    edge-list variants. `psum_axis` (a mesh `Axis`) sums the per-shard
+    partial pools of a node-sharded batch (a graph may span shards), as
+    the JAX package's `psum_axis` does (`ggnn_tpu/models/base.py:75-94`):
+    every rank of the axis then computes the same loss from the sum, so
+    its backward is the identity (`parallel/collectives.py`)."""
     outs = []
     for task_id in task_ids:
         gated = gated_regression_nodes(heads[f"task{task_id}"], last_h,
@@ -96,7 +101,10 @@ def segment_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
                                        generator=generator)
         outs.append(pool_nodes_to_graphs(gated, node_graph_ids,
                                          graph_capacity))
-    return torch.stack(outs, dim=0)
+    out = torch.stack(outs, dim=0)
+    if psum_axis is not None:
+        out = reduce_to_replicated(out, psum_axis)
+    return out
 
 
 def dense_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,

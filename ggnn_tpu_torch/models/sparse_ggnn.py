@@ -43,8 +43,23 @@ routes, and the incoming messages are cast back to f32 before the edge
 bias, the averaging and the cell. Parameters, the cell, the readout and
 the loss stay f32.
 
-Not ported yet, raising NotImplementedError with its ROADMAP item: the
-edge-partitioned and node-sharded branches (`edge_axis`; A11).
+On a mesh (parallel/, ROADMAP A11) the model is built with `edge_axis`,
+the mesh's edge `Axis`, and runs the JAX model's two edge-axis branches:
+
+  * a node-sharded batch (parallel/node_shard.py) takes
+    `_forward_node_sharded`: per step the boundary exchange, then B1 over
+    the local lane (h[loc_src] by loc_tgt*T + loc_type) and over the
+    boundary lane (the received table), the two [Nl*T, H] sums added and
+    transformed; under attention the two lanes' scores share one
+    segment softmax. The readout sums its partial pools over the axis;
+  * a plain batch is type-TP (parallel/tp.py): this rank's [T/P, H, H]
+    weights over its T/P per-type lanes (the combined lane is off), the
+    node states entering through `copy_to_shards` and the incoming sums
+    completed by `reduce_to_replicated` before the replicated bias,
+    averaging and cell. Edge-weight dropout draws the whole [T, H, H]
+    mask from the generator the edge ranks share and keeps this rank's
+    slice, so every type's mask is its own (JAX folds the edge index
+    into the key for the same end).
 """
 
 from typing import Dict
@@ -54,14 +69,25 @@ from torch import nn
 
 from ggnn_tpu_torch.graph import GraphBatch
 from ggnn_tpu_torch.models import base
+from ggnn_tpu_torch.ops.attention import EdgeDot
 from ggnn_tpu_torch.ops.cells import make_cell
 from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.ops.messages import (
-    EdgeLanes, aggregate_messages, aggregate_then_transform,
-    aggregate_then_transform_combined, average_by_in_degree, edge_bias_term,
+    EdgeLanes, aggregate_lanes, aggregate_messages,
+    aggregate_then_transform, aggregate_then_transform_combined,
+    average_by_in_degree, edge_bias_term,
     propagation_attention, propagation_attention_weights,
     propagation_attention_weights_combined, sort_typed_lanes,
     typed_edge_messages)
+from ggnn_tpu_torch.ops.precision import matmul_f32
+from ggnn_tpu_torch.ops.segment import segment_softmax, sorted_segments
+from ggnn_tpu_torch.parallel.collectives import (copy_to_shards,
+                                                 reduce_to_replicated)
+from ggnn_tpu_torch.parallel.mesh import Axis
+from ggnn_tpu_torch.parallel.node_shard import (exchange_boundary,
+                                                table_rows)
+from ggnn_tpu_torch.parallel.tp import type_range
+from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
 
@@ -118,17 +144,27 @@ class SparseGGNNLayer(nn.Module):
             self.edge_biases = nn.Parameter(zeros_init(generator, (t, h)))
 
 
+def check_edge_axis(edge_axis):
+    """`edge_axis` as a model takes it: None, or the mesh's edge `Axis`
+    (`mesh.axis(EDGE_AXIS)`), whose process group the model's collectives
+    run over. JAX's models take the axis's name; a name alone names no
+    group here, so it raises."""
+    if edge_axis is not None and not isinstance(edge_axis, Axis):
+        raise TypeError(
+            f"edge_axis must be a mesh Axis (mesh.axis('edge')), got "
+            f"{edge_axis!r}")
+    return edge_axis
+
+
 class SparseGGNN(nn.Module):
-    """`forward(batch)` -> final node states [N, H];
-    `readout(heads, task_ids, last_h, batch)` -> predictions [K, G]."""
+    """`forward(batch)` -> final node states [N, H] ([Nl, H] of a node
+    shard); `readout(heads, task_ids, last_h, batch)` -> predictions
+    [K, G]."""
 
     def __init__(self, config: Dict, num_edge_types: int,
                  generator: torch.Generator, edge_axis: str = None):
         super().__init__()
-        if edge_axis is not None:
-            raise NotImplementedError(
-                "SparseGGNN with edge_axis (edge-partitioned graphs) is not "
-                "ported yet (ROADMAP A11)")
+        self.edge_axis = check_edge_axis(edge_axis)
         self.config = config
         self.compute_dtype = compute_dtype(config)
         self.num_edge_types = num_edge_types
@@ -166,12 +202,17 @@ class SparseGGNN(nn.Module):
                 generator: torch.Generator = None) -> torch.Tensor:
         """Final node representations [N, H]. Training draws its dropout
         masks from `generator`, on the batch's device."""
+        if getattr(batch, "send_idx", None) is not None:
+            return self._forward_node_sharded(batch, is_training, generator)
         n_cap = batch.node_capacity
+        axis = self.edge_axis
         # JAX's routing (ggnn_tpu/models/sparse_ggnn.py:214-258): the
         # combined lane only when the batch has it, `aggregate_first` is
-        # on and the lanes are target-sorted (its sums assume the order).
+        # on and the lanes are target-sorted (its sums assume the order);
+        # never under type-TP, which shards the per-type lanes.
         use_combined = (self.combined_lanes
                         and batch.edge_sources_all is not None
+                        and axis is None
                         and self.aggregate_first and self.edges_sorted)
         src, tgt, mask = batch.edge_sources, batch.edge_targets, \
             batch.edge_mask
@@ -189,9 +230,7 @@ class SparseGGNN(nn.Module):
             layer = self.layers[layer_idx]
             edge_weights = layer.edge_weights
             if is_training:
-                edge_weights = dropout(edge_weights,
-                                       self.edge_weight_dropout_keep_prob,
-                                       generator)
+                edge_weights = self._dropped(edge_weights, generator)
             w_c = edge_weights.to(cdt)
             residual_states = [
                 node_states_per_layer[i]
@@ -200,6 +239,8 @@ class SparseGGNN(nn.Module):
             h = node_states_per_layer[-1]
             for _step in range(num_timesteps):
                 h_c = h.to(cdt)
+                if axis is not None:
+                    h_c = copy_to_shards(h_c, axis)
                 attn = None
                 if use_combined:
                     if self.use_propagation_attention:
@@ -215,7 +256,7 @@ class SparseGGNN(nn.Module):
                     if self.use_propagation_attention:
                         attn = propagation_attention_weights(
                             h_c, src, tgt, mask, layer.attention, n_cap,
-                            lanes=lanes).to(cdt)
+                            edge_axis=axis, lanes=lanes).to(cdt)
                     incoming = aggregate_then_transform(
                         h_c, src, tgt, w_c, n_cap, attn,
                         targets_sorted=True, lanes=lanes)
@@ -224,10 +265,101 @@ class SparseGGNN(nn.Module):
                     if self.use_propagation_attention:
                         messages = propagation_attention(
                             messages, h_c, src, tgt, mask, layer.attention,
-                            n_cap, lanes=lanes)
+                            n_cap, edge_axis=axis, lanes=lanes)
                     incoming = aggregate_messages(messages, tgt, n_cap,
                                                   lanes)
                 incoming = incoming.to(torch.float32)
+                if axis is not None:
+                    # Type-TP: each rank summed its own types' messages.
+                    incoming = reduce_to_replicated(incoming, axis)
+                if self.use_edge_bias:
+                    incoming = incoming + edge_bias_term(
+                        batch.in_degrees, layer.edge_biases)
+                if self.use_edge_msg_avg_aggregation:
+                    incoming = average_by_in_degree(incoming,
+                                                    batch.in_degrees)
+                incoming_info = torch.cat(residual_states + [incoming],
+                                          dim=-1)
+                h = layer.cell(incoming_info, h, is_training=is_training,
+                               generator=generator)
+            node_states_per_layer.append(h)
+        return node_states_per_layer[-1]
+
+    def _dropped(self, edge_weights, generator):
+        """The layer's edge weights under TF1 dropout. Under type-TP the
+        whole [T, H, H] mask is drawn and this rank's slice kept."""
+        keep = self.edge_weight_dropout_keep_prob
+        if self.edge_axis is None or keep >= 1.0:
+            return dropout(edge_weights, keep, generator)
+        full = (self.num_edge_types,) + tuple(edge_weights.shape[1:])
+        mask = dropout(edge_weights.new_ones(full), keep, generator)
+        return edge_weights * mask[type_range(self.num_edge_types,
+                                              self.edge_axis)]
+
+    def _forward_node_sharded(self, batch, is_training: bool,
+                              generator: torch.Generator) -> torch.Tensor:
+        """This shard's final node states [Nl, H] (JAX's
+        `_forward_node_sharded`, `ggnn_tpu/models/sparse_ggnn.py:282-384`).
+
+        Per step: the exchange of the boundary rows (`exchange_boundary`),
+        B1 over the local lane against h and over the boundary lane
+        against the received table, both into the composite segments
+        target*T + type of the shard's Nl rows; the two [Nl*T, H] sums
+        added, viewed [Nl, T*H] and multiplied by the [T*H, H] weights;
+        then the bias, the averaging and the cell, all local. With
+        attention the two lanes' scores (edge_dot, the boundary lane's
+        sources read from the table) share one segment softmax over the
+        shard's targets, and each lane is aggregated by the weighted
+        instance."""
+        nl = batch.local_node_capacity
+        t_dim = self.num_edge_types
+        axis, cdt = self.edge_axis, self.compute_dtype
+        loc = EdgeLanes.combined(batch.loc_src, batch.loc_type,
+                                 batch.loc_tgt, t_dim, nl)
+        bnd = EdgeLanes.combined(batch.bnd_src, batch.bnd_type,
+                                 batch.bnd_tgt, t_dim, nl,
+                                 num_sources=table_rows(batch.send_idx))
+        el = batch.loc_src.shape[0]
+        if self.use_propagation_attention:
+            # One softmax over both lanes' targets (two sorted runs),
+            # sorted once a forward.
+            joint_tgt = torch.cat([batch.loc_tgt, batch.bnd_tgt])
+            joint = sorted_segments(joint_tgt, nl + 1)
+            joint_mask = torch.cat([batch.loc_mask, batch.bnd_mask])
+        node_states_per_layer = [batch.node_features]
+        for layer_idx, num_timesteps in enumerate(self.layer_timesteps):
+            layer = self.layers[layer_idx]
+            edge_weights = layer.edge_weights
+            if is_training:
+                edge_weights = dropout(edge_weights,
+                                       self.edge_weight_dropout_keep_prob,
+                                       generator)
+            w_c = edge_weights.to(cdt)
+            residual_states = [
+                node_states_per_layer[i]
+                for i in self.residual_connections.get(layer_idx, [])
+            ]
+            h = node_states_per_layer[-1]
+            h_dim = h.shape[-1]
+            for _step in range(num_timesteps):
+                h_c = h.to(cdt)
+                recv = exchange_boundary(h_c, batch.send_idx, axis, h_dim)
+                attn_l = attn_b = None
+                if self.use_propagation_attention:
+                    scores = torch.cat([
+                        _lane_scores(h_c, h_c, loc, batch.loc_type,
+                                     layer.attention),
+                        _lane_scores(recv, h_c, bnd, batch.bnd_type,
+                                     layer.attention)])
+                    attn = segment_softmax(scores, joint_tgt, nl + 1,
+                                           joint_mask, SMALL_NUMBER,
+                                           layout=joint).to(cdt)
+                    attn_l, attn_b = attn[:el], attn[el:]
+                per = (aggregate_lanes(h_c, loc, attn_l)
+                       + aggregate_lanes(recv, bnd, attn_b))   # [Nl*T, H]
+                incoming = matmul_f32(
+                    per.view(nl, t_dim * h_dim),
+                    w_c.reshape(t_dim * h_dim, w_c.shape[-1]))
                 if self.use_edge_bias:
                     incoming = incoming + edge_bias_term(
                         batch.in_degrees, layer.edge_biases)
@@ -245,8 +377,24 @@ class SparseGGNN(nn.Module):
                 batch: GraphBatch, *, keep_prob: float = 1.0,
                 generator: torch.Generator = None) -> torch.Tensor:
         """Per-task graph predictions [K, G] via gated segment-sum pooling
-        (chem_tensorflow_sparse.py:220-231)."""
+        (chem_tensorflow_sparse.py:220-231); a node shard's partial pools
+        are summed over the edge axis."""
+        node_sharded = getattr(batch, "send_idx", None) is not None
         return base.segment_readout(
             heads, task_ids, last_h, batch.node_features,
             batch.node_graph_ids, batch.graph_capacity, keep_prob=keep_prob,
-            generator=generator)
+            generator=generator,
+            psum_axis=self.edge_axis if node_sharded else None)
+
+
+def _lane_scores(x, y, lanes: EdgeLanes, types, factors):
+    """<x[src], y[tgt]> of a node shard's lane (kernel `edge_dot`; a pad,
+    whose target is the dump row Nl, scores 0 and is masked out of the
+    softmax) times each edge's type factor."""
+    grad = torch.is_grad_enabled()
+    dots = EdgeDot.apply(x, lanes.src, y, lanes.tgt,
+                         lanes.source_pairs if grad and x.requires_grad
+                         else None,
+                         lanes.target_pairs if grad and y.requires_grad
+                         else None)
+    return dots * factors.index_select(0, types.long())

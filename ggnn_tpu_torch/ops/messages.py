@@ -73,14 +73,19 @@ class EdgeLanes:
     (int32, sorted; None where no aggregation over them runs) are the
     aggregate-first route's segment ids out of `num_segments`, the pads
     at or past num_segments or in dump segments; `targets_sorted` says
-    whether the flat targets are sorted already."""
+    whether the flat targets are sorted already. The sources index
+    `num_sources` rows (default: the node capacity; a node shard's
+    boundary lane reads the received table instead)."""
 
     def __init__(self, sources, targets, node_capacity: int,
                  segments=None, num_segments: int = 0,
-                 targets_sorted: bool = False, types=None):
+                 targets_sorted: bool = False, types=None,
+                 num_sources: Optional[int] = None):
         self.src = None if sources is None else sources.reshape(-1)
         self.tgt = targets.reshape(-1)
         self.node_capacity = node_capacity
+        self.num_sources = (node_capacity if num_sources is None
+                            else num_sources)
         self.segments = None if segments is None else segments.reshape(-1)
         self.num_segments = num_segments
         self.targets_sorted = targets_sorted
@@ -88,14 +93,16 @@ class EdgeLanes:
 
     @classmethod
     def combined(cls, src_all, type_all, tgt_all, num_edge_types: int,
-                 node_capacity: int) -> "EdgeLanes":
+                 node_capacity: int,
+                 num_sources: Optional[int] = None) -> "EdgeLanes":
         """The type-combined lane, (target, type)-sorted by the packers:
         segments target*T + type out of N*T, the pads (target N) past
-        them."""
+        them. A node shard's local and boundary lanes have this layout
+        over its Nl rows (parallel/node_shard.py)."""
         types = type_all.long()
         composite = (tgt_all.long() * num_edge_types + types).to(torch.int32)
         return cls(src_all, tgt_all, node_capacity, composite,
-                   node_capacity * num_edge_types, True, types)
+                   node_capacity * num_edge_types, True, types, num_sources)
 
     @classmethod
     def typed(cls, edge_sources, edge_targets,
@@ -124,8 +131,8 @@ class EdgeLanes:
     @cached_property
     def _by_source(self):
         """(perm, boff): the edges stably sorted by source, the pads
-        (target N) keyed past the last node."""
-        n = self.node_capacity
+        (target N) keyed past the last source row."""
+        n = self.num_sources
         return source_order(torch.where(self.real, self.src, n).long(), n)
 
     def _source_sorted(self, ids) -> SortedEdges:
@@ -199,10 +206,11 @@ def sort_typed_lanes(edge_targets, *lanes):
                  for x in (edge_targets,) + lanes)
 
 
-def _aggregate(node_states, lanes: EdgeLanes, attention):
-    """[S, H]: the per-segment sums of the (attention-weighted) source
-    rows; the transpose is built only when node_states needs a
-    gradient."""
+def aggregate_lanes(node_states, lanes: EdgeLanes, attention=None):
+    """[S, H]: the per-segment sums over `lanes` of the source rows of
+    node_states, weighted by `attention` [E] if given (B1, or the
+    weighted instance); the transpose is built only when node_states
+    needs a gradient."""
     transpose = (lanes.segment_transpose if _needs_grad(node_states)
                  else None)
     if attention is None:
@@ -271,13 +279,6 @@ def _edge_scores(node_states, sources, targets, node_capacity,
     return dots.view(sources.shape) * per_edge_factor
 
 
-def _check_edge_axis(edge_axis):
-    if edge_axis is not None:
-        raise NotImplementedError(
-            "attention over an edge-partitioned batch (edge_axis) is not "
-            "ported yet (ROADMAP A11)")
-
-
 def propagation_attention_weights(node_states: torch.Tensor,
                                   edge_sources: torch.Tensor,
                                   edge_targets: torch.Tensor,
@@ -290,8 +291,10 @@ def propagation_attention_weights(node_states: torch.Tensor,
     """Per-edge attention weights [T, E] over the per-type lanes: the
     segment softmax, over each target's incoming edges of every type, of
     the <src, tgt> scores scaled per type (chem_tensorflow_sparse.py:
-    170-196)."""
-    _check_edge_axis(edge_axis)
+    170-196). Under type-TP (`edge_axis`, the mesh's edge `Axis`) the
+    lanes hold this rank's types and the softmax's max and sums run over
+    the axis, so it is exact over every type's edges (JAX's
+    `ggnn_tpu/ops/messages.py:79-94`)."""
     if lanes is None:
         lanes = EdgeLanes(edge_sources, edge_targets, node_capacity)
     t, e = edge_sources.shape
@@ -300,7 +303,7 @@ def propagation_attention_weights(node_states: torch.Tensor,
     attention = segment_softmax(
         scores.reshape(t * e), lanes.tgt, node_capacity + 1,
         edge_mask.reshape(t * e), SMALL_NUMBER,
-        layout=lanes.target_segments)
+        layout=lanes.target_segments, axis_name=edge_axis)
     return attention.view(t, e)
 
 
@@ -328,7 +331,7 @@ def aggregate_then_transform(node_states: torch.Tensor,
         if not targets_sorted:
             tgt, src, attention = sort_typed_lanes(tgt, src, attention)
         lanes = EdgeLanes.typed(src, tgt, node_capacity)
-    per = _aggregate(node_states, lanes, attention)
+    per = aggregate_lanes(node_states, lanes, attention)
     per = per.view(t_dim, node_capacity + 1, h_dim)[:, :node_capacity]
     return matmul_f32(per.transpose(0, 1).reshape(node_capacity,
                                                   t_dim * h_dim),
@@ -379,7 +382,7 @@ def aggregate_then_transform_combined(node_states: torch.Tensor,
     if lanes is None:
         lanes = EdgeLanes.combined(src_all, type_all, tgt_all, t_dim,
                                    node_capacity)
-    per = _aggregate(node_states, lanes, attention)          # [N*T, H]
+    per = aggregate_lanes(node_states, lanes, attention)          # [N*T, H]
     # Row n of the [N, T*H] view is [per(n, 0) | ... | per(n, T-1)], and
     # row t*H + k of the [T*H, H] view is edge_weights[t, k]: the
     # product is einsum("nth,thd->nd"), f32 out.
@@ -395,7 +398,8 @@ def propagation_attention(messages: torch.Tensor, node_states: torch.Tensor,
                           lanes: Optional[EdgeLanes] = None) -> torch.Tensor:
     """Segment-softmax attention over incoming messages [T, E, H]: the
     messages reweighted by `propagation_attention_weights`
-    (chem_tensorflow_sparse.py:170-196)."""
+    (chem_tensorflow_sparse.py:170-196), whose softmax runs over
+    `edge_axis` under type-TP (JAX's `ggnn_tpu/ops/messages.py:193-211`)."""
     attention = propagation_attention_weights(
         node_states, edge_sources, edge_targets, edge_mask, type_factors,
         node_capacity, edge_axis, lanes)

@@ -93,25 +93,32 @@ def sorted_segment_sum(data: torch.Tensor,
 
 
 class SegmentSoftmax(torch.autograd.Function):
-    """`apply(scores, segment_ids, mask, layout, epsilon)`: the softmax of
-    `segment_softmax`, its gradient in closed form. With the shift
-    detached, a_e = x_e / (S_seg + eps), x_e = exp(s_e - max) * mask_e,
-    S_seg the sum of x over e's segment, so
+    """`apply(scores, segment_ids, mask, layout, epsilon, axis)`: the
+    softmax of `segment_softmax`, its gradient in closed form. With the
+    shift detached, a_e = x_e / (S_seg + eps), x_e = exp(s_e - max) *
+    mask_e, S_seg the sum of x over e's segment, so
         ds_e = a_e * (g_e - sum over e's segment of a * g),
-    masked lanes included (their a_e is 0)."""
+    masked lanes included (their a_e is 0). Over a mesh `axis` each rank
+    holds some of a segment's lanes: the max and S_seg are taken over
+    the axis, and so is the backward's segment sum of a * g, since every
+    rank's lanes share S_seg."""
 
     @staticmethod
-    def forward(ctx, scores, segment_ids, mask, layout, epsilon):
+    def forward(ctx, scores, segment_ids, mask, layout, epsilon, axis):
         ids = segment_ids.long()
         num_segments = layout.offsets.shape[0] - 1
         masked = torch.where(mask > 0, scores, F32_MIN)
+        seg_max = segment_max(masked, ids, num_segments)
+        if axis is not None:
+            seg_max = axis.all_reduce(seg_max, "max")
         # Segments with no real lane come back as -inf or F32_MIN: clamped.
-        seg_max = segment_max(masked, ids, num_segments).clamp_min(
-            F32_MIN / 2)
+        seg_max = seg_max.clamp_min(F32_MIN / 2)
         exped = torch.exp(masked - seg_max[ids]) * mask
         seg_sum = sorted_segment_sum(exped, layout)
+        if axis is not None:
+            seg_sum = axis.all_reduce(seg_sum)
         attention = exped / (seg_sum[ids] + epsilon)
-        ctx.layout = layout
+        ctx.layout, ctx.axis = layout, axis
         ctx.save_for_backward(attention, ids)
         return attention
 
@@ -120,13 +127,16 @@ class SegmentSoftmax(torch.autograd.Function):
         attention, ids = ctx.saved_tensors
         ag = attention * g
         total = sorted_segment_sum(ag, ctx.layout)
-        return ag - attention * total[ids], None, None, None, None
+        if ctx.axis is not None:
+            total = ctx.axis.all_reduce(total)
+        return ag - attention * total[ids], None, None, None, None, None
 
 
 def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int, mask: torch.Tensor, epsilon: float,
                     indices_are_sorted: bool = False,
-                    layout: Optional[SortedSegments] = None) -> torch.Tensor:
+                    layout: Optional[SortedSegments] = None,
+                    axis_name=None) -> torch.Tensor:
     """Softmax over ragged incoming-message groups, max-shifted, the
     counterpart of `ggnn_tpu.ops.segment.segment_softmax`
     (chem_tensorflow_sparse.py:177-194): per-segment max shift, exp,
@@ -135,11 +145,17 @@ def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
     lanes take the f32 minimum into the max and 0 into the sum. The max
     is detached (JAX's stop_gradient) and clamped at half the f32
     minimum. 1-D scores; `layout` is `sorted_segments(segment_ids,
-    num_segments, indices_are_sorted)`, made here when not given."""
+    num_segments, indices_are_sorted)`, made here when not given.
+
+    `axis_name` (a mesh `Axis`, parallel/mesh.py) is JAX's: the lanes
+    of one segment are spread over the axis's ranks, and the max (still
+    detached) and the sums are taken over it, so the softmax is exact
+    over the whole segment (`ggnn_tpu/ops/segment.py:37-73`)."""
     if layout is None:
         layout = sorted_segments(segment_ids, num_segments,
                                  indices_are_sorted)
     if layout.offsets.shape[0] != num_segments + 1:
         raise ValueError(f"layout has {layout.offsets.shape[0] - 1} "
                          f"segments, expected {num_segments}")
-    return SegmentSoftmax.apply(scores, segment_ids, mask, layout, epsilon)
+    return SegmentSoftmax.apply(scores, segment_ids, mask, layout, epsilon,
+                                axis_name)

@@ -24,7 +24,7 @@ and no Adam state, as `optax.multi_transform` with `set_to_zero` gives
 in the JAX package.
 """
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -33,9 +33,12 @@ from torch import nn
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
-def clip_by_norm(g: torch.Tensor, clip_norm: float) -> torch.Tensor:
-    """tf.clip_by_norm of one tensor: g * clip / max(||g||, clip)."""
-    norm = g.square().sum().sqrt()
+def clip_by_norm(g: torch.Tensor, clip_norm: float,
+                 norm: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tf.clip_by_norm of one tensor: g * clip / max(||g||, clip). `norm`
+    replaces ||g|| (a type-sharded leaf's global norm)."""
+    if norm is None:
+        norm = g.square().sum().sqrt()
     return g * (clip_norm / torch.clamp(norm, min=clip_norm))
 
 
@@ -46,14 +49,24 @@ class TFAdam:
     `step(grads)` takes {name: gradient} for the trainable parameters (a
     missing or None gradient counts as zero, as in the JAX package,
     whose gradient tree always holds every leaf) and updates the
-    parameters in place."""
+    parameters in place.
+
+    Under type-TP (parallel/tp.py) some leaves are slices of a variable
+    split over the mesh's edge axis: `tp_axis` (that `Axis`) and
+    `tp_is_sharded(name)` select them, and the clip of each takes the
+    GLOBAL norm, its squared norm summed over the axis, as the reference
+    clips the whole variable (JAX's `tp_axis`, `ggnn_tpu/training/
+    optimizer.py:24-45`)."""
 
     def __init__(self, params: nn.Module, learning_rate: float,
                  clamp_gradient_norm: float,
-                 freeze_graph_model: bool = False):
+                 freeze_graph_model: bool = False,
+                 tp_axis=None, tp_is_sharded: Optional[Callable] = None):
         self.learning_rate = learning_rate
         self.clamp_gradient_norm = clamp_gradient_norm
         self.freeze_graph_model = freeze_graph_model
+        self.tp_axis = tp_axis
+        self.tp_is_sharded = tp_is_sharded
         self.params: Dict[str, nn.Parameter] = {
             name: p for name, p in params.named_parameters()
             if not (freeze_graph_model and name.startswith("graph."))}
@@ -84,12 +97,25 @@ class TFAdam:
         # lr * sqrt(1 - b2^t) / (1 - b1^t) in float64 on the device; the
         # product below rounds it to float32 as a Python float would be.
         lr_t = self.learning_rate * torch.sqrt(1 - B2 ** t) / (1 - B1 ** t)
+        grads = {name: (torch.zeros_like(p) if grads.get(name) is None
+                        else grads[name])
+                 for name, p in self.params.items()}
+        norms = self._sharded_norms(grads)
         for name, p in self.params.items():
-            g = grads.get(name)
-            if g is None:
-                g = torch.zeros_like(p)
-            g = clip_by_norm(g, self.clamp_gradient_norm)
+            g = clip_by_norm(grads[name], self.clamp_gradient_norm,
+                             norms.get(name))
             m, v = self.mu[name], self.nu[name]
             m.mul_(B1).add_(g, alpha=1 - B1)
             v.mul_(B2).add_(g.square(), alpha=1 - B2)
             p.sub_(lr_t * m / (v.sqrt() + EPS))
+
+    def _sharded_norms(self, grads) -> Dict[str, torch.Tensor]:
+        """{name: global norm} of the type-sharded leaves: their squared
+        norms summed over `tp_axis` in one reduction."""
+        if self.tp_axis is None or self.tp_is_sharded is None:
+            return {}
+        names = [n for n in grads if self.tp_is_sharded(n)]
+        if not names:
+            return {}
+        squares = torch.stack([grads[n].square().sum() for n in names])
+        return dict(zip(names, self.tp_axis.all_reduce(squares).sqrt()))

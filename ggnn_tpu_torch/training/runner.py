@@ -44,9 +44,29 @@ training split packed once, every epoch's steps replayed as CUDA graphs
 on the card (`utils/timing.py:make_epochs_fn`), with one host read at
 the end.
 
-Not ported yet: the mesh paths (ROADMAP A11).
+`Runner(..., mesh=make_mesh(n_data, n_edge))` trains on the (data, edge)
+mesh (parallel/, the JAX Runner's mesh paths, `ggnn_tpu/training/
+runner.py:136-200` and `:435-758`). Every rank builds the same Runner:
+it packs the same epoch from the same RandomState, groups n_data batches
+a step (topped up with no-op fillers) and takes its own row, so no batch
+crosses ranks. The kind follows the variant and the config as in JAX:
+data parallelism for every variant; on an edge axis, `sparse`/`rgcn`
+node-sharded (`boundary_exchange`, default "alltoall") or type-TP
+(`"edge_parallelism": "type_tp"`) and `gcn` node-sharded, the shard
+capacities planned from a dry pack of both splits and grown mid-epoch
+when a group overflows them. The epoch's metrics are global. Rank 0
+alone prints, writes the log, the summaries and the checkpoints (at
+epoch granularity; a type-TP checkpoint gathers the whole weights
+first, on every rank). A mid-epoch iterator state restored into a mesh
+Runner raises when its epoch starts, and `train_on_device` on a mesh
+raises. `predict` runs a collective-free copy of the model on the
+whole weights; under type-TP gathering them is collective, so every
+rank calls it.
 """
 
+import contextlib
+import dataclasses
+import itertools
 import json
 import os
 import time
@@ -57,10 +77,17 @@ import torch
 
 from ggnn_tpu_torch.data import native_pack
 from ggnn_tpu_torch.data.loader import infer_metadata, load_graphs_json
+from ggnn_tpu_torch.data.packing import DEFAULT_PACK_MARGIN
+from ggnn_tpu_torch.data.reorder import dfs_reorder
 from ggnn_tpu_torch.graph import (AsyncGraphBatch, DenseGraphBatch,
                                   GCNGraphBatch)
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss, task_rescale)
+from ggnn_tpu_torch.parallel import tp
+from ggnn_tpu_torch.parallel.mesh import DATA_AXIS, EDGE_AXIS
+from ggnn_tpu_torch.parallel.step import (local_batches,
+                                          make_parallel_steps, plan_caps,
+                                          rank_generator, stack_for)
 from ggnn_tpu_torch.training.checkpoint import (load_iterator_state,
                                                 restore_checkpoint,
                                                 save_checkpoint)
@@ -71,6 +98,12 @@ from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
 from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
 from ggnn_tpu_torch.utils.timing import make_epochs_fn, shape_groups
+
+
+# (backend, device type) pairs whose all-to-all takes per-pair split
+# sizes: "auto" resolves to the ragged exchange there (gloo on the card
+# measured on an H100, torch 2.11).
+RAGGED_TRANSPORTS = {("nccl", "cuda"), ("gloo", "cpu"), ("gloo", "cuda")}
 
 
 def _batch_edge_count(batch) -> float:
@@ -91,6 +124,34 @@ def _batch_edge_count(batch) -> float:
     return float(np.asarray(batch.edge_mask).sum())
 
 
+def mesh_kind(variant: str, config: Dict, mesh,
+              num_edge_types: int) -> str:
+    """The mesh step's `batch_kind` for a variant, as the JAX Runner picks
+    it (`ggnn_tpu/training/runner.py:136-200`): `sparse`/`rgcn`
+    node-sharded ("sparse") or type-TP ("sparse_tp") on an edge axis,
+    by `edge_parallelism`; `gcn` node-sharded on an edge axis ("gcn"),
+    else "data_only"; the dense family "dense" and `async` "data_only",
+    both data-parallel only."""
+    n_edge = mesh.shape[EDGE_AXIS]
+    if variant in ("sparse", "rgcn"):
+        if (n_edge > 1 and config.get("edge_parallelism",
+                                      "node_shard") == "type_tp"):
+            tp.validate_tp(num_edge_types, n_edge)
+            return "sparse_tp"
+        return "sparse"
+    if variant in ("dense", "blocked", "gcn_blocked"):
+        if n_edge > 1:
+            raise ValueError("dense-family mesh training is data-parallel "
+                             "only (use n_edge=1)")
+        return "dense"
+    if variant == "gcn":
+        return "gcn" if n_edge > 1 else "data_only"
+    if n_edge > 1:
+        raise ValueError(f"{variant} mesh training is data-parallel only "
+                         "(use n_edge=1)")
+    return "data_only"
+
+
 class Runner:
     def __init__(self, variant: str, config: Dict, *,
                  data_dir: str = "", log_dir: str = ".",
@@ -104,8 +165,18 @@ class Runner:
                  profile_dir: Optional[str] = None,
                  save_every_epoch: bool = False,
                  checkpoint_every_steps: int = 0,
-                 device=None):
-        self.device = resolve_device(device)
+                 device=None, mesh=None):
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"a mesh Runner computes on its mesh's "
+                                 f"device {mesh.device}, not {device}")
+            self.device = mesh.device
+        # Rank 0 alone prints and writes.
+        self.is_chief = mesh is None or mesh.rank == 0
+        quiet = quiet or not self.is_chief
         self.variant = variant
         self.config = config
         self.quiet = quiet
@@ -121,21 +192,20 @@ class Runner:
             log_dir, f"{self.run_id}_model_best.pickle")
         self.last_model_file = os.path.join(
             log_dir, f"{self.run_id}_model_last.pickle")
-        with open(os.path.join(log_dir, f"{self.run_id}_params.json"),
-                  "w") as f:
-            json.dump(config, f)
+        if self.is_chief:
+            with open(os.path.join(log_dir, f"{self.run_id}_params.json"),
+                      "w") as f:
+                json.dump(config, f)
         # TB scalars under <log_dir>/tb/<run_id>/{train,validation}
         # (chem_tensorflow.py:53-54,101-102).
         self.summaries = SummarySink(log_dir, self.run_id,
-                                     enabled=tensorboard)
+                                     enabled=tensorboard and self.is_chief)
         if not quiet:
             print(f"Run {self.run_id} starting with following parameters:\n"
                   f"{json.dumps(config)}")
 
         seed = config["random_seed"]
         self.np_rng = np.random.RandomState(seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(
-            seed)
 
         # Data loading + metadata inference (chem_tensorflow.py:104-123).
         if train_data is None:
@@ -144,6 +214,12 @@ class Runner:
         if valid_data is None:
             valid_data = load_graphs_json(
                 os.path.join(data_dir, config["valid_file"]), restrict_data)
+        if config.get("locality_reorder", False):
+            # DFS-preorder relabelling (data/reorder.py): shrinks a giant
+            # graph's contiguous-range cut, and so the node shards'
+            # exchange; results are unchanged. Off by default.
+            train_data = [dfs_reorder(g) for g in train_data]
+            valid_data = [dfs_reorder(g) for g in valid_data]
         self.meta = infer_metadata([train_data, valid_data],
                                    config["tie_fwd_bkwd"])
         self.adapter = make_adapter(variant, config, self.meta)
@@ -152,17 +228,32 @@ class Runner:
         self.valid_processed = self.adapter.preprocess(valid_data, False)
         self.adapter.plan(self.train_processed, self.valid_processed)
 
+        self._mesh_kind = (None if mesh is None else mesh_kind(
+            variant, config, mesh, self.meta.num_edge_types))
+        self.generator = (
+            torch.Generator(device=self.device).manual_seed(seed)
+            if mesh is None else rank_generator(seed, mesh, self._mesh_kind))
+
         # Model + parameters, drawn on the CPU, then moved.
         init_gen = torch.Generator().manual_seed(seed)
-        self.model = self.adapter.build_model(init_gen)
+        if mesh is not None and mesh.shape[EDGE_AXIS] > 1 and \
+                self._mesh_kind in ("sparse", "sparse_tp", "gcn"):
+            self.model = self.adapter.build_model(init_gen,
+                                                  edge_axis=mesh.edge)
+        else:
+            self.model = self.adapter.build_model(init_gen)
         self.params = ModelParams(
             self.model, init_output_heads(init_gen, config["hidden_size"],
                                           self.task_ids)).to(self.device)
         if freeze_graph_model:
             self.params.graph.requires_grad_(False)
-        self.optimizer = TFAdam(self.params, config["learning_rate"],
-                                config["clamp_gradient_norm"],
-                                freeze_graph_model)
+        self._type_tp = (self._mesh_kind == "sparse_tp"
+                         and mesh.shape[EDGE_AXIS] > 1)
+        self.optimizer = TFAdam(
+            self.params, config["learning_rate"],
+            config["clamp_gradient_norm"], freeze_graph_model,
+            tp_axis=mesh.edge if self._type_tp else None,
+            tp_is_sharded=tp.is_tp_sharded_path if self._type_tp else None)
         # The loss's per-task weights, made once: a captured step cannot
         # copy them from the host.
         self.loss_rescale = task_rescale(
@@ -191,6 +282,9 @@ class Runner:
                 variant=variant, num_edge_types=self.meta.num_edge_types)
             self._resume_iter = load_iterator_state(restore)
         self.restored = restore is not None
+        self._nodeshard_caps = None
+        if mesh is not None:
+            self._setup_mesh()
 
         # Propagation steps per forward: the edge-messages/s multiplier.
         if "layer_timesteps" in config:
@@ -201,22 +295,202 @@ class Runner:
             self.prop_steps = int(config["num_timesteps"])
         self.last_edge_msg_per_sec = None
 
+    # -------------------------------------------------------------- mesh
+
+    def _setup_mesh(self) -> None:
+        """The type-TP slices, the node-shard capacities and the mesh
+        steps (JAX's `Runner.__init__`, `ggnn_tpu/training/runner.py:
+        243-274`)."""
+        mesh, kind = self.mesh, self._mesh_kind
+        n_edge = mesh.shape[EDGE_AXIS]
+        if self._type_tp:
+            tp.shard_parameters(self.params, self.optimizer, mesh.edge,
+                                self.meta.num_edge_types)
+        if kind in ("sparse", "gcn") and n_edge > 1:
+            # Size the shards' lanes and exchange buffers from a dry pack
+            # of both splits.
+            self._nodeshard_caps = self._nodeshard_plan(
+                itertools.chain(
+                    self.adapter.batches(self.train_processed, False),
+                    self.adapter.batches(self.valid_processed, False)),
+                n_edge)
+        # A data-parallel sparse mesh keeps the type-combined lane: each
+        # rank runs the single-device layout.
+        caps = getattr(self.adapter, "caps", None)
+        self._dp_combined = bool(kind == "sparse" and n_edge == 1
+                                 and getattr(caps, "edges_all", 0) > 0)
+        self._mesh_train, self._mesh_eval = make_parallel_steps(
+            self.params, self.optimizer, self.config, self.task_ids, mesh,
+            batch_kind=kind)
+
+    def _nodeshard_plan(self, batches, n_shards, margin=None,
+                        nodes_local=None):
+        """The node-shard capacities of the variant's layout over
+        `batches`, at the packers' margin (`pack_margin`, default 1.05);
+        `nodes_local` pins the per-shard node range to the active caps'
+        (a replan over some batches is only comparable to them under the
+        same owner arithmetic)."""
+        if margin is None:
+            margin = self.config.get("pack_margin") or DEFAULT_PACK_MARGIN
+        return plan_caps(self._mesh_kind, batches, n_shards, margin=margin,
+                         nodes_local=nodes_local)
+
+    def _resolve_exchange(self) -> str:
+        """`boundary_exchange` ("alltoall" by default); "auto" picks from
+        the mesh's backend and device, as JAX picks from the platform:
+        "ragged" where the backend's all-to-all takes per-pair split
+        sizes on that device (`RAGGED_TRANSPORTS`), "shift" elsewhere."""
+        exchange = self.config.get("boundary_exchange", "alltoall")
+        if exchange == "auto":
+            return ("ragged" if (self.mesh.backend, self.mesh.device.type)
+                    in RAGGED_TRANSPORTS else "shift")
+        return exchange
+
+    @staticmethod
+    def _merge_grown_caps(old, grown):
+        """The elementwise max of two NodeShardCaps: capacities only grow,
+        so a later regrow never shrinks a lane an earlier group needed."""
+        return dataclasses.replace(
+            grown,
+            nodes_local=max(grown.nodes_local, old.nodes_local),
+            edges_local=max(grown.edges_local, old.edges_local),
+            edges_boundary=max(grown.edges_boundary, old.edges_boundary),
+            boundary=max(grown.boundary, old.boundary),
+            boundary_send_total=max(grown.boundary_send_total,
+                                    old.boundary_send_total),
+            boundary_recv_total=max(grown.boundary_recv_total,
+                                    old.boundary_recv_total),
+            boundary_shifts=tuple(
+                max(g, o) for g, o in zip(grown.boundary_shifts,
+                                          old.boundary_shifts)))
+
+    def _mesh_stack(self, group):
+        """The stack of one step's group (n_data batches or fewer), every
+        rank alike: each rank shards and stacks the whole group, so a
+        capacity regrow happens on every rank at once."""
+        def stack(caps):
+            return stack_for(self._mesh_kind, group,
+                             self.mesh.shape[DATA_AXIS], caps,
+                             self._resolve_exchange(), self._dp_combined)
+
+        if self._nodeshard_caps is None:
+            return stack(None)
+        try:
+            return stack(self._nodeshard_caps)
+        except ValueError:
+            # A reshuffled epoch packed this group past the planned lane
+            # or exchange capacities: grow them to cover it (margin
+            # included) and shard again. No nodes_local pin first: a
+            # batch past the whole S x Nl layout needs a wider range.
+            old = self._nodeshard_caps
+            grown = self._nodeshard_plan(group, old.n_shards)
+            if grown.nodes_local < old.nodes_local:
+                grown = self._nodeshard_plan(group, old.n_shards,
+                                             nodes_local=old.nodes_local)
+            self._nodeshard_caps = self._merge_grown_caps(old, grown)
+            if not self.quiet:
+                print(f"[node-shard] capacity overflow; regrew {old} -> "
+                      f"{self._nodeshard_caps}")
+            return stack(self._nodeshard_caps)
+
+    def _run_epoch_mesh(self, epoch_name: str, processed,
+                        is_training: bool):
+        """One epoch on the mesh: steps of n_data batches, this rank's row
+        of each; returns what `run_epoch` returns, global."""
+        if is_training and self._skip_steps:
+            # Mesh epochs consume groups: "skip k single-device steps" has
+            # no aligned meaning, and retraining consumed batches would
+            # count their gradients twice.
+            raise ValueError(
+                "restored a mid-epoch iterator state into a mesh Runner: "
+                "mesh epochs checkpoint at epoch granularity only. "
+                "Resume this checkpoint single-device to finish the "
+                "interrupted epoch, or resume from an epoch-boundary "
+                "checkpoint on the mesh.")
+        mesh = self.mesh
+        n_data = mesh.shape[DATA_AXIS]
+        chem_acc = CHEMICAL_ACCURACIES[self.task_ids]
+        split = "train" if is_training else "validation"
+        step_base = self.train_step_id if is_training else self.valid_step_id
+        start_time = time.time()
+        batch_iter = ThreadedIterator(
+            self.adapter.batches(processed, is_training,
+                                 self.np_rng if is_training else None),
+            max_queue_size=3 * n_data)
+        step_metrics = []
+        processed_edges = 0.0
+        total_loss, shown_graphs = 0.0, 0
+
+        def run_group(group):
+            nonlocal processed_edges, total_loss, shown_graphs
+            processed_edges += sum(_batch_edge_count(b) for b in group)
+            batches = local_batches(self._mesh_stack(group), mesh,
+                                    self._mesh_kind)
+            if is_training:
+                metrics = self._mesh_train(batches, self.generator)
+            else:
+                metrics = self._mesh_eval(batches)
+            step_metrics.append(metrics)
+            if not self.quiet:
+                graphs = int(metrics["num_graphs"])
+                total_loss += float(metrics["loss"]) * graphs
+                shown_graphs += graphs
+                print(f"Running {epoch_name}, step {len(step_metrics)} "
+                      f"(has {graphs} graphs). Loss so far: "
+                      f"{total_loss / max(shown_graphs, 1):.4f}", end="\r")
+
+        group = []
+        for batch in batch_iter:
+            group.append(batch)
+            if len(group) == n_data:
+                run_group(group)
+                group = []
+        if group:
+            run_group(group)   # the stack tops it up with fillers
+        processed_graphs = 0
+        if step_metrics:
+            # One device-to-host copy for the epoch.
+            losses = torch.stack([m["loss"] for m in step_metrics]
+                                 ).cpu().numpy()
+            accs_all = torch.stack([m["accuracies"] for m in step_metrics]
+                                   ).cpu().numpy()
+            counts = torch.stack([m["num_graphs"] for m in step_metrics]
+                                 ).cpu().numpy().astype(np.float64)
+            processed_graphs = int(counts.sum())
+            for i, (loss, accs) in enumerate(zip(losses, accs_all)):
+                self.summaries.add_batch(split, step_base + i, float(loss),
+                                         accs, self.task_ids)
+        if processed_graphs == 0:
+            raise RuntimeError(f"{epoch_name}: no batches produced")
+        mean_loss = float(np.sum(losses * counts)) / processed_graphs
+        accuracies = np.sum(accs_all * counts[:, None],
+                            axis=0) / processed_graphs
+        elapsed = time.time() - start_time
+        self.last_edge_msg_per_sec = (
+            processed_edges * self.prop_steps / elapsed
+            if processed_edges else None)
+        return (mean_loss, accuracies, accuracies / chem_acc,
+                processed_graphs / elapsed, len(step_metrics))
+
     # ------------------------------------------------------------- steps
 
-    def _outputs(self, batch, is_training: bool) -> torch.Tensor:
-        """Per-task predictions [K, G] of one batch on the device."""
+    def _outputs(self, batch, is_training: bool,
+                 params: Optional[ModelParams] = None) -> torch.Tensor:
+        """Per-task predictions [K, G] of one batch on the device, by
+        `params` (the Runner's by default)."""
+        params = self.params if params is None else params
         if self.config["use_graph"]:
-            final = self.model(batch, is_training=is_training,
-                               generator=self.generator)
+            final = params.graph(batch, is_training=is_training,
+                                 generator=self.generator)
         else:
             # Ablation: zero the propagated states
             # (chem_tensorflow.py:144-147).
             final = torch.zeros_like(batch.node_features)
         keep = (self.config["out_layer_dropout_keep_prob"]
                 if is_training else 1.0)
-        return self.model.readout(self.params.heads, self.task_ids, final,
-                                  batch, keep_prob=keep,
-                                  generator=self.generator)
+        return params.graph.readout(params.heads, self.task_ids, final,
+                                    batch, keep_prob=keep,
+                                    generator=self.generator)
 
     def _loss_fn(self, batch, is_training: bool):
         """(loss [], per-task MAE [K]) of one batch on the device."""
@@ -249,6 +523,8 @@ class Runner:
 
     def run_epoch(self, epoch_name: str, processed, is_training: bool):
         """Returns (loss, accuracies, error_ratios, instances/sec, steps)."""
+        if self.mesh is not None:
+            return self._run_epoch_mesh(epoch_name, processed, is_training)
         chem_acc = CHEMICAL_ACCURACIES[self.task_ids]
         step_fn = self.train_step if is_training else self.eval_step
         start_time = time.time()
@@ -344,11 +620,22 @@ class Runner:
 
     def _save(self, path: str, train_step: Optional[int] = None,
               iterator_state: Optional[Dict] = None) -> None:
-        save_checkpoint(path, self.config, self.params,
-                        self.train_step_id if train_step is None
-                        else train_step, self.valid_step_id,
-                        optimizer=self.optimizer,
-                        iterator_state=iterator_state)
+        """The checkpoint, written by rank 0; under type-TP every rank
+        calls this, to gather the whole weights and moments first."""
+        with self._whole_weights():
+            if self.is_chief:
+                save_checkpoint(path, self.config, self.params,
+                                self.train_step_id if train_step is None
+                                else train_step, self.valid_step_id,
+                                optimizer=self.optimizer,
+                                iterator_state=iterator_state)
+
+    def _whole_weights(self):
+        """A context in which the parameters and Adam moments are whole:
+        a no-op but under type-TP, whose slices it gathers."""
+        if not self._type_tp:
+            return contextlib.nullcontext()
+        return tp.full_leaves(self.params, self.optimizer, self.mesh.edge)
 
     def _resume_epoch(self) -> int:
         """Set up the resume from a mid-epoch iterator state; returns the
@@ -396,6 +683,8 @@ class Runner:
             acts.append(torch.profiler.ProfilerActivity.CUDA)
         with torch.profiler.profile(activities=acts) as prof:
             result = self.run_epoch(name, self.train_processed, True)
+        if not self.is_chief:
+            return result
         os.makedirs(self.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(
             self.profile_dir, f"{self.run_id}_epoch1_trace.json"))
@@ -462,8 +751,9 @@ class Runner:
                 "valid_results": (valid_loss, valid_accs.tolist(),
                                   valid_errs.tolist(), valid_speed),
             })
-            with open(self.log_file, "w") as f:
-                json.dump(log_to_save, f, indent=4)
+            if self.is_chief:
+                with open(self.log_file, "w") as f:
+                    json.dump(log_to_save, f, indent=4)
             self.summaries.flush()  # TB scalars reach the disk each epoch
             if self.save_every_epoch:
                 self._save(self.last_model_file)
@@ -515,7 +805,11 @@ class Runner:
         batches to `train_step_id`. Dropout draws are fresh every step
         and epoch (the generator is registered with each graph).
         `replay_launches` then holds each step's kernel launches a
-        replay, from its graph's capture."""
+        replay, from its graph's capture. A mesh Runner raises, as
+        JAX's does: mesh training uses `train()`."""
+        if self.mesh is not None:
+            raise ValueError("train_on_device is single-device; mesh "
+                             "training uses train()")
         epochs_fn, groups, steps = self.device_epochs()
         loss = float(epochs_fn(groups, num_epochs))
         if self.device.type == "cuda" and num_epochs > 0:
@@ -535,13 +829,15 @@ class Runner:
         saved_drop = getattr(self.adapter, "drop_remainder", None)
         if saved_drop is not None:
             self.adapter.drop_remainder = False
+        params = self._collective_free_params()
         try:
             processed = self.adapter.preprocess(raw_graphs, False)
             order = self._dense_request_order(processed)
             outputs = []
             with torch.no_grad():
                 for batch in self.adapter.batches(processed, False):
-                    computed = self._outputs(batch.to(self.device), False)
+                    computed = self._outputs(batch.to(self.device), False,
+                                             params)
                     outputs.append(
                         computed.cpu().numpy()[:, :int(batch.num_graphs)])
         finally:
@@ -555,6 +851,22 @@ class Runner:
             result[:, np.asarray(order)] = packed
             return [result]
         return outputs
+
+    def _collective_free_params(self) -> ModelParams:
+        """The Runner's parameters, or on an edge-axis mesh a copy of them,
+        whole, on a model built without the edge axis: a prediction runs
+        no collective."""
+        if getattr(self.model, "edge_axis", None) is None:
+            return self.params
+        with self._whole_weights():
+            state = {n: p.detach().clone()
+                     for n, p in self.params.named_parameters()}
+        params = ModelParams(
+            self.adapter.build_model(torch.Generator().manual_seed(0)),
+            init_output_heads(torch.Generator().manual_seed(0),
+                              self.config["hidden_size"], self.task_ids))
+        params.load_state_dict(state, strict=True)
+        return params.to(self.device)
 
     def _dense_request_order(self, processed):
         """Request indices of the packed dense-family graphs in pack

@@ -74,8 +74,10 @@ class SparseAdapter:
         self.meta = meta
         self.caps = None
 
-    def build_model(self, generator: torch.Generator) -> SparseGGNN:
-        return SparseGGNN(self.config, self.meta.num_edge_types, generator)
+    def build_model(self, generator: torch.Generator,
+                    edge_axis=None) -> SparseGGNN:
+        return SparseGGNN(self.config, self.meta.num_edge_types, generator,
+                          edge_axis=edge_axis)
 
     def preprocess(self, raw, is_training: bool,
                    rng: Optional[np.random.RandomState] = None):
@@ -187,8 +189,9 @@ class GCNAdapter:
         self.meta = meta
         self.caps = None
 
-    def build_model(self, generator: torch.Generator) -> GCN:
-        return GCN(self.config, generator)
+    def build_model(self, generator: torch.Generator,
+                    edge_axis=None) -> GCN:
+        return GCN(self.config, generator, edge_axis=edge_axis)
 
     def preprocess(self, raw, is_training: bool,
                    rng: Optional[np.random.RandomState] = None):

@@ -1745,3 +1745,94 @@ def test_dense_dropout_replays_match_eager_steps(cuda, tmp_path):
     wants = dict(eager.params.named_parameters())
     for name, p in graph.params.named_parameters():
         torch.testing.assert_close(p, wants[name], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------- mesh (ROADMAP A11)
+
+@pytest.fixture(scope="module")
+def mesh_pool():
+    """Two gloo ranks sharing the card (point-to-point sends copied
+    through the host, which gloo needs for CUDA tensors)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    import os
+    from ggnn_tpu_torch.parallel.launch import RankPool
+    pool = RankPool(2, "gloo", timeout=600,
+                    python_path=[os.path.dirname(__file__)])
+    yield pool
+    pool.close()
+
+
+MESH_STEPS = {
+    "sparse 2x1": ("sparse", {"batch_size": 2000}, 2, 1, "sparse",
+                   "alltoall"),
+    "sparse 1x2 alltoall": ("sparse", {"batch_size": 2000}, 1, 2, "sparse",
+                            "alltoall"),
+    "sparse 1x2 shift": ("sparse", {"batch_size": 2000}, 1, 2, "sparse",
+                         "shift"),
+    "sparse 1x2 ragged": ("sparse", {"batch_size": 2000}, 1, 2, "sparse",
+                          "ragged"),
+    "attention 1x2 ragged": ("sparse", {"batch_size": 2000,
+                                        "use_propagation_attention": True,
+                                        "use_edge_bias": True}, 1, 2,
+                             "sparse", "ragged"),
+    "type_tp 1x2": ("sparse", {"batch_size": 2000,
+                               "use_propagation_attention": True}, 1, 2,
+                    "sparse_tp", "alltoall"),
+    "gcn 1x2": ("gcn", {"batch_size": 2000}, 1, 2, "gcn", "shift"),
+    "gcn 2x1": ("gcn", {"batch_size": 2000}, 2, 1, "data_only", "alltoall"),
+    "blocked 2x1": ("blocked", {"batch_size": 32,
+                                "dense_bucket_sizes": [32]}, 2, 1, "dense",
+                    "alltoall"),
+    "async 2x1": ("async", {"num_nodes": 2000, "propagation_substeps": 40},
+                  2, 1, "data_only", "alltoall"),
+}
+
+
+@pytest.mark.parametrize("label", sorted(MESH_STEPS))
+def test_mesh_step_on_the_card_matches_single_device(cuda, mesh_pool,
+                                                     label):
+    """A 2-rank gloo step of each kind, both ranks on the card, against the
+    single-device step over the same batches on the card: the loss at
+    rtol 1e-5, every gradient leaf at rtol 2e-4 / atol 1e-6 (the bounds
+    tests/test_parallel.py holds the JAX mesh to), the ranks' gradients
+    equal."""
+    import torch_mesh_ranks as ranks
+    from ggnn_tpu_torch.data.loader import infer_metadata
+    from ggnn_tpu_torch.training.variants import make_adapter
+    variant, over, n_data, n_edge, kind, exchange = MESH_STEPS[label]
+    config = resolve_config(variant, config_json=json.dumps({
+        "hidden_size": 32, "edge_weight_dropout_keep_prob": 1.0,
+        "graph_state_dropout_keep_prob": 1.0,
+        "out_layer_dropout_keep_prob": 1.0, **over}))
+    data = synthetic_molecules(400, seed=3)
+    meta = infer_metadata([data], config["tie_fwd_bkwd"])
+    adapter = make_adapter(variant, config, meta)
+    processed = adapter.preprocess(data, False)
+    adapter.plan(processed)
+    batches = list(adapter.batches(processed, False))[:3]
+    gen = torch.Generator().manual_seed(7)
+    weights = {n: p.detach().numpy() for n, p in ModelParams(
+        adapter.build_model(gen), init_output_heads(
+            gen, config["hidden_size"], config["task_ids"])
+    ).named_parameters()}
+    loss, accs, grads = ranks.oracle(variant, config, meta, weights,
+                                     batches, cuda)
+    case = ranks.StepCase(variant, config, meta, weights, batches, n_data,
+                          n_edge, kind, exchange, n_edge == 1, "cuda:0",
+                          ("p2p",))
+    results = mesh_pool.run(ranks.step_case, case)
+    for rank, out in enumerate(results):
+        np.testing.assert_allclose(float(out["train"]["loss"]), loss,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(out["eval"]["accuracies"], accs,
+                                   rtol=1e-5)
+        for name, got in out["grads"].items():
+            want = grads[name]
+            if out["types"] is not None and ranks.is_tp_sharded_path(name):
+                want = want[out["types"][0]:out["types"][1]]
+            np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-6,
+                                       err_msg=f"{label} rank {rank} {name}")
+    if results[0]["types"] is None:
+        for name, got in results[1]["grads"].items():
+            np.testing.assert_array_equal(got, results[0]["grads"][name])

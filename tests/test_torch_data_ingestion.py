@@ -186,8 +186,10 @@ def test_top_level_names():
     assert ggnn_tpu_torch.Predictor is Predictor
     assert ggnn_tpu_torch.resolve_config is resolve_config
     assert ggnn_tpu_torch.synthetic_molecules is synthetic_molecules
-    with pytest.raises(AttributeError, match="A11"):
-        ggnn_tpu_torch.make_mesh
+    # Multi-GPU training is ported (ROADMAP A11): make_mesh is the mesh
+    # package's.
+    from ggnn_tpu_torch.parallel.mesh import make_mesh
+    assert ggnn_tpu_torch.make_mesh is make_mesh
     with pytest.raises(AttributeError):
         ggnn_tpu_torch.no_such_name
 

@@ -512,8 +512,13 @@ def test_state_dropout_needs_a_generator_and_follows_its_seed():
 
 def test_unported_options_raise_naming_their_item():
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # The node-sharded branch is ported (ROADMAP A11): edge_axis is the
+    # mesh's edge Axis, and JAX's bare axis name names no process group.
+    from ggnn_tpu_torch.parallel.mesh import Axis
+    with pytest.raises(TypeError, match="mesh Axis"):
         GCN(_configs("gcn", {}), gen, edge_axis="edge")
+    axis = Axis("edge", 2, 0, (0, 1))
+    assert GCN(_configs("gcn", {}), gen, edge_axis=axis).edge_axis is axis
     # compute_dtype: bfloat16 is ported: BlockedGCN computes in it, the
     # edge-list GCN ignores it, as in JAX (tests/test_torch_bf16.py).
     bf16 = {"compute_dtype": "bfloat16"}

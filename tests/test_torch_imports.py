@@ -18,7 +18,8 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "torch_serving_profile.py"),
              os.path.join(ROOT, "tools", "torch_op_host_cost.py"),
-             os.path.join(ROOT, "tools", "torch_kernel_compare.py")]
+             os.path.join(ROOT, "tools", "torch_kernel_compare.py"),
+             os.path.join(ROOT, "tools", "torch_mesh_nccl.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ggnn_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]
@@ -51,8 +52,30 @@ def test_the_scan_sees_the_whole_port():
                  ("server.py",), ("export.py",), ("compat", "tf1.py"),
                  ("training", "summaries.py"), ("data", "smiles.py"),
                  ("data", "qm9.py"), ("data", "native_pack.py"),
-                 ("native", "__init__.py"), ("__init__.py",)):
+                 ("native", "__init__.py"), ("__init__.py",),
+                 ("parallel", "__init__.py"), ("parallel", "mesh.py"),
+                 ("parallel", "node_shard.py"), ("parallel", "step.py"),
+                 ("parallel", "tp.py"), ("parallel", "stacking.py"),
+                 ("parallel", "collectives.py"), ("parallel", "launch.py"),
+                 ("data", "reorder.py")):
         assert os.path.join("ggnn_tpu_torch", *path) in files
+
+
+def test_parallel_loads_no_jax():
+    """Importing the mesh package, and what a rank of the mesh tests
+    imports, loads no module of JAX or of the JAX package."""
+    import subprocess
+    import sys
+    code = ("import sys; import ggnn_tpu_torch.parallel as p; "
+            "p.make_parallel_steps; import ggnn_tpu_torch.parallel.launch; "
+            "import torch_mesh_ranks; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 @pytest.mark.parametrize("path", _port_files())

@@ -116,9 +116,13 @@ def test_propagation_attention_weights_match_jax(lanes):
     got_h, got_f = torch.autograd.grad((got * _t(g)).sum(), (ht, ft))
     np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), **GRAD_TOL)
     np.testing.assert_allclose(got_f.numpy(), np.asarray(want_f), **GRAD_TOL)
-    with pytest.raises(NotImplementedError, match="A11"):
-        messages.propagation_attention_weights(
-            _t(h), *(_t(a) for a in lane), _t(factors), n, edge_axis="edge")
+    # Over an edge axis (ROADMAP A11, type-TP) the softmax's max and sums
+    # run over the axis; over an axis of one rank they are this rank's.
+    from ggnn_tpu_torch.parallel.mesh import Axis
+    one = messages.propagation_attention_weights(
+        _t(h), *(_t(a) for a in lane), _t(factors), n,
+        edge_axis=Axis("edge", 1, 0, (0,)))
+    assert torch.equal(one, got.detach())
 
 
 @pytest.mark.parametrize("lanes", ["sorted", "permuted"])

@@ -175,8 +175,13 @@ def test_bfloat16_runs_and_other_compute_dtypes_raise():
 def test_edge_axis_and_training_dropout_raise():
     config = resolve_config("sparse", config_json=json.dumps(SMALL))
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # The edge-axis branches are ported (ROADMAP A11): edge_axis is the
+    # mesh's edge Axis, and JAX's bare axis name names no process group.
+    from ggnn_tpu_torch.parallel.mesh import Axis
+    with pytest.raises(TypeError, match="mesh Axis"):
         SparseGGNN(config, 4, gen, edge_axis="edge")
+    axis = Axis("edge", 2, 0, (0, 1))
+    assert SparseGGNN(config, 4, gen, edge_axis=axis).edge_axis is axis
     model = SparseGGNN(config, 4, gen)
     batch = next(packing.pack_sparse_batches(
         packing.preprocess_sparse(synthetic_molecules(3), 4, True, [0], {},
