@@ -230,7 +230,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
      with attention), every keep probability 1.0, on
      synthetic_molecules(1300, seed=42): `train_on_device(2)` against the
      same steps run eagerly on a twin Runner, both under deterministic
-     algorithms, each parameter within 1e-5 and the loss at rtol 1e-5;
+     algorithms, each parameter within 1e-5 and the loss at rtol 1e-5,
+     then the same in the default mode, and two default-mode eager runs
+     bit-equal after 2 epochs (every sum in a fixed order);
      (b) the kernel launches each replay holds, from its graph's capture
      (B1 8 and B2 7 a sparse step, 68 and 67 an async one at 10k nodes,
      the weighted instance 4 + 3 a `gcn` step, edge_dot 16 and the
@@ -240,7 +242,8 @@ Phases, each raising (and so exiting non-zero) on any failure:
      and the capture) each graph's launches (no replay launches a kernel
      eagerly) and the eager twin's to 2 epochs of the replays'; (c) train
      graphs/s, ms a step and idle share through `time_epochs`, in turns
-     with the eager Runner epoch (eager, graph, eager, graph), for
+     with the eager Runner epoch (eager, graph; two turns of each until
+     PR 16), for
      `dense` at bench.py's workload (synthetic_molecules(25600, seed=0),
      100 batches in 2 shapes) and for phase 6's `sparse`, `gcn`,
      attention and `async` Runners, the busy ms from a profiled epoch of
@@ -261,9 +264,10 @@ Phases, each raising (and so exiting non-zero) on any failure:
      of `make_parallel_steps` over the step corpus' first two batches
      against the single-device step over both on the card (loss rtol
      1e-5, every gradient leaf rtol 2e-4 / atol 1e-6), each rank's
-     launches as `mesh_step_launches` predicts; 2 epochs of phase 6's
-     corpus through `Runner(mesh=)`: the weights bit-equal across ranks
-     after each epoch, the validation loss below the initial weights',
+     launches as `mesh_step_launches` predicts; 2 epochs of the first
+     3,000 of phase 6's training molecules through `Runner(mesh=)`: the
+     weights bit-equal across ranks after each epoch, the validation
+     loss below the initial weights',
      each rank's counters over `train()` (set to 0 just before it) equal
      to the prediction summed over its steps (a node shard: twice the
      single-device route's launches a propagation step); ms a mesh
@@ -272,7 +276,29 @@ Phases, each raising (and so exiting non-zero) on any failure:
      Then one rank over `nccl` (its collectives on the world's group):
      `sparse` through `Runner(mesh=make_mesh(1, 1))` for 1 epoch of the
      step corpus against the plain Runner, both under deterministic
-     algorithms (1e-6).
+     algorithms (1e-6). The type-TP Runner is also saved by every rank
+     as an Orbax directory and a pickle (rank 0 writes, the slices
+     gathered first);
+ 22. Orbax checkpoints (ROADMAP A17) — `tensorstore`, `orbax` and
+     `zstandard` not importable here, or at least not loaded after the
+     phase; the zstd decoder (native/zstd.cpp) built by g++ at the
+     script's start. `sparse` at configs/sparse_tpu.json (20,000-node
+     batches, H 100, the reference depth) trained 1 epoch by
+     `Runner.train()` on phase 6's corpus with a rolling checkpoint
+     every 2 steps, the one after step 2 (Adam state, the mid-epoch
+     iterator state) saved also as a directory and as a pickle; a new
+     `Runner(restore=...)` of each, bit-equal weights, moments and
+     counters, each resumed to the end of epoch 2 (B1 and B2 counted,
+     8 and 7 a train step, 8 a validation batch), weights, moments and
+     losses bit-equal between the formats; `Predictor.from_checkpoint`
+     of each answering a 300-graph request bit-equal (B1 8 a forward);
+     ms a save and a restore, bytes on disk. The same for
+     configs/sparse_wide_bf16.json (its bf16 counters). Phase 21's
+     type-TP directory and pickle: the same bits, whole leaves, restored
+     into a single-device Runner with the ranks' digest. The committed
+     JAX-written directory tests/fixtures/orbax/sparse_h32 read with the
+     port's reader, bit-equal to its pickle twin, and served on the card
+     as its twin is.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -3563,11 +3589,12 @@ def native_phase(build, corpus, epoch_seconds, async_runner, work_dir):
 
 # ------------------------------------ train on device (ROADMAP A18)
 
-# Graphs against eager steps, both under torch's deterministic
-# algorithms: each parameter, max abs, and the loss, rtol. Without them
-# the readout's index_add_ atomics alone part two eager bf16 runs by up
-# to 3.6e-4 after 2 epochs (Adam turns flipped bf16 roundings into
-# O(lr) steps), so no limit of this size could hold there.
+# Graphs against eager steps: each parameter, max abs, and the loss,
+# rtol; under torch's deterministic algorithms and in the default mode.
+# Until the readout and the gathers' gradients summed in a fixed order
+# (ops/segment.py), the readout's index_add_ atomics alone parted two
+# eager bf16 runs by up to 3.6e-4 after 2 epochs in the default mode;
+# now two default-mode eager runs must end bit-equal.
 TOL_GRAPH_PARAM = 1e-5
 TOL_GRAPH_LOSS = 1e-5
 # The ops.kernels counters that chip_smoke's six-tuples hold, in order
@@ -3752,13 +3779,58 @@ def graph_vs_eager(label, variant, config, corpus, log_dir):
             == graph.optimizer.count == 2 * len(steps)):
         raise RuntimeError(f"{label}: train_on_device disagrees with its "
                            "eager steps")
+    default = default_mode_runs(label, variant, config, corpus, log_dir)
     return graph, {"steps_per_epoch": len(steps), "graphs": len(graphs),
+                   "default_mode": default,
                    "seconds": graph_s, "eager_seconds": eager_s,
                    "loss": loss, "eager_loss": want_loss,
                    "loss_relative_error": loss_err,
                    "param_max_abs_error": param_err,
                    "launches_per_replay": sorted(set(per_step)),
                    "launches_over_call": counted}
+
+
+def default_mode_runs(label, variant, config, corpus, log_dir):
+    """Without deterministic algorithms: `train_on_device(2)` against an
+    eager twin (each parameter within TOL_GRAPH_PARAM, the loss at rtol
+    TOL_GRAPH_LOSS), and that twin against a second eager twin: every
+    parameter and the loss bit-equal after 2 epochs (every sum of the
+    step in a fixed order)."""
+    from ggnn_tpu_torch.training.runner import Runner
+
+    train, valid = corpus
+    graph, first, second = (
+        Runner(variant, dict(config), train_data=train, valid_data=valid,
+               log_dir=os.path.join(log_dir, n), quiet=True,
+               tensorboard=False)
+        for n in ("default_graph", "default_eager", "default_eager2"))
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError("deterministic algorithms are on")
+    loss = graph.train_on_device(2)
+    first_loss, _ = eager_epochs(first, 2)
+    second_loss, _ = eager_epochs(second, 2)
+    torch.cuda.synchronize()
+    param_err = max_param_error(graph, first)
+    loss_err = abs(loss - first_loss) / abs(first_loss)
+    want = dict(second.params.named_parameters())
+    bit_equal = (first_loss == second_loss and all(
+        torch.equal(p, want[n]) for n, p in first.params.named_parameters()))
+    repeat_err = max_param_error(first, second)
+    log(f"train_on_device {label} (default mode): graph against eager "
+        f"loss relative error {loss_err:.3e}, parameters {param_err:.3e} "
+        f"(limits {TOL_GRAPH_LOSS}, {TOL_GRAPH_PARAM}); two eager runs "
+        f"bit-equal: {bit_equal} (parameters {repeat_err:.3e}, losses "
+        f"{first_loss!r} and {second_loss!r})")
+    if not (loss_err <= TOL_GRAPH_LOSS and param_err <= TOL_GRAPH_PARAM):
+        raise RuntimeError(f"{label}: in the default mode train_on_device "
+                           "disagrees with its eager steps")
+    if not bit_equal:
+        raise RuntimeError(f"{label}: two default-mode eager runs part by "
+                           f"{repeat_err:.3e}: a sum of the step is not in "
+                           "a fixed order")
+    return {"loss_relative_error": loss_err, "param_max_abs_error":
+            param_err, "eager_repeat_bit_equal": bit_equal,
+            "eager_repeat_param_max_abs_error": repeat_err}
 
 
 def replay_busy_ms(epochs_fn, groups, steps):
@@ -3780,14 +3852,14 @@ def graph_timing(label, runner, eager_profile):
     """(c) for one Runner: train graphs/s and ms a step of the Runner's
     eager training epoch (`run_epoch`, its packer thread included) and of
     `train_on_device`'s replays (`time_epochs`, 1 and 3 epochs
-    differenced over one pack), in turns (eager, graph, eager, graph);
+    differenced over one pack), in turns (eager, graph);
     each one's idle share, 1 - busy / wall ms a step, the busy ms from a
     profiled epoch of replays (or from the eager profile of phase 9 where
     the trace shows no graph kernel) and from the eager profile."""
     from ggnn_tpu_torch.utils.timing import time_epochs
 
     turns = []
-    for kind in ("eager", "graph", "eager", "graph"):
+    for kind in ("eager", "graph"):
         if kind == "eager":
             t0 = time.perf_counter()
             _, _, _, graphs_per_s, steps = runner.run_epoch(
@@ -3937,6 +4009,12 @@ TOL_NCCL = 1e-6                             # one nccl rank vs plain Runner
 MESH_STAGED = ("p2p",)
 MESH_DEVICE = "cuda:0"
 MESH_ATTENTION = "sparse_attention"
+# The mesh Runners train on the first 3,000 of phase 6's 6,000 training
+# molecules (all of them until PR 16; cut to keep the script's time).
+MESH_RUNNER_MOLECULES = 3000
+# The type-TP case also saves its Runner as an Orbax directory and a
+# pickle (phase 22 holds the two).
+MESH_ORBAX_CASE = "sparse 1x2 type_tp"
 # (label, variant, config overrides, n_data, n_edge). The mesh's dense
 # family packs one bucket shape (stack_dense_batches refuses two).
 MESH_CASES = (
@@ -4135,12 +4213,16 @@ def params_digest(runner):
     return digest.hexdigest()
 
 
-def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir):
+def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
+                     save_dir=None):
     """2 epochs through `Runner(mesh=)` on this rank: the validation loss
     of the initial weights and after each epoch, the weights' digest
     after each training epoch, the kernels' counters over `train()` and
     the launches its steps' batches predict, the exchange, and ms a
-    mesh train step (median of 5, synchronised)."""
+    mesh train step (median of 5, synchronised). Given `save_dir`, every
+    rank then saves the Runner through `Runner._save` as an Orbax
+    directory and as a pickle (rank 0 writes; type-TP gathers first),
+    and returns the ms of each save and the paths this rank wrote."""
     from ggnn_tpu_torch.training.runner import Runner
     mesh = rank_mesh(n_data, n_edge)
     train, valid = corpus
@@ -4184,9 +4266,24 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = list(launch_counts())
+    saved = {}
+    if save_dir is not None:
+        from ggnn_tpu_torch.training import runner as runner_mod
+        save, wrote = runner_mod.save_checkpoint, []
+        runner_mod.save_checkpoint = lambda path, *a, **k: (
+            wrote.append(path), save(path, *a, **k))
+        try:
+            for fmt, path in (("directory", save_dir),
+                              ("pickle", save_dir + ".pickle")):
+                t0 = time.perf_counter()
+                runner._save(path)
+                saved[f"save_ms_{fmt}"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            runner_mod.save_checkpoint = save
+        saved["wrote"] = wrote
     gen = torch.Generator(device=mesh.device).manual_seed(2)
     step_ms = median_ms(lambda: mesh_train(last["batches"], gen))
-    return {"kind": runner._mesh_kind,
+    return {"kind": runner._mesh_kind, "saved": saved,
             "exchange": (runner._resolve_exchange()
                          if runner._nodeshard_caps is not None else None),
             "setup_s": setup_s, "train_s": train_s,
@@ -4304,6 +4401,7 @@ def mesh_phase(corpus, step_corpus, work_dir):
         f"through the host: {', '.join(MESH_STAGED)} (gloo sends no CUDA "
         "tensor point to point); all-reduce, all-to-all and all-gather "
         "move CUDA tensors")
+    runner_corpus = (corpus[0][:MESH_RUNNER_MOLECULES], corpus[1])
     cases, worlds = {}, {}
     for label, variant, over, n_data, n_edge in MESH_CASES:
         worlds.setdefault(n_data * n_edge, []).append(
@@ -4341,9 +4439,12 @@ def mesh_phase(corpus, step_corpus, work_dir):
                                  meta, weights, batches, n_data, n_edge,
                                  kind, exchange)
                 worst = check_mesh_step(label, steps, oracle)
+                save_dir = (os.path.join(work_dir, "type_tp_orbax")
+                            if label == MESH_ORBAX_CASE else None)
                 runs = pool.run(ranks.mesh_runner_rank, variant, config,
-                                corpus, n_data, n_edge, os.path.join(
-                                    work_dir, label.replace(" ", "_")))
+                                runner_corpus, n_data, n_edge, os.path.join(
+                                    work_dir, label.replace(" ", "_")),
+                                save_dir=save_dir)
                 check_mesh_runner(label, runs)
                 first = runs[0]
                 rec = {
@@ -4364,6 +4465,9 @@ def mesh_phase(corpus, step_corpus, work_dir):
                     "train_s": max(r["train_s"] for r in runs),
                     "mesh_step_ms": max(r["step_ms"] for r in runs),
                     "single_step_ms": oracle[3],
+                    "saved": [r["saved"] for r in runs],
+                    "digests": first["digests"],
+                    "config": config,
                     "seconds": time.perf_counter() - t_case}
                 cases[label] = rec
                 log(f"mesh {label} ({kind}, {rec['exchange']}): step loss "
@@ -4398,7 +4502,288 @@ def mesh_phase(corpus, step_corpus, work_dir):
         f"{', '.join(f'{w} ranks {s:.1f} s' for w, s in spawn_s.items())})"
         "; ranks share one card, so no time here is a scaling number")
     return {"cases": cases, "nccl": nccl, "staged": list(MESH_STAGED),
-            "spawn_s": spawn_s, "seconds": seconds}
+            "spawn_s": spawn_s, "seconds": seconds,
+            "runner_corpus": runner_corpus}
+
+
+# ------------------------------------------- Orbax checkpoints (A17)
+
+# What the JAX package writes its Orbax checkpoints with; the port reads
+# and writes the format itself (training/orbax_dir.py, native/zstd.cpp).
+ORBAX_LIBRARIES = ("orbax", "tensorstore", "zstandard")
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "fixtures", "orbax",
+                             "sparse_h32")
+# The rolling checkpoint kept in both formats: epoch 1, after step 2.
+ORBAX_EVERY = 2
+
+
+def zstd_build():
+    """The zstd decoder (native/zstd.cpp) built by g++ into build/native/
+    (or loaded where this checkout built it): seconds and the library's
+    path. No fallback: a failed build fails the script."""
+    from ggnn_tpu_torch import native
+    from ggnn_tpu_torch.native import codec
+
+    t0 = time.perf_counter()
+    codec._lib()
+    return {"seconds": time.perf_counter() - t0,
+            "path": os.path.relpath(native.library_path(native.ZSTD_SOURCE),
+                                    REPO)}
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def runner_state(runner):
+    """The Runner's weights, Adam moments and counters, on the host."""
+    out = {f"params.{n}": p.detach().cpu()
+           for n, p in runner.params.named_parameters()}
+    for moment, state in (("mu", runner.optimizer.mu),
+                          ("nu", runner.optimizer.nu)):
+        out.update({f"{moment}.{n}": t.detach().cpu()
+                    for n, t in state.items()})
+    out["counters"] = (int(runner.optimizer.count), runner.train_step_id,
+                       runner.valid_step_id)
+    return out
+
+
+def same_state(a, b) -> bool:
+    return set(a) == set(b) and all(
+        torch.equal(a[k], b[k]) if torch.is_tensor(a[k]) else a[k] == b[k]
+        for k in a)
+
+
+def orbax_pair(label, config, corpus, work_dir, bf16=False):
+    """Phase 22 for one config: trained for 1 epoch with the mid-epoch
+    rolling checkpoint kept as a directory and as a pickle, each restored
+    into a new Runner and resumed to the end of epoch 2, each served; the
+    two formats bit-equal at every point."""
+    from ggnn_tpu_torch.serving import Predictor
+    from ggnn_tpu_torch.training import checkpoint
+    from ggnn_tpu_torch.training import runner as runner_mod
+    from ggnn_tpu_torch.training.runner import Runner
+
+    counts = bf16_launch_counts if bf16 else launch_counts
+    train, valid = corpus
+    os.makedirs(work_dir, exist_ok=True)
+    paths = {"directory": os.path.join(work_dir, "mid"),
+             "pickle": os.path.join(work_dir, "mid.pickle")}
+    rec = {"save_ms": {}, "restore_ms": {}, "bytes": {}, "runs": {}}
+    save = runner_mod.save_checkpoint
+
+    def capture(path, *args, iterator_state=None, **kwargs):
+        save(path, *args, iterator_state=iterator_state, **kwargs)
+        if iterator_state is not None and (
+                iterator_state["epoch"], iterator_state["steps_done"]) == (
+                1, ORBAX_EVERY):
+            for fmt, target in paths.items():
+                t0 = time.perf_counter()
+                save(target, *args, iterator_state=iterator_state, **kwargs)
+                rec["save_ms"][fmt] = (time.perf_counter() - t0) * 1e3
+
+    def counted(name, runner):
+        steps = sum(runner.config["layer_timesteps"])
+        base = (runner.train_step_id, runner.valid_step_id)
+        zero_launch_counts()
+        history = runner.train()
+        torch.cuda.synchronize()
+        launched = counts()
+        want = sparse_launches(steps, runner.train_step_id - base[0],
+                               runner.valid_step_id - base[1])
+        if launched != want:
+            raise RuntimeError(f"orbax {label} {name}: launched {launched}, "
+                               f"expected {want} ({COUNTER_NAMES})")
+        rec["runs"][name] = {
+            "launches": list(launched),
+            "epochs": [e["epoch"] for e in history],
+            "losses": [[e["train_results"][0], e["valid_results"][0]]
+                       for e in history]}
+        return history
+
+    first = Runner("sparse", {**config, "num_epochs": 1}, train_data=train,
+                   valid_data=valid, log_dir=os.path.join(work_dir, "first"),
+                   quiet=True, tensorboard=False,
+                   checkpoint_every_steps=ORBAX_EVERY)
+    runner_mod.save_checkpoint = capture
+    try:
+        counted("training", first)
+    finally:
+        runner_mod.save_checkpoint = save
+    if set(rec["save_ms"]) != set(paths):
+        raise RuntimeError(f"orbax {label}: no rolling checkpoint after "
+                           f"step {ORBAX_EVERY} of epoch 1")
+    rec["bytes"] = {"directory": dir_bytes(paths["directory"]),
+                    "pickle": os.path.getsize(paths["pickle"])}
+    states, resumed, answers = {}, {}, {}
+    request = serving_requests()[300]
+    for fmt, path in paths.items():
+        runner = Runner("sparse", {**config, "num_epochs": 2},
+                        train_data=train, valid_data=valid,
+                        log_dir=os.path.join(work_dir, fmt), quiet=True,
+                        tensorboard=False, restore=path)
+        it = runner._resume_iter
+        if (it["epoch"], it["steps_done"]) != (1, ORBAX_EVERY):
+            raise RuntimeError(f"orbax {label} {fmt}: iterator state {it}")
+        states[fmt] = runner_state(runner)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.restore_checkpoint(path, runner.config, runner.params,
+                                      log=lambda *a: None,
+                                      optimizer=runner.optimizer)
+        torch.cuda.synchronize()
+        rec["restore_ms"][fmt] = (time.perf_counter() - t0) * 1e3
+        history = counted(f"resumed from the {fmt}", runner)
+        if [e["epoch"] for e in history] != [1, 2]:
+            raise RuntimeError(f"orbax {label} {fmt}: resumed epochs "
+                               f"{[e['epoch'] for e in history]}")
+        resumed[fmt] = runner_state(runner)
+        predictor = Predictor.from_checkpoint(path, "sparse")
+        answer, launched, calls = counted_request(predictor, request, counts)
+        want = per_request(served_launches("sparse", config))(calls)
+        if launched != want:
+            raise RuntimeError(f"orbax {label} {fmt} serving launched "
+                               f"{launched}, expected {want}")
+        rec["runs"][f"serving from the {fmt}"] = {"launches": list(launched)}
+        answers[fmt] = np.asarray(answer)
+    checks = {
+        "restored_bit_equal": same_state(states["directory"],
+                                         states["pickle"]),
+        "resumed_bit_equal": same_state(resumed["directory"],
+                                        resumed["pickle"]),
+        "losses_equal": (rec["runs"]["resumed from the directory"]["losses"]
+                         == rec["runs"]["resumed from the pickle"]["losses"]),
+        "answers_bit_equal": bool(np.array_equal(answers["directory"],
+                                                 answers["pickle"])),
+        "answers_finite": bool(np.isfinite(answers["directory"]).all())}
+    rec["checks"] = checks
+    log(f"orbax {label}: the epoch-1 step-{ORBAX_EVERY} checkpoint saved in "
+        f"{rec['save_ms']['directory']:.2f} ms as a directory "
+        f"({rec['bytes']['directory']} bytes) and "
+        f"{rec['save_ms']['pickle']:.2f} ms as a pickle "
+        f"({rec['bytes']['pickle']} bytes); restored in "
+        f"{rec['restore_ms']['directory']:.2f} / "
+        f"{rec['restore_ms']['pickle']:.2f} ms; {checks}; launches "
+        f"{COUNTER_NAMES} {({k: v['launches'] for k, v in rec['runs'].items()})}")
+    if not all(checks.values()):
+        raise RuntimeError(f"orbax {label}: the directory and the pickle "
+                           f"part: {checks}")
+    return rec
+
+
+def orbax_mesh_check(case, corpus, work_dir):
+    """Phase 21's type-TP Runner saved by every rank: rank 0 alone wrote,
+    the directory and the pickle hold the same whole leaves, and each
+    restored into a single-device Runner has the ranks' digest."""
+    from ggnn_tpu_torch.training import checkpoint
+    from ggnn_tpu_torch.training.runner import Runner
+
+    saved = case["saved"]
+    wrote = [len(r["wrote"]) for r in saved]
+    if wrote != [2] + [0] * (len(saved) - 1):
+        raise RuntimeError(f"orbax type-TP: the ranks wrote {wrote} "
+                           "checkpoints, rank 0 alone should write 2")
+    path = saved[0]["wrote"][0]
+    payloads = {"directory": checkpoint._load_payload(path),
+                "pickle": checkpoint._load_payload(path + ".pickle")}
+    pickled = payloads["pickle"]["weights"]
+    same = all(
+        np.array_equal(np.asarray(payloads["directory"]["weights"][
+            checkpoint._sanitize(k)]), np.asarray(v)) for k, v in
+        pickled.items())
+    digests = {}
+    train, valid = corpus
+    for fmt, target in (("directory", path), ("pickle", path + ".pickle")):
+        runner = Runner("sparse", dict(case["config"]), train_data=train,
+                        valid_data=valid,
+                        log_dir=os.path.join(work_dir, f"tp_{fmt}"),
+                        quiet=True, tensorboard=False, restore=target)
+        digests[fmt] = params_digest(runner)
+    ranks_digest = case["digests"][-1]
+    ok = same and all(d == ranks_digest for d in digests.values())
+    log(f"orbax type-TP (1,2): rank 0 wrote the directory and the pickle "
+        f"({saved[0]['save_ms_directory']:.2f} / "
+        f"{saved[0]['save_ms_pickle']:.2f} ms); same leaves: {same}; "
+        f"restored digests equal the ranks': "
+        f"{all(d == ranks_digest for d in digests.values())}")
+    if not ok:
+        raise RuntimeError("orbax type-TP: the saved leaves are not the "
+                           "ranks' whole weights")
+    return {"wrote": wrote, "same_leaves": same,
+            "digest_equal": True, "save_ms": {
+                k: saved[0][f"save_ms_{k}"] for k in ("directory", "pickle")},
+            "bytes": {"directory": dir_bytes(path),
+                      "pickle": os.path.getsize(path + ".pickle")}}
+
+
+def orbax_fixture_check():
+    """The JAX-written fixture read by the port's own reader (its zstd
+    frames hold compressed blocks: Huffman literals, FSE sequences)
+    against its pickle twin, bit for bit, and both served on the card."""
+    import pickle
+
+    from ggnn_tpu_torch.serving import Predictor
+    from ggnn_tpu_torch.training import checkpoint
+
+    t0 = time.perf_counter()
+    payload = checkpoint._load_payload(ORBAX_FIXTURE)
+    read_ms = (time.perf_counter() - t0) * 1e3
+    with open(ORBAX_FIXTURE + ".pickle", "rb") as f:
+        twin = pickle.load(f)
+    got = payload["weights"]
+    mismatched = [k for k, v in twin["weights"].items()
+                  if not (np.asarray(got[checkpoint._sanitize(k)]).dtype
+                          == np.asarray(v).dtype and np.array_equal(
+                              np.asarray(got[checkpoint._sanitize(k)]),
+                              np.asarray(v)))]
+    counters_equal = (payload["train_step"], payload["valid_step"]) == (
+        twin["train_step"], twin["valid_step"])
+    request = serving_requests()[300]
+    answers, launches = {}, {}
+    for fmt, path in (("directory", ORBAX_FIXTURE),
+                      ("pickle", ORBAX_FIXTURE + ".pickle")):
+        predictor = Predictor.from_checkpoint(path, "sparse")
+        answer, launched, _ = counted_request(predictor, request)
+        answers[fmt], launches[fmt] = np.asarray(answer), list(launched)
+    served_equal = bool(np.array_equal(answers["directory"],
+                                       answers["pickle"]))
+    log(f"orbax fixture (JAX-written, {len(got)} arrays, "
+        f"{dir_bytes(ORBAX_FIXTURE)} bytes): read in {read_ms:.2f} ms, "
+        f"mismatched leaves {mismatched}, step counters equal "
+        f"{counters_equal}; served bit-equal to its twin {served_equal}, "
+        f"launches {launches['directory']}")
+    if mismatched or not counters_equal or not served_equal:
+        raise RuntimeError("the JAX-written Orbax fixture does not read as "
+                           "its pickle twin")
+    return {"arrays": len(got), "read_ms": read_ms,
+            "launches": launches["directory"],
+            "pickle_launches": launches["pickle"]}
+
+
+def orbax_phase(corpus, mesh, work_dir):
+    """Phase 22 (see the module docstring)."""
+    import importlib.util
+
+    start = time.perf_counter()
+    present = {m: importlib.util.find_spec(m) is not None
+               for m in ORBAX_LIBRARIES}
+    log(f"orbax phase: importable here {present}")
+    f32 = orbax_pair("sparse", train_config("sparse"), corpus,
+                     os.path.join(work_dir, "sparse"))
+    bf16 = orbax_pair("sparse_wide_bf16", bf16_config(), corpus,
+                      os.path.join(work_dir, "sparse_wide_bf16"), bf16=True)
+    tp_rec = orbax_mesh_check(mesh["cases"][MESH_ORBAX_CASE],
+                              mesh["runner_corpus"], work_dir)
+    fixture = orbax_fixture_check()
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ORBAX_LIBRARIES)
+    if loaded:
+        raise RuntimeError(f"the Orbax phase loaded {loaded}")
+    seconds = time.perf_counter() - start
+    log(f"orbax phase: {seconds:.1f} s; loaded none of {ORBAX_LIBRARIES}")
+    return {"importable": present, "sparse": f32, "sparse_wide_bf16": bf16,
+            "type_tp": tp_rec, "fixture": fixture, "seconds": seconds}
 
 
 def main() -> int:
@@ -4421,13 +4806,16 @@ def main() -> int:
     sources = ("ell_spmm", "gather_floor", "edge_dot")
     start = time.perf_counter()
     # The host packer's g++ build runs beside the kernels' nvcc builds.
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         native_future = pool.submit(native_build)
+        zstd_future = pool.submit(zstd_build)
         _build.build_all(sources)
         native = native_future.result()
+        zstd = zstd_future.result()
     log(f"build {', '.join(n + '.cu' for n in sources)} (one nvcc each, "
-        f"in parallel) and the native packer (g++): "
-        f"{time.perf_counter() - start:.2f} s")
+        f"in parallel), the native packer and the zstd decoder (g++ each): "
+        f"{time.perf_counter() - start:.2f} s (the decoder "
+        f"{zstd['seconds']:.2f} s, {zstd['path']})")
     for name in sources:
         seconds, output = _build.build_info.get(name, (0.0, "prebuilt"))
         log(f"{name}.cu: nvcc {seconds:.2f} s\n{output.strip()}")
@@ -4574,6 +4962,7 @@ def main() -> int:
          "async": async_profile},
         os.path.join(work_dir, "on_device"))
     mesh = mesh_phase(corpus, step_corpus, os.path.join(work_dir, "mesh"))
+    orbax = orbax_phase(corpus, mesh, os.path.join(work_dir, "orbax"))
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -4619,6 +5008,11 @@ def main() -> int:
         runs[f"mesh {label} training"] = [
             sum(c) for c in zip(*rec["runner_launches"])]
     runs["mesh nccl 1x1 training"] = mesh["nccl"]["launches"]["mesh"]
+    for name, rec in orbax["sparse"]["runs"].items():
+        runs[f"orbax sparse {name}"] = rec["launches"]
+    runs["orbax JAX fixture serving"] = [
+        a + b for a, b in zip(orbax["fixture"]["launches"],
+                              orbax["fixture"]["pickle_launches"])]
 
     def by_path(*indices):
         return {path: sum(counts[i] for i in indices)
@@ -4732,6 +5126,8 @@ def main() -> int:
         "sparse_wide_bf16 artifact serving": [
             sum(c) for c in zip(*(r["launches"] for r in
                                   bf16_export["requests"].values()))]}
+    for name, rec in orbax["sparse_wide_bf16"]["runs"].items():
+        bf16_runs[f"orbax sparse_wide_bf16 {name}"] = rec["launches"]
     for label, rec in bf16_routes.items():
         if "serving" in rec:
             bf16_runs[f"sparse_wide_bf16 ({label}) serving"] = \
@@ -4815,7 +5211,10 @@ def main() -> int:
                     "bf16_launches_by_run": bf16_runs,
                     "bf16_phase_seconds": bf16_seconds,
                     "extras": extras, "native": native,
-                    "train_on_device": on_device, "mesh": mesh}))
+                    "train_on_device": on_device,
+                    "mesh": {k: v for k, v in mesh.items()
+                             if k != "runner_corpus"},
+                    "orbax": orbax, "zstd_build": zstd}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

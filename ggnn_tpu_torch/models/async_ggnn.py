@@ -49,6 +49,7 @@ from ggnn_tpu_torch.models import base
 from ggnn_tpu_torch.ops.cells import make_cell
 from ggnn_tpu_torch.ops.dropout import dropout
 from ggnn_tpu_torch.ops.kernels.ell_spmm import GatherSegmentSum
+from ggnn_tpu_torch.ops.segment import sorted_gather
 from ggnn_tpu_torch.utils.init import glorot_init, zeros_init
 
 # The remat limit where the device reports no free memory (the CPU).
@@ -239,10 +240,10 @@ class AsyncGGNN(nn.Module):
         for r in range(self.propagation_rounds):
             init_ids = batch.initial_nodes[r]
             new_ext = torch.zeros_like(cur_ext).index_copy(
-                0, init_ids.long(), cur_ext.index_select(0, init_ids))
+                0, init_ids.long(), sorted_gather(cur_ext, init_ids))
             for s in range(num_steps):
                 sending = batch.sending_nodes[r, s].reshape(-1)
-                msgs = torch.bmm(new_ext.index_select(0, sending)
+                msgs = torch.bmm(sorted_gather(new_ext, sending)
                                  .view(t_dim, se_cap, h_dim), weights)
                 if biases is not None:
                     msgs = msgs + biases[:, None, :]
@@ -253,7 +254,7 @@ class AsyncGGNN(nn.Module):
                     offsets[r, s], rc_cap, *transpose)
                 receiving = batch.receiving_nodes[r, s]
                 new_h = self.cell.step(agg,
-                                       cur_ext.index_select(0, receiving))
+                                       sorted_gather(cur_ext, receiving))
                 new_h = self._dropout(new_h, is_training, generator)
                 new_ext = new_ext.index_put((receiving.long(),), new_h)
             cur_ext = torch.cat([new_ext[:n_cap],
@@ -296,7 +297,7 @@ class AsyncGGNN(nn.Module):
                                 w_flat)
         if biases is not None:
             incoming = incoming + torch.matmul(counts, biases)
-        return self.cell.step(incoming, prev_buf.index_select(0, old_idx))
+        return self.cell.step(incoming, sorted_gather(prev_buf, old_idx))
 
     def _forward_segmented(self, batch, is_training, generator):
         weights, biases = self._stacked()
@@ -310,7 +311,7 @@ class AsyncGGNN(nn.Module):
         prev_buf = torch.cat([batch.node_features,
                               batch.node_features.new_zeros(1, h_dim)])
         for r in range(self.propagation_rounds):
-            buf = torch.cat([prev_buf.index_select(0, batch.init_prev[r]),
+            buf = torch.cat([sorted_gather(prev_buf, batch.init_prev[r]),
                              prev_buf.new_zeros(m_dump + 1 - i_cap, h_dim)])
             for seg, (offsets, bgather, boff) in zip(batch.seg_rounds[r],
                                                      layouts[r]):
@@ -344,7 +345,7 @@ class AsyncGGNN(nn.Module):
                         # version counter guards every other saved tensor.
                         buf[start:start + rc_cap] = new_h
             prev_buf = torch.cat([buf[:m_dump], buf.new_zeros(1, h_dim)])
-        return prev_buf.index_select(0, batch.final_compact)
+        return sorted_gather(prev_buf, batch.final_compact)
 
     def readout(self, heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
                 batch: AsyncGraphBatch, *, keep_prob: float = 1.0,

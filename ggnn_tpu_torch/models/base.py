@@ -76,10 +76,15 @@ def gated_regression_nodes(head: nn.ModuleDict, last_h: torch.Tensor,
 
 def pool_nodes_to_graphs(gated: torch.Tensor, node_graph_ids: torch.Tensor,
                          graph_capacity: int) -> torch.Tensor:
-    """Segment-sum node outputs into graph scalars [G]. Padded nodes carry
-    the dump graph id `graph_capacity`; that extra segment is dropped."""
-    pooled = segment_sum(gated, node_graph_ids, graph_capacity + 1)
-    return pooled[:graph_capacity, 0]
+    """Segment-sum node outputs [N, K] into graph values [K, G], each
+    graph's nodes added in a fixed order. Padded nodes carry the dump
+    graph id `graph_capacity`; that extra segment is dropped. Every
+    packer, the node shards and `dfs_reorder`'s relabelling included,
+    emits the ids ascending with the dump id last (tests/
+    test_torch_determinism.py), so they are taken as sorted."""
+    pooled = segment_sum(gated, node_graph_ids, graph_capacity + 1,
+                         indices_are_sorted=True)
+    return pooled[:graph_capacity].t().contiguous()
 
 
 def segment_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
@@ -94,14 +99,12 @@ def segment_readout(heads: nn.ModuleDict, task_ids, last_h: torch.Tensor,
     the JAX package's `psum_axis` does (`ggnn_tpu/models/base.py:75-94`):
     every rank of the axis then computes the same loss from the sum, so
     its backward is the identity (`parallel/collectives.py`)."""
-    outs = []
-    for task_id in task_ids:
-        gated = gated_regression_nodes(heads[f"task{task_id}"], last_h,
-                                       init_features, keep_prob=keep_prob,
-                                       generator=generator)
-        outs.append(pool_nodes_to_graphs(gated, node_graph_ids,
-                                         graph_capacity))
-    out = torch.stack(outs, dim=0)
+    gated = torch.cat([
+        gated_regression_nodes(heads[f"task{task_id}"], last_h,
+                               init_features, keep_prob=keep_prob,
+                               generator=generator)
+        for task_id in task_ids], dim=1)
+    out = pool_nodes_to_graphs(gated, node_graph_ids, graph_capacity)
     if psum_axis is not None:
         out = reduce_to_replicated(out, psum_axis)
     return out

@@ -80,7 +80,8 @@ from ggnn_tpu_torch.ops.messages import (
     propagation_attention_weights_combined, sort_typed_lanes,
     typed_edge_messages)
 from ggnn_tpu_torch.ops.precision import matmul_f32
-from ggnn_tpu_torch.ops.segment import segment_softmax, sorted_segments
+from ggnn_tpu_torch.ops.segment import (segment_softmax, sorted_gather,
+                                        sorted_segments)
 from ggnn_tpu_torch.parallel.collectives import (copy_to_shards,
                                                  reduce_to_replicated)
 from ggnn_tpu_torch.parallel.mesh import Axis
@@ -347,10 +348,8 @@ class SparseGGNN(nn.Module):
                 attn_l = attn_b = None
                 if self.use_propagation_attention:
                     scores = torch.cat([
-                        _lane_scores(h_c, h_c, loc, batch.loc_type,
-                                     layer.attention),
-                        _lane_scores(recv, h_c, bnd, batch.bnd_type,
-                                     layer.attention)])
+                        _lane_scores(h_c, h_c, loc, layer.attention),
+                        _lane_scores(recv, h_c, bnd, layer.attention)])
                     attn = segment_softmax(scores, joint_tgt, nl + 1,
                                            joint_mask, SMALL_NUMBER,
                                            layout=joint).to(cdt)
@@ -387,7 +386,7 @@ class SparseGGNN(nn.Module):
             psum_axis=self.edge_axis if node_sharded else None)
 
 
-def _lane_scores(x, y, lanes: EdgeLanes, types, factors):
+def _lane_scores(x, y, lanes: EdgeLanes, factors):
     """<x[src], y[tgt]> of a node shard's lane (kernel `edge_dot`; a pad,
     whose target is the dump row Nl, scores 0 and is masked out of the
     softmax) times each edge's type factor."""
@@ -397,4 +396,4 @@ def _lane_scores(x, y, lanes: EdgeLanes, types, factors):
                          else None,
                          lanes.target_pairs if grad and y.requires_grad
                          else None)
-    return dots * factors.index_select(0, types.long())
+    return dots * sorted_gather(factors, lanes.types, lanes.type_segments)

@@ -1,21 +1,24 @@
-"""The native (C++) batch packer of the host pipeline: its build and its
-`ctypes` bindings, the port of `ggnn_tpu/native/__init__.py`.
+"""The native (C++) host libraries: the batch packer of the host pipeline
+(the port of `ggnn_tpu/native/__init__.py`) and the zstd decoder of the
+Orbax checkpoints (`zstd.cpp`, `codec.py`), their builds and `ctypes`
+bindings.
 
-`packer.cpp` is host code. It is compiled with g++ (`-O3 -march=native
--shared -fPIC`) into `build/native/` at the repository root on first
-use, never when a module is imported. The library's file name carries a
-hash of the source and of the host's CPU (the build is `-march=native`,
-so a checkout shared between machines must not reuse it), so an edited
-source or another CPU builds anew. Builders in several threads or
-processes (pytest workers) take a file lock under `build/native/`; g++
-writes a private file that is renamed into place, so no process loads a
-half-written library. Old libraries are never deleted here: another
-process may still be loading one.
+`packer.cpp` and `zstd.cpp` are host code. Each is compiled with g++
+(`-O3 -march=native -shared -fPIC`) into `build/native/` at the
+repository root on first use, never when a module is imported. A
+library's file name carries a hash of its source and of the host's CPU
+(the build is `-march=native`, so a checkout shared between machines
+must not reuse it), so an edited source or another CPU builds anew.
+Builders in several threads or processes (pytest workers) take a file
+lock under `build/native/`; g++ writes a private file that is renamed
+into place, so no process loads a half-written library. Old libraries
+are never deleted here: another process may still be loading one.
 
 Set GGNN_TPU_NO_NATIVE=1 (or true/yes/on) to pack with the numpy
 packers; the variable is the JAX package's, so one launcher switches
-both packages. A failed build warns once, with the compiler's message,
-and the packers fall back to numpy as the JAX package's do.
+both packages. A failed build of the packer warns once, with the
+compiler's message, and the packers fall back to numpy as the JAX
+package's do. The zstd decoder has no fallback (`codec.py`).
 """
 
 import ctypes
@@ -34,6 +37,7 @@ from typing import Dict, Optional
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "packer.cpp"
+ZSTD_SOURCE = SOURCE.with_name("zstd.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
@@ -46,7 +50,8 @@ build_info: Dict = {}
 
 
 class NativeBuildError(RuntimeError):
-    """g++ failed to build `packer.cpp`; the message holds its output."""
+    """g++ failed to build a native source; the message holds its
+    output."""
 
 
 def _no_native_env() -> bool:
@@ -79,16 +84,18 @@ def _host_salt() -> str:
     return hashlib.sha256("|".join(parts).encode()).hexdigest()[:8]
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(source: Path = None) -> Path:
+    source = SOURCE if source is None else source
+    digest = hashlib.sha256(source.read_bytes()
                             + " ".join(GXX_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libpacker_{digest[:16]}_{_host_salt()}.so"
+    return BUILD_DIR / f"lib{source.stem}_{digest[:16]}_{_host_salt()}.so"
 
 
-def build() -> Path:
-    """Compile `packer.cpp` unless this source's library for this CPU is
-    already built; the path of the library."""
-    target = library_path()
+def build(source: Path = None) -> Path:
+    """Compile `source` (`packer.cpp` by default) unless this source's
+    library for this CPU is already built; the path of the library."""
+    source = SOURCE if source is None else source
+    target = library_path(source)
     if target.exists():
         build_info.update(path=str(target), seconds=None)
         return target
@@ -103,7 +110,7 @@ def build() -> Path:
                 return target
             fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
             os.close(fd)
-            cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(SOURCE)]
+            cmd = ["g++", *GXX_FLAGS, "-o", tmp, str(source)]
             start = time.perf_counter()
             try:
                 proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -113,7 +120,7 @@ def build() -> Path:
             if proc.returncode != 0:
                 os.unlink(tmp)
                 raise NativeBuildError(
-                    f"g++ failed to build {SOURCE.name} (exit "
+                    f"g++ failed to build {source.name} (exit "
                     f"{proc.returncode}):\n{' '.join(cmd)}\n"
                     f"{proc.stdout}{proc.stderr}")
             os.replace(tmp, target)

@@ -53,8 +53,8 @@ from ggnn_tpu_torch.ops.kernels.ell_spmm import (GatherSegmentSum,
 from ggnn_tpu_torch.ops.kernels.gather_floor import GatherRows
 from ggnn_tpu_torch.ops.precision import matmul_f32
 from ggnn_tpu_torch.ops.segment import (SortedSegments, segment_offsets,
-                                        segment_softmax, sorted_segments,
-                                        source_order)
+                                        segment_softmax, sorted_gather,
+                                        sorted_segments, source_order)
 from ggnn_tpu_torch.utils.constants import SMALL_NUMBER
 
 
@@ -80,7 +80,7 @@ class EdgeLanes:
     def __init__(self, sources, targets, node_capacity: int,
                  segments=None, num_segments: int = 0,
                  targets_sorted: bool = False, types=None,
-                 num_sources: Optional[int] = None):
+                 num_sources: Optional[int] = None, num_types: int = 0):
         self.src = None if sources is None else sources.reshape(-1)
         self.tgt = targets.reshape(-1)
         self.node_capacity = node_capacity
@@ -90,6 +90,7 @@ class EdgeLanes:
         self.num_segments = num_segments
         self.targets_sorted = targets_sorted
         self.types = types
+        self.num_types = num_types
 
     @classmethod
     def combined(cls, src_all, type_all, tgt_all, num_edge_types: int,
@@ -102,7 +103,8 @@ class EdgeLanes:
         types = type_all.long()
         composite = (tgt_all.long() * num_edge_types + types).to(torch.int32)
         return cls(src_all, tgt_all, node_capacity, composite,
-                   node_capacity * num_edge_types, True, types, num_sources)
+                   node_capacity * num_edge_types, True, types, num_sources,
+                   num_edge_types)
 
     @classmethod
     def typed(cls, edge_sources, edge_targets,
@@ -158,6 +160,12 @@ class EdgeLanes:
         by source."""
         perm, boff = self._by_source
         return perm.to(torch.int32), boff
+
+    @cached_property
+    def type_segments(self) -> SortedSegments:
+        """The edges of a combined lane by type (pads of type 0): the
+        gradient of the type factors' gather."""
+        return sorted_segments(self.types, self.num_types)
 
     @cached_property
     def target_segments(self) -> SortedSegments:
@@ -354,11 +362,11 @@ def propagation_attention_weights_combined(node_states: torch.Tensor,
     if lanes is None:
         lanes = EdgeLanes.combined(src_all, type_all, tgt_all,
                                    type_factors.shape[0], node_capacity)
-    # index_select: its gradient is one index_add_ into the T factors.
-    # Indexing (factors[types]) would take PyTorch's sorted index backward,
-    # which adds each factor's tens of thousands of edges one by one.
+    # The gather's gradient sums each factor's edges in the fixed order of
+    # the lane's type sort (index_select's would add them with atomics).
     scores = _edge_scores(node_states, src_all, tgt_all, node_capacity,
-                          type_factors.index_select(0, lanes.types), lanes)
+                          sorted_gather(type_factors, lanes.types,
+                                        lanes.type_segments), lanes)
     return segment_softmax(scores, tgt_all, node_capacity + 1, mask_all,
                            SMALL_NUMBER, layout=lanes.target_segments)
 

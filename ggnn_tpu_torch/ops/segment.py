@@ -4,17 +4,22 @@ Padded rows follow the GraphBatch convention: their segment id points at
 a dump slot one past the real capacity, so reductions allocate
 `num_segments = capacity + 1` and the caller slices the dump row off.
 The readout's graph pooling uses `segment_sum`; propagation attention
-uses `segment_softmax`; the message aggregation has its own kernels
+uses `segment_softmax`; a gather from a small table whose gradient is a
+sum (the attention's type factors, the async model's buffers) uses
+`sorted_gather`; the message aggregation has its own kernels
 (ops/kernels/ell_spmm.py).
 
-`segment_softmax` sums over segments with `torch.segment_reduce` over
-the ids in sorted order (CSR offsets), not with `index_add_`: on the card
-`index_add_` adds with atomics in an order that changes from call to
-call, while a sorted reduction adds each segment in a fixed order, so two
-calls give the same bits. Ids that are not sorted are sorted once by a
-stable `argsort` (`sorted_segments`), which a forward makes once and
-reuses for every step. `segment_offsets` and `source_order` make those
-CSR layouts for the segment sums here and for the kernels' wrappers.
+Every sum here runs `torch.segment_reduce` over the ids in sorted order
+(CSR offsets), never `index_add_`: on the card `index_add_` (and the
+backward of `index_select`, which is one) adds with atomics in an order
+that changes from call to call, while a sorted reduction adds each
+segment in a fixed order, so two calls give the same bits. Ids that are
+not sorted are sorted once by a stable `argsort` (`sorted_segments`),
+which a forward makes once and reuses for every step; the permuted data
+is read by `index_select`, and the gradients of these sums are gathers
+(`SortedSegmentSum`, `SortedGather`), so no backward adds with atomics
+either. `segment_offsets` and `source_order` make those CSR layouts for
+the segment sums here and for the kernels' wrappers.
 """
 
 from typing import NamedTuple, Optional
@@ -40,15 +45,6 @@ def source_order(sources: torch.Tensor, num_nodes: int):
     the sources. An edge whose source is num_nodes sorts past boff[N]."""
     perm = torch.argsort(sources, stable=True)
     return perm, segment_offsets(sources[perm], num_nodes)
-
-
-def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
-    """out[s] = sum of data[i] over segment_ids[i] == s; the result is
-    [num_segments, ...]."""
-    out = torch.zeros((num_segments,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    return out.index_add_(0, segment_ids.long(), data)
 
 
 def segment_max(data: torch.Tensor, segment_ids: torch.Tensor,
@@ -84,12 +80,69 @@ def sorted_segments(segment_ids: torch.Tensor, num_segments: int,
 
 def sorted_segment_sum(data: torch.Tensor,
                        layout: SortedSegments) -> torch.Tensor:
-    """out[s] = sum of the 1-D `data` over segment s of `layout`, in the
-    fixed order of the sorted ids."""
+    """out[s] = sum of `data`'s rows over segment s of `layout`, in the
+    fixed order of the sorted ids (no gradient; `segment_sum` has one).
+    A bf16 input is summed in f32 and rounded once."""
     if layout.perm is not None:
-        data = data[layout.perm]
-    return torch.segment_reduce(data, "sum", offsets=layout.offsets,
-                                unsafe=True)
+        data = data.index_select(0, layout.perm)
+    out = torch.segment_reduce(
+        data.float() if data.dtype == torch.bfloat16 else data, "sum",
+        offsets=layout.offsets, unsafe=True)
+    return out.to(data.dtype)
+
+
+class SortedSegmentSum(torch.autograd.Function):
+    """`apply(data, segment_ids, layout)`: `sorted_segment_sum` with its
+    gradient, each row's the gradient of its segment (a gather)."""
+
+    @staticmethod
+    def forward(ctx, data, segment_ids, layout):
+        ctx.save_for_backward(segment_ids)
+        return sorted_segment_sum(data, layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        return g.index_select(0, ids.long()), None, None
+
+
+def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
+                num_segments: int,
+                indices_are_sorted: bool = False) -> torch.Tensor:
+    """out[s] = sum of data[i] over segment_ids[i] == s, every id in
+    [0, num_segments); the result is [num_segments, ...], each segment
+    summed in the fixed order of the sorted ids."""
+    layout = sorted_segments(segment_ids, num_segments, indices_are_sorted)
+    return SortedSegmentSum.apply(data, segment_ids, layout)
+
+
+class SortedGather(torch.autograd.Function):
+    """`apply(table, ids, layout)`: `table.index_select(0, ids)`, whose
+    gradient sums each row's cotangents over `layout` (`sorted_segments
+    (ids, table rows)`) in a fixed order, where `index_select`'s own
+    backward adds them with `index_add_`."""
+
+    @staticmethod
+    def forward(ctx, table, ids, layout):
+        ctx.layout = layout
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        return sorted_segment_sum(g, ctx.layout), None, None
+
+
+def sorted_gather(table: torch.Tensor, ids: torch.Tensor,
+                  layout: Optional[SortedSegments] = None) -> torch.Tensor:
+    """`table.index_select(0, ids)` with a gradient summed in a fixed
+    order; `layout` (`sorted_segments(ids, table.shape[0])`) is made here
+    when not given, and only when a gradient is to be taken. Every id
+    must lie in [0, table.shape[0])."""
+    if not (torch.is_grad_enabled() and table.requires_grad):
+        return table.index_select(0, ids)
+    if layout is None:
+        layout = sorted_segments(ids, table.shape[0])
+    return SortedGather.apply(table, ids, layout)
 
 
 class SegmentSoftmax(torch.autograd.Function):

@@ -56,6 +56,7 @@ from ggnn_tpu_torch.graph import DenseGraphBatch, GraphBatch
 from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
 from ggnn_tpu_torch.native import get_lib
 from ggnn_tpu_torch.training.checkpoint import (_load_payload, _looks_tf1,
+                                                _sanitize,
                                                 restore_checkpoint)
 from ggnn_tpu_torch.training.config import default_params_for
 from ggnn_tpu_torch.training.variants import (_dense_adjacency_dtype,
@@ -92,9 +93,14 @@ def _infer_geometry(payload: Dict, variant: str, config: Dict):
     config. A TF1 reference pickle names them by TF variable
     (`ggnn_tpu/serving.py:57-62`): the layered models' first layer
     [T*H, H], the reference dense model's `Variable` [T, H, H], the
-    async model's per-type `gnn_edge_weights_typ{t}`."""
+    async model's per-type `gnn_edge_weights_typ{t}`. An Orbax
+    directory names them by their sanitized keys."""
     weights = payload["weights"]
     hidden = int(config["hidden_size"])
+    edge_keys, async_prefix = _EDGE_WEIGHT_KEYS, _ASYNC_TYPE_PREFIX
+    if payload.get("sanitized_keys"):
+        edge_keys = tuple(map(_sanitize, edge_keys))
+        async_prefix = _sanitize(async_prefix[:-1]) + "."
     if variant in ("gcn", "gcn_blocked"):
         return 1, hidden
     if _looks_tf1(payload):
@@ -109,11 +115,11 @@ def _infer_geometry(payload: Dict, variant: str, config: Dict):
         elif _TF1_DENSE_WEIGHTS in names:
             return int(np.shape(names[_TF1_DENSE_WEIGHTS])[0]), hidden
     if variant == "async":
-        count = sum(1 for k in weights if k.startswith(_ASYNC_TYPE_PREFIX))
+        count = sum(1 for k in weights if k.startswith(async_prefix))
         if count:
             return count, hidden
     if variant in _SERVED:
-        for key in _EDGE_WEIGHT_KEYS:
+        for key in edge_keys:
             if key in weights:
                 return int(np.shape(weights[key])[0]), hidden
     raise ValueError(

@@ -1,4 +1,4 @@
-"""Pickle checkpoints in the JAX package's format, and the weight bridge.
+"""Checkpoints in the JAX package's two formats, and the weight bridge.
 
 The payload is that of `ggnn_tpu/training/checkpoint.py` (after
 chem_tensorflow.py:309-323): a pickle of
@@ -52,13 +52,25 @@ loader ignores them. The JAX package's `key` (its `jax.random` key at
 the save point) is read and not used: the port's dropout stream is a
 `torch.Generator`, not that key.
 
-Not ported yet (ROADMAP A17): Orbax directory checkpoints.
+A path without a `.pickle`/`.pkl` extension selects the JAX package's
+Orbax directory format (`ggnn_tpu/training/checkpoint.py:63-116`), read
+and written by `training/orbax_dir.py` without orbax. The weights are
+stored under `_sanitize`d names ("['params']['graph']['w']" ->
+"params.graph.w"), a key collision refused; the config, the step
+counters, `sanitized_keys: true` and the JSON-encoded iterator state go
+to the `ggnn_meta.json` sidecar. A save stages `<path>.tmp_new` and swaps
+it in through `<path>.tmp_old`, so a crash leaves the old checkpoint or
+the complete new one, and `_load_payload` falls back to a complete
+`.tmp_new`. Restore finds each leaf under its sanitized name, or under
+the `_sanitize_legacy` name of older directories.
 """
 
+import json
 import os
 import pickle
 import re
-from typing import Dict, Optional, Tuple
+import shutil
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +78,22 @@ from torch import nn
 
 _KEY_PART = re.compile(r"\['([^']+)'\]|\[(\d+)\]")
 _INDEXED_KEY = re.compile(r"(.+)\[(\d+)\]")
+_SANITIZE_PART = re.compile(
+    r"\['([^']+)'\]|\[(\d+)\]|\.([A-Za-z_][A-Za-z0-9_]*)")
+
+
+def _sanitize(name: str) -> str:
+    """JAX key path -> Orbax storage name, as the JAX package names it:
+    "['a']['b'][0].c" -> "a.b.0.c" (dict, sequence and attribute
+    segments)."""
+    return ".".join(a or b or c for a, b, c in _SANITIZE_PART.findall(name))
+
+
+def _sanitize_legacy(name: str) -> str:
+    """The JAX package's older storage name, attribute segments dropped;
+    restore looks a leaf up under it when its `_sanitize` name is
+    absent."""
+    return ".".join(a or b for a, b in _KEY_PART.findall(name))
 
 
 def _keystr(name: str) -> str:
@@ -214,7 +242,7 @@ def _restore_optimizer(optimizer, saved: Dict, log, split_rows: Dict) -> set:
                         f"checkpoint leaf '{key}' has shape "
                         f"{tuple(np.shape(value))} but the optimizer "
                         f"expects {tuple(tensor.shape)}")
-                tensor.copy_(torch.from_numpy(np.array(value)))
+                tensor.copy_(_as_tensor(value))
                 used.add(key)
     return used
 
@@ -227,15 +255,15 @@ def save_checkpoint(path: str, config: Dict, params: nn.Module,
                     train_step: int, valid_step: int,
                     optimizer=None, iterator_state: Dict = None) -> None:
     """The model's weights and, when given, the optimizer's state and the
-    mid-epoch iterator state (see the module's docstring)."""
-    if not _is_pickle_path(path):
-        raise NotImplementedError(
-            f"'{path}' has no .pickle/.pkl extension, which selects the "
-            "Orbax format; Orbax checkpoints are not ported yet "
-            "(ROADMAP A17)")
+    mid-epoch iterator state (see the module's docstring): a pickle at a
+    `.pickle`/`.pkl` path, else an Orbax directory."""
     weights = jax_weights_from_params(params)
     if optimizer is not None:
         weights.update(optimizer_entries(optimizer))
+    if not _is_pickle_path(path):
+        _save_orbax(path, config, weights, train_step, valid_step,
+                    iterator_state)
+        return
     payload = {
         "params": config,
         "weights": weights,
@@ -246,6 +274,43 @@ def save_checkpoint(path: str, config: Dict, params: nn.Module,
         payload["iterator_state"] = iterator_state
     with open(path, "wb") as f:
         pickle.dump(payload, f, pickle.HIGHEST_PROTOCOL)
+
+
+def _save_orbax(path: str, config: Dict, weights: Dict[str, np.ndarray],
+                train_step: int, valid_step: int,
+                iterator_state: Optional[Dict]) -> None:
+    """The directory checkpoint, staged and swapped in as the JAX
+    package's `save_checkpoint` does."""
+    from ggnn_tpu_torch.training import orbax_dir
+    path = os.path.abspath(path)
+    meta = {"params": config, "train_step": train_step,
+            "valid_step": valid_step, "sanitized_keys": True}
+    if iterator_state is not None:
+        meta["iterator_state"] = _encode_iterator_state(iterator_state)
+    sanitized = {}
+    for key, value in weights.items():
+        name = _sanitize(key)
+        if name in sanitized:
+            raise ValueError(
+                f"checkpoint key collision: two leaves sanitize to "
+                f"'{name}' — saving would silently drop one")
+        sanitized[name] = value
+    tmp = path + ".tmp_new"
+    if os.path.exists(tmp):
+        shutil.rmtree(tmp)
+    orbax_dir.write_arrays(tmp, sanitized)
+    with open(os.path.join(tmp, "ggnn_meta.json"), "w") as f:
+        json.dump(meta, f)
+    # Two renames: a crash between them leaves the old checkpoint (at
+    # .tmp_old) or the complete new one (at .tmp_new), never nothing.
+    old = path + ".tmp_old"
+    if os.path.exists(old):
+        shutil.rmtree(old)
+    if os.path.exists(path):
+        os.replace(path, old)
+    os.replace(tmp, path)
+    if os.path.exists(old):
+        shutil.rmtree(old)
 
 
 def _encode_iterator_state(it: Dict) -> Dict:
@@ -278,19 +343,80 @@ def _decode_iterator_state(it: Dict) -> Dict:
 
 
 def load_iterator_state(path: str):
-    """The saved mid-epoch iterator state, or None."""
-    it = _load_payload(path).get("iterator_state")
+    """The saved mid-epoch iterator state, or None. Of a directory, only
+    the sidecar is read."""
+    if os.path.isdir(path):
+        with open(os.path.join(path, "ggnn_meta.json")) as f:
+            it = json.load(f).get("iterator_state")
+    else:
+        it = _load_payload(path).get("iterator_state")
     return _decode_iterator_state(it) if it else None
 
 
 def _load_payload(path: str) -> Dict:
-    if os.path.isdir(path) or (not os.path.exists(path)
-                               and os.path.isdir(path + ".tmp_new")):
-        raise NotImplementedError(
-            f"'{path}' is an Orbax checkpoint directory; Orbax restore is "
-            "not ported yet (ROADMAP A17)")
+    if not os.path.exists(path) and os.path.isdir(path + ".tmp_new"):
+        # The crash window of a save: trust the staged directory only if
+        # its sidecar, written last, is there and parses.
+        staged_meta = os.path.join(path + ".tmp_new", "ggnn_meta.json")
+        try:
+            with open(staged_meta) as f:
+                json.load(f)
+            path = path + ".tmp_new"
+        except (OSError, json.JSONDecodeError):
+            raise FileNotFoundError(
+                f"no checkpoint at '{path}'; an INCOMPLETE staged "
+                f"checkpoint exists at '{path}.tmp_new' (crash during "
+                "save) — delete it and restore an earlier checkpoint")
+    if os.path.isdir(path):
+        from ggnn_tpu_torch.training import orbax_dir
+        with open(os.path.join(path, "ggnn_meta.json")) as f:
+            meta = json.load(f)
+        return {"params": meta["params"],
+                "weights": orbax_dir.read_arrays(path),
+                "train_step": meta["train_step"],
+                "valid_step": meta["valid_step"],
+                "iterator_state": meta.get("iterator_state"),
+                "sanitized_keys": meta.get("sanitized_keys", False)}
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def _wanted_keys(params: nn.Module, optimizer) -> Iterable[str]:
+    """Every JAX key path a restore looks up, the stacked base of each
+    per-index key included."""
+    keys = [_keystr(name) for name, _ in params.named_parameters()]
+    if optimizer is not None:
+        prefix = _opt_prefix(optimizer)
+        keys.append(f"{prefix}['count']")
+        for moment, state in (("mu", optimizer.mu), ("nu", optimizer.nu)):
+            keys += [_moment_key(prefix, moment, name) for name in state]
+    for key in list(keys):
+        match = _INDEXED_KEY.fullmatch(key)
+        if match is not None:
+            keys.append(match.group(1))
+    return keys
+
+
+def _by_jax_key(saved: Dict, keys: Iterable[str]) -> Dict:
+    """A directory's {sanitized name: array} re-keyed by the JAX key paths
+    in `keys` (each found under its `_sanitize` name, else its
+    `_sanitize_legacy` name); names no key claims keep their own."""
+    out, taken = {}, set()
+    for key in keys:
+        for name in (_sanitize(key), _sanitize_legacy(key)):
+            if name in saved:
+                out[key] = saved[name]
+                taken.add(name)
+                break
+    out.update((name, value) for name, value in saved.items()
+               if name not in taken)
+    return out
+
+
+def _as_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value.clone()
+    return torch.from_numpy(np.array(value))
 
 
 def _looks_tf1(payload: Dict) -> bool:
@@ -372,6 +498,8 @@ def restore_checkpoint(path: str, config: Dict, params: nn.Module,
     else:
         _check_config(config, payload["params"])
         saved = payload["weights"]
+        if payload.get("sanitized_keys"):
+            saved = _by_jax_key(saved, _wanted_keys(params, optimizer))
     own = dict(params.named_parameters())
     split_rows = {}
     with torch.no_grad():
@@ -382,7 +510,7 @@ def restore_checkpoint(path: str, config: Dict, params: nn.Module,
                 log(f"Freshly initializing {_keystr(name)} since no saved "
                     "value was found.")
                 continue
-            value = torch.from_numpy(np.array(value))
+            value = _as_tensor(value)
             if tuple(value.shape) != tuple(param.shape):
                 # Loudly, at restore time: geometry the config check
                 # cannot see (num_edge_types comes from the data).

@@ -1836,3 +1836,31 @@ def test_mesh_step_on_the_card_matches_single_device(cuda, mesh_pool,
     if results[0]["types"] is None:
         for name, got in results[1]["grads"].items():
             np.testing.assert_array_equal(got, results[0]["grads"][name])
+
+
+def test_sorted_sums_and_gathers_repeat_bit_for_bit(cuda):
+    """The readout's `segment_sum` and `sorted_gather` (attention type
+    factors, async buffers) on the card: the values and gradients of two
+    calls bit-equal (no atomics), and equal to the CPU's within 1e-5."""
+    from ggnn_tpu_torch.ops.segment import segment_sum, sorted_gather
+    gen = torch.Generator().manual_seed(7)
+    data = torch.randn(20000, 3, generator=gen)
+    ids = torch.sort(torch.randint(0, 1200, (20000,), generator=gen))[0]
+    table = torch.randn(4, 100, generator=gen)
+    types = torch.randint(0, 4, (42544,), generator=gen)
+    g_sum = torch.randn(1201, 3, generator=gen)
+    g_rows = torch.randn(42544, 100, generator=gen)
+
+    def run(device):
+        x = data.to(device).requires_grad_()
+        t = table.to(device).requires_grad_()
+        pooled = segment_sum(x, ids.to(device), 1201, True)
+        rows = sorted_gather(t, types.to(device))
+        ((pooled * g_sum.to(device)).sum()
+         + (rows * g_rows.to(device)).sum()).backward()
+        return [v.detach().cpu() for v in (pooled, x.grad, rows, t.grad)]
+
+    first, second, cpu = run(cuda), run(cuda), run(torch.device("cpu"))
+    for a, b, c in zip(first, second, cpu):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)

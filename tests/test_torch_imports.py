@@ -1,6 +1,8 @@
 """The port stands alone: no module of ggnn_tpu_torch, and none of
 chip_smoke.py and the port's tools (tools/torch_*.py), imports jax,
-jaxlib, the JAX package ggnn_tpu or the JAX benchmarks."""
+jaxlib, the JAX package ggnn_tpu or the JAX benchmarks, nor the libraries
+of the JAX package's Orbax checkpoints (orbax, tensorstore, zstandard),
+whose format the port reads and writes itself."""
 
 import ast
 import os
@@ -11,7 +13,8 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "ggnn_tpu", "benchmarks")
+FORBIDDEN = ("jax", "jaxlib", "ggnn_tpu", "benchmarks", "orbax",
+             "tensorstore", "zstandard")
 
 
 def _port_files():
@@ -57,7 +60,8 @@ def test_the_scan_sees_the_whole_port():
                  ("parallel", "node_shard.py"), ("parallel", "step.py"),
                  ("parallel", "tp.py"), ("parallel", "stacking.py"),
                  ("parallel", "collectives.py"), ("parallel", "launch.py"),
-                 ("data", "reorder.py")):
+                 ("data", "reorder.py"), ("native", "codec.py"),
+                 ("training", "orbax_dir.py")):
         assert os.path.join("ggnn_tpu_torch", *path) in files
 
 
@@ -74,6 +78,25 @@ def test_parallel_loads_no_jax():
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, os.path.join(ROOT, "tests")]))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_orbax_directories_load_no_oracle(tmp_path):
+    """Writing and reading an Orbax directory checkpoint loads no module
+    of JAX, orbax, tensorstore or zstandard."""
+    import subprocess
+    import sys
+    code = (
+        "import sys, numpy as np; "
+        "from ggnn_tpu_torch.training import orbax_dir; "
+        f"p = {str(tmp_path / 'c')!r}; "
+        "orbax_dir.write_arrays(p, {'w': np.arange(6, dtype=np.float32)}); "
+        "assert (orbax_dir.read_arrays(p)['w'] == np.arange(6)).all(); "
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code],
+                          env=dict(os.environ, PYTHONPATH=ROOT),
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

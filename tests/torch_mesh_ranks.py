@@ -189,3 +189,31 @@ def regrow_case(config, train, valid, n_data, n_edge, log_dir):
                                                  edges_local=8)
     log = runner.train()
     return 8, runner._nodeshard_caps.edges_local, log[0]["train_results"][0]
+
+
+def mesh_orbax_save(variant, config, train, valid, n_data, n_edge, log_dir,
+                    path):
+    """A mesh Runner on this rank trained by `train()`, then saved to the
+    Orbax directory `path` through `Runner._save` (every rank calls it):
+    how many checkpoints this rank wrote, the mesh kind and its whole
+    weights."""
+    from ggnn_tpu_torch.training import runner as runner_mod
+    from ggnn_tpu_torch.training.runner import Runner
+    mesh = make_mesh(n_data, n_edge, device="cpu")
+    runner = Runner(variant, config, train_data=train, valid_data=valid,
+                    log_dir=log_dir, quiet=True, tensorboard=False,
+                    mesh=mesh)
+    runner.train()
+    wrote = []
+    save = runner_mod.save_checkpoint
+    runner_mod.save_checkpoint = lambda p, *a, **k: (wrote.append(p),
+                                                     save(p, *a, **k))
+    try:
+        runner._save(path)
+    finally:
+        runner_mod.save_checkpoint = save
+    with runner._whole_weights():
+        weights = {n: p.detach().numpy().copy()
+                   for n, p in runner.params.named_parameters()}
+    return {"wrote": len(wrote), "kind": runner._mesh_kind,
+            "weights": weights}
