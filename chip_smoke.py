@@ -3,7 +3,18 @@
 
     python3 chip_smoke.py
 
-Phases, each raising (and so exiting non-zero) on any failure:
+Phases, each raising (and so exiting non-zero) on any failure.
+
+Where the JAX package jits a step, the port replays it (ROADMAP A20):
+every train and validation step of `Runner.train()`, `Runner.predict`'s
+forward and each Predictor's and artifact's forward is a replay of a
+CUDA graph captured once per batch shape. A kernel's counter moves where
+its wrapper launches it, so over a call it reads 2 x (the warm-up step
+and the capture) the launches of the graphs the call captured, and a
+replay counts none; every phase that counts launches over `train()` or a
+request holds the counters to that (`Captures`) and each graph's
+launches a replay, from its capture, to the step's or forward's
+prediction (`check_graphs`, `check_forwards`).
 
   1. setup — TF32 off for matmuls and cuDNN; build the CUDA kernels from
      ggnn_tpu_torch/csrc into build/kernels/, one nvcc for each source,
@@ -43,25 +54,30 @@ Phases, each raising (and so exiting non-zero) on any failure:
      a pickle checkpoint and loaded by `Predictor.from_checkpoint` with
      the default device and envelope; a 1-graph, a 300-graph and a
      3,000-graph request, with the kernels' launch counters set to 0
-     before each request and read after it (8 B1 launches per forward,
-     no other kernel), each answer held
+     before each request and read after it (the first request captures
+     the envelope's graph, which holds 8 B1 launches a forward and no
+     other kernel), each answer held
      against the same checkpoint served on the CPU (rtol = atol = 1e-4:
      8 GRU steps with f32 products in another order), graphs/s of the
      large request and the 1-graph latency;
   5. dense serving — the same for the default `dense` and `blocked`
-     models (cuBLAS products, no hand kernel): every counter 0;
+     models (cuBLAS products, no hand kernel; a graph a bucket): every
+     counter 0;
   6. training — `Runner(variant, cfg).train()` on the default device, 3
      epochs of synthetic_molecules(6000, seed=40), validated on
      synthetic_molecules(600, seed=41), the kernels' counters set to 0
-     before `train()` and read after it: `sparse` with the default config
-     plus configs/sparse_tpu.json (20,000-node batches, edge-weight
-     dropout 0.8; 8 B1 launches per train step and per validation batch,
-     7 B2 launches per train step, no B3); `dense` with the default
+     before `train()` and read after it, the train graphs all captured in
+     epoch 1: `sparse` with the default config plus
+     configs/sparse_tpu.json (20,000-node batches, edge-weight dropout
+     0.8; each train graph 8 B1 and 7 B2 launches, each validation graph
+     8 B1, no B3); `dense` with the default
      config and the buckets [16, 32] bench.py trains; `blocked` with the
      default config plus configs/blocked_tpu.json (no B1, B2 or B3 for
      either); every loss finite, the last validation loss below that of
      the initial weights; per epoch the losses, MAE, error_ratio,
-     graphs/s and the median synchronised train-step time, and the packer
+     graphs/s, the median synchronised train-step time and the seconds
+     its captures took (in epoch 1's graphs/s, as JAX's compilation is
+     in its first epoch), and the packer
      alone over one epoch (the native one: the phase fails where a
      variant but `async` packed with numpy);
   7. card against CPU — one train step, every keep probability 1.0, from
@@ -91,7 +107,7 @@ Phases, each raising (and so exiting non-zero) on any failure:
      every counter set to 0 around each request: `num_timesteps` weighted
      launches a `gcn` forward and nothing else, no hand kernel for
      `gcn_blocked`), trained for 3 epochs (`gcn` at 20,000-node batches:
-     per train step a weighted launch a layer and a transpose launch a
+     each train graph a weighted launch a layer and a transpose launch a
      layer but the first; `gcn_blocked` with buckets [16, 32]), one train
      step each on the card against the CPU, and a profile of each;
  12. async — B1 and B2 at the widest substep of a 10,000-node async
@@ -105,9 +121,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
      the CPU answers the 1- and 300-graph requests only: its plain path
      runs 160 substeps of [4, 16384, 100] products an envelope); trained
      for 3 epochs with configs/async_tpu.json (10,000-node batches, one
-     pack and a batch-order shuffle): B1 once a substep of the segmented
-     path per train step and validation batch, B2 once a substep but the
-     first of round 0 per train step, each counted from the batches;
+     pack and a batch-order shuffle): each train and validation graph B1
+     once a substep of the segmented path, each train graph B2 once a
+     substep but the first of round 0, counted from the graph's batch;
      one train step on the card against the CPU, and the same step with
      `async_remat` on against off on the card (gradients within 1e-6, B1
      again in the backward); and a profile;
@@ -126,7 +142,7 @@ Phases, each raising (and so exiting non-zero) on any failure:
      configs/sparse_attention.json served as in 4 (edge_dot and the
      weighted instance once a step of each forward, nothing else),
      trained for 3 epochs at configs/sparse_tpu.json's 20,000-node
-     batches (per train step 16 edge_dot, 8 weighted and 21 transpose
+     batches (each train graph 16 edge_dot, 8 weighted and 21 transpose
      launches), one train step on the card against the CPU (the
      attention factors' gradients among those held), two card forwards
      bit-equal, and a profile; and each route besides the combined lane
@@ -139,23 +155,24 @@ Phases, each raising (and so exiting non-zero) on any failure:
      sparse_attention_bias, dense_default and gcn_default
      (tests/fixtures/tf1/) written as reference pickles and served on the
      card by `Predictor.from_checkpoint` over their validation corpora:
-     the launches of each forward, the answers against the CPU port and
+     the launches each graph holds a forward, the answers against the CPU port and
      against the fixture (the reference's outputs of its first validation
      batch; gcn_default holds none, so its validation epoch's masked MAE),
      each at 1e-4;
  15. server — `server.PredictionServer` on 127.0.0.1, port 0, over the
-     default sparse model and over configs/sparse_attention.json: 20
+     default sparse model and over configs/sparse_attention.json: the
+     warm-up capturing the envelope's graph (the per-forward count), 20
      sequential one-graph requests (p50 over HTTP), then 16 clients
      sending one-graph requests for 5 s (requests/s, p50, p99, device
-     calls, coalesced requests), every answer within 1e-5 of the
-     Predictor's, the launches the per-forward count times the device
-     calls; the default model again with `max_coalesced_graphs` 4 (no
-     forward over 4 graphs);
+     calls, coalesced requests), every answer within 1e-5 of a card
+     Predictor's, no launch by the traffic (every call a replay); the
+     default model again with `max_coalesced_graphs` 4 (no forward over 4
+     graphs);
  16. export — `sparse`, configs/sparse_attention.json, `gcn`, `dense`
      and `async` (40 substeps) exported on the CPU (`export_predictor`:
      seconds, bytes) and loaded on the card (`load_predictor`): the 1- and
-     300-graph requests launch what the live card Predictor launches and
-     answer within 1e-6 of it and within 1e-4 of the artifact on the CPU
+     300-graph requests capture graphs holding what a live card forward
+     launches, as the live Predictor's do, and answer within 1e-6 of it and within 1e-4 of the artifact on the CPU
      (async: its 1-graph request), the 3,000-graph request timed through
      the artifact and the live Predictor, and the sparse artifact served
      through `server.main(["--checkpoint", ...])` for one request;
@@ -174,8 +191,8 @@ Phases, each raising (and so exiting non-zero) on any failure:
      against the CPU at 1e-3; B1's bf16 instance once a step of each
      forward, counted by the bf16 counters) and the same config in f32
      on this card beside it; trained for 3 epochs at its 20,000-node
-     batches (8 bf16 B1 a train step and validation batch, 7 bf16 B2 a
-     train step) and profiled; one train step on the card against the
+     batches (each train graph 8 bf16 B1 and 7 bf16 B2, each validation
+     graph 8 bf16 B1) and profiled; one train step on the card against the
      CPU at 4,000-node batches (loss 1e-5, gradients 5e-3) for the
      combined lane and for the routes of BF16_ROUTES (each with a
      300-graph request), their bf16 launches as `bf16_route_launches`
@@ -190,17 +207,23 @@ Phases, each raising (and so exiting non-zero) on any failure:
      run resumed on the card from the kept checkpoint, its parameters
      within 1e-6 of the uninterrupted run's (bit-equality reported),
      graphs/s with a checkpoint every step against none, each run's B1
-     and B2 launches (8 a train step and validation batch, 7 a train
-     step); `cli.main(["sparse", "--profile", DIR, ...])` for one epoch,
-     whose Chrome trace names B1's and B2's ops and kernel
-     (`segment_sum_kernel`, shared) as often as the counters read over
-     the profiled epoch; `Runner.predict` on the card over the
-     validation corpus from the best pickle against the card `Predictor`
-     (1e-5) and the CPU Runner (1e-4), and `cli.main([..., "--restore",
+     and B2 launches (each train graph 8 and 7, each validation graph 8);
+     `cli.main(["sparse", "--profile", DIR, ...])` for one epoch, whose
+     Chrome trace names B1's and B2's ops twice as often as the counters
+     read over the profiled epoch (its graph's warm-up step and capture,
+     each op recorded again by the capture's operator recorder) and
+     their kernel (`segment_sum_kernel`, shared) as often as the warm-up
+     step and the epoch's replays launch it; `Runner.predict` on the card
+     over the validation corpus from the best pickle (replays of the
+     graph a warm-up call captured, no launch) against the card
+     `Predictor` (1e-5) and the CPU Runner (1e-4), and `cli.main([...,
+     "--restore",
      best, "--evaluate"])`; a QM9-layout tarball of 40 molecules of
      tests/test_smiles.py's oracle extracted by `ggnn_tpu_torch.data.qm9`
      and trained for one epoch through `cli.main(["sparse", "--data_dir",
-     ...])` to a finite loss; and whether tensorboardX imported (then the
+     ..., "--checkpoint-every-steps", "1"])` to a finite loss (each CLI
+     call's counters 2 x the launches of its Runner's graphs: the CLI
+     replays); and whether tensorboardX imported (then the
      run's event files must exist);
  19. native packer — its build (seconds, g++'s version, the library's
      path, the host's cores); each native packer (`sparse` and `gcn` at
@@ -243,7 +266,7 @@ Phases, each raising (and so exiting non-zero) on any failure:
      eagerly) and the eager twin's to 2 epochs of the replays'; (c) train
      graphs/s, ms a step and idle share through `time_epochs`, in turns
      with the eager Runner epoch (eager, graph; two turns of each until
-     PR 16), for
+     PR 16; the eager epoch's steps run by `eager_steps`), for
      `dense` at bench.py's workload (synthetic_molecules(25600, seed=0),
      100 batches in 2 shapes) and for phase 6's `sparse`, `gcn`,
      attention and `async` Runners, the busy ms from a profiled epoch of
@@ -288,9 +311,9 @@ Phases, each raising (and so exiting non-zero) on any failure:
      every 2 steps, the one after step 2 (Adam state, the mid-epoch
      iterator state) saved also as a directory and as a pickle; a new
      `Runner(restore=...)` of each, bit-equal weights, moments and
-     counters, each resumed to the end of epoch 2 (B1 and B2 counted,
-     8 and 7 a train step, 8 a validation batch), weights, moments and
-     losses bit-equal between the formats; `Predictor.from_checkpoint`
+     counters, each resumed to the end of epoch 2 (B1 and B2 counted:
+     each train graph 8 and 7, each validation graph 8), weights, moments
+     and losses bit-equal between the formats; `Predictor.from_checkpoint`
      of each answering a 300-graph request bit-equal (B1 8 a forward);
      ms a save and a restore, bytes on disk. The same for
      configs/sparse_wide_bf16.json (its bf16 counters). Phase 21's
@@ -298,7 +321,32 @@ Phases, each raising (and so exiting non-zero) on any failure:
      into a single-device Runner with the ranks' digest. The committed
      JAX-written directory tests/fixtures/orbax/sparse_h32 read with the
      port's reader, bit-equal to its pickle twin, and served on the card
-     as its twin is.
+     as its twin is;
+ 23. replayed steps (ROADMAP A20) — for every configuration of phase 20
+     (each with its own dropout; `dense` without remainder dropping, so
+     that the step corpus' 50 validation molecules fill a batch), 2
+     epochs of `Runner.train()` on the step corpus with a rolling
+     checkpoint every 2 steps, every step a replay, against an eager twin
+     (`eager_steps`: the same `train()`, `train_step` and `eval_step`
+     called directly): every per-step loss and MAE of both splits and
+     every parameter bit-equal; the train graphs after epoch 2 those after
+     epoch 1, and every graph count printed; the run resumed from the last
+     rolling checkpoint bit-equal; the trained weights served by a
+     replayed `Predictor.from_checkpoint` (512 nodes, 64 graphs) and its
+     artifact (exported on the CPU, for the variants and attention; for
+     `async` phase 16's artifact, whose export takes a minute), the 1- and
+     300-graph answers
+     bit-equal to their forwards run eagerly, and 16 threads calling the
+     Predictor at once answered as serial calls. Then, for the record, one
+     turn each, eager then replayed (host clock, synchronised): the
+     training epoch's graphs/s and ms a step of phase 6's `sparse` and
+     `dense`, phase 11's `gcn`, phase 13's attention and phase 12's
+     `async` Runners; the 3,000-graph throughput (median of 3, `async` 1)
+     and the 1-graph latency (median of 20) of the seven variants at the
+     default envelope; 16 server clients for 3 s (requests/s, p99); and
+     the launch floor inside a graph: graphs of 1 and of 100
+     `ell_spmm.empty_launch` kernels replayed, beside one empty kernel
+     outside a graph.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -859,6 +907,107 @@ def per_request(per_forward):
     return lambda calls: tuple(c * calls for c in per_forward)
 
 
+# The ops.kernels counters that chip_smoke's six-tuples hold, in order
+# (`launch_counts`): the first six of `ggnn_tpu_torch.ops.kernels.COUNTERS`.
+KERNEL_COUNTERS = ("ell_spmm.launches", "ell_spmm.scatter_launches",
+                   "gather_floor.launches", "ell_spmm.weighted_launches",
+                   "ell_spmm.weighted_scatter_launches", "edge_dot.launches")
+
+
+def held(launches, counts=launch_counts):
+    """A CUDA graph's launches a replay ({"module.counter": n}, from the
+    counters across its capture) as a six-tuple of `counts`'s counters:
+    the f32 ones, or with `bf16_launch_counts` the bf16 instances'."""
+    suffix = "_bf16" if counts is bf16_launch_counts else ""
+    return tuple(launches.get(k + suffix, 0) for k in KERNEL_COUNTERS)
+
+
+class Captures:
+    """The CUDA graphs that the step caches `caches` (a Runner's
+    `train_graphs`, `eval_graphs`, `predict_graphs`, a Predictor's
+    `_graphs`) capture from its making on. On the card a step is a
+    replay: the kernels' counters move only at a new key's warm-up step
+    and its capture, each launching the step's kernels once, and a
+    replay counts none."""
+
+    def __init__(self, *caches):
+        self.caches = caches
+        self.before = [set(c.graphs) for c in caches]
+
+    def new(self):
+        """Each cache's new graphs, in capture order."""
+        return [[g for k, g in c.graphs.items() if k not in before]
+                for c, before in zip(self.caches, self.before)]
+
+    def check(self, label, launched, counts=launch_counts):
+        """`launched`, the counters read over a call, against 2 x (the
+        warm-up step and the capture) the new graphs' launches: else a
+        replay launched a kernel eagerly, or a kernel of the step is not
+        in its graph. Returns each cache's new graphs as six-tuples."""
+        per_cache = [[held(g.launches, counts) for g in graphs]
+                     for graphs in self.new()]
+        flat = [t for tuples in per_cache for t in tuples]
+        want = (tuple(2 * sum(c) for c in zip(*flat)) if flat
+                else NO_LAUNCH)
+        if tuple(launched) != want:
+            raise RuntimeError(
+                f"{label}: the counters read {COUNTER_NAMES} "
+                f"{tuple(launched)}, not 2 x (a warm-up step and a capture) "
+                f"the launches of the {len(flat)} graphs captured, {want}")
+        return per_cache
+
+
+@contextlib.contextmanager
+def cli_runners():
+    """Inside the block, the list of the Runners made (by a `cli.main`
+    call, whose Runner the caller cannot reach)."""
+    from ggnn_tpu_torch.training.runner import Runner
+
+    made, init = [], Runner.__init__
+
+    def recorded(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        made.append(self)
+
+    Runner.__init__ = recorded
+    try:
+        yield made
+    finally:
+        Runner.__init__ = init
+
+
+def check_cli_graphs(label, runners, launched, cache):
+    """The counters over a `cli.main` call, `launched`, against 2 x the
+    launches of every graph its Runners captured, the Runners' `cache`
+    ("train_graphs", "eval_graphs" or "predict_graphs") among them: the
+    CLI reached the replayed path. Returns the graph counts."""
+    graphs = [held(g.launches) for r in runners
+              for c in (r.train_graphs, r.eval_graphs, r.predict_graphs)
+              for g in c.graphs.values()]
+    want = (tuple(2 * sum(c) for c in zip(*graphs)) if graphs
+            else NO_LAUNCH)
+    counts = [r.graph_counts() for r in runners]
+    if (tuple(launched) != want or not runners
+            or not all(getattr(r, cache).graphs for r in runners)):
+        raise RuntimeError(f"{label}: launches {tuple(launched)}, 2 x its "
+                           f"graphs' {want}; graphs {counts}: not the "
+                           "replayed path")
+    return counts
+
+
+def check_graphs(label, cache, want, counts=launch_counts):
+    """Each graph of a step cache holds `want` launches a replay (a
+    six-tuple, or a function of the graph giving one): the per-step
+    prediction. Returns the distinct tuples held; at least one graph."""
+    got = [held(g.launches, counts) for g in cache.graphs.values()]
+    wanted = [want(g) if callable(want) else want
+              for g in cache.graphs.values()]
+    if not got or got != wanted:
+        raise RuntimeError(f"{label}: the {len(got)} graphs hold "
+                           f"{COUNTER_NAMES} {got}, expected {wanted}")
+    return sorted(set(got))
+
+
 def served_launches(variant, config):
     """The launches of one serving forward of `config`: B1 once a
     propagation step, or with attention edge_dot and the weighted
@@ -876,8 +1025,11 @@ def served_launches(variant, config):
 
 
 def counted_request(predictor, request, counts=launch_counts):
-    """(answer, launches, forward calls) of one request, the kernels'
-    counters set to 0 just before it and `counts()` read just after."""
+    """(answer, launches, forward calls, new graphs) of one request, the
+    kernels' counters set to 0 just before it and `counts()` read just
+    after, held to 2 x the launches of the graphs it captured (their
+    six-tuples, the last item)."""
+    captures = Captures(predictor._graphs)
     forward_calls = 0
     forward = predictor._forward
 
@@ -894,7 +1046,17 @@ def counted_request(predictor, request, counts=launch_counts):
         launched = counts()
     finally:
         del predictor._forward
-    return answer, launched, forward_calls
+    (new,) = captures.check(f"{predictor.variant} request of "
+                            f"{len(request)} graphs", launched, counts)
+    return answer, launched, forward_calls, new
+
+
+def check_forwards(label, new, per_forward):
+    """Each graph a request captured holds one forward's launches."""
+    if any(t != tuple(per_forward) for t in new):
+        raise RuntimeError(f"{label}: the graphs captured hold "
+                           f"{COUNTER_NAMES} {new}, a forward launches "
+                           f"{tuple(per_forward)}")
 
 
 def serving_requests():
@@ -993,8 +1155,10 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
                     counts=launch_counts):
     """The default `variant` (with `overrides`) served from a pickle
     checkpoint on the default device: the kernels' counters set to 0
-    before each request and `counts()` read after it, where
-    `want(forward_calls)` gives the counts expected; then the answers
+    before each request and `counts()` read after it, equal to 2 x the
+    launches of the graphs the request captured (the first request
+    captures the envelope's, or its buckets'), each graph holding
+    `want(1)`, one forward's launches; then the answers
     against the CPU's (of the requests in `cpu_sizes`, all when None) at
     `tol` and, when the 1- and 3,000-graph requests are among the `sizes`
     (all three when None), the times."""
@@ -1008,20 +1172,24 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
     cpu_predictor = Predictor.from_checkpoint(path, variant, device="cpu")
-    answers, counted, calls = {}, [], 0
+    answers, counted, captured, calls = {}, [], [], 0
     for n, req in requests.items():
-        answers[n], launched, forward_calls = counted_request(predictor, req,
-                                                              counts)
+        answers[n], launched, forward_calls, new = counted_request(
+            predictor, req, counts)
+        check_forwards(f"{variant}{tag} serving of {n} graphs", new,
+                       want(1))
         counted.append(launched)
+        captured.append(len(new))
         calls += forward_calls
-        if launched != want(forward_calls):
-            raise RuntimeError(
-                f"{variant} serving of {n} graphs ({forward_calls} forward "
-                f"calls) launched {COUNTER_NAMES} {launched}, "
-                f"expected {want(forward_calls)}")
+    if not captured[0]:
+        raise RuntimeError(f"{variant}{tag} serving: the first request "
+                           "captured no graph")
     log(f"{variant}{tag} serving: launches {COUNTER_NAMES} around "
-        f"the {sorted(requests)}-graph requests {counted}")
+        f"the {sorted(requests)}-graph requests {counted}, graphs captured "
+        f"{captured} ({want(1)} a forward)")
     return {"forward_calls": calls, "launches_by_request": counted,
+            "graphs_captured_by_request": captured,
+            "graphs": predictor.graph_count(),
             "launches": [sum(c) for c in zip(*counted)],
             **check_and_time_answers(f"{variant}{tag} serving", predictor,
                                      cpu_predictor, requests, answers,
@@ -1085,12 +1253,16 @@ def train_config(variant, overrides=None):
 def train_run(variant, epochs, corpus, log_dir, config=None,
               counts=launch_counts):
     """`epochs` epochs of `variant` through `Runner.train()` on the
-    default device: the kernels' counters set to 0 just before `train()`
-    and `counts()` read just after, every loss finite, the last validation loss
-    below that of the initial weights; per epoch the losses, MAE,
-    error_ratio, graphs/s and the median synchronised train-step time;
-    and the numpy packer alone over one training epoch. `config` (with
-    its num_epochs) replaces the variant's training config."""
+    default device, each train and validation step a replay of a CUDA
+    graph: the kernels' counters set to 0 just before `train()` and
+    `counts()` read just after, equal to 2 x the launches of the graphs
+    `train()` captured (`Captures`); the train graphs all captured in
+    epoch 1; every loss finite, the last validation loss below that of
+    the initial weights; per epoch the losses, MAE, error_ratio,
+    graphs/s, the median synchronised train-step time (a replay, its
+    batch's copy in included) and the seconds its captures took; and
+    the packer alone over one training epoch. `config` (with its
+    num_epochs) replaces the variant's training config."""
     from ggnn_tpu_torch.training.runner import Runner
 
     config = ({**config, "num_epochs": epochs} if config is not None
@@ -1108,35 +1280,67 @@ def train_run(variant, epochs, corpus, log_dir, config=None,
         f"and plan of {len(train) + len(valid):,} graphs); validation loss "
         f"of the initial weights {init_loss:.6f} (MAE {init_accs[0]:.6f})")
 
-    # Synchronised step times, per epoch.
-    step_times, epoch_marks = [], []
-    train_step, run_epoch = runner.train_step, runner.run_epoch
+    # Synchronised step times, per epoch; the captures' seconds and the
+    # train graphs after each training epoch.
+    step_times, epoch_marks, capture_s, train_graphs = [], [], [], []
+    caches = (runner.train_graphs, runner.eval_graphs)
+    run_epoch = runner.run_epoch
 
     def timed_step(batch):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        out = train_step(batch)
+        out = caches[0](batch)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - start)
         return out
 
+    def timed_capture(capture):
+        def timed(new):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            capture(new)
+            torch.cuda.synchronize()
+            if capture_s:
+                capture_s[-1] += time.perf_counter() - start
+        return timed
+
     def marked_epoch(name, processed, is_training):
         if is_training:
             epoch_marks.append(len(step_times))
-        return run_epoch(name, processed, is_training)
+            capture_s.append(0.0)
+        out = run_epoch(name, processed, is_training)
+        if is_training:
+            train_graphs.append(len(caches[0].graphs))
+        return out
 
-    runner.train_step, runner.run_epoch = timed_step, marked_epoch
+    for cache in caches:
+        cache.capture = timed_capture(cache.capture)
+    runner.train_graphs, runner.run_epoch = timed_step, marked_epoch
+    captures = Captures(*caches)
     zero_launch_counts()
     t0 = time.perf_counter()
     history = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    b1, b2, b3, w_fwd, w_bwd, dots = counts()
-    runner.train_step, runner.run_epoch = train_step, run_epoch
+    launched = counts()
+    b1, b2, b3, w_fwd, w_bwd, dots = launched
+    runner.train_graphs = caches[0]
+    del runner.run_epoch
+    for cache in caches:
+        del cache.capture
+    new_train, new_eval = captures.check(f"{variant} training", launched,
+                                         counts)
     log(f"{variant} training: {len(history)} epochs, {runner.train_step_id} "
         f"train steps, {runner.valid_step_id} validation batches in "
-        f"{train_s:.2f} s; launches B1 {b1}, B2 {b2}, B3 {b3}, weighted "
-        f"{w_fwd}, weighted transpose {w_bwd}, edge_dot {dots}")
+        f"{train_s:.2f} s; graphs {runner.graph_counts()}, train graphs "
+        f"after each epoch {train_graphs}, captured in train() "
+        f"{len(new_train)} train and {len(new_eval)} validation; launches "
+        f"B1 {b1}, B2 {b2}, B3 {b3}, weighted {w_fwd}, weighted transpose "
+        f"{w_bwd}, edge_dot {dots} (2 x the new graphs')")
+    if not new_train or len(set(train_graphs)) != 1:
+        raise RuntimeError(f"{variant} training: train graphs after each "
+                           f"epoch {train_graphs}: not all captured in "
+                           "epoch 1")
 
     epoch_marks.append(len(step_times))
     epochs_out = []
@@ -1148,14 +1352,16 @@ def train_run(variant, epochs, corpus, log_dir, config=None,
                "train_graphs_per_s": tr[3], "valid_loss": va[0],
                "valid_mae": va[1][0], "valid_error_ratio": va[2][0],
                "valid_graphs_per_s": va[3], "train_steps": len(times),
-               "median_train_step_ms": statistics.median(times) * 1e3}
+               "median_train_step_ms": statistics.median(times) * 1e3,
+               "capture_seconds": capture_s[i]}
         epochs_out.append(rec)
         log(f"{variant} training epoch {rec['epoch']}: train loss "
             f"{tr[0]:.6f} MAE {tr[1][0]:.6f} error_ratio {tr[2][0]:.4f} "
             f"{tr[3]:.1f} graphs/s | valid loss {va[0]:.6f} MAE "
             f"{va[1][0]:.6f} error_ratio {va[2][0]:.4f} {va[3]:.1f} "
             f"graphs/s | median train step {rec['median_train_step_ms']:.3f}"
-            f" ms (synchronised, {len(times)} steps)")
+            f" ms (synchronised, {len(times)} steps) | captures "
+            f"{capture_s[i]:.3f} s of the epoch")
         values = [tr[0], va[0], *tr[1], *va[1]]
         if not np.isfinite(values).all():
             raise RuntimeError(f"{variant} epoch {rec['epoch']}: "
@@ -1190,6 +1396,9 @@ def train_run(variant, epochs, corpus, log_dir, config=None,
         "train_epoch_seconds_median": epoch_s,
         "train_steps": runner.train_step_id,
         "valid_batches": runner.valid_step_id,
+        "graphs": runner.graph_counts(), "train_graphs_by_epoch": train_graphs,
+        "graphs_captured_in_train": {"train": new_train,
+                                     "validation": new_eval},
         "initial_valid_loss": init_loss, "train_seconds": train_s,
         "setup_seconds": setup_s, "epochs": epochs_out}
 
@@ -1207,26 +1416,33 @@ def packer_kind(runner) -> str:
             else "numpy")
 
 
+def check_runner_graphs(label, runner, step, forward,
+                        counts=launch_counts):
+    """Each train graph of `runner` holds `step` launches a replay and
+    each validation graph `forward` (six-tuples, or functions of the
+    graph giving one)."""
+    held_by = {"train": check_graphs(f"{label}, train graphs",
+                                     runner.train_graphs, step, counts),
+               "validation": check_graphs(f"{label}, validation graphs",
+                                          runner.eval_graphs, forward,
+                                          counts)}
+    log(f"{label}: launches a replay {COUNTER_NAMES} {held_by}")
+    return held_by
+
+
 def training_phase(corpus, log_dir):
-    """The sparse variant at the 20k-node budget: 8 B1 launches per train
-    step and per validation batch, 7 B2 launches per train step, no
-    B3."""
+    """The sparse variant at the 20k-node budget: each train graph holds
+    8 B1 and 7 B2 launches, each validation graph 8 B1, no B3."""
     runner, result = train_run("sparse", 3, corpus, log_dir)
     assert runner.config["batch_size"] == 20000
     assert runner.config["edge_weight_dropout_keep_prob"] == 0.8
     steps = sum(runner.config["layer_timesteps"])
-    want_b1 = steps * (result["train_steps"] + result["valid_batches"])
-    want_b2 = (steps - 1) * result["train_steps"]
-    log(f"training: launches B1 expected {steps} x ({result['train_steps']}"
-        f" + {result['valid_batches']}) = {want_b1}, B2 {steps - 1} x "
-        f"{result['train_steps']} = {want_b2}, B3 0")
-    b1, b2 = result["launches_b1"], result["launches_b2"]
-    if (b1 != want_b1 or b2 != want_b2 or b1 == 0 or b2 == 0
-            or result["launches_b3"] or result["launches_weighted"]
-            or result["launches_weighted_transpose"]
-            or result["launches_edge_dot"]):
-        raise RuntimeError("the training path did not launch the kernels "
-                           "the expected number of times")
+    result["launches_a_replay"] = check_runner_graphs(
+        "sparse training", runner,
+        route_launches("combined", False, steps, True),
+        route_launches("combined", False, steps, False))
+    if not (result["launches_b1"] and result["launches_b2"]):
+        raise RuntimeError("the training path did not launch B1 and B2")
     return runner, result
 
 
@@ -1236,6 +1452,8 @@ def dense_training_phase(corpus, log_dir):
     for variant in DENSE_VARIANTS:
         runners[variant], results[variant] = train_run(
             variant, 3, corpus, os.path.join(log_dir, variant))
+        check_runner_graphs(f"{variant} training", runners[variant],
+                            NO_LAUNCH, NO_LAUNCH)
         counts = [results[variant][f"launches_{k}"] for k in COUNTERS]
         if any(counts):
             raise RuntimeError(f"{variant} training launched "
@@ -1254,29 +1472,28 @@ def gcn_serving_phase(ckpt_dir):
 
 
 def gcn_training_phase(corpus, log_dir):
-    """3 epochs of each GCN variant. `gcn` at 20,000-node batches: the
-    weighted kernel once a layer per train step and validation batch,
-    its transpose once a layer but the first per train step, no B1, B2
-    or B3; `gcn_blocked`: no hand kernel."""
+    """3 epochs of each GCN variant. `gcn` at 20,000-node batches: each
+    train graph holds the weighted kernel once a layer and its transpose
+    once a layer but the first, each validation graph the weighted
+    kernel once a layer, no B1, B2 or B3; `gcn_blocked`: no hand
+    kernel."""
     runners, results = {}, {}
     for variant in GCN_VARIANTS:
         runners[variant], result = train_run(
             variant, 3, corpus, os.path.join(log_dir, variant))
         results[variant] = result
-        counts = [result[f"launches_{k}"] for k in COUNTERS]
-        want = [0] * len(COUNTERS)
+        step = forward = NO_LAUNCH
         if variant == "gcn":
             config = runners[variant].config
             assert config["batch_size"] == 20000
             layers = config["num_timesteps"]
-            want[3] = layers * (result["train_steps"]
-                                + result["valid_batches"])
-            want[4] = (layers - 1) * result["train_steps"]
-        log(f"{variant} training: launches {COUNTER_NAMES} "
-            f"{counts}, expected {want}")
-        if counts != want or (variant == "gcn" and not all(want[3:5])):
-            raise RuntimeError(f"{variant} training launched the kernels "
-                               f"{counts} times, expected {want}")
+            step, forward = (0, 0, 0, layers, layers - 1, 0), \
+                (0, 0, 0, layers, 0, 0)
+        result["launches_a_replay"] = check_runner_graphs(
+            f"{variant} training", runners[variant], step, forward)
+        counts = [result[f"launches_{k}"] for k in COUNTERS]
+        if variant == "gcn" and not all(counts[3:5]):
+            raise RuntimeError(f"gcn training launched {counts}")
     return runners, results
 
 
@@ -1413,10 +1630,11 @@ def async_serving_phase(ckpt_dir):
 
 
 def async_training_phase(corpus, log_dir):
-    """3 epochs of `async` with configs/async_tpu.json: per train step B1
-    once a substep and B2 once a substep but the first of round 0, per
-    validation batch B1 once a substep, counted from the packed batches
-    (packed once, the same every epoch); no B3 and no weighted launch."""
+    """3 epochs of `async` with configs/async_tpu.json: each train graph
+    holds B1 once a substep and B2 once a substep but the first of round
+    0, each validation graph B1 once a substep, counted from the graph's
+    batch; the batches those the Runner ran (packed once, the same every
+    epoch); no B3 and no weighted launch."""
     runner, result = train_run("async", 3, corpus, log_dir)
     config = runner.config
     assert config["num_nodes"] == 10000
@@ -1430,20 +1648,20 @@ def async_training_phase(corpus, log_dir):
         raise RuntimeError("the async batches are not those the Runner ran")
     per_batch = {name: [async_launches(b, config) for b in batches]
                  for name, batches in splits.items()}
-    want = [epochs * sum(b1 for b1, _ in per_batch["train"]
-                         + per_batch["valid"]),
-            epochs * sum(b2 for _, b2 in per_batch["train"]), 0, 0, 0, 0]
     plain = sum(b.seg_rounds is None for batches in splits.values()
                 for b in batches)
     got = [result[f"launches_{k}"] for k in COUNTERS]
     log(f"async training: substeps per train batch "
         f"{[b1 for b1, _ in per_batch['train']]}, per validation batch "
         f"{[b1 for b1, _ in per_batch['valid']]} ({plain} batches on the "
-        f"plain path); launches {COUNTER_NAMES} {got}, "
-        f"expected {want}")
-    if got != want or not all(want[:2]):
+        f"plain path); launches {COUNTER_NAMES} {got}")
+    result["launches_a_replay"] = check_runner_graphs(
+        "async training", runner,
+        lambda g: async_launches(g.static, config) + (0, 0, 0, 0),
+        lambda g: (async_launches(g.static, config)[0], 0, 0, 0, 0, 0))
+    if not all(got[:2]):
         raise RuntimeError(f"async training launched the kernels {got} "
-                           f"times, expected {want}")
+                           "times")
     result["substeps_per_batch"] = {name: [b1 for b1, _ in v]
                                     for name, v in per_batch.items()}
     result["plain_path_batches"] = plain
@@ -1964,23 +2182,17 @@ def attention_serving_phase(ckpt_dir):
 
 def attention_training_phase(corpus, log_dir):
     """3 epochs of configs/sparse_attention.json at 20,000-node batches:
-    per train step and validation batch the launches `route_launches`
-    gives, B1, B2 and B3 none."""
+    each train and validation graph holds the launches `route_launches`
+    gives a train step and a forward, B1, B2 and B3 none."""
     config = attention_config()
     runner, result = train_run("sparse", 3, corpus, log_dir, config=config)
     assert runner.config["use_propagation_attention"]
     assert runner.config["batch_size"] == 20000
     steps = sum(config["layer_timesteps"])
-    fwd = route_launches("combined", True, steps, False)
-    trn = route_launches("combined", True, steps, True)
-    want = [t * result["train_steps"] + f * result["valid_batches"]
-            for f, t in zip(fwd, trn)]
-    got = [result[f"launches_{k}"] for k in COUNTERS]
-    log(f"attention training: launches {COUNTER_NAMES} {got}, expected "
-        f"{want} ({trn} a train step, {fwd} a validation batch)")
-    if got != want:
-        raise RuntimeError(f"attention training launched {got}, expected "
-                           f"{want}")
+    result["launches_a_replay"] = check_runner_graphs(
+        "attention training", runner,
+        route_launches("combined", True, steps, True),
+        route_launches("combined", True, steps, False))
     return runner, result
 
 
@@ -2042,8 +2254,8 @@ def tf1_pickle(case, ckpt_dir):
 
 def tf1_phase(ckpt_dir):
     """Each TF1 fixture as a reference pickle, served on the card over
-    its validation corpus: the launches of `served_launches` a forward,
-    the answers against the CPU port (1e-4) and against the fixture: the
+    its validation corpus: each graph captured holds `served_launches`,
+    one forward's launches, and the counters 2 x theirs; the answers against the CPU port (1e-4) and against the fixture: the
     reference's outputs of its first validation batch (last task), or,
     where the fixture holds none (gcn_default), its validation epoch's
     masked MAE, each at 1e-4."""
@@ -2063,12 +2275,9 @@ def tf1_phase(ckpt_dir):
         valid = synthetic_molecules(corpus["n_valid"],
                                     seed=corpus["seed"] + 1,
                                     num_targets=corpus["num_targets"])
-        got, counts, calls = counted_request(card, valid)
-        want_counts = per_request(served_launches(variant,
-                                                  card.config))(calls)
-        if counts != want_counts:
-            raise RuntimeError(f"TF1 {case} launched {COUNTER_NAMES} "
-                               f"{counts}, expected {want_counts}")
+        got, counts, calls, new = counted_request(card, valid)
+        check_forwards(f"TF1 {case}", new, served_launches(variant,
+                                                           card.config))
         want = cpu(valid)
         err_cpu = float(np.abs(got - want).max())
         np.testing.assert_allclose(got, want, rtol=TOL_SERVING,
@@ -2091,11 +2300,13 @@ def tf1_phase(ckpt_dir):
                                    atol=TOL_SERVING)
         results[case] = {
             "variant": variant, "graphs": len(valid), "launches": counts,
-            "forward_calls": calls, "max_abs_err_vs_cpu": err_cpu,
+            "forward_calls": calls, "graphs_captured": len(new),
+            "max_abs_err_vs_cpu": err_cpu,
             "max_abs_err_vs_fixture": err_ref,
             "fixture_holds": "outputs" if ref_out.size else "valid MAE"}
         log(f"TF1 {case} ({variant}): {len(valid)} graphs served on the "
-            f"card, launches {COUNTER_NAMES} {counts}; max abs err vs CPU "
+            f"card, {len(new)} graphs captured, launches {COUNTER_NAMES} "
+            f"{counts}; max abs err vs CPU "
             f"{err_cpu:.3e}, vs the fixture's "
             f"{results[case]['fixture_holds']} {err_ref:.3e}")
     return results
@@ -2172,12 +2383,14 @@ def load_clients(base, pool, want, seconds, clients=SERVER_CLIENTS):
 
 def server_phase(ckpt_dir):
     """A `PredictionServer` on 127.0.0.1, port 0, over the default sparse
-    model and over configs/sparse_attention.json (random weights): one
-    client sending 20 sequential one-graph requests (p50 over HTTP), then
-    16 clients sending one-graph requests for 5 s (requests/s, p50, p99,
-    device calls and coalesced requests from /healthz), every answer
-    within 1e-5 of the Predictor's on the same graphs and the kernels'
-    launches `served_launches` times the device calls; and, for the
+    model and over configs/sparse_attention.json (random weights): its
+    warm-up, which captures the envelope's graph (the counters 2 x its
+    launches, `served_launches` a forward); one client sending 20
+    sequential one-graph requests (p50 over HTTP), then 16 clients
+    sending one-graph requests for 5 s (requests/s, p50, p99, device
+    calls and coalesced requests from /healthz), every answer within
+    1e-5 of another card Predictor's on the same graphs, and no kernel
+    launched by the traffic (every device call a replay); and, for the
     default model, 16 clients for 2 s with `max_coalesced_graphs` 4: no
     forward over more than 4 graphs."""
     from ggnn_tpu_torch.data.synthetic import synthetic_molecules
@@ -2192,10 +2405,19 @@ def server_phase(ckpt_dir):
         _, path = random_checkpoint("sparse", ckpt_dir, overrides,
                                     tag=f"_server_{label}")
         predictor = Predictor.from_checkpoint(path, "sparse")
-        want = predictor(pool)
+        want = Predictor.from_checkpoint(path, "sparse")(pool)
         per_forward = served_launches("sparse", predictor.config)
         server = PredictionServer(predictor, port=0)
+        captures = Captures(predictor._graphs)
+        zero_launch_counts()
         server.warmup()
+        torch.cuda.synchronize()
+        warm_counts = launch_counts()
+        (new,) = captures.check(f"{label} server warm-up", warm_counts)
+        check_forwards(f"{label} server warm-up", new, per_forward)
+        if len(new) != 1:
+            raise RuntimeError(f"{label} server: the warm-up captured "
+                               f"{len(new)} graphs, not the envelope's")
         server.start()
         host, port = server.address
         base = f"http://{host}:{port}"
@@ -2209,9 +2431,9 @@ def server_phase(ckpt_dir):
                                                     - want[:, i]).max()))
             torch.cuda.synchronize()
             seq_counts = launch_counts()
-            if seq_counts != per_request(per_forward)(20):
+            if seq_counts != NO_LAUNCH:
                 raise RuntimeError(f"{label} server: 20 sequential requests "
-                                   f"launched {seq_counts}")
+                                   f"launched {seq_counts}: not replays")
             before = http_health(base)
             zero_launch_counts()
             load = load_clients(base, pool, want, SERVER_SECONDS)
@@ -2223,11 +2445,12 @@ def server_phase(ckpt_dir):
         calls = after["device_calls"] - before["device_calls"]
         coalesced = (after["coalesced_requests"]
                      - before["coalesced_requests"])
-        if counts != per_request(per_forward)(calls):
+        if counts != NO_LAUNCH or predictor.graph_count() != 1:
             raise RuntimeError(
                 f"{label} server: {calls} device calls launched "
-                f"{COUNTER_NAMES} {counts}, expected "
-                f"{per_request(per_forward)(calls)}")
+                f"{COUNTER_NAMES} {counts} and left "
+                f"{predictor.graph_count()} graphs: not replays of the "
+                "warm-up's")
         if not calls < load["requests"]:
             raise RuntimeError(f"{label} server: {calls} device calls for "
                                f"{load['requests']} requests: no coalescing")
@@ -2236,6 +2459,7 @@ def server_phase(ckpt_dir):
             raise RuntimeError(f"{label} server: an answer is {worst:.3e} "
                                "off the Predictor's")
         results[label] = {
+            "warmup_launches": warm_counts,
             "sequential_p50_ms": percentile_ms(sequential, 50),
             "sequential_launches": seq_counts, **load,
             "device_calls": calls, "coalesced_requests": coalesced,
@@ -2247,8 +2471,8 @@ def server_phase(ckpt_dir):
             f"{SERVER_SECONDS} s, {load['requests_per_s']:.1f} requests/s, "
             f"p50 {load['p50_ms']:.3f} ms, p99 {load['p99_ms']:.3f} ms, "
             f"{calls} device calls, {coalesced} coalesced requests; "
-            f"launches {COUNTER_NAMES} {counts}; max abs err vs the "
-            f"Predictor {worst:.3e}")
+            f"launches {COUNTER_NAMES} at the warm-up {warm_counts}, by the "
+            f"traffic {counts}; max abs err vs the Predictor {worst:.3e}")
         if label == "sparse":
             results["sparse_capped"] = capped_server(predictor, pool, want)
     return results
@@ -2314,8 +2538,9 @@ def export_phase(ckpt_dir):
     """Each of EXPORTED (the default configs, random weights) exported on
     the CPU (`export_predictor` of a CPU Predictor: seconds, bytes) and
     loaded on the card (`load_predictor`): the 1- and 300-graph requests
-    through the artifact launch what the live card Predictor launches
-    (`served_launches` a forward), their answers within 1e-6 of the live
+    through the artifact capture what the live card Predictor captures,
+    each graph holding `served_launches`, one forward's launches (the
+    counters 2 x the graphs'), their answers within 1e-6 of the live
     card Predictor's and within 1e-4 of the artifact on the CPU (async:
     the 1-graph request only, its plain path takes seconds an envelope
     on the CPU); the 3,000-graph request timed through the artifact and
@@ -2349,15 +2574,17 @@ def export_phase(ckpt_dir):
         rec = {"export_s": export_s, "load_s": load_s,
                "bytes": os.path.getsize(artifact), "requests": {}}
         for n in (1, 300):
-            got, counts, calls = counted_request(card, requests[n])
-            want, live_counts, live_calls = counted_request(live,
-                                                            requests[n])
-            expected = per_request(per_forward)(calls)
-            if counts != expected or live_counts != expected:
+            got, counts, calls, new = counted_request(card, requests[n])
+            want, live_counts, _, live_new = counted_request(live,
+                                                             requests[n])
+            check_forwards(f"{label} artifact, {n} graphs", new,
+                           per_forward)
+            if counts != live_counts or len(new) != len(live_new):
                 raise RuntimeError(
                     f"{label} artifact, {n} graphs: launched "
-                    f"{COUNTER_NAMES} {counts} ({calls} forwards), the live "
-                    f"Predictor {live_counts}, expected {expected}")
+                    f"{COUNTER_NAMES} {counts} ({len(new)} graphs "
+                    f"captured), the live Predictor {live_counts} "
+                    f"({len(live_new)})")
             err_live = float(np.abs(got - want).max())
             np.testing.assert_allclose(got, want, rtol=TOL_ARTIFACT,
                                        atol=TOL_ARTIFACT)
@@ -2368,6 +2595,7 @@ def export_phase(ckpt_dir):
                 np.testing.assert_allclose(got, cpu_want, rtol=TOL_SERVING,
                                            atol=TOL_SERVING)
             rec["requests"][n] = {"launches": counts, "forward_calls": calls,
+                                  "graphs_captured": len(new),
                                   "max_abs_err_vs_live": err_live,
                                   "bit_equal_to_live": err_live == 0.0,
                                   "max_abs_err_vs_cpu_artifact": err_cpu}
@@ -2665,21 +2893,21 @@ def bf16_serving_phase(ckpt_dir):
 
 def bf16_training_phase(corpus, log_dir):
     """3 epochs of configs/sparse_wide_bf16.json (20,000-node batches,
-    edge-weight dropout 0.8) on the card: B1's bf16 instance 8 times a
-    train step and a validation batch, B2's 7 times a train step, no
-    other bf16 launch; then a profile of its train step on a 20k-node
-    batch."""
+    edge-weight dropout 0.8) on the card: each train graph holds B1's
+    bf16 instance 8 times and B2's 7 times, each validation graph B1's
+    8 times, no other bf16 launch; then a profile of its train step on a
+    20k-node batch."""
     runner, result = train_run("sparse", 3, corpus, log_dir,
                                config=bf16_config(),
                                counts=bf16_launch_counts)
     steps = sum(runner.config["layer_timesteps"])
-    want_b1 = steps * (result["train_steps"] + result["valid_batches"])
-    want_b2 = (steps - 1) * result["train_steps"]
+    result["launches_a_replay"] = check_runner_graphs(
+        "sparse_wide_bf16 training", runner, (steps, steps - 1, 0, 0, 0, 0),
+        (steps, 0, 0, 0, 0, 0), bf16_launch_counts)
     got = [result[f"launches_{k}"] for k in COUNTERS]
-    if got != [want_b1, want_b2, 0, 0, 0, 0] or want_b2 == 0:
+    if not all(got[:2]):
         raise RuntimeError(f"sparse_wide_bf16 training launched bf16 "
-                           f"{COUNTER_NAMES} {got}, expected "
-                           f"[{want_b1}, {want_b2}, 0, 0, 0, 0]")
+                           f"{COUNTER_NAMES} {got}")
     result["profile"] = profile_phase(
         runner, first_batch(runner, is_20k_batch), label="sparse_wide_bf16")
     return runner, result
@@ -2766,8 +2994,9 @@ def bf16_dense_phase(step_corpus, ckpt_dir, step_dir, f32_forward):
 
 def bf16_export_phase(ckpt_dir):
     """configs/sparse_wide_bf16.json exported on the CPU and loaded on the
-    card: the 1- and 300-graph requests launch the bf16 instances the
-    live card Predictor launches, answers within TOL_ARTIFACT of it (the
+    card: the 1- and 300-graph requests capture graphs holding the bf16
+    instances a live forward launches, as the live card Predictor's do,
+    answers within TOL_ARTIFACT of it (the
     program runs cuBLAS's bf16 product through the `product_f32` op, as
     the live model does) and within TOL_BF16_SERVING of the artifact on
     the CPU."""
@@ -2788,12 +3017,14 @@ def bf16_export_phase(ckpt_dir):
     rec = {"export_s": export_s, "bytes": os.path.getsize(artifact),
            "requests": {}}
     for n in (1, 300):
-        got, counts, calls = counted_request(card, requests[n],
-                                             bf16_launch_counts)
-        want, live_counts, _ = counted_request(live, requests[n],
-                                               bf16_launch_counts)
+        got, counts, calls, new = counted_request(card, requests[n],
+                                                  bf16_launch_counts)
+        want, live_counts, _, _ = counted_request(live, requests[n],
+                                                  bf16_launch_counts)
         steps = sum(live.config["layer_timesteps"])
-        if counts != live_counts or counts != (steps * calls, 0, 0, 0, 0, 0):
+        check_forwards(f"bf16 artifact, {n} graphs", new,
+                       (steps, 0, 0, 0, 0, 0))
+        if counts != live_counts:
             raise RuntimeError(f"bf16 artifact, {n} graphs: launched "
                                f"{counts}, the live Predictor {live_counts}")
         err_live = float(np.abs(got - want).max())
@@ -2833,39 +3064,42 @@ def params_of(runner):
     return {n: p.detach().cpu() for n, p in runner.params.named_parameters()}
 
 
-def sparse_launches(steps, train_steps, eval_batches):
-    """The launches (`route_launches` order) of `train_steps` train steps
-    and `eval_batches` forwards of the combined lane without attention:
-    B1 once a propagation step of each, B2 once a step but the first of
-    each train step."""
-    step = route_launches("combined", False, steps, True)
-    forward = route_launches("combined", False, steps, False)
-    return tuple(train_steps * a + eval_batches * b
-                 for a, b in zip(step, forward))
-
-
-def counted_train(label, runner, base_steps=(0, 0)):
-    """`runner.train()` on the card, the counters set to 0 just before
-    and read just after, held to `sparse_launches` over the steps and
-    validation batches the run added to `base_steps`; every loss
-    finite."""
+def counted_sparse_train(label, runner, counts=launch_counts):
+    """(history, launches, seconds) of `runner.train()` on the card, the
+    counters set to 0 just before and read just after, equal to 2 x the
+    launches of the graphs it captured; each train graph holding a
+    combined-lane step's launches without attention (B1 once a
+    propagation step, B2 once a step but the first) and each validation
+    graph a forward's."""
+    captures = Captures(runner.train_graphs, runner.eval_graphs)
     zero_launch_counts()
     t0 = time.perf_counter()
     history = runner.train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = launch_counts()
+    launched = counts()
+    new = captures.check(label, launched, counts)
+    steps = sum(runner.config["layer_timesteps"])
+    check_runner_graphs(label, runner,
+                        route_launches("combined", False, steps, True),
+                        route_launches("combined", False, steps, False),
+                        counts)
+    log(f"{label}: {len(history)} epochs in {seconds:.2f} s, "
+        f"{[len(n) for n in new]} train and validation graphs captured; "
+        f"launches {COUNTER_NAMES} {launched}")
+    return history, launched, seconds
+
+
+def counted_train(label, runner, base_steps=(0, 0)):
+    """`counted_sparse_train` of `runner` over the steps and validation
+    batches the run adds to `base_steps`; every loss finite."""
+    history, launched, seconds = counted_sparse_train(f"extras {label}",
+                                                      runner)
     train_steps = runner.train_step_id - base_steps[0]
     valid_batches = runner.valid_step_id - base_steps[1]
-    steps = sum(runner.config["layer_timesteps"])
-    want = sparse_launches(steps, train_steps, valid_batches)
-    log(f"extras {label}: {len(history)} epochs, {train_steps} train steps, "
-        f"{valid_batches} validation batches in {seconds:.2f} s; launches "
-        f"{COUNTER_NAMES} {launched}, expected {want}; train graphs/s "
+    log(f"extras {label}: {train_steps} train steps, {valid_batches} "
+        f"validation batches; train graphs/s "
         f"{[round(e['train_results'][3], 1) for e in history]}")
-    if launched != want:
-        raise RuntimeError(f"extras {label} launched {launched}, expected "
-                           f"{want}")
     for entry in history:
         if not np.isfinite([entry["train_results"][0],
                             entry["valid_results"][0]]).all():
@@ -3007,9 +3241,13 @@ def trace_counts(path):
 def profile_cli_phase(work_dir):
     """`cli.main(["sparse", "--profile", DIR, ...])` for one epoch on the
     card at configs/sparse_tpu.json over `--synthetic 6000`: one Chrome
-    trace, whose B1 and B2 op calls and `segment_sum_kernel` launches
-    (B1 and B2 share it) equal the counters of the profiled training
-    epoch."""
+    trace of the profiled training epoch, whose steps are replays of the
+    graph its first step captured. Its B1 and B2 op calls are twice the
+    counters over the epoch (the warm-up step's and the capture's
+    dispatches, each recorded again where the step cache's operator
+    recorder, a dispatch mode, calls it on); its `segment_sum_kernel` launches (B1 and B2
+    share it) are the warm-up step's, attributed to their ops, and each
+    replay's, which the graph launches."""
     from ggnn_tpu_torch import cli
     from ggnn_tpu_torch.training.runner import Runner
 
@@ -3019,10 +3257,13 @@ def profile_cli_phase(work_dir):
 
     def counted(self, name, processed, is_training):
         before = launch_counts()
+        captures = Captures(self.train_graphs)
         result = run_epoch(self, name, processed, is_training)
         torch.cuda.synchronize()
+        (new,) = captures.new()
         by_epoch[name] = (tuple(a - b for a, b in
-                                zip(launch_counts(), before)), result[4])
+                                zip(launch_counts(), before)), result[4],
+                          [held(g.launches) for g in new])
         return result
 
     Runner.run_epoch = counted
@@ -3041,28 +3282,41 @@ def profile_cli_phase(work_dir):
     traces = os.listdir(profile_dir)
     if rc != 0 or len(traces) != 1:
         raise RuntimeError(f"cli --profile returned {rc}, wrote {traces}")
-    (b1, b2, *others), steps = by_epoch["epoch 1 (training)"]
+    (b1, b2, *others), steps, new = by_epoch["epoch 1 (training)"]
     ops, kernels, attributed = trace_counts(os.path.join(profile_dir,
                                                          traces[0]))
+    # Every step of the epoch replays the one graph its first step
+    # captured, after that graph's warm-up step and capture.
+    replayed = steps * sum(sum(t[:2]) for t in new)
     log(f"extras profile: cli.main --profile {seconds:.2f} s, launches "
         f"{COUNTER_NAMES} {launched}; the profiled epoch: {steps} steps, "
-        f"B1 {b1}, B2 {b2}; its trace "
+        f"{len(new)} graph captured ({new}), B1 {b1}, B2 {b2}; its trace "
         f"({os.path.getsize(os.path.join(profile_dir, traces[0]))} bytes): "
         f"ops {dict(ops)}, segment_sum_kernel "
-        f"{kernels['segment_sum_kernel']}, attributed by launch "
-        f"{attributed}; {sum(kernels.values())} kernels in all")
-    want_ops = {"ggnn_tpu_torch::gather_segment_sum": b1,
-                "ggnn_tpu_torch::segment_scatter_sum": b2}
-    if (b1 == 0 or b2 == 0 or any(others) or ops != want_ops
-            or kernels["segment_sum_kernel"] != b1 + b2):
+        f"{kernels['segment_sum_kernel']} (warm-up {(b1 + b2) // 2}, "
+        f"replays {replayed}), attributed by launch {attributed}; "
+        f"{sum(kernels.values())} kernels in all")
+    # The warm-up step and the capture run under the cache's operator
+    # recorder (`utils/timing.py:_LastOp`), a dispatch mode: each op the
+    # step dispatches is recorded once as called and once as the mode
+    # calls it on.
+    want_ops = {"ggnn_tpu_torch::gather_segment_sum": 2 * b1,
+                "ggnn_tpu_torch::segment_scatter_sum": 2 * b2}
+    if (len(new) != 1 or b1 == 0 or b2 == 0 or any(others)
+            or (b1, b2) != (2 * new[0][0], 2 * new[0][1])
+            or ops != want_ops
+            or kernels["segment_sum_kernel"] != (b1 + b2) // 2 + replayed):
         raise RuntimeError("the profiled epoch's trace does not name B1 "
-                           "and B2 as often as the counters read")
+                           "and B2 as often as its warm-up, capture and "
+                           "replays launch them")
     if attributed is not None and attributed != {
-            "ggnn_tpu_torch::gather_segment_sum": b1,
-            "ggnn_tpu_torch::segment_scatter_sum": b2}:
+            "ggnn_tpu_torch::gather_segment_sum": b1 // 2,
+            "ggnn_tpu_torch::segment_scatter_sum": b2 // 2,
+            "unattributed": replayed}:
         raise RuntimeError(f"the trace attributes {attributed} kernels")
     return {"seconds": seconds, "launches": list(launched),
             "epoch_steps": steps, "epoch_b1": b1, "epoch_b2": b2,
+            "epoch_graphs": new, "trace_replayed_kernels": replayed,
             "trace_ops": dict(ops),
             "trace_segment_sum_kernels": kernels["segment_sum_kernel"],
             "trace_attributed": attributed,
@@ -3071,9 +3325,10 @@ def profile_cli_phase(work_dir):
 
 def evaluate_phase(best, corpus, log_dir):
     """`Runner.predict` on the card over the validation corpus from the
-    run's best pickle, against the card `Predictor` of it and the CPU
-    Runner's predict; then `cli.main([... "--restore", best,
-    "--evaluate"])`."""
+    run's best pickle, after a warm-up call that captures its forward's
+    graph (B1 once a propagation step): a replay a batch, no kernel
+    launched; against the card `Predictor` of it and the CPU Runner's
+    predict; then `cli.main([... "--restore", best, "--evaluate"])`."""
     from ggnn_tpu_torch import cli
     from ggnn_tpu_torch.serving import Predictor
     from ggnn_tpu_torch.training.runner import Runner
@@ -3086,17 +3341,21 @@ def evaluate_phase(best, corpus, log_dir):
                            restore=best, device=dev)
                for dev in ("cuda", "cpu")}
     card = runners["cuda"]
-    card.predict(valid[:10])   # warm-up
+    card.predict(valid[:10])   # warm-up: captures the forward's graph
     torch.cuda.synchronize()
+    captures = Captures(card.predict_graphs)
     zero_launch_counts()
     t0 = time.perf_counter()
     got = np.concatenate(card.predict(valid), axis=1)
     seconds = time.perf_counter() - t0
     launched = launch_counts()
+    captures.check("extras Runner.predict", launched)
     batches = sum(1 for _ in card.adapter.batches(
         card.adapter.preprocess(valid, False), False))
-    want_launches = sparse_launches(sum(config["layer_timesteps"]), 0,
-                                    batches)
+    forward = check_graphs("extras Runner.predict", card.predict_graphs,
+                           route_launches("combined", False,
+                                          sum(config["layer_timesteps"]),
+                                          False))
     predictor = Predictor.from_checkpoint(best, "sparse")
     served = predictor(valid)
     cpu = np.concatenate(runners["cpu"].predict(valid), axis=1)
@@ -3104,30 +3363,35 @@ def evaluate_phase(best, corpus, log_dir):
                     float(np.abs(got - cpu).max()))
     log(f"extras evaluate: Runner.predict of {len(valid)} graphs on the "
         f"card ({batches} batches, {seconds * 1e3:.1f} ms, host clock) "
-        f"launched {COUNTER_NAMES} {launched}, expected {want_launches}; "
+        f"launched {COUNTER_NAMES} {launched}, its graphs "
+        f"{card.graph_counts()['predict']} holding {forward} a replay; "
         f"max abs error against the card Predictor {err:.3e} (limit "
         f"{TOL_PREDICT}), against the CPU Runner {err_cpu:.3e} (limit "
         f"{TOL_PREDICT_CPU})")
     if got.shape != (1, len(valid)) or not np.isfinite(got).all():
         raise RuntimeError(f"Runner.predict gave shape {got.shape}")
-    if launched != want_launches:
-        raise RuntimeError("Runner.predict did not launch B1 once a step")
     np.testing.assert_allclose(got, served, rtol=TOL_PREDICT,
                                atol=TOL_PREDICT)
     np.testing.assert_allclose(got, cpu, rtol=TOL_PREDICT_CPU,
                                atol=TOL_PREDICT_CPU)
     zero_launch_counts()
-    rc = cli.main(["sparse", "--synthetic", "60", "--config-file",
-                   os.path.join(REPO, "configs", "sparse_tpu.json"),
-                   "--config", json.dumps({"num_epochs": 2}), "--restore",
-                   best, "--evaluate", "--log_dir",
-                   os.path.join(log_dir, "cli"), "--quiet"])
+    with cli_runners() as made:
+        rc = cli.main(["sparse", "--synthetic", "60", "--config-file",
+                       os.path.join(REPO, "configs", "sparse_tpu.json"),
+                       "--config", json.dumps({"num_epochs": 2}),
+                       "--restore", best, "--evaluate", "--log_dir",
+                       os.path.join(log_dir, "cli"), "--quiet"])
+    torch.cuda.synchronize()
     cli_launched = launch_counts()
-    log(f"extras evaluate: cli.main --restore --evaluate returned {rc}, "
-        f"launches {cli_launched}")
     if rc != 0 or cli_launched[0] == 0:
         raise RuntimeError(f"cli --evaluate returned {rc}")
+    cli_graphs = check_cli_graphs("extras cli --restore --evaluate", made,
+                                  cli_launched, "predict_graphs")
+    log(f"extras evaluate: cli.main --restore --evaluate returned {rc}, "
+        f"launches {cli_launched}, graphs {cli_graphs}")
     return {"launches": list(launched), "cli_launches": list(cli_launched),
+            "launches_a_replay": forward,
+            "cli_graphs": cli_graphs,
             "batches": batches, "predict_ms": seconds * 1e3,
             "max_abs_err_vs_predictor": err, "max_abs_err_vs_cpu": err_cpu}
 
@@ -3179,22 +3443,31 @@ def ingestion_phase(work_dir):
             sizes[split] = len(json.load(f))
     log_dir = os.path.join(work_dir, "log")
     zero_launch_counts()
-    rc = cli.main(["sparse", "--data_dir", out_dir, "--config",
-                   json.dumps({"num_epochs": 1}), "--log_dir", log_dir,
-                   "--quiet"])
+    with cli_runners() as made:
+        rc = cli.main(["sparse", "--data_dir", out_dir, "--config",
+                       json.dumps({"num_epochs": 1}), "--log_dir", log_dir,
+                       "--checkpoint-every-steps", "1", "--quiet"])
+    torch.cuda.synchronize()
     launched = launch_counts()
+    graphs = check_cli_graphs("extras cli --data_dir "
+                              "--checkpoint-every-steps 1", made, launched,
+                              "train_graphs")
+    rolling = [n for n in os.listdir(log_dir)
+               if n.endswith("_model_last.pickle")]
     logs = [n for n in os.listdir(log_dir) if n.endswith("_log.json")]
     with open(os.path.join(log_dir, logs[0])) as f:
         entry = json.load(f)[0]
     losses = [entry["train_results"][0], entry["valid_results"][0]]
     log(f"extras ingestion: {sizes} molecules extracted in {extract_s:.2f} "
-        f"s; one epoch through cli.main --data_dir returned {rc}, losses "
-        f"{losses}, launches {COUNTER_NAMES} {launched}")
+        f"s; one epoch through cli.main --data_dir --checkpoint-every-steps"
+        f" 1 returned {rc}, losses {losses}, launches {COUNTER_NAMES} "
+        f"{launched}, graphs {graphs}, rolling checkpoints {rolling}")
     if (rc != 0 or sizes != {"train": 30, "valid": 10}
-            or not np.isfinite(losses).all() or not all(launched[:2])):
+            or not np.isfinite(losses).all() or not all(launched[:2])
+            or len(rolling) != 1):
         raise RuntimeError("the QM9 tarball did not train to a finite loss")
     return {"molecules": sizes, "extract_seconds": extract_s,
-            "losses": losses, "launches": list(launched)}
+            "losses": losses, "launches": list(launched), "graphs": graphs}
 
 
 def extras_phase(corpus, work_dir):
@@ -3597,42 +3870,38 @@ def native_phase(build, corpus, epoch_seconds, async_runner, work_dir):
 # now two default-mode eager runs must end bit-equal.
 TOL_GRAPH_PARAM = 1e-5
 TOL_GRAPH_LOSS = 1e-5
-# The ops.kernels counters that chip_smoke's six-tuples hold, in order
-# (`launch_counts`): the first six of `ggnn_tpu_torch.ops.kernels.COUNTERS`.
-KERNEL_COUNTERS = ("ell_spmm.launches", "ell_spmm.scatter_launches",
-                   "gather_floor.launches", "ell_spmm.weighted_launches",
-                   "ell_spmm.weighted_scatter_launches", "edge_dot.launches")
 
 
-def graph_configs():
+def graph_configs(keep=NO_DROPOUT):
     """(label, variant, config) of every configuration `train_on_device`
-    takes in phase 20, every keep probability 1.0: each variant at its
+    takes in phase 20, every keep probability 1.0 (phase 23: `keep` {},
+    each config's own dropout): each variant at its
     phase-6 training config (`dense` at bench.py's buckets [16, 32] and
     256 graphs a batch), configs/sparse_attention.json at 20,000 nodes,
     async at configs/async_tpu.json, each other route of the sparse GGNN
     with attention off and on (as phase 13 steps them) and
     configs/sparse_wide_bf16.json on the combined lane and per edge with
     attention (as phase 17 steps them)."""
-    configs = [("sparse", "sparse", train_config("sparse", NO_DROPOUT)),
-               ("dense", "dense", train_config("dense", NO_DROPOUT)),
-               ("gcn", "gcn", train_config("gcn", NO_DROPOUT)),
-               ("sparse_attention", "sparse", attention_config(NO_DROPOUT)),
-               ("blocked", "blocked", train_config("blocked", NO_DROPOUT)),
+    configs = [("sparse", "sparse", train_config("sparse", keep)),
+               ("dense", "dense", train_config("dense", keep)),
+               ("gcn", "gcn", train_config("gcn", keep)),
+               ("sparse_attention", "sparse", attention_config(keep)),
+               ("blocked", "blocked", train_config("blocked", keep)),
                ("gcn_blocked", "gcn_blocked",
-                train_config("gcn_blocked", NO_DROPOUT)),
-               ("async", "async", train_config("async", NO_DROPOUT))]
+                train_config("gcn_blocked", keep)),
+               ("async", "async", train_config("async", keep))]
     for route, keys in ROUTES.items():
         for attention in (False, True):
             configs.append((
                 f"sparse ({route}, attention {'on' if attention else 'off'})",
                 "sparse", attention_config({
                     **keys, "use_propagation_attention": attention,
-                    **NO_DROPOUT})))
-    configs.append(("sparse_wide_bf16", "sparse", bf16_config(NO_DROPOUT)))
+                    **keep})))
+    configs.append(("sparse_wide_bf16", "sparse", bf16_config(keep)))
     configs.append(("sparse_wide_bf16 (per-edge, attention on)", "sparse",
                     bf16_config({"aggregate_first": False,
                                  "use_propagation_attention": True,
-                                 **NO_DROPOUT})))
+                                 **keep})))
     return configs
 
 
@@ -3643,11 +3912,6 @@ def route_of(config):
         if all(config.get(k, True) == v for k, v in keys.items()):
             return route
     return "combined"
-
-
-def replay_tuple(launches):
-    """A {"module.counter": n} of ops.kernels as chip_smoke's six-tuple."""
-    return tuple(launches.get(k, 0) for k in KERNEL_COUNTERS)
 
 
 def step_launches_wanted(variant, config, batch, launches=route_launches):
@@ -3684,6 +3948,22 @@ def eager_epochs(runner, epochs):
     runner.train_step_id += epochs * len(steps)
     torch.cuda.synchronize()
     return float(loss), steps
+
+
+@contextlib.contextmanager
+def eager_steps(runner):
+    """Inside the block `runner.run_epoch` runs its steps eagerly: the
+    eager twin of the replayed steps, `train_step` and `eval_step` called
+    directly on each batch moved to the card."""
+    saved = runner.train_graphs, runner.eval_graphs
+    runner.train_graphs = lambda batch: runner.train_step(
+        batch.to(runner.device))
+    runner.eval_graphs = lambda batch: runner.eval_step(
+        batch.to(runner.device))
+    try:
+        yield runner
+    finally:
+        runner.train_graphs, runner.eval_graphs = saved
 
 
 def max_param_error(a, b):
@@ -3731,11 +4011,12 @@ def graph_vs_eager(label, variant, config, corpus, log_dir):
     graph_s = time.perf_counter() - t0
     counted = all_counts()
     graphs = list(graph._epochs_fn.graphs.values())
-    held = {k: sum(g.launches.get(k, 0) for g in graphs) for k in counted}
-    if any(counted[k] != 2 * held[k] for k in counted):
+    in_graphs = {k: sum(g.launches.get(k, 0) for g in graphs)
+                 for k in counted}
+    if any(counted[k] != 2 * in_graphs[k] for k in counted):
         raise RuntimeError(f"{label}: the counters read {counted} over "
                            f"train_on_device, not 2 x (a warm-up step and "
-                           f"a capture) the graphs' {held}: a replay "
+                           f"a capture) the graphs' {in_graphs}: a replay "
                            "launched eagerly")
     zero_launch_counts()
     t0 = time.perf_counter()
@@ -3752,10 +4033,9 @@ def graph_vs_eager(label, variant, config, corpus, log_dir):
             raise RuntimeError(f"{label}: the eager steps launched "
                                f"{eager_counts}, the graphs hold {replays}:"
                                " a kernel of the step is not in its graph")
-    per_step = [replay_tuple(r) for r in replays]
+    per_step = [held(r) for r in replays]
     want = [step_launches_wanted(variant, config, b) for b in steps]
-    bf16_per_step = [tuple(r.get(k + "_bf16", 0) for k in KERNEL_COUNTERS)
-                     for r in replays]
+    bf16_per_step = [held(r, bf16_launch_counts) for r in replays]
     want_bf16 = ([step_launches_wanted(variant, config, b,
                                        bf16_route_launches) for b in steps]
                  if config.get("compute_dtype") == "bfloat16"
@@ -3850,7 +4130,8 @@ def replay_busy_ms(epochs_fn, groups, steps):
 
 def graph_timing(label, runner, eager_profile):
     """(c) for one Runner: train graphs/s and ms a step of the Runner's
-    eager training epoch (`run_epoch`, its packer thread included) and of
+    eager training epoch (`run_epoch` with `eager_steps`, its packer
+    thread included) and of
     `train_on_device`'s replays (`time_epochs`, 1 and 3 epochs
     differenced over one pack), in turns (eager, graph);
     each one's idle share, 1 - busy / wall ms a step, the busy ms from a
@@ -3862,8 +4143,9 @@ def graph_timing(label, runner, eager_profile):
     for kind in ("eager", "graph"):
         if kind == "eager":
             t0 = time.perf_counter()
-            _, _, _, graphs_per_s, steps = runner.run_epoch(
-                f"{label} eager", runner.train_processed, True)
+            with eager_steps(runner):
+                _, _, _, graphs_per_s, steps = runner.run_epoch(
+                    f"{label} eager", runner.train_processed, True)
             torch.cuda.synchronize()
             epoch_s = time.perf_counter() - t0
             turns.append({"kind": kind, "graphs_per_s": graphs_per_s,
@@ -4300,7 +4582,9 @@ def nccl_rank(config, corpus, log_dir):
     """`sparse` for 1 epoch through `Runner(mesh=make_mesh(1, 1))` over a
     one-rank nccl group, against the plain Runner from the same seed,
     both under deterministic algorithms: the largest parameter
-    difference, the losses and the mesh run's launches."""
+    difference, the losses, each run's launches and, for the plain
+    Runner, whose steps replay, the launches its graphs hold and its
+    steps (the mesh Runner's steps stay eager)."""
     from ggnn_tpu_torch.parallel.mesh import make_mesh
     from ggnn_tpu_torch.training.runner import Runner
     _tf32_off()
@@ -4320,6 +4604,9 @@ def nccl_rank(config, corpus, log_dir):
             torch.cuda.synchronize()
             runs[label] = (runner, log_rec, list(launch_counts()))
     plain, meshed = runs["plain"][0], runs["mesh"][0]
+    plain_graphs = {name: [held(g.launches) for g in cache.graphs.values()]
+                    for name, cache in (("train", plain.train_graphs),
+                                        ("validation", plain.eval_graphs))}
     by_name = dict(meshed.params.named_parameters())
     diffs = [float((p.detach() - by_name[n].detach()).abs().max())
              for n, p in plain.params.named_parameters()]
@@ -4330,6 +4617,8 @@ def nccl_rank(config, corpus, log_dir):
             "valid_loss": [runs[k][1][0]["valid_results"][0]
                            for k in ("plain", "mesh")],
             "launches": {k: runs[k][2] for k in runs},
+            "plain_graphs": plain_graphs,
+            "plain_steps": [plain.train_step_id, plain.valid_step_id],
             "backend": mesh.backend, "device": str(mesh.device)}
 
 
@@ -4492,8 +4781,19 @@ def mesh_phase(corpus, step_corpus, work_dir):
         raise RuntimeError(f"the one-rank nccl mesh Runner is "
                            f"{nccl['max_abs_param_diff']} from the plain "
                            "Runner")
-    if nccl["launches"]["mesh"] != nccl["launches"]["plain"]:
-        raise RuntimeError(f"nccl mesh launches {nccl['launches']}")
+    # The plain Runner replays: its counters read 2 x its graphs'
+    # launches; the mesh Runner's eager steps launch a replay's each.
+    graphs = nccl["plain_graphs"]
+    (step,), (forward,) = graphs["train"], graphs["validation"]
+    train_steps, valid_batches = nccl["plain_steps"]
+    eager_want = [train_steps * a + valid_batches * b
+                  for a, b in zip(step, forward)]
+    if (nccl["launches"]["plain"] != [2 * (a + b)
+                                      for a, b in zip(step, forward)]
+            or nccl["launches"]["mesh"] != eager_want):
+        raise RuntimeError(f"nccl mesh launches {nccl['launches']}, the "
+                           f"plain Runner's graphs {graphs} over "
+                           f"{nccl['plain_steps']} steps")
     log(f"mesh nccl 1x1: parameters {nccl['max_abs_param_diff']:.3g} from "
         f"the plain Runner (bit-equal: {nccl['bit_equal']}), launches "
         f"{nccl['launches']['mesh']}; {nccl['seconds']:.1f} s")
@@ -4584,17 +4884,8 @@ def orbax_pair(label, config, corpus, work_dir, bf16=False):
                 rec["save_ms"][fmt] = (time.perf_counter() - t0) * 1e3
 
     def counted(name, runner):
-        steps = sum(runner.config["layer_timesteps"])
-        base = (runner.train_step_id, runner.valid_step_id)
-        zero_launch_counts()
-        history = runner.train()
-        torch.cuda.synchronize()
-        launched = counts()
-        want = sparse_launches(steps, runner.train_step_id - base[0],
-                               runner.valid_step_id - base[1])
-        if launched != want:
-            raise RuntimeError(f"orbax {label} {name}: launched {launched}, "
-                               f"expected {want} ({COUNTER_NAMES})")
+        history, launched, _ = counted_sparse_train(
+            f"orbax {label} {name}", runner, counts)
         rec["runs"][name] = {
             "launches": list(launched),
             "epochs": [e["epoch"] for e in history],
@@ -4640,11 +4931,10 @@ def orbax_pair(label, config, corpus, work_dir, bf16=False):
                                f"{[e['epoch'] for e in history]}")
         resumed[fmt] = runner_state(runner)
         predictor = Predictor.from_checkpoint(path, "sparse")
-        answer, launched, calls = counted_request(predictor, request, counts)
-        want = per_request(served_launches("sparse", config))(calls)
-        if launched != want:
-            raise RuntimeError(f"orbax {label} {fmt} serving launched "
-                               f"{launched}, expected {want}")
+        answer, launched, _, new = counted_request(predictor, request,
+                                                   counts)
+        check_forwards(f"orbax {label} {fmt} serving", new,
+                       served_launches("sparse", config))
         rec["runs"][f"serving from the {fmt}"] = {"launches": list(launched)}
         answers[fmt] = np.asarray(answer)
     checks = {
@@ -4744,7 +5034,7 @@ def orbax_fixture_check():
     for fmt, path in (("directory", ORBAX_FIXTURE),
                       ("pickle", ORBAX_FIXTURE + ".pickle")):
         predictor = Predictor.from_checkpoint(path, "sparse")
-        answer, launched, _ = counted_request(predictor, request)
+        answer, launched, _, _ = counted_request(predictor, request)
         answers[fmt], launches[fmt] = np.asarray(answer), list(launched)
     served_equal = bool(np.array_equal(answers["directory"],
                                        answers["pickle"]))
@@ -4784,6 +5074,404 @@ def orbax_phase(corpus, mesh, work_dir):
     log(f"orbax phase: {seconds:.1f} s; loaded none of {ORBAX_LIBRARIES}")
     return {"importable": present, "sparse": f32, "sparse_wide_bf16": bf16,
             "type_tp": tp_rec, "fixture": fixture, "seconds": seconds}
+
+# ------------------------------------- replayed steps (ROADMAP A20)
+
+# The seven variants' serving timing at the default envelope; phase 23's
+# per-configuration Predictors at a smaller one (1- and 300-graph
+# requests, artifacts exported on the CPU in seconds).
+SERVED_VARIANTS = ("sparse", "rgcn", "dense", "blocked", "gcn",
+                   "gcn_blocked", "async")
+REPLAY_ENVELOPE = dict(max_nodes=512, max_graphs=64)
+REPLAY_EVERY = 2           # the rolling checkpoint's steps
+REPLAY_SERVER_SECONDS = 3.0
+REPLAY_THREADS = 16
+
+
+def recorded_train(runner):
+    """(per step (split, loss, MAE), train graphs after each training
+    epoch) of `runner.train()`: every step's loss and MAE as `run_epoch`
+    reports them after the epoch's one copy."""
+    seen, counts = [], []
+    cache = runner.train_graphs
+    runner.summaries.add_batch = (
+        lambda split, step, loss, accs, tasks:
+        seen.append((split, loss, np.asarray(accs).copy())))
+    run_epoch = runner.run_epoch
+
+    def counted(name, processed, is_training):
+        out = run_epoch(name, processed, is_training)
+        if is_training:
+            counts.append(len(getattr(cache, "graphs", ())))
+        return out
+
+    runner.run_epoch = counted
+    try:
+        runner.train()
+    finally:
+        del runner.run_epoch
+    return seen, counts
+
+
+def same_params(a, b) -> bool:
+    want = dict(b.params.named_parameters())
+    return all(torch.equal(p, want[n]) for n, p in a.params.named_parameters())
+
+
+def replay_pair(label, variant, config, corpus, log_dir):
+    """(a) and (b) of phase 23 for one configuration: 2 epochs of
+    `Runner.train()`, every train and validation step a replay, a rolling
+    checkpoint every REPLAY_EVERY steps, against an eager twin (the same
+    `train()` with `eager_steps`): every per-step loss and MAE of both
+    splits and every parameter bit-equal; the train graphs after epoch 2
+    those after epoch 1; the run resumed from the last rolling
+    checkpoint bit-equal to the uninterrupted one."""
+    from ggnn_tpu_torch.training.checkpoint import load_iterator_state
+    from ggnn_tpu_torch.training.runner import Runner
+
+    config = {**config, "num_epochs": 2}
+    train, valid = corpus
+
+    def runner(name, **kwargs):
+        return Runner(variant, dict(config), train_data=train,
+                      valid_data=valid, log_dir=os.path.join(log_dir, name),
+                      quiet=True, tensorboard=False, **kwargs)
+
+    t0 = time.perf_counter()
+    graph = runner("replayed", checkpoint_every_steps=REPLAY_EVERY)
+    eager = runner("eager", checkpoint_every_steps=REPLAY_EVERY)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seen, counts = recorded_train(graph)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with eager_steps(eager):
+        want, _ = recorded_train(eager)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    parted = [i for i, (a, b) in enumerate(zip(seen, want))
+              if a[:2] != b[:2] or not np.array_equal(a[2], b[2])]
+    params_equal = same_params(graph, eager)
+    it = load_iterator_state(graph.last_model_file)
+    resumed = runner("resumed", restore=graph.last_model_file)
+    resumed.train()
+    resumed_equal = same_params(resumed, graph)
+    graphs = graph.graph_counts()
+    rec = {"steps": len(seen), "train_steps": graph.train_step_id,
+           "graphs": graphs, "train_graphs_by_epoch": counts,
+           "steps_parted": len(parted), "params_bit_equal": params_equal,
+           "resumed_from": [int(it["epoch"]), int(it["steps_done"])],
+           "resumed_bit_equal": resumed_equal, "seconds": graph_s,
+           "eager_seconds": eager_s, "setup_seconds": setup_s}
+    log(f"replay {label}: train() 2 epochs, {graph.train_step_id} train "
+        f"steps and {len(seen) - graph.train_step_id} validation steps, "
+        f"replayed in {graph_s:.2f} s (captures included), eager "
+        f"{eager_s:.2f} s, two Runners set up in {setup_s:.2f} s; graphs "
+        f"{graphs}, train graphs after each epoch "
+        f"{counts}; per-step losses and MAEs parted at {len(parted)} of "
+        f"{len(seen)} steps, parameters bit-equal {params_equal}; resumed "
+        f"from epoch {it['epoch']}, step {it['steps_done']}: bit-equal "
+        f"{resumed_equal}")
+    if (len(seen) != len(want) or parted or not params_equal
+            or len(counts) != 2 or counts[0] != counts[1] or not counts[0]
+            or not resumed_equal):
+        raise RuntimeError(f"replay {label}: the replayed train() is not "
+                           "its eager twin's")
+    return graph, rec
+
+
+def eager_twin(predictor):
+    """`predictor` with its forward run eagerly: `serve_forward` (or the
+    artifact's program) on each batch moved to the card."""
+    predictor._forward = lambda batch: predictor._serve(
+        batch.to(predictor.device)).to("cpu", copy=True).numpy()
+    return predictor
+
+
+def threads_as_serial(predictor, requests):
+    """`requests` answered by REPLAY_THREADS threads calling `predictor`
+    at once, against the same requests called serially: bit-equal."""
+    import threading
+
+    serial = [predictor(r) for r in requests]
+    got = [None] * len(requests)
+    barrier = threading.Barrier(len(requests))
+
+    def call(i):
+        barrier.wait(timeout=60)
+        got[i] = predictor(requests[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return all(g is not None and np.array_equal(g, w)
+               for g, w in zip(got, serial))
+
+
+def replay_serving(label, variant, runner, work_dir, artifact=None,
+                   export=True):
+    """(c) of phase 23 for one configuration: its trained weights saved,
+    served by `Predictor.from_checkpoint` (REPLAY_ENVELOPE) replaying its
+    forward, and by an eager twin: the 1- and 300-graph answers
+    bit-equal; REPLAY_THREADS threads calling the replayed Predictor at
+    once answered as serial calls; with `export`, the artifact exported
+    on the CPU (or `artifact`, one exported before) replayed on the card
+    against its programs run eagerly, bit-equal."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.export import export_predictor, load_predictor
+    from ggnn_tpu_torch.serving import Predictor
+
+    os.makedirs(work_dir, exist_ok=True)
+    path = os.path.join(work_dir, "weights.pickle")
+    runner._save(path)
+    requests = serving_requests()
+    small = [synthetic_molecules(n, seed=60 + n)
+             for n in (1, 5, 9, 30)] * (REPLAY_THREADS // 4)
+    replayed = Predictor.from_checkpoint(path, variant, **REPLAY_ENVELOPE)
+    eager = eager_twin(Predictor.from_checkpoint(path, variant,
+                                                 **REPLAY_ENVELOPE))
+    equal = {n: bool(np.array_equal(replayed(requests[n]),
+                                    eager(requests[n]))) for n in (1, 300)}
+    threads = threads_as_serial(replayed, small)
+    rec = {"bit_equal": equal, "threads_as_serial": threads,
+           "graphs": replayed.graph_count()}
+    if not export:
+        log(f"replay {label} serving: 1- and 300-graph answers bit-equal "
+            f"to serve_forward's {equal}, {REPLAY_THREADS} threads as "
+            f"serial calls {threads}, {rec['graphs']} graphs")
+        if not (all(equal.values()) and threads):
+            raise RuntimeError(f"replay {label}: the replayed Predictor is "
+                               "not its eager twin's")
+        return rec
+    export_s = None
+    if artifact is None:
+        artifact = os.path.join(work_dir, "served.ggnnx")
+        t0 = time.perf_counter()
+        export_predictor(Predictor.from_checkpoint(
+            path, variant, device="cpu", **REPLAY_ENVELOPE), artifact)
+        export_s = time.perf_counter() - t0
+    card = load_predictor(artifact)
+    replays = {n: card(requests[n]) for n in (1, 300)}
+    card_graphs = card.graph_count()
+    eager_twin(card)
+    artifact_equal = {n: bool(np.array_equal(replays[n], card(requests[n])))
+                      for n in (1, 300)}
+    rec.update({"artifact_bit_equal": artifact_equal, "artifact": artifact,
+                "artifact_graphs": card_graphs, "export_s": export_s})
+    exported = ("phase 16's" if export_s is None
+                else f"exported in {export_s:.2f} s")
+    log(f"replay {label} serving: 1- and 300-graph answers bit-equal to "
+        f"serve_forward's {equal}, {REPLAY_THREADS} threads as serial "
+        f"calls {threads}, {rec['graphs']} graphs; artifact ({exported}) "
+        f"bit-equal to its programs run eagerly {artifact_equal}, "
+        f"{card_graphs} graphs")
+    if not (all(equal.values()) and threads
+            and all(artifact_equal.values())):
+        raise RuntimeError(f"replay {label}: the replayed Predictor or "
+                           "artifact is not its eager twin's")
+    return rec
+
+
+def timed_requests(predictor, requests, repeats):
+    """(graphs/s of the 3,000-graph request, median of `repeats`; the
+    1-graph latency in ms, median of 20 after 5), host clock,
+    synchronised."""
+    def seconds(request):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        predictor(request)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    big = [seconds(requests[3000]) for _ in range(repeats)]
+    one = [seconds(requests[1]) for _ in range(25)][5:]
+    return 3000 / statistics.median(big), statistics.median(one) * 1e3
+
+
+def replay_serving_timing(ckpt_dir):
+    """Each of the seven variants at its default config and envelope
+    (random weights; async at 40 substeps): the 3,000-graph throughput
+    (median of 3; async 1) and the 1-graph latency (median of 20) of an
+    eager twin and of the replayed Predictor, one turn each (eager,
+    replayed), each after a 1-graph warm-up request and the replayed one
+    after a 3,000-graph one too, which captures its shapes."""
+    from ggnn_tpu_torch.serving import Predictor
+
+    requests = serving_requests()
+    out = {}
+    for variant in SERVED_VARIANTS:
+        _, path = random_checkpoint(
+            variant, ckpt_dir, ASYNC_SERVING if variant == "async" else None,
+            tag="_replay")
+        repeats = 1 if variant == "async" else 3
+        rec = {}
+        for kind in ("eager", "replayed"):
+            predictor = Predictor.from_checkpoint(path, variant)
+            # The replayed Predictor's warm-up captures its shapes.
+            if kind == "eager":
+                eager_twin(predictor)
+                predictor(requests[1])
+            else:
+                for n in (1, 3000):
+                    predictor(requests[n])
+            rec[kind] = dict(zip(("graphs_per_s_3000", "latency_1_ms"),
+                                 timed_requests(predictor, requests,
+                                                repeats)))
+            if kind == "replayed":
+                rec["graphs"] = predictor.graph_count()
+        out[variant] = rec
+        log(f"replay serving timing {variant}: 3,000 graphs eager "
+            f"{rec['eager']['graphs_per_s_3000']:.1f}, replayed "
+            f"{rec['replayed']['graphs_per_s_3000']:.1f} graphs/s; 1-graph "
+            f"latency eager {rec['eager']['latency_1_ms']:.3f}, replayed "
+            f"{rec['replayed']['latency_1_ms']:.3f} ms; {rec['graphs']} "
+            "graphs")
+    return out
+
+
+def replay_server_timing(ckpt_dir):
+    """The default sparse model behind a `PredictionServer`, over an
+    eager twin and over the replayed Predictor (one turn each): 16
+    clients of one-graph requests for REPLAY_SERVER_SECONDS, requests/s,
+    p50 and p99, every answer within TOL_SERVER of a card Predictor's."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
+    from ggnn_tpu_torch.server import PredictionServer
+    from ggnn_tpu_torch.serving import Predictor
+
+    pool = synthetic_molecules(400, seed=52)
+    _, path = random_checkpoint("sparse", ckpt_dir, tag="_replay_server")
+    want = Predictor.from_checkpoint(path, "sparse")(pool)
+    out = {}
+    for kind in ("eager", "replayed"):
+        predictor = Predictor.from_checkpoint(path, "sparse")
+        if kind == "eager":
+            eager_twin(predictor)
+        server = PredictionServer(predictor, port=0)
+        server.warmup()
+        server.start()
+        host, port = server.address
+        try:
+            load = load_clients(f"http://{host}:{port}", pool, want,
+                                REPLAY_SERVER_SECONDS)
+        finally:
+            server.shutdown()
+        if load["max_abs_err"] > TOL_SERVER:
+            raise RuntimeError(f"replay server ({kind}): an answer is "
+                               f"{load['max_abs_err']:.3e} off")
+        out[kind] = load
+    log(f"replay server timing, sparse, {SERVER_CLIENTS} clients: eager "
+        f"{out['eager']['requests_per_s']:.1f} requests/s p99 "
+        f"{out['eager']['p99_ms']:.3f} ms, replayed "
+        f"{out['replayed']['requests_per_s']:.1f} requests/s p99 "
+        f"{out['replayed']['p99_ms']:.3f} ms")
+    return out
+
+
+def replay_train_timing(runners):
+    """`train()`'s training epoch (`run_epoch`, its packer thread
+    included; the Runner's own graphs/s) of phase 6's, 11's, 12's and
+    13's Runners, eagerly (`eager_steps`) and replayed, one turn each:
+    graphs/s and ms a step, host clock, synchronised."""
+    out = {}
+    for label, runner in runners.items():
+        rec = {}
+        for kind in ("eager", "replayed"):
+            context = (eager_steps(runner) if kind == "eager"
+                       else contextlib.nullcontext())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with context:
+                _, _, _, graphs_per_s, steps = runner.run_epoch(
+                    f"{label} {kind}", runner.train_processed, True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            rec[kind] = {"graphs_per_s": graphs_per_s, "steps": steps,
+                         "ms_per_step": seconds * 1e3 / steps}
+        rec["graphs"] = runner.graph_counts()
+        out[label] = rec
+        log(f"replay train timing {label} ({rec['eager']['steps']} steps): "
+            f"eager {rec['eager']['graphs_per_s']:.1f} graphs/s "
+            f"{rec['eager']['ms_per_step']:.3f} ms a step, replayed "
+            f"{rec['replayed']['graphs_per_s']:.1f} graphs/s "
+            f"{rec['replayed']['ms_per_step']:.3f} ms a step; graphs "
+            f"{rec['graphs']}")
+    return out
+
+
+def graph_launch_floor(dev):
+    """The launch floor inside a CUDA graph: graphs of 1 and of 100
+    `ell_spmm.empty_launch` kernels captured on a side stream, each
+    replay timed by `time_ms` (device and host ms), beside one empty
+    kernel launched outside a graph."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    ell_spmm.empty_launch(dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    graphs = {}
+    for kernels in (1, 100):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            for _ in range(kernels):
+                ell_spmm.empty_launch(dev)
+        graphs[kernels] = graph
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    rec = {"outside_us": time_ms(lambda: ell_spmm.empty_launch(dev))[0]
+           * 1e3}
+    for kernels, graph in graphs.items():
+        ms, host_ms = time_ms(graph.replay)
+        rec[f"graph_{kernels}_us"] = ms * 1e3
+        rec[f"graph_{kernels}_host_us"] = host_ms * 1e3
+    rec["in_graph_us_a_kernel"] = rec["graph_100_us"] / 100
+    log(f"launch floor: an empty kernel {rec['outside_us']:.3f} us outside "
+        f"a graph; a graph of 1 replayed in {rec['graph_1_us']:.3f} us "
+        f"(host {rec['graph_1_host_us']:.3f}), of 100 in "
+        f"{rec['graph_100_us']:.3f} us (host {rec['graph_100_host_us']:.3f}"
+        f"): {rec['in_graph_us_a_kernel']:.3f} us a kernel inside a graph")
+    return rec
+
+
+def replay_phase(dev, step_corpus, runners, work_dir, async_artifact):
+    """Phase 23 (see the module docstring). `async`'s artifact check
+    replays phase 16's `async` artifact (`async_artifact`): an export of
+    its 160 substeps takes a minute on the host."""
+    start = time.perf_counter()
+    card = gpu_name_and_power()
+    checks, serving, seconds = {}, {}, {}
+    for label, variant, config in graph_configs(keep={}):
+        t0 = time.perf_counter()
+        if variant == "dense":
+            # The step corpus' 50 validation molecules fill no 256-graph
+            # bucket: `dense` would drop them all.
+            config = {**config, "drop_remainder": False}
+        directory = os.path.join(work_dir, label.replace(" ", "_"))
+        graph, checks[label] = replay_pair(label, variant, config,
+                                           step_corpus, directory)
+        t1 = time.perf_counter()
+        # The artifacts of the variants and of attention; a route's
+        # program is its forward's trace, which the live Predictor's
+        # check already holds to eager.
+        serving[label] = replay_serving(
+            label, variant, graph, os.path.join(directory, "serving"),
+            async_artifact if variant == "async" else None,
+            export="(" not in label)
+        seconds[label] = (t1 - t0, time.perf_counter() - t1)
+    log(f"replay phase: seconds a configuration (train(), serving) "
+        f"{({k: [round(x, 1) for x in v] for k, v in seconds.items()})}")
+    checks_s = time.perf_counter() - start
+    timing = {"train": replay_train_timing(runners),
+              "serving": replay_serving_timing(work_dir),
+              "server": replay_server_timing(work_dir),
+              "launch_floor": graph_launch_floor(dev)}
+    log(f"replay phase: {time.perf_counter() - start:.1f} s (checks "
+        f"{checks_s:.1f}); {card}")
+    return {"checks": checks, "serving": serving, "timing": timing,
+            "card": card, "config_seconds": seconds,
+            "seconds": time.perf_counter() - start}
 
 
 def main() -> int:
@@ -4963,6 +5651,12 @@ def main() -> int:
         os.path.join(work_dir, "on_device"))
     mesh = mesh_phase(corpus, step_corpus, os.path.join(work_dir, "mesh"))
     orbax = orbax_phase(corpus, mesh, os.path.join(work_dir, "orbax"))
+    replayed = replay_phase(
+        dev, step_corpus,
+        {"sparse": runner, "dense": dense_runners["dense"],
+         "gcn": gcn_runners["gcn"], "sparse_attention": attention_runner,
+         "async": async_runner}, os.path.join(work_dir, "replay"),
+        os.path.join(work_dir, "export", "async.ggnnx"))
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -4991,8 +5685,9 @@ def main() -> int:
         runs[f"TF1 {case} serving"] = rec["launches"]
     for label in ("sparse", "sparse_attention"):
         runs[f"{label} server"] = [
-            a + b for a, b in zip(server[label]["sequential_launches"],
-                                  server[label]["launches"])]
+            sum(c) for c in zip(server[label]["warmup_launches"],
+                                server[label]["sequential_launches"],
+                                server[label]["launches"])]
     for label in EXPORTED:
         runs[f"{label} artifact serving"] = [
             sum(c) for c in zip(*(r["launches"] for r in
@@ -5214,7 +5909,8 @@ def main() -> int:
                     "train_on_device": on_device,
                     "mesh": {k: v for k, v in mesh.items()
                              if k != "runner_corpus"},
-                    "orbax": orbax, "zstd_build": zstd}))
+                    "orbax": orbax, "replay": replayed,
+                    "zstd_build": zstd}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

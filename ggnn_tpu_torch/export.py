@@ -10,7 +10,8 @@ the port of `ggnn_tpu/export.py`.
     validation) in front of the pinned programs, so later edits to
     `ggnn_tpu_torch/models` cannot change what a deployed artifact
     computes (tests/test_torch_export.py sabotages the live model after
-    export to show it).
+    export to show it). On the card each program is replayed as a CUDA
+    graph, as JAX jits each exported call.
 
 A program is traced on the CPU, under `torch.no_grad()`, from
 `serving.serve_forward` with the parameters as inputs, so it holds no
@@ -201,32 +202,17 @@ class _Served(nn.Module):
                                           strict=True)
 
 
-def _dummy_graph(n_nodes: int, annotation_size: int, n_tasks: int) -> Dict:
-    """A minimal valid request graph: a chain of `n_nodes` vertices with
-    type-1 edges (valid for any num_edge_types >= 1)."""
-    return {
-        "targets": [[0.0] for _ in range(n_tasks)],
-        "graph": [[i, 1, i + 1] for i in range(n_nodes - 1)],
-        "node_features": [[1.0] * annotation_size for _ in range(n_nodes)],
-    }
-
-
 def _example_batches(predictor: Predictor) -> List:
     """One packed batch per shape the predictor can produce: the
     envelope's for the edge-list and async variants, one per bucket for
     the dense family (the bucket table is the shape set)."""
-    n_tasks = max(predictor.task_ids) + 1
     ann = 1  # packed feature rows are padded to hidden: width-independent
+    graphs = predictor.example_graphs(ann)
     if predictor.variant in _DENSE_FAMILY:
-        from ggnn_tpu_torch.data.packing import DENSE_BUCKET_SIZES
-        sizes = predictor.adapter._bucket_sizes()
-        if sizes is None:
-            sizes = DENSE_BUCKET_SIZES
-        graphs = [_dummy_graph(int(v), ann, n_tasks) for v in sizes]
         # `_dense_batches` packs with a request-local adapter: the live
         # one keeps its annotation width.
         return list(predictor._dense_batches(graphs, ann)[1])
-    return list(predictor._batches([_dummy_graph(2, ann, n_tasks)], ann))
+    return list(predictor._batches(graphs, ann))
 
 
 def _cpu_params(predictor: Predictor) -> Dict[str, torch.Tensor]:
@@ -316,20 +302,22 @@ class ExportedPredictor(Predictor):
 
     def _forward(self, batch) -> np.ndarray:
         sig = _batch_signature(batch)
-        entry = self._programs.get(sig)
-        if entry is None:
+        if sig not in self._programs:
             shapes = sorted(str([s for s, _ in k]) for k in self._programs)
             raise ValueError(
                 "packed batch shape not present in the artifact "
                 f"(got {[s for s, _ in sig]}; artifact has {shapes}). "
                 "Re-export with an envelope/bucket table covering this "
                 "request.")
-        fields, program = entry
-        on_device = batch.to(self.device)
-        leaves = tuple(getattr(on_device, f) for f in fields)
+        # One CUDA graph a program on the card, as JAX jits each
+        # exported call; eager on the CPU.
+        return super()._forward(batch)
+
+    def _serve(self, batch) -> torch.Tensor:
+        fields, program = self._programs[_batch_signature(batch)]
+        leaves = tuple(getattr(batch, f) for f in fields)
         with torch.inference_mode():
-            out = program(self.params, leaves)
-        return out.cpu().numpy()
+            return program(self.params, leaves)
 
 
 def load_predictor(path: str, device=None) -> ExportedPredictor:

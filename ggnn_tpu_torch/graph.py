@@ -31,9 +31,6 @@ import torch
 # Scalar leaves: kept as python ints on the device copy, so reading them
 # never waits for the device.
 _SCALARS = ("num_graphs", "num_nodes")
-# Index leaves the host reads as offsets: kept as tuples of python ints,
-# so that using one costs no device-to-host copy.
-_HOST_INDICES = ("recv_base",)
 
 
 def _move(value, device):
@@ -51,14 +48,12 @@ def _move(value, device):
 def _to_device(batch, device):
     """The same batch (a dataclass of numpy leaves, tuples of them or of
     nested dataclasses) as torch tensors on `device`; scalar leaves
-    become python ints, host index leaves tuples of them."""
+    become python ints."""
     moved = {}
     for field in dataclasses.fields(batch):
         value = getattr(batch, field.name)
         if field.name in _SCALARS:
             moved[field.name] = int(value)
-        elif field.name in _HOST_INDICES:
-            moved[field.name] = tuple(int(v) for v in np.asarray(value))
         else:
             moved[field.name] = _move(value, device)
     return type(batch)(**moved)
@@ -243,8 +238,8 @@ class AsyncGraphBatch:
         return self.targets.shape[1]
 
     def to(self, device) -> "AsyncGraphBatch":
-        """The same batch as torch tensors on `device`; each segment's
-        `recv_base` stays a tuple of python ints on the host."""
+        """The same batch as torch tensors on `device`, each segment's
+        `recv_base` too (JAX keeps it a traced array)."""
         return _to_device(self, device)
 
 
@@ -258,8 +253,7 @@ class AsyncSegment:
       msg_target   [n, SEA] int32 — step-local receiver ids, pad -> RC
       old_compact  [n, RC]  int32 — the receivers' previous-round slots
           (round 0: node ids into the feature buffer)
-      recv_base    [n]      int32 — round-cumulative receiver offsets;
-          a tuple of python ints once the batch is on a device
+      recv_base    [n]      int32 — round-cumulative receiver offsets
     """
 
     send_compact: Any

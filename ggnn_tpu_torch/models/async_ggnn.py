@@ -321,7 +321,13 @@ class AsyncGGNN(nn.Module):
                 counts = (None if biases is None else
                           (offsets[:, 1:] - offsets[:, :-1]).to(
                               torch.float32).view(-1, rc_cap, t_dim))
-                for k, base_k in enumerate(seg.recv_base):
+                # Substep k writes buffer rows i_cap + recv_base[k] + j,
+                # j < RC: the offsets stay on the device, as JAX's
+                # dynamic_update_slice takes them, so batches that differ
+                # only in them run one step.
+                rows = (i_cap + seg.recv_base.long()[:, None]
+                        + torch.arange(rc_cap, device=buf.device))
+                for k in range(seg.old_compact.shape[0]):
                     args = (buf, prev_buf, seg.send_compact[k], offsets[k],
                             None if counts is None else counts[k],
                             None if bgather is None else bgather[k],
@@ -334,16 +340,14 @@ class AsyncGGNN(nn.Module):
                     else:
                         new_h = self._substep(*args)
                     new_h = self._dropout(new_h, is_training, generator)
-                    start = i_cap + base_k
                     if remat:
                         # Out of place: the checkpoint keeps `buf` to
                         # recompute from, and it must not change.
-                        buf = torch.slice_scatter(buf, new_h, 0, start,
-                                                  start + rc_cap)
+                        buf = buf.index_copy(0, rows[k], new_h)
                     else:
                         # In place: B1 keeps no input rows, and autograd's
                         # version counter guards every other saved tensor.
-                        buf[start:start + rc_cap] = new_h
+                        buf.index_copy_(0, rows[k], new_h)
             prev_buf = torch.cat([buf[:m_dump], buf.new_zeros(1, h_dim)])
         return sorted_gather(prev_buf, batch.final_compact)
 

@@ -276,16 +276,13 @@ class PredictionServer:
             return out
 
     def warmup(self):
-        """One tiny self-loop graph through the full pack -> forward path
-        before accepting traffic; the counters then start at 0."""
-        annotation = self.predictor.meta.annotation_size
-        # Targets are indexed by task id, so the list is sized by the
-        # largest id, not the count.
-        n_targets = max(self.predictor.task_ids) + 1
-        g = {"targets": [[0.0] for _ in range(n_targets)],
-             "graph": [[0, 1, 1]],
-             "node_features": [[1.0] + [0.0] * (annotation - 1)] * 2}
-        self.predict([g])
+        """Before accepting traffic, one request through the full pack ->
+        forward path for each batch shape traffic will use (the envelope,
+        or each dense bucket), so that on the card each shape's CUDA
+        graph is captured first (JAX compiles here); the counters then
+        start at 0."""
+        for g in self.predictor.example_graphs():
+            self.predict([g])
         self._requests_served = 0
         if self._dispatcher is not None:
             self._dispatcher.device_calls = 0

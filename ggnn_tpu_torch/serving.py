@@ -24,7 +24,11 @@ Port of `ggnn_tpu/serving.py:Predictor` for every variant: `sparse`,
     (`device="cpu"`): the sparse family and `async` (its plain path,
     one receiver sum a substep) through the gather + segment-sum CUDA
     kernel, `gcn` through its weighted instance, the dense family
-    through cuBLAS products.
+    through cuBLAS products. Where JAX jits the forward, the port
+    replays it: on the card each packed-batch shape is captured once
+    into a CUDA graph and replayed (`utils/timing.py:StepCache`), each
+    batch copied from the host into the graph's buffers; on the CPU it
+    runs eagerly.
 
 Example:
     predictor = Predictor.from_checkpoint("run_model_best.pickle",
@@ -62,6 +66,7 @@ from ggnn_tpu_torch.training.config import default_params_for
 from ggnn_tpu_torch.training.variants import (_dense_adjacency_dtype,
                                               _use_native, make_adapter)
 from ggnn_tpu_torch.utils.device import resolve_device
+from ggnn_tpu_torch.utils.timing import StepCache
 
 _DENSE_FAMILY = ("dense", "blocked", "gcn_blocked")
 # Packed into the fixed envelope.
@@ -188,6 +193,16 @@ def _with_dtype(adjacency, dtype):
     return adjacency
 
 
+def _chain_graph(n_nodes: int, annotation_size: int, n_tasks: int) -> Dict:
+    """A minimal valid request graph: a chain of `n_nodes` vertices with
+    type-1 edges (valid for any num_edge_types >= 1)."""
+    return {
+        "targets": [[0.0] for _ in range(n_tasks)],
+        "graph": [[i, 1, i + 1] for i in range(n_nodes - 1)],
+        "node_features": [[1.0] * annotation_size for _ in range(n_nodes)],
+    }
+
+
 def serve_forward(params, task_ids, batch) -> torch.Tensor:
     """Predictions [K, G] of a batch on the parameters' device: the
     model's forward and readout. `params` has the `ModelParams` layout
@@ -242,17 +257,48 @@ class Predictor:
                 edges_all=max(8 * max_nodes, 64),
             )
         self.params = self._place(params)
+        # The forward JAX jits (`ggnn_tpu/serving.py:150-158`): on the
+        # card one CUDA graph a packed-batch shape, captured at its first
+        # batch and replayed; eager on the CPU. Its lock holds each
+        # batch's copy in, replay and read back, so threads may share the
+        # Predictor.
+        self._graphs = StepCache(lambda batch: self._serve(batch),
+                                 self.device, name="serving forward")
 
     def _place(self, params: ModelParams):
         """The parameters as the forward uses them, on `self.device`."""
         return params.to(self.device).eval()
 
-    def _forward(self, batch) -> np.ndarray:
-        """Predictions [K, G] of one packed batch."""
-        on_device = batch.to(self.device)
+    def _serve(self, batch) -> torch.Tensor:
+        """Predictions [K, G] of one batch on the device."""
         with torch.inference_mode():
-            out = serve_forward(self.params, self.task_ids, on_device)
-        return out.cpu().numpy()
+            return serve_forward(self.params, self.task_ids, batch)
+
+    def _forward(self, batch) -> np.ndarray:
+        """Predictions [K, G] of one packed batch, a host copy read before
+        the next batch's replay overwrites the graph's output."""
+        return self._graphs(
+            batch, read=lambda out: out.to("cpu", copy=True).numpy())
+
+    def graph_count(self) -> int:
+        """The CUDA graphs captured so far, one a batch shape (0 on the
+        CPU)."""
+        return len(self._graphs.graphs)
+
+    def example_graphs(self, annotation_size: Optional[int] = None
+                       ) -> List[Dict]:
+        """Request graphs, one for each batch shape the Predictor packs:
+        a 2-node chain for the envelope, or for the dense family a chain
+        of each bucket's size. Each alone takes the 1-graph path, which
+        packs the shape a larger request does."""
+        ann = annotation_size or self.meta.annotation_size
+        # Targets are indexed by task id: sized by the largest id.
+        n_tasks = max(self.task_ids) + 1
+        if self.variant in _DENSE_FAMILY:
+            sizes = self.adapter._bucket_sizes()
+            sizes = packing.DENSE_BUCKET_SIZES if sizes is None else sizes
+            return [_chain_graph(int(v), ann, n_tasks) for v in sizes]
+        return [_chain_graph(2, ann, n_tasks)]
 
     # ------------------------------------------------------------ load
 

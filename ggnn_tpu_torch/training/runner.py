@@ -39,10 +39,14 @@ state replays the uninterrupted run's dropout masks. A generator state
 saved on another device type (or none, as in a JAX checkpoint) does not
 fit, and the resumed run keeps its seeded stream.
 
-`train_on_device` is the compiled fast path of the JAX Runner: the
-training split packed once, every epoch's steps replayed as CUDA graphs
-on the card (`utils/timing.py:make_epochs_fn`), with one host read at
-the end.
+Where the JAX Runner jits a step, the port replays it on the card
+(`utils/timing.py:StepCache`): the train and validation steps of
+`run_epoch` and `predict`'s forward are each captured once per batch
+shape into a CUDA graph, after one eager warm-up step, and replayed; on
+the CPU they run eagerly. `train_on_device` is the JAX Runner's compiled
+fast path: the training split packed once, every epoch's steps replayed
+from the same train-step graphs (`make_epochs_fn`'s `EpochsFn`), with
+one host read at the end.
 
 `Runner(..., mesh=make_mesh(n_data, n_edge))` trains on the (data, edge)
 mesh (parallel/, the JAX Runner's mesh paths, `ggnn_tpu/training/
@@ -97,7 +101,8 @@ from ggnn_tpu_torch.training.variants import make_adapter
 from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
 from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
-from ggnn_tpu_torch.utils.timing import make_epochs_fn, shape_groups
+from ggnn_tpu_torch.utils.timing import (EpochsFn, GraphPool, StepCache,
+                                         shape_groups)
 
 
 # (backend, device type) pairs whose all-to-all takes per-pair split
@@ -258,11 +263,31 @@ class Runner:
         # copy them from the host.
         self.loss_rescale = task_rescale(
             self.task_ids, config["task_sample_ratios"], self.device)
-        # train_on_device's epochs function, whose graphs live with the
-        # Runner, and the kernel launches a replay of each step of its
-        # last call held ({"module.counter": n}, in step order; None on
-        # the CPU).
-        self._epochs_fn = None
+        # The steps JAX jits (`ggnn_tpu/training/runner.py:276-278`,
+        # `:954-966`), each a cache of CUDA graphs on the card (one a
+        # batch shape) and eager on the CPU: the train step (the
+        # parameters, Adam's state and the dropout generator its state),
+        # the validation step and `predict`'s forward. Apart, because a
+        # training and a validation batch can share a shape; one pool,
+        # because they replay strictly in turn.
+        graph_pool = GraphPool()
+        self.train_graphs = StepCache(
+            lambda batch: self.train_step(batch), self.device,
+            state=[*self.params.parameters(),
+                   *self.optimizer.state_tensors()],
+            generators=[self.generator], pool=graph_pool, name="train step")
+        self.eval_graphs = StepCache(
+            lambda batch: self.eval_step(batch), self.device,
+            generators=[self.generator], pool=graph_pool,
+            name="validation step")
+        self.predict_graphs = StepCache(
+            lambda batch: self._predict_step(batch), self.device,
+            generators=[self.generator], pool=graph_pool,
+            name="prediction forward")
+        # train_on_device's epochs function over the train step's graphs,
+        # and the kernel launches a replay of each step of its last call
+        # held ({"module.counter": n}, in step order; None on the CPU).
+        self._epochs_fn = EpochsFn(self.train_graphs)
         self.replay_launches = None
 
         self.profile_dir = profile_dir
@@ -519,6 +544,17 @@ class Runner:
         with torch.no_grad():
             return self._loss_fn(batch, False)
 
+    def _predict_step(self, batch) -> torch.Tensor:
+        with torch.no_grad():
+            return self._outputs(batch, False)
+
+    def graph_counts(self) -> Dict[str, int]:
+        """The CUDA graphs captured so far (0 on the CPU): train steps,
+        validation steps, prediction forwards."""
+        return {"train": len(self.train_graphs.graphs),
+                "validation": len(self.eval_graphs.graphs),
+                "predict": len(self.predict_graphs.graphs)}
+
     # ------------------------------------------------------------- epochs
 
     def run_epoch(self, epoch_name: str, processed, is_training: bool):
@@ -526,7 +562,10 @@ class Runner:
         if self.mesh is not None:
             return self._run_epoch_mesh(epoch_name, processed, is_training)
         chem_acc = CHEMICAL_ACCURACIES[self.task_ids]
-        step_fn = self.train_step if is_training else self.eval_step
+        # Each step a replay on the card (its batch copied from the host
+        # into the graph's buffers; the loss and MAE cloned, as the next
+        # replay overwrites them), eager on the CPU.
+        step_fn = self.train_graphs if is_training else self.eval_graphs
         start_time = time.time()
         batch_iter = ThreadedIterator(
             self.adapter.batches(processed, is_training,
@@ -555,7 +594,7 @@ class Runner:
             num_graphs = int(batch.num_graphs)
             processed_graphs += num_graphs
             processed_edges += _batch_edge_count(batch)
-            loss, accs = step_fn(batch.to(self.device))
+            loss, accs = step_fn(batch)
             step_metrics.append((loss, accs))
             graph_counts.append(num_graphs)
             if not self.quiet:
@@ -781,18 +820,12 @@ class Runner:
         training split packed once (the numpy stream advances as one
         epoch's pack does), the batches grouped by the shapes of their
         leaves in JAX's order (`shape_groups`) and uploaded once, and the
-        Runner's `make_epochs_fn` over `train_step`, which keeps its
-        captured graphs from call to call. `steps` is the batch count."""
+        Runner's epochs function over the train step's graphs, which
+        `run_epoch` shares. `steps` is the batch count."""
         batches = list(self.adapter.batches(self.train_processed, True,
                                             self.np_rng))
         groups = [[b.to(self.device) for b in group]
                   for group in shape_groups(batches)]
-        if self._epochs_fn is None:
-            self._epochs_fn = make_epochs_fn(
-                lambda batch: self.train_step(batch)[0],
-                state=[*self.params.parameters(),
-                       *self.optimizer.state_tensors()],
-                generators=[self.generator])
         return self._epochs_fn, groups, len(batches)
 
     def train_on_device(self, num_epochs: int) -> float:
@@ -836,8 +869,12 @@ class Runner:
             outputs = []
             with torch.no_grad():
                 for batch in self.adapter.batches(processed, False):
-                    computed = self._outputs(batch.to(self.device), False,
-                                             params)
+                    if self.mesh is None:
+                        computed = self.predict_graphs(batch)
+                    else:
+                        # A mesh Runner's steps stay eager.
+                        computed = self._outputs(batch.to(self.device),
+                                                 False, params)
                     outputs.append(
                         computed.cpu().numpy()[:, :int(batch.num_graphs)])
         finally:

@@ -6,21 +6,24 @@ launch queue, so that the events bracket the device work and not the
 host's launch; `gpu_name_and_power` names the card a time was taken on.
 Both need a CUDA device.
 
+`StepCache` is where the port replays what the JAX package jits: a step
+(a train or eval step, a forward) captured once per `graph_key` into a
+CUDA graph on the card and replayed, run eagerly on the CPU.
 `make_epochs_fn` runs whole training epochs over batches already on the
-device, each train step on the card a replay of a CUDA graph and on the
-CPU the same step run eagerly, in the same order; `time_epochs` times
-it by differencing two run lengths, as the JAX harness does.
-`shape_groups` groups batches by the shapes of their leaves, as
-`ggnn_tpu/training/runner.py:train_on_device` does, and `graph_key`
-says which batches one graph can replay.
+device through one; `time_epochs` times it by differencing two run
+lengths, as the JAX harness does. `shape_groups` groups batches by the
+shapes of their leaves, as `ggnn_tpu/training/runner.py:train_on_device`
+does, and `graph_key` says which batches one graph can replay.
 """
 
 import dataclasses
 import statistics
 import subprocess
+import threading
 import time
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -128,12 +131,12 @@ def gpu_name_and_power() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# ------------------------------------------------------------- epochs
+# ----------------------------------------------------- replayed steps
 
 # The batch's count leaves (`graph.py`): host ints that the Runner reads
-# for its metrics and that no train step reads. A graph key leaves them
-# out, and a captured step sees them as None, so a step that read one
-# would fail at its warm-up instead of replaying a stale value.
+# for its metrics and that no step reads. A graph key leaves them out,
+# and a captured step sees them as None, so a step that read one would
+# fail at its warm-up instead of replaying a stale value.
 _UNREAD = ("num_graphs", "num_nodes")
 
 
@@ -163,13 +166,35 @@ def shape_groups(batches: Sequence) -> List[list]:
     return list(groups.values())
 
 
+def _is_array(value) -> bool:
+    return isinstance(value, (torch.Tensor, np.ndarray))
+
+
+_TORCH_DTYPES: Dict[np.dtype, torch.dtype] = {}
+
+
+def _torch_dtype(value) -> torch.dtype:
+    """An array's torch dtype; a numpy array's is the one
+    `torch.from_numpy` gives it."""
+    if isinstance(value, torch.Tensor):
+        return value.dtype
+    dtype = _TORCH_DTYPES.get(value.dtype)
+    if dtype is None:
+        dtype = torch.from_numpy(np.empty(0, value.dtype)).dtype
+        _TORCH_DTYPES[value.dtype] = dtype
+    return dtype
+
+
 def graph_key(batch):
-    """What a captured step bakes in of a batch: each tensor's shape and
-    dtype, and every host value but the counts (`_UNREAD`), such as an
-    async segment's `recv_base` offsets. Batches with equal keys replay
-    one graph; a JAX group (`shape_groups`) may hold several keys."""
-    if isinstance(batch, torch.Tensor):
-        return (tuple(batch.shape), batch.dtype)
+    """What a captured step bakes in of a batch: its structure, each
+    array's shape and dtype (a numpy array's as its tensor's, so a host
+    batch and its device copy share a key) and every other host value
+    but the counts (`_UNREAD`). Batches with equal keys replay one graph.
+    A packed batch holds no other host value (the async `recv_base`
+    offsets are arrays), so the batches of one JAX group
+    (`shape_groups`) share a key."""
+    if _is_array(batch):
+        return (tuple(batch.shape), _torch_dtype(batch))
     if dataclasses.is_dataclass(batch):
         return (type(batch).__name__,) + tuple(
             graph_key(getattr(batch, f.name))
@@ -179,31 +204,86 @@ def graph_key(batch):
     return batch
 
 
-def _tensors(batch) -> List[torch.Tensor]:
-    """A batch's tensors in `graph_key` order."""
-    if isinstance(batch, torch.Tensor):
+def _leaves(batch) -> list:
+    """A batch's arrays (tensors or numpy) in `graph_key` order."""
+    if _is_array(batch):
         return [batch]
     if dataclasses.is_dataclass(batch):
         return [t for f in dataclasses.fields(batch) if f.name not in _UNREAD
-                for t in _tensors(getattr(batch, f.name))]
+                for t in _leaves(getattr(batch, f.name))]
     if isinstance(batch, tuple):
-        return [t for v in batch for t in _tensors(v)]
+        return [t for v in batch for t in _leaves(v)]
     return []
 
 
-def _static_copy(batch):
-    """A batch whose tensors are fresh copies (a graph's input buffers),
-    its count leaves None."""
-    if isinstance(batch, torch.Tensor):
-        return batch.clone()
+def _as_tensor(value) -> torch.Tensor:
+    if isinstance(value, torch.Tensor):
+        return value
+    return torch.from_numpy(np.ascontiguousarray(value))
+
+
+def _to(batch, device):
+    """The batch on `device`, as an eager step takes it."""
+    if _is_array(batch):
+        return _as_tensor(batch).to(device)
+    if isinstance(batch, tuple):
+        return tuple(_to(v, device) for v in batch)
+    if hasattr(batch, "to"):
+        return batch.to(device)
+    return batch
+
+
+def _static_copy(batch, device):
+    """A batch of fresh tensors on `device`, copies of the batch's arrays
+    (a graph's input buffers), its count leaves None."""
+    if _is_array(batch):
+        return _as_tensor(batch).to(device, copy=True)
     if dataclasses.is_dataclass(batch):
         return dataclasses.replace(batch, **{
             f.name: None if f.name in _UNREAD
-            else _static_copy(getattr(batch, f.name))
+            else _static_copy(getattr(batch, f.name), device)
             for f in dataclasses.fields(batch)})
     if isinstance(batch, tuple):
-        return tuple(_static_copy(v) for v in batch)
+        return tuple(_static_copy(v, device) for v in batch)
     return batch
+
+
+def _fill(buffers: List[torch.Tensor], batch) -> None:
+    """Copy a batch's arrays into a graph's input buffers: those on the
+    buffers' device by one `_foreach_copy_` a dtype, host arrays straight
+    from host memory. From pageable memory a copy returns once the driver
+    has staged its source, so the host array may be dropped at once."""
+    on_device: Dict[torch.dtype, Tuple[list, list]] = {}
+    for dst, src in zip(buffers, _leaves(batch)):
+        if isinstance(src, torch.Tensor) and src.device == dst.device:
+            dsts, srcs = on_device.setdefault(dst.dtype, ([], []))
+            dsts.append(dst)
+            srcs.append(src)
+        else:
+            dst.copy_(_as_tensor(src), non_blocking=True)
+    for dsts, srcs in on_device.values():
+        torch._foreach_copy_(dsts, srcs)
+
+
+def _clone(outputs):
+    if isinstance(outputs, torch.Tensor):
+        return outputs.clone()
+    return tuple(_clone(v) for v in outputs)
+
+
+def _first(outputs) -> torch.Tensor:
+    return outputs if isinstance(outputs, torch.Tensor) else outputs[0]
+
+
+def _device_of(batch, device=None) -> torch.device:
+    """`device`, or that of the batch's first tensor (the CPU for a host
+    batch)."""
+    if device is not None:
+        return device
+    leaves = _leaves(batch)
+    if leaves and isinstance(leaves[0], torch.Tensor):
+        return leaves[0].device
+    return torch.device("cpu")
 
 
 class _LastOp(TorchDispatchMode):
@@ -218,92 +298,108 @@ class _LastOp(TorchDispatchMode):
 
 
 class StepGraph:
-    """One captured train step: the graph, the input buffers it reads
-    (`static`, a batch), its loss tensor, the kernel launches it holds
-    ({"module.counter": launches a replay}, from the counters across its
-    capture) and the B1/B2 scratch it captured, kept alive with it."""
+    """One captured step: the graph, the input buffers it reads
+    (`static`, a batch), its outputs (buffers that each replay
+    overwrites), the kernel launches it holds ({"module.counter":
+    launches a replay}, from the counters across its capture) and the
+    B1/B2 scratch it captured, kept alive with it."""
 
-    def __init__(self, graph, static, loss, launches, scratch):
+    def __init__(self, graph, static, outputs, launches, scratch):
         self.graph = graph
         self.static = static
-        self.loss = loss
+        self.outputs = outputs
         self.launches = launches
         self._scratch = scratch
-        self._dst = _by_dtype(_tensors(static))
+        self._buffers = _leaves(static)
 
-    def replay(self, batch) -> torch.Tensor:
-        """Copy `batch`'s tensors into the input buffers (one
-        `_foreach_copy_` a dtype), replay, and return the loss buffer."""
-        for dtype, src in _by_dtype(_tensors(batch)).items():
-            torch._foreach_copy_(self._dst[dtype], src)
+    def replay(self, batch):
+        """Copy `batch`'s arrays into the input buffers, replay, and
+        return the output buffers."""
+        _fill(self._buffers, batch)
         self.graph.replay()
-        return self.loss
+        return self.outputs
 
 
-def _by_dtype(tensors) -> Dict[torch.dtype, List[torch.Tensor]]:
-    out: Dict[torch.dtype, List[torch.Tensor]] = {}
-    for t in tensors:
-        out.setdefault(t.dtype, []).append(t)
-    return out
+class GraphPool:
+    """What the graphs of several `StepCache`s share: the side stream on
+    which they are warmed up and captured, one memory pool, and the lock
+    under which each capture and each replay (with the read of its
+    outputs) runs. The graphs of a pool replay strictly one after
+    another."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.stream = None
+        self.handle = None
+
+    def ready(self, device: torch.device) -> None:
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+            self.handle = torch.cuda.graph_pool_handle()
 
 
-class EpochsFn:
-    """`epochs_fn(groups, n_epochs)`: see `make_epochs_fn`."""
+class StepCache:
+    """`cache(batch)`: one step, the counterpart of a jitted JAX step.
 
-    def __init__(self, step_fn: Callable, state: Sequence[torch.Tensor],
-                 generators: Sequence[torch.Generator]):
+    `step_fn(batch)` returns a tensor or a tuple of tensors; a batch is a
+    packed batch of numpy arrays (or already on the device), a tensor or
+    a tuple of them. On the card each distinct `graph_key` is captured
+    once into a CUDA graph, and each call copies the batch's arrays into
+    that graph's input buffers, replays it and returns clones of its
+    outputs (or `read(outputs)`, under the pool's lock, which threads
+    calling one cache need: the next replay overwrites the outputs).
+
+    A new key's first call runs one eager step of it on the pool's side
+    stream, refusing every synchronising call, then captures it there;
+    `state` (tensors the step updates in place: parameters, optimizer
+    moments) and the `generators`' states are saved before and restored
+    after the warm-up and the capture, so a call makes one step's
+    updates, and the generators are registered with each graph, so each
+    replay draws fresh. A step that a capture refuses raises, naming the
+    operator; nothing runs eagerly in its place. On the CPU each call
+    runs the step eagerly on the batch moved to `device`."""
+
+    def __init__(self, step_fn: Callable, device=None,
+                 state: Sequence[torch.Tensor] = (),
+                 generators: Sequence[torch.Generator] = (),
+                 pool: Optional[GraphPool] = None, name: str = "step"):
         self.step_fn = step_fn
+        self.device = None if device is None else torch.device(device)
         self.state = list(state)
         self.generators = list(generators)
+        self.pool = GraphPool() if pool is None else pool
+        self.name = name
         self.graphs: Dict = {}
-        self._stream = None
-        self._pool = None
 
-    def __call__(self, groups: Sequence[Sequence], n_epochs: int):
-        steps = [batch for group in groups for batch in group]
-        if not steps:
-            raise ValueError("no batch groups to run")
-        device = _tensors(steps[0])[0].device
+    def __call__(self, batch, read: Optional[Callable] = None):
+        device = _device_of(batch, self.device)
         if device.type != "cuda":
-            loss = torch.zeros((), device=device)
-            for _ in range(n_epochs):
-                for batch in steps:
-                    loss = self.step_fn(batch)
-            return loss
-        keys = [graph_key(batch) for batch in steps]
-        new = {}
-        for key, batch in zip(keys, steps):
-            if key not in self.graphs:
-                new.setdefault(key, batch)
-        if new:
-            self._capture(new, device)
-        loss = None
-        for _ in range(n_epochs):
-            for key, batch in zip(keys, steps):
-                loss = self.graphs[key].replay(batch)
-        if loss is None:
-            return torch.zeros((), device=device)
-        return loss.clone()
+            outputs = self.step_fn(_to(batch, device))
+            return outputs if read is None else read(outputs)
+        with self.pool.lock:
+            outputs = self.replay(batch)
+            return _clone(outputs) if read is None else read(outputs)
 
-    def step_launches(self, groups: Sequence[Sequence]) -> List[Dict]:
-        """{"module.counter": launches} a replay of each step of an epoch
-        over `groups`, in step order (the groups must have run once)."""
-        return [self.graphs[graph_key(batch)].launches
-                for group in groups for batch in group]
+    def replay(self, batch):
+        """The output buffers of one replay for `batch` on the card, its
+        key captured first if new; the caller holds the pool's lock
+        where threads share the cache."""
+        key = graph_key(batch)
+        if key not in self.graphs:
+            self.capture({key: batch})
+        return self.graphs[key].replay(batch)
 
-    # ---------------------------------------------------------- capture
-
-    def _capture(self, new: Dict, device: torch.device) -> None:
-        """Warm up, then capture, a graph of the step for each new key on
-        the side stream, the state and the generators restored after
-        each phase and after a failure."""
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(device)
-            self._pool = torch.cuda.graph_pool_handle()
+    def capture(self, new: Dict) -> None:
+        """Warm up, then capture, a graph of the step for each key of
+        `new` ({key: batch}) on the side stream, the state and the
+        generators restored after each phase and after a failure."""
+        device = _device_of(next(iter(new.values())), self.device)
+        self.pool.ready(device)
         saved = [t.detach().clone() for t in self.state]
         saved_generators = [g.get_state() for g in self.generators]
-        statics = {key: _static_copy(batch) for key, batch in new.items()}
-        stream = self._stream
+        statics = {key: _static_copy(batch, device)
+                   for key, batch in new.items()}
+        stream = self.pool.stream
         stream.wait_stream(torch.cuda.current_stream(device))
         try:
             with torch.cuda.stream(stream):
@@ -328,18 +424,21 @@ class EpochsFn:
         before = launch_counts()
         last = _LastOp()
         try:
-            with torch.cuda.graph(graph, pool=self._pool,
-                                  stream=self._stream):
+            # Thread-local: another thread's synchronising call (a host
+            # read, a packer thread's copy) does not end this capture.
+            with torch.cuda.graph(graph, pool=self.pool.handle,
+                                  stream=self.pool.stream,
+                                  capture_error_mode="thread_local"):
                 with last:
-                    loss = self.step_fn(static)
+                    outputs = self.step_fn(static)
         except RuntimeError as err:
-            raise RuntimeError(f"the capture of a train step failed at "
+            raise RuntimeError(f"the capture of a {self.name} failed at "
                                f"{last.op}: {err}") from err
         after = launch_counts()
         return StepGraph(
-            graph, static, loss,
+            graph, static, outputs,
             {k: after[k] - before[k] for k in after if after[k] != before[k]},
-            ell_spmm.scratch_of(device, self._stream.cuda_stream))
+            ell_spmm.scratch_of(device, self.pool.stream.cuda_stream))
 
     def _warm(self, static) -> None:
         """One eager step on the capture stream before the capture: it
@@ -354,7 +453,7 @@ class EpochsFn:
             with last:
                 self.step_fn(static)
         except RuntimeError as err:
-            raise RuntimeError(f"the warm-up of a train step before its "
+            raise RuntimeError(f"the warm-up of a {self.name} before its "
                                f"capture failed at {last.op}: {err}"
                                ) from err
         finally:
@@ -366,6 +465,51 @@ class EpochsFn:
             tensor.copy_(value)
         for generator, value in zip(self.generators, saved_generators):
             generator.set_state(value)
+
+
+class EpochsFn:
+    """`epochs_fn(groups, n_epochs)`: see `make_epochs_fn`; its steps are
+    a `StepCache`'s (whose first output is the loss)."""
+
+    def __init__(self, steps: StepCache):
+        self.steps = steps
+
+    @property
+    def graphs(self) -> Dict:
+        return self.steps.graphs
+
+    def __call__(self, groups: Sequence[Sequence], n_epochs: int):
+        steps = [batch for group in groups for batch in group]
+        if not steps:
+            raise ValueError("no batch groups to run")
+        device = _device_of(steps[0], self.steps.device)
+        if device.type != "cuda":
+            loss = torch.zeros((), device=device)
+            for _ in range(n_epochs):
+                for batch in steps:
+                    loss = _first(self.steps(batch))
+            return loss
+        keys = [graph_key(batch) for batch in steps]
+        new = {}
+        for key, batch in zip(keys, steps):
+            if key not in self.graphs:
+                new.setdefault(key, batch)
+        with self.steps.pool.lock:
+            if new:
+                self.steps.capture(new)
+            loss = None
+            for _ in range(n_epochs):
+                for key, batch in zip(keys, steps):
+                    loss = _first(self.graphs[key].replay(batch))
+            if loss is None:
+                return torch.zeros((), device=device)
+            return loss.clone()
+
+    def step_launches(self, groups: Sequence[Sequence]) -> List[Dict]:
+        """{"module.counter": launches} a replay of each step of an epoch
+        over `groups`, in step order (the groups must have run once)."""
+        return [self.graphs[graph_key(batch)].launches
+                for group in groups for batch in group]
 
 
 def make_epochs_fn(step_fn: Callable, state: Sequence[torch.Tensor] = (),
@@ -381,18 +525,16 @@ def make_epochs_fn(step_fn: Callable, state: Sequence[torch.Tensor] = (),
     There are no key groups: the step draws its dropout masks from
     `generators`, which give fresh draws every step and every epoch.
 
-    On the card each distinct `graph_key` is captured once into a CUDA
-    graph and replayed: one graph per key over its own input buffers,
-    into which each replay copies its batch's tensors device to device.
-    The first call with a new key runs one eager step of it on a side
-    stream, refusing every synchronising call, then captures it there; `state` (the parameters, the optimizer's count and
-    moments) and the generators' states are saved before and restored
-    after the warm-up and the capture, so `n_epochs` epochs make exactly
-    n_epochs x the steps' updates. The graphs replay strictly one after
-    another, so they share one memory pool. A step that a capture
-    refuses raises, naming the operator; nothing runs eagerly in its
-    place. On the CPU the same steps run eagerly in the same order."""
-    return EpochsFn(step_fn, state, generators)
+    The steps are a `StepCache`'s: on the card one CUDA graph a
+    `graph_key`, captured after one eager warm-up step with `state` (the
+    parameters, the optimizer's count and moments) and the generators
+    restored, so n_epochs epochs make exactly n_epochs x the steps'
+    updates; each replay copies its batch device to device into its
+    graph's input buffers. A step that a capture refuses raises, naming
+    the operator. On the CPU the same steps run eagerly in the same
+    order."""
+    return EpochsFn(StepCache(step_fn, state=state, generators=generators,
+                              name="train step"))
 
 
 def time_epochs(epochs_fn: EpochsFn, groups: Sequence[Sequence],

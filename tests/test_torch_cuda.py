@@ -1160,9 +1160,11 @@ def test_opcheck_on_the_card(cuda, name):
 
 
 def test_exported_sparse_forward_launches_b1_on_the_card(cuda, tmp_path):
-    """A default sparse model exported on the CPU serves on the card: B1
-    once a propagation step of each forward and nothing else, answers
-    equal to the live card Predictor's (1e-6) and to the CPU's (1e-4)."""
+    """A default sparse model exported on the CPU serves on the card: its
+    program replayed as a CUDA graph that holds B1 once a propagation
+    step and nothing else, the kernels launched by the first request's
+    warm-up and capture alone (a replay counts none); answers equal to
+    the live card Predictor's (1e-6) and to the CPU's (1e-4)."""
     from ggnn_tpu_torch.data.loader import DatasetMeta
     from ggnn_tpu_torch.export import export_predictor, load_predictor
     from ggnn_tpu_torch.serving import Predictor
@@ -1182,17 +1184,21 @@ def test_exported_sparse_forward_launches_b1_on_the_card(cuda, tmp_path):
     assert exported.device.type == "cuda"
     request = synthetic_molecules(40, seed=31)
     steps = sum(config["layer_timesteps"])
-    for batch_request in (request, request[:1]):
+    # The envelope is one shape: the first request captures its graph.
+    wants = ([2 * steps, 0, 0, 0, 0, 0], [0] * 6)
+    for batch_request, want in zip((request, request[:1]), wants):
         before = _launch_counts() + (edge_dot.launches,)
         got = exported(batch_request)
         torch.cuda.synchronize()
         counts = [a - b for a, b in
                   zip(_launch_counts() + (edge_dot.launches,), before)]
-        assert counts == [steps, 0, 0, 0, 0, 0]
+        assert counts == want
         np.testing.assert_allclose(got, live(batch_request), rtol=1e-6,
                                    atol=1e-6)
         np.testing.assert_allclose(got, cpu(batch_request), rtol=1e-4,
                                    atol=1e-4)
+    (graph,) = exported._graphs.graphs.values()
+    assert graph.launches == {"ell_spmm.launches": steps}
 
 
 # ------------------------------------------------ bf16 instances (A16)
@@ -1745,6 +1751,176 @@ def test_dense_dropout_replays_match_eager_steps(cuda, tmp_path):
     wants = dict(eager.params.named_parameters())
     for name, p in graph.params.named_parameters():
         torch.testing.assert_close(p, wants[name], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------ replayed steps (A20)
+
+def _recorded_train(runner):
+    """`runner.train()`, returning every per-step (split, loss, MAE) its
+    epochs report and the train graphs after each training epoch."""
+    seen, counts = [], []
+    runner.summaries.add_batch = (
+        lambda split, step, loss, accs, tasks:
+        seen.append((split, loss, np.asarray(accs).copy())))
+    run_epoch = runner.run_epoch
+
+    def counted(name, processed, is_training):
+        out = run_epoch(name, processed, is_training)
+        if is_training:
+            counts.append(runner.graph_counts()["train"])
+        return out
+
+    runner.run_epoch = counted
+    runner.train()
+    return seen, counts
+
+
+def _eager_train(runner, epochs):
+    """`train()`'s steps driven eagerly, each epoch's training batches
+    then its validation batches: (split, loss, MAE) a step."""
+    seen = []
+    for _ in range(epochs):
+        for split, processed, step, rng in (
+                ("train", runner.train_processed, runner.train_step,
+                 runner.np_rng),
+                ("validation", runner.valid_processed, runner.eval_step,
+                 None)):
+            for batch in runner.adapter.batches(processed, rng is not None,
+                                                rng):
+                loss, accs = step(batch.to(runner.device))
+                seen.append((split, float(loss), accs.cpu().numpy()))
+    return seen
+
+
+@pytest.mark.parametrize("variant", sorted(GRAPH_CASES))
+def test_replayed_train_equals_its_eager_twin(cuda, variant, tmp_path):
+    """Two epochs of `Runner.train()` (dropout on, a rolling checkpoint
+    every 2 steps), every train and validation step a replay, against a
+    twin driving `train_step` and `eval_step` eagerly over the same
+    batches: every per-step loss and MAE and every parameter bit-equal;
+    the train graphs all captured in epoch 1; a run resumed from the
+    last rolling checkpoint ends bit-equal too."""
+    from ggnn_tpu_torch.training.checkpoint import load_iterator_state
+    overrides = {**GRAPH_CASES[variant], "num_epochs": 2}
+    graph, eager = _twin_runners(variant, overrides, tmp_path)
+    graph.checkpoint_every_steps = 2
+    seen, counts = _recorded_train(graph)
+    want = _eager_train(eager, 2)
+    assert len(seen) == len(want) > 4
+    for (split, loss, accs), (w_split, w_loss, w_accs) in zip(seen, want):
+        assert split == w_split and loss == w_loss
+        np.testing.assert_array_equal(accs, w_accs)
+    wants = dict(eager.params.named_parameters())
+    for name, p in graph.params.named_parameters():
+        assert torch.equal(p, wants[name]), name
+    assert counts[0] == counts[1] >= 1
+    assert graph.graph_counts()["validation"] >= 1
+    state = load_iterator_state(graph.last_model_file)
+    assert state["epoch"] == 2 and state["steps_done"] > 0
+    resumed = Runner(variant, dict(graph.config),
+                     train_data=synthetic_molecules(240, seed=7),
+                     valid_data=synthetic_molecules(20, seed=8),
+                     log_dir=str(tmp_path / "resumed"), quiet=True,
+                     tensorboard=False, device="cuda",
+                     restore=graph.last_model_file)
+    resumed.train()
+    for name, p in resumed.params.named_parameters():
+        assert torch.equal(p, dict(graph.params.named_parameters())[name])
+
+
+@pytest.mark.parametrize("variant", ["sparse", "dense", "gcn", "async"])
+def test_replayed_predictor_equals_serve_forward(cuda, variant):
+    """The Predictor replays one graph a batch shape: 1- and 300-graph
+    answers bit-equal to `serve_forward` run eagerly, and 16 threads
+    calling it at once answered as serial calls are; its artifact's
+    replays bit-equal to the artifact's program run eagerly."""
+    from ggnn_tpu_torch.data.loader import DatasetMeta
+    from ggnn_tpu_torch.export import export_predictor, load_predictor
+    from ggnn_tpu_torch.serving import Predictor
+    from ggnn_tpu_torch.training.variants import make_adapter
+    import threading
+
+    config = default_params_for(variant)
+    if variant == "async":
+        config["propagation_substeps"] = 40
+    meta = DatasetMeta(512, 1 if variant == "gcn" else 4, 5)
+    gen = torch.Generator().manual_seed(0)
+    params = ModelParams(
+        make_adapter(variant, config, meta).build_model(gen),
+        init_output_heads(gen, config["hidden_size"], config["task_ids"]))
+
+    def eager_twin(predictor):
+        predictor._forward = lambda batch: predictor._serve(
+            batch.to(cuda)).cpu().numpy()
+        return predictor
+
+    replayed = Predictor(variant, config, meta, params, max_nodes=512,
+                         max_graphs=64)
+    eager = eager_twin(Predictor(variant, config, meta, params,
+                                 max_nodes=512, max_graphs=64))
+    requests = [synthetic_molecules(n, seed=40 + n) for n in (1, 300)]
+    for request in requests:
+        np.testing.assert_array_equal(replayed(request), eager(request))
+    assert replayed.graph_count() >= 1
+    small = [synthetic_molecules(n, seed=50 + n) for n in (1, 5, 9, 30) * 4]
+    serial = [replayed(r) for r in small]
+    got = [None] * len(small)
+    barrier = threading.Barrier(len(small))
+
+    def call(i):
+        barrier.wait()
+        got[i] = replayed(small[i])
+
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(small))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for a, b in zip(got, serial):
+        np.testing.assert_array_equal(a, b)
+
+    cpu = Predictor(variant, config, meta, params, max_nodes=512,
+                    max_graphs=64, device="cpu")
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        path = export_predictor(cpu, f"{tmp}/{variant}.ggnnx")
+        artifact = load_predictor(path)
+        artifact_eager = eager_twin(load_predictor(path))
+    for request in requests:
+        np.testing.assert_array_equal(artifact(request),
+                                      artifact_eager(request))
+    assert artifact.graph_count() == replayed.graph_count()
+
+
+def test_a_failed_capture_raises_and_answers_nothing(cuda, tmp_path):
+    """A step that reads a device value on the host cannot be captured:
+    `run_epoch` and the Predictor raise at its warm-up, naming the
+    operator, with no eager answer and the weights as they were."""
+    from ggnn_tpu_torch.serving import Predictor
+    graph, _ = _twin_runners("sparse", {"batch_size": 2000}, tmp_path)
+    before = {n: p.detach().clone()
+              for n, p in graph.params.named_parameters()}
+    train_step = graph.train_step
+
+    def reads(batch):
+        loss, accs = train_step(batch)
+        return loss * float(accs.sum()), accs
+
+    graph.train_step = reads
+    with pytest.raises(RuntimeError, match="warm-up of a train step.*aten"):
+        graph.run_epoch("epoch", graph.train_processed, True)
+    assert graph.graph_counts()["train"] == 0
+    for name, p in graph.params.named_parameters():
+        assert torch.equal(p, before[name]), name
+    predictor = Predictor("sparse", graph.config, graph.meta, graph.params,
+                          max_nodes=512, max_graphs=64)
+    serve = predictor._serve
+    predictor._serve = lambda batch: serve(batch) * float(
+        batch.node_features.sum())
+    with pytest.raises(RuntimeError, match="warm-up of a serving forward"):
+        predictor(synthetic_molecules(3, seed=1))
+    assert predictor.graph_count() == 0
 
 
 # ------------------------------------------------- mesh (ROADMAP A11)

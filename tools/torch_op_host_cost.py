@@ -22,7 +22,8 @@ uses only entry points every tree of the port has, and reports:
   * serving: the default sparse model (hidden 100, random weights from
     torch.Generator seed 0) at the default envelope: graphs/s of a
     3,000-graph request and the 1-graph latency (medians of `--repeats`
-    and of 20, host clock, synchronised);
+    and of 20, host clock, synchronised), through the tree's Predictor
+    (whose forward a tree that replays steps runs as a CUDA graph);
   * training: one `Runner.train_step` of the default sparse model and of
     configs/sparse_attention.json on the first 20,000-node batch of
     configs/sparse_tpu.json's packing of synthetic_molecules(2400,

@@ -8,12 +8,14 @@ Serves the default sparse model (hidden 100, layer_timesteps
 envelope (max_nodes 2048, max_graphs 256) and reports, for a 1-graph
 and a 3,000-graph request from `synthetic_molecules(seed)`:
 
-  * end_to_end_ms: `Predictor.__call__`, host clock, no extra syncs;
-  * spans (host clock, each closed by `torch.cuda.synchronize()`):
-    pack (numpy packer), h2d (`GraphBatch.to`), forward (propagation and
-    readout on the card), d2h (`.cpu().numpy()` of the answer);
-  * the difference between the span sum and end_to_end_ms, which is what
-    the synchronisations cost.
+  * end_to_end_ms: `Predictor.__call__`, host clock, no extra syncs (its
+    forward a replay of the CUDA graph of the batch's shape);
+  * spans of the same request run eagerly (host clock, each closed by
+    `torch.cuda.synchronize()`): pack (numpy packer), h2d
+    (`GraphBatch.to`), forward (propagation and readout on the card,
+    op by op), d2h (`.cpu().numpy()` of the answer);
+  * the difference between the span sum and end_to_end_ms: what the
+    synchronisations and the eager forward's launches cost.
 
 Each timing is the median over `--repeats` runs; end_to_end_ms also
 gives the fastest and slowest run. The script then profiles five
