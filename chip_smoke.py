@@ -5,10 +5,11 @@
 
 Phases, each raising (and so exiting non-zero) on any failure.
 
-Where the JAX package jits a step, the port replays it (ROADMAP A20):
-every train and validation step of `Runner.train()`, `Runner.predict`'s
-forward and each Predictor's and artifact's forward is a replay of a
-CUDA graph captured once per batch shape. A kernel's counter moves where
+Where the JAX package jits a step, the port replays it (ROADMAP A20,
+A21): every train and validation step of `Runner.train()`, a mesh
+Runner's over nccl too, `Runner.predict`'s forward and each Predictor's
+and artifact's forward is a replay of a CUDA graph captured once per
+batch shape. A kernel's counter moves where
 its wrapper launches it, so over a call it reads 2 x (the warm-up step
 and the capture) the launches of the graphs the call captured, and a
 replay counts none; every phase that counts launches over `train()` or a
@@ -169,7 +170,8 @@ prediction (`check_graphs`, `check_forwards`).
      default model again with `max_coalesced_graphs` 4 (no forward over 4
      graphs);
  16. export — `sparse`, configs/sparse_attention.json, `gcn`, `dense`
-     and `async` (40 substeps) exported on the CPU (`export_predictor`:
+     and `async` (40 substeps, 2 rounds since PR 18) exported on the
+     CPU (`export_predictor`:
      seconds, bytes) and loaded on the card (`load_predictor`): the 1- and
      300-graph requests capture graphs holding what a live card forward
      launches, as the live Predictor's do, and answer within 1e-6 of it and within 1e-4 of the artifact on the CPU
@@ -244,13 +246,13 @@ prediction (`check_graphs`, `check_forwards`).
      (TOL_BF16_SERVING, no hand kernel); and `sparse`, `gcn` and `dense`
      trained for 2 epochs with the numpy and the native packer in turns
      (numpy, native, native, numpy): set-up seconds and train graphs/s;
- 20. train on device (ROADMAP A18) — (a) every configuration that
-     `Runner.train_on_device` takes (`sparse` at configs/sparse_tpu.json,
+ 20. train on device (ROADMAP A18) — (a) every variant through
+     `Runner.train_on_device` (`sparse` at configs/sparse_tpu.json,
      `dense` at bench.py's buckets, `gcn`, configs/sparse_attention.json,
-     `blocked`, `gcn_blocked`, `async` at configs/async_tpu.json, each
-     other route of the sparse GGNN with attention off and on,
-     configs/sparse_wide_bf16.json on the combined lane and per edge
-     with attention), every keep probability 1.0, on
+     `blocked`, `gcn_blocked`, `async` at configs/async_tpu.json,
+     configs/sparse_wide_bf16.json; since PR 18 not the sparse GGNN's
+     other routes nor bf16 per edge, whose train steps phase 23
+     captures), every keep probability 1.0, on
      synthetic_molecules(1300, seed=42): `train_on_device(2)` against the
      same steps run eagerly on a twin Runner, both under deterministic
      algorithms, each parameter within 1e-5 and the loss at rtol 1e-5,
@@ -288,7 +290,7 @@ prediction (`check_graphs`, `check_forwards`).
      against the single-device step over both on the card (loss rtol
      1e-5, every gradient leaf rtol 2e-4 / atol 1e-6), each rank's
      launches as `mesh_step_launches` predicts; 2 epochs of the first
-     3,000 of phase 6's training molecules through `Runner(mesh=)`: the
+     2,000 of phase 6's training molecules through `Runner(mesh=)`: the
      weights bit-equal across ranks after each epoch, the validation
      loss below the initial weights',
      each rank's counters over `train()` (set to 0 just before it) equal
@@ -296,10 +298,17 @@ prediction (`check_graphs`, `check_forwards`).
      single-device route's launches a propagation step); ms a mesh
      train step beside a single-device step over the same batches, for
      the record only (the ranks share one card: no scaling number).
+     These gloo Runners run their steps eagerly, and each says why
+     (`step_mode`: gloo copies CUDA tensors through the host, which a
+     CUDA graph cannot hold); no step graph is captured.
      Then one rank over `nccl` (its collectives on the world's group):
      `sparse` through `Runner(mesh=make_mesh(1, 1))` for 1 epoch of the
-     step corpus against the plain Runner, both under deterministic
-     algorithms (1e-6). The type-TP Runner is also saved by every rank
+     step corpus, its train and validation steps and its `predict`
+     replayed (its counters 2 x its graphs' launches, which equal the
+     plain Runner's graphs'), against the plain replayed Runner and the
+     mesh Runner's eager twin, all under deterministic algorithms: the
+     parameters, losses and predictions bit-equal, the twin's counters
+     its steps' launches. The type-TP Runner is also saved by every rank
      as an Orbax directory and a pickle (rank 0 writes, the slices
      gathered first);
  22. Orbax checkpoints (ROADMAP A17) — `tensorstore`, `orbax` and
@@ -334,7 +343,7 @@ prediction (`check_graphs`, `check_forwards`).
      rolling checkpoint bit-equal; the trained weights served by a
      replayed `Predictor.from_checkpoint` (512 nodes, 64 graphs) and its
      artifact (exported on the CPU, for the variants and attention; for
-     `async` phase 16's artifact, whose export takes a minute), the 1- and
+     `async` phase 16's artifact, whose export takes half a minute), the 1- and
      300-graph answers
      bit-equal to their forwards run eagerly, and 16 threads calling the
      Predictor at once answered as serial calls. Then, for the record, one
@@ -2512,11 +2521,15 @@ def capped_server(predictor, pool, want):
             max(sizes)}
 
 
+# The async artifact's config: 40 substeps, 2 propagation rounds (the
+# default 4 until PR 18; its export traces every substep, and 160 took
+# 37-48 s on the host: cut to keep the script's time).
+ASYNC_EXPORT = {**ASYNC_SERVING, "propagation_rounds": 2}
 # label -> (variant, config overrides): the artifacts exported.
 EXPORTED = {"sparse": ("sparse", None),
             "sparse_attention": ("sparse", "attention"),
             "gcn": ("gcn", None), "dense": ("dense", None),
-            "async": ("async", ASYNC_SERVING)}
+            "async": ("async", ASYNC_EXPORT)}
 
 
 def timed_pair(first, second, request, repeats):
@@ -3872,16 +3885,19 @@ TOL_GRAPH_PARAM = 1e-5
 TOL_GRAPH_LOSS = 1e-5
 
 
-def graph_configs(keep=NO_DROPOUT):
-    """(label, variant, config) of every configuration `train_on_device`
-    takes in phase 20, every keep probability 1.0 (phase 23: `keep` {},
+def graph_configs(keep=NO_DROPOUT, routes=True):
+    """(label, variant, config) of every configuration phase 23 replays
+    through `train()`, every keep probability 1.0 (phase 23: `keep` {},
     each config's own dropout): each variant at its
     phase-6 training config (`dense` at bench.py's buckets [16, 32] and
     256 graphs a batch), configs/sparse_attention.json at 20,000 nodes,
     async at configs/async_tpu.json, each other route of the sparse GGNN
     with attention off and on (as phase 13 steps them) and
     configs/sparse_wide_bf16.json on the combined lane and per edge with
-    attention (as phase 17 steps them)."""
+    attention (as phase 17 steps them). Without `routes` (phase 20's
+    `train_on_device` checks, cut in PR 18 to keep the script's time) the
+    other routes and the per-edge bf16 configuration are left out:
+    phase 23 captures the same train steps of them."""
     configs = [("sparse", "sparse", train_config("sparse", keep)),
                ("dense", "dense", train_config("dense", keep)),
                ("gcn", "gcn", train_config("gcn", keep)),
@@ -3890,7 +3906,7 @@ def graph_configs(keep=NO_DROPOUT):
                ("gcn_blocked", "gcn_blocked",
                 train_config("gcn_blocked", keep)),
                ("async", "async", train_config("async", keep))]
-    for route, keys in ROUTES.items():
+    for route, keys in ROUTES.items() if routes else ():
         for attention in (False, True):
             configs.append((
                 f"sparse ({route}, attention {'on' if attention else 'off'})",
@@ -3898,10 +3914,11 @@ def graph_configs(keep=NO_DROPOUT):
                     **keys, "use_propagation_attention": attention,
                     **keep})))
     configs.append(("sparse_wide_bf16", "sparse", bf16_config(keep)))
-    configs.append(("sparse_wide_bf16 (per-edge, attention on)", "sparse",
-                    bf16_config({"aggregate_first": False,
-                                 "use_propagation_attention": True,
-                                 **keep})))
+    if routes:
+        configs.append(("sparse_wide_bf16 (per-edge, attention on)",
+                        "sparse", bf16_config({
+                            "aggregate_first": False,
+                            "use_propagation_attention": True, **keep})))
     return configs
 
 
@@ -4256,7 +4273,7 @@ def train_on_device_phase(step_corpus, corpus, runners, profiles, work_dir):
     start = time.perf_counter()
     card = gpu_name_and_power()
     checks = {}
-    for label, variant, config in graph_configs():
+    for label, variant, config in graph_configs(routes=False):
         _, checks[label] = graph_vs_eager(label, variant, config,
                                           step_corpus,
                                           os.path.join(work_dir, label))
@@ -4285,15 +4302,17 @@ def train_on_device_phase(step_corpus, corpus, runners, profiles, work_dir):
 
 TOL_MESH_LOSS = 1e-5                        # mesh vs single step: rtol
 TOL_MESH_GRAD = {"rtol": 2e-4, "atol": 1e-6}  # every gradient leaf
-TOL_NCCL = 1e-6                             # one nccl rank vs plain Runner
+# Molecules of the one-rank nccl Runners' `predict`.
+NCCL_PREDICT_MOLECULES = 40
 # Gloo moves CUDA tensors in all-reduce, all-to-all and all-gather but
 # not point to point: the shift exchange copies through the host.
 MESH_STAGED = ("p2p",)
 MESH_DEVICE = "cuda:0"
 MESH_ATTENTION = "sparse_attention"
-# The mesh Runners train on the first 3,000 of phase 6's 6,000 training
-# molecules (all of them until PR 16; cut to keep the script's time).
-MESH_RUNNER_MOLECULES = 3000
+# The mesh Runners train on the first 2,000 of phase 6's 6,000 training
+# molecules (all of them until PR 16, 3,000 until PR 18; cut to keep the
+# script's time).
+MESH_RUNNER_MOLECULES = 2000
 # The type-TP case also saves its Runner as an Orbax directory and a
 # pickle (phase 22 holds the two).
 MESH_ORBAX_CASE = "sparse 1x2 type_tp"
@@ -4496,16 +4515,23 @@ def params_digest(runner):
 
 
 def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
-                     save_dir=None):
+                     save_dir=None, eager=False):
     """2 epochs through `Runner(mesh=)` on this rank: the validation loss
     of the initial weights and after each epoch, the weights' digest
     after each training epoch, the kernels' counters over `train()` and
-    the launches its steps' batches predict, the exchange, and ms a
-    mesh train step (median of 5, synchronised). Given `save_dir`, every
-    rank then saves the Runner through `Runner._save` as an Orbax
+    the launches its steps' batches predict (a replayed Runner's steps
+    run at a new key's warm-up and capture alone), the exchange, the
+    step mode and graph counts, and ms a train step of the last
+    training stack (its rows copied from the host included), eager and,
+    where the Runner replays, replayed (`step_turns`), its train and
+    validation keys after each epoch, and the shapes of the stacks each
+    epoch stepped (their keys, by split). `eager`: the Runner's steps run
+    eagerly (`step_mode` set so), an eager twin. Given `save_dir`,
+    every rank then saves the Runner through `Runner._save` as an Orbax
     directory and as a pickle (rank 0 writes; type-TP gathers first),
     and returns the ms of each save and the paths this rank wrote."""
     from ggnn_tpu_torch.training.runner import Runner
+    from ggnn_tpu_torch.utils.timing import graph_key
     mesh = rank_mesh(n_data, n_edge)
     train, valid = corpus
     t0 = time.perf_counter()
@@ -4515,33 +4541,46 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
     setup_s = time.perf_counter() - t0
     if runner.device != mesh.device:
         raise RuntimeError(f"the mesh Runner runs on {runner.device}")
+    if eager:
+        runner.step_mode = {"mode": "eager", "reason": "the eager twin"}
     init_loss = runner.run_epoch("initial validation",
                                  runner.valid_processed, False)[0]
-    want, digests, last = list(NO_LAUNCH), [], {}
+    want, digests, keys, shapes, last = list(NO_LAUNCH), [], [], [], {}
 
     def counted(step, train):
-        def run(batches, *args):
+        def run(batches, *args, **kwargs):
             nonlocal want
             for b in batches:
                 want = _add(want, mesh_step_launches(
                     variant, runner._mesh_kind, config, b, train, n_edge))
-            if train:
-                last["batches"] = batches
-            return step(batches, *args)
+            return step(batches, *args, **kwargs)
         return run
 
     mesh_train = runner._mesh_train
     runner._mesh_train = counted(mesh_train, True)
     runner._mesh_eval = counted(runner._mesh_eval, False)
-    run_epoch = runner.run_epoch
+    run_epoch, mesh_stack = runner.run_epoch, runner._mesh_stack
 
     def epoch_then_digest(name, processed, is_training):
+        last["training"] = is_training
+        shapes.append(("train" if is_training else "validation", set()))
         out = run_epoch(name, processed, is_training)
         if is_training:
             digests.append(params_digest(runner))
+        else:
+            keys.append([sorted(repr(k) for k in cache.graphs)
+                         for cache in (runner.train_graphs,
+                                       runner.eval_graphs)])
         return out
 
-    runner.run_epoch = epoch_then_digest
+    def stack(group):
+        out = mesh_stack(group)
+        shapes[-1][1].add(repr(graph_key(tuple(out))))
+        if last["training"]:
+            last["stack"] = out
+        return out
+
+    runner.run_epoch, runner._mesh_stack = epoch_then_digest, stack
     zero_launch_counts()
     t0 = time.perf_counter()
     log_rec = runner.train()
@@ -4563,9 +4602,10 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
         finally:
             runner_mod.save_checkpoint = save
         saved["wrote"] = wrote
-    gen = torch.Generator(device=mesh.device).manual_seed(2)
-    step_ms = median_ms(lambda: mesh_train(last["batches"], gen))
+    step_ms = step_turns(runner, mesh_train, last["stack"])
     return {"kind": runner._mesh_kind, "saved": saved,
+            "step_mode": runner.step_mode,
+            "graph_counts": runner.graph_counts(),
             "exchange": (runner._resolve_exchange()
                          if runner._nodeshard_caps is not None else None),
             "setup_s": setup_s, "train_s": train_s,
@@ -4575,16 +4615,57 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
             "train_steps": runner.train_step_id,
             "valid_steps": runner.valid_step_id,
             "digests": digests, "launches": launches, "want": want,
+            "keys": keys, "shapes": [(split, sorted(seen))
+                                     for split, seen in shapes],
             "step_ms": step_ms, "device": str(mesh.device)}
+
+
+def step_turns(runner, mesh_train, stack, reps=5):
+    """{"eager": ms, "replayed": ms or None} of one mesh train step of
+    `stack` on this rank (median of `reps` each, synchronised, after 2
+    warm-ups), the rows copied from the host in both: the eager step
+    (`mesh_train`, the Runner's unwrapped step) on `local_batches`, and
+    where the Runner replays its train graph of the stack's key, in
+    turns eager, replayed, replayed, eager, ... Every rank runs the same
+    calls in the same order (their collectives pair)."""
+    from ggnn_tpu_torch.parallel.step import local_batches, local_rows
+    from ggnn_tpu_torch.utils.timing import graph_key
+    mesh, kind = runner.mesh, runner._mesh_kind
+    gen = torch.Generator(device=mesh.device).manual_seed(2)
+    calls = {"eager": lambda: mesh_train(local_batches(stack, mesh, kind),
+                                         gen)}
+    if runner.step_mode["mode"] == "replayed":
+        rows = local_rows(stack, mesh, kind)
+        graphs = np.asarray([sum(int(b.num_graphs) for b in rows)],
+                            np.float32)
+        key = graph_key(tuple(stack))
+        calls["replayed"] = lambda: runner.train_graphs((rows, graphs),
+                                                        key=key)
+    order = list(calls)
+    times = {name: [] for name in order}
+    for i in range(2 * (2 + reps) if len(order) == 2 else 2 + reps):
+        name = order[(i + i // 2) % len(order)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        calls[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    return {"eager": statistics.median(times["eager"][2:]),
+            "replayed": (statistics.median(times["replayed"][2:])
+                         if "replayed" in times else None)}
 
 
 def nccl_rank(config, corpus, log_dir):
     """`sparse` for 1 epoch through `Runner(mesh=make_mesh(1, 1))` over a
-    one-rank nccl group, against the plain Runner from the same seed,
-    both under deterministic algorithms: the largest parameter
-    difference, the losses, each run's launches and, for the plain
-    Runner, whose steps replay, the launches its graphs hold and its
-    steps (the mesh Runner's steps stay eager)."""
+    one-rank nccl group, its steps replayed, against the plain Runner
+    (replayed) and an eager twin of the mesh Runner (`step_mode` set to
+    eager), all from one seed under deterministic algorithms; then
+    `predict` of a few molecules through the replayed Runners. Each
+    run's losses, launches over `train()` and over `predict`, the
+    launches each of its graphs holds, its graph counts, steps and step
+    mode, and its largest parameter difference from the replayed mesh
+    Runner."""
+    from ggnn_tpu_torch.data.synthetic import synthetic_molecules
     from ggnn_tpu_torch.parallel.mesh import make_mesh
     from ggnn_tpu_torch.training.runner import Runner
     _tf32_off()
@@ -4592,34 +4673,107 @@ def nccl_rank(config, corpus, log_dir):
     if mesh.backend != "nccl" or mesh.world.group is None:
         raise RuntimeError(f"the one-rank mesh runs {mesh.backend}")
     train, valid = corpus
+    mols = synthetic_molecules(NCCL_PREDICT_MOLECULES, seed=44)
     runs = {}
     with deterministic_algorithms():
         for label, kwargs in (("plain", {"device": MESH_DEVICE}),
-                              ("mesh", {"mesh": mesh})):
-            zero_launch_counts()
+                              ("mesh", {"mesh": mesh}),
+                              ("mesh eager", {"mesh": mesh})):
             runner = Runner("sparse", config, train_data=train,
                             valid_data=valid, log_dir=log_dir, quiet=True,
                             tensorboard=False, **kwargs)
+            if label == "mesh eager":
+                runner.step_mode = {"mode": "eager",
+                                    "reason": "the eager twin"}
+            zero_launch_counts()
             log_rec = runner.train()
             torch.cuda.synchronize()
-            runs[label] = (runner, log_rec, list(launch_counts()))
-    plain, meshed = runs["plain"][0], runs["mesh"][0]
-    plain_graphs = {name: [held(g.launches) for g in cache.graphs.values()]
-                    for name, cache in (("train", plain.train_graphs),
-                                        ("validation", plain.eval_graphs))}
-    by_name = dict(meshed.params.named_parameters())
-    diffs = [float((p.detach() - by_name[n].detach()).abs().max())
-             for n, p in plain.params.named_parameters()]
-    return {"max_abs_param_diff": max(diffs),
-            "bit_equal": max(diffs) == 0.0,
-            "train_loss": [runs[k][1][0]["train_results"][0]
-                           for k in ("plain", "mesh")],
-            "valid_loss": [runs[k][1][0]["valid_results"][0]
-                           for k in ("plain", "mesh")],
-            "launches": {k: runs[k][2] for k in runs},
-            "plain_graphs": plain_graphs,
-            "plain_steps": [plain.train_step_id, plain.valid_step_id],
+            launches = list(launch_counts())
+            predicted, predict_launches = None, None
+            if label != "mesh eager":
+                zero_launch_counts()
+                predicted = np.concatenate(runner.predict(mols), axis=1)
+                predict_launches = list(launch_counts())
+            runs[label] = (runner, log_rec, launches, predicted,
+                           predict_launches)
+    meshed = dict(runs["mesh"][0].params.named_parameters())
+
+    def record(label):
+        runner, log_rec, launches, predicted, predict_launches = runs[label]
+        diffs = [float((p.detach() - meshed[n].detach()).abs().max())
+                 for n, p in runner.params.named_parameters()]
+        return {
+            "max_abs_param_diff": max(diffs),
+            "train_loss": log_rec[0]["train_results"][0],
+            "valid_loss": log_rec[0]["valid_results"][0],
+            "launches": launches, "predict_launches": predict_launches,
+            "predicted": predicted,
+            "graphs": {name: [held(g.launches) for g in cache.graphs.values()]
+                       for name, cache in (
+                           ("train", runner.train_graphs),
+                           ("validation", runner.eval_graphs),
+                           ("predict", runner.predict_graphs))},
+            "graph_counts": runner.graph_counts(),
+            "steps": [runner.train_step_id, runner.valid_step_id],
+            "step_mode": runner.step_mode}
+
+    return {"runs": {label: record(label) for label in runs},
             "backend": mesh.backend, "device": str(mesh.device)}
+
+
+def check_nccl(rec):
+    """The one-rank nccl runs of `nccl_rank`: the replayed mesh Runner and
+    the plain Runner replay (their counters over `train()` read 2 x their
+    graphs' launches, and over `predict` 2 x the prediction graph's),
+    with the same graphs; the eager twin launches its steps' kernels a
+    step; all three bit-equal, the predictions too."""
+    runs = rec["runs"]
+    plain, meshed, eager = (runs[k] for k in ("plain", "mesh",
+                                              "mesh eager"))
+    if meshed["step_mode"]["mode"] != "replayed" or any(
+            meshed["graph_counts"][k] < 1
+            for k in ("train", "validation", "predict")):
+        raise RuntimeError(f"the nccl mesh Runner does not replay: "
+                           f"{meshed['step_mode']}, graphs "
+                           f"{meshed['graph_counts']}")
+    for label, run in (("plain", plain), ("mesh", meshed)):
+        graphs = run["graphs"]
+        want = [2 * sum(c) for c in zip(*(graphs["train"]
+                                          + graphs["validation"]))]
+        want_predict = [2 * sum(c) for c in zip(*graphs["predict"])]
+        if (run["launches"] != want
+                or run["predict_launches"] != want_predict):
+            raise RuntimeError(
+                f"nccl {label} Runner: launches {run['launches']} over "
+                f"train(), {run['predict_launches']} over predict, not 2 x "
+                f"its graphs' {graphs}")
+    if meshed["graphs"] != plain["graphs"]:
+        raise RuntimeError(f"the nccl mesh Runner's graphs hold "
+                           f"{meshed['graphs']}, the plain Runner's "
+                           f"{plain['graphs']}")
+    (step,), (forward,) = plain["graphs"]["train"], \
+        plain["graphs"]["validation"]
+    train_steps, valid_batches = eager["steps"]
+    eager_want = [train_steps * a + valid_batches * b
+                  for a, b in zip(step, forward)]
+    if eager["launches"] != eager_want or any(eager["graph_counts"][k]
+                                              for k in ("train",
+                                                        "validation")):
+        raise RuntimeError(f"the eager nccl mesh twin launched "
+                           f"{eager['launches']}, not {eager_want}, graphs "
+                           f"{eager['graph_counts']}")
+    for label, run in (("plain", plain), ("mesh eager", eager)):
+        if run["max_abs_param_diff"] != 0.0 or (
+                run["train_loss"], run["valid_loss"]) != (
+                meshed["train_loss"], meshed["valid_loss"]):
+            raise RuntimeError(
+                f"the nccl mesh Runner is {run['max_abs_param_diff']} from "
+                f"the {label} Runner; losses {run['train_loss']}, "
+                f"{run['valid_loss']} against {meshed['train_loss']}, "
+                f"{meshed['valid_loss']}")
+    if not np.array_equal(plain["predicted"], meshed["predicted"]):
+        raise RuntimeError("the nccl mesh Runner's predictions differ from "
+                           "the plain Runner's")
 
 
 def check_mesh_step(label, results, oracle):
@@ -4650,13 +4804,24 @@ def check_mesh_step(label, results, oracle):
     return worst
 
 
-def check_mesh_runner(label, results, devices=None):
+def check_mesh_runner(label, results, devices=None, eager=False):
     """The ranks' 2-epoch runs: the weights alike after each epoch, each
     rank's launches as predicted and on its device (`devices`, by rank;
-    MESH_DEVICE for every rank by default), the validation loss falling."""
+    MESH_DEVICE for every rank by default), the validation loss falling;
+    the steps eager (`eager`: gloo on the card, the ragged exchange), the
+    rule's reason given and no step graph captured, or replayed with the
+    same graph counts on every rank and at least one a split."""
     first = results[0]
     devices = devices or [MESH_DEVICE] * len(results)
     for rank, out in enumerate(results):
+        mode, counts = out["step_mode"], out["graph_counts"]
+        steps = (counts["train"], counts["validation"])
+        if eager != (mode["mode"] == "eager") or (
+                steps != (0, 0) if eager else min(steps) < 1
+                or counts != first["graph_counts"]):
+            raise RuntimeError(f"mesh {label} rank {rank}: steps "
+                               f"{mode}, graphs {counts}; expected "
+                               f"{'eager' if eager else 'replayed'}")
         if out["digests"] != first["digests"] or len(out["digests"]) != 2:
             raise RuntimeError(f"mesh {label}: rank {rank}'s weights "
                                "differ after an epoch")
@@ -4734,7 +4899,7 @@ def mesh_phase(corpus, step_corpus, work_dir):
                                 runner_corpus, n_data, n_edge, os.path.join(
                                     work_dir, label.replace(" ", "_")),
                                 save_dir=save_dir)
-                check_mesh_runner(label, runs)
+                check_mesh_runner(label, runs, eager=True)
                 first = runs[0]
                 rec = {
                     "shape": [n_data, n_edge], "kind": kind,
@@ -4752,8 +4917,10 @@ def mesh_phase(corpus, step_corpus, work_dir):
                     "weights_equal_across_ranks": True,
                     "setup_s": max(r["setup_s"] for r in runs),
                     "train_s": max(r["train_s"] for r in runs),
-                    "mesh_step_ms": max(r["step_ms"] for r in runs),
+                    "mesh_step_ms": max(r["step_ms"]["eager"]
+                                        for r in runs),
                     "single_step_ms": oracle[3],
+                    "step_mode": first["step_mode"],
                     "saved": [r["saved"] for r in runs],
                     "digests": first["digests"],
                     "config": config,
@@ -4766,7 +4933,8 @@ def mesh_phase(corpus, step_corpus, work_dir):
                     f"({COUNTER_NAMES}) as predicted; validation loss "
                     f"{rec['initial_valid_loss']:.5f} -> "
                     f"{rec['valid_losses'][-1]:.5f}; weights bit-equal "
-                    f"across ranks each epoch; ms a step: mesh "
+                    f"across ranks each epoch; steps eager "
+                    f"({first['step_mode']['reason']}); ms a step: mesh "
                     f"{rec['mesh_step_ms']:.3f}, single "
                     f"{rec['single_step_ms']:.3f}; {rec['seconds']:.1f} s")
     t0 = time.perf_counter()
@@ -4777,26 +4945,17 @@ def mesh_phase(corpus, step_corpus, work_dir):
                         mesh_config("sparse", {"num_epochs": 1}),
                         step_corpus, os.path.join(work_dir, "nccl"))[0]
     nccl["seconds"] = time.perf_counter() - t0
-    if nccl["max_abs_param_diff"] > TOL_NCCL:
-        raise RuntimeError(f"the one-rank nccl mesh Runner is "
-                           f"{nccl['max_abs_param_diff']} from the plain "
-                           "Runner")
-    # The plain Runner replays: its counters read 2 x its graphs'
-    # launches; the mesh Runner's eager steps launch a replay's each.
-    graphs = nccl["plain_graphs"]
-    (step,), (forward,) = graphs["train"], graphs["validation"]
-    train_steps, valid_batches = nccl["plain_steps"]
-    eager_want = [train_steps * a + valid_batches * b
-                  for a, b in zip(step, forward)]
-    if (nccl["launches"]["plain"] != [2 * (a + b)
-                                      for a, b in zip(step, forward)]
-            or nccl["launches"]["mesh"] != eager_want):
-        raise RuntimeError(f"nccl mesh launches {nccl['launches']}, the "
-                           f"plain Runner's graphs {graphs} over "
-                           f"{nccl['plain_steps']} steps")
-    log(f"mesh nccl 1x1: parameters {nccl['max_abs_param_diff']:.3g} from "
-        f"the plain Runner (bit-equal: {nccl['bit_equal']}), launches "
-        f"{nccl['launches']['mesh']}; {nccl['seconds']:.1f} s")
+    check_nccl(nccl)
+    runs = nccl["runs"]
+    for run in runs.values():
+        run["predicted"] = None   # checked; kept out of the record
+    log(f"mesh nccl 1x1: the mesh Runner replays ({runs['mesh']['graph_counts']}"
+        f" graphs), bit-equal to the plain replayed Runner and to its eager "
+        f"twin (parameters, losses, predictions); launches over train() "
+        f"{COUNTER_NAMES} replayed {runs['mesh']['launches']}, 2 x its "
+        f"graphs' {runs['mesh']['graphs']['train']} + "
+        f"{runs['mesh']['graphs']['validation']}, eager twin "
+        f"{runs['mesh eager']['launches']}; {nccl['seconds']:.1f} s")
     seconds = time.perf_counter() - start
     log(f"mesh phase: {seconds:.1f} s (rank spawns "
         f"{', '.join(f'{w} ranks {s:.1f} s' for w, s in spawn_s.items())})"
@@ -5438,7 +5597,7 @@ def graph_launch_floor(dev):
 def replay_phase(dev, step_corpus, runners, work_dir, async_artifact):
     """Phase 23 (see the module docstring). `async`'s artifact check
     replays phase 16's `async` artifact (`async_artifact`): an export of
-    its 160 substeps takes a minute on the host."""
+    its 80 substeps takes half a minute on the host."""
     start = time.perf_counter()
     card = gpu_name_and_power()
     checks, serving, seconds = {}, {}, {}
@@ -5702,7 +5861,10 @@ def main() -> int:
     for label, rec in mesh["cases"].items():
         runs[f"mesh {label} training"] = [
             sum(c) for c in zip(*rec["runner_launches"])]
-    runs["mesh nccl 1x1 training"] = mesh["nccl"]["launches"]["mesh"]
+    for label, rec in mesh["nccl"]["runs"].items():
+        runs[f"mesh nccl 1x1 {label} training"] = rec["launches"]
+        if rec["predict_launches"] is not None:
+            runs[f"mesh nccl 1x1 {label} predict"] = rec["predict_launches"]
     for name, rec in orbax["sparse"]["runs"].items():
         runs[f"orbax sparse {name}"] = rec["launches"]
     runs["orbax JAX fixture serving"] = [

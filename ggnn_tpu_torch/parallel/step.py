@@ -103,16 +103,23 @@ def stack_for(batch_kind: str, batches: List, n_data: int, caps=None,
     return stack_batches(batches, n_data, keep_combined=keep_combined)
 
 
-def local_batches(stack: List, mesh: Mesh, batch_kind: str) -> List:
-    """This rank's rows of a stack, on its device: node-sharded batches as
+def local_rows(stack: List, mesh: Mesh, batch_kind: str) -> Tuple:
+    """This rank's rows of a stack, on the host: node-sharded batches as
     this rank's shard (`local_view`), type-TP batches with this rank's
-    per-type lanes."""
+    per-type lanes. Their shapes follow from the stack's alone, so ranks
+    whose stacks share their shapes hold rows of one shape."""
     rows = rows_of(stack, mesh)
     if _node_sharded(batch_kind, mesh):
-        rows = [b.local_view(mesh.edge.index) for b in rows]
-    elif batch_kind == "sparse_tp":
-        rows = [shard_lanes(b, mesh.edge) for b in rows]
-    return [b.to(mesh.device) for b in rows]
+        return tuple(b.local_view(mesh.edge.index) for b in rows)
+    if batch_kind == "sparse_tp":
+        return tuple(shard_lanes(b, mesh.edge) for b in rows)
+    return tuple(rows)
+
+
+def local_batches(stack: List, mesh: Mesh, batch_kind: str) -> List:
+    """`local_rows` on this rank's device."""
+    return [b.to(mesh.device)
+            for b in local_rows(stack, mesh, batch_kind)]
 
 
 def make_parallel_steps(params, optimizer, config: Dict,
@@ -133,7 +140,10 @@ def make_parallel_steps(params, optimizer, config: Dict,
     {loss [], accuracies [K], num_graphs []}, global and alike on every
     rank; the train step updates the parameters in place and, with
     `return_grads`, adds "grads": {name: the synchronised gradient}
-    (before the clip; a type-sharded leaf's is this rank's slice)."""
+    (before the clip; a type-sharded leaf's is this rank's slice).
+    Each counts this rank's graphs from its batches' host counts, or
+    takes them as `num_graphs`, a float32 [1] tensor on the device: a
+    step captured into a CUDA graph reads nothing from the host."""
     if batch_kind not in BATCH_KINDS:
         raise ValueError(f"unknown batch_kind {batch_kind!r}; one of "
                          f"{BATCH_KINDS}")
@@ -178,14 +188,17 @@ def make_parallel_steps(params, optimizer, config: Dict,
         return (diff.abs().sum(dim=1), (0.5 * diff.square()).sum(dim=1),
                 batch.target_mask.sum(dim=1))
 
-    def sums(batches, generator, is_training):
+    def sums(batches, generator, is_training, num_graphs):
         """(abs, sq, mask) [K] each over this rank's batches, and the
         global (abs, sq, mask, num_graphs) summed over the data axis."""
         per = [batch_sums(b, generator, is_training) for b in batches]
         abs_s, sq_s, mask_s = (torch.stack(x).sum(dim=0) for x in zip(*per))
         k = abs_s.shape[0]
-        graphs = abs_s.new_tensor([float(sum(int(b.num_graphs)
-                                             for b in batches))])
+        if num_graphs is None:
+            graphs = abs_s.new_tensor([float(sum(int(b.num_graphs)
+                                                 for b in batches))])
+        else:
+            graphs = num_graphs.to(abs_s.dtype)
         packed = torch.cat([abs_s.detach(), sq_s.detach(), mask_s.detach(),
                             graphs])
         if n_edge > 1:
@@ -234,8 +247,8 @@ def make_parallel_steps(params, optimizer, config: Dict,
                 out[i] = g
         return out
 
-    def train_step(batches, generator=None) -> Dict:
-        (_, sq_l, _), glob = sums(batches, generator, True)
+    def train_step(batches, generator=None, num_graphs=None) -> Dict:
+        (_, sq_l, _), glob = sums(batches, generator, True, num_graphs)
         target_num = glob[2] + SMALL_NUMBER
         share = (sq_l / target_num * rescale).sum()
         grads = sync(torch.autograd.grad(share, leaves, allow_unused=True))
@@ -245,8 +258,8 @@ def make_parallel_steps(params, optimizer, config: Dict,
         optimizer.step(dict(zip(names, grads)))
         return metrics
 
-    def eval_step(batches, generator=None) -> Dict:
+    def eval_step(batches, generator=None, num_graphs=None) -> Dict:
         with torch.no_grad():
-            return metrics_of(sums(batches, None, False)[1])
+            return metrics_of(sums(batches, None, False, num_graphs)[1])
 
     return train_step, eval_step

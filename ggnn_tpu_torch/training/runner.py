@@ -63,9 +63,21 @@ alone prints, writes the log, the summaries and the checkpoints (at
 epoch granularity; a type-TP checkpoint gathers the whole weights
 first, on every rank). A mid-epoch iterator state restored into a mesh
 Runner raises when its epoch starts, and `train_on_device` on a mesh
-raises. `predict` runs a collective-free copy of the model on the
-whole weights; under type-TP gathering them is collective, so every
-rank calls it.
+raises. `predict` runs a collective-free copy of the model, built once
+and refreshed in place from the whole weights before each call; under
+type-TP gathering them is collective, so every rank calls it.
+
+A mesh Runner's train and validation steps, collectives included, go
+through its graph caches as the single-device steps do (JAX jits them,
+`ggnn_tpu/parallel/step.py:191-209`): on the card one CUDA graph a rank
+for each shape of the step's whole stack, so every rank captures the
+same keys at the same step; its prediction forward too. Two meshes run
+their steps eagerly instead, each for a stated reason
+(`mesh_eager_reason`, reported as `step_mode`): gloo ranks on a card
+(gloo copies CUDA tensors through the host, which a graph cannot
+hold), and the ragged boundary exchange (its per-pair split sizes are
+host integers of each batch: a graph a batch). "auto" resolves to the
+ragged exchange on nccl, so such a Runner's steps run eagerly.
 """
 
 import contextlib
@@ -89,7 +101,7 @@ from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss, task_rescale)
 from ggnn_tpu_torch.parallel import tp
 from ggnn_tpu_torch.parallel.mesh import DATA_AXIS, EDGE_AXIS
-from ggnn_tpu_torch.parallel.step import (local_batches,
+from ggnn_tpu_torch.parallel.step import (local_batches, local_rows,
                                           make_parallel_steps, plan_caps,
                                           rank_generator, stack_for)
 from ggnn_tpu_torch.training.checkpoint import (load_iterator_state,
@@ -102,13 +114,37 @@ from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
 from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
 from ggnn_tpu_torch.utils.timing import (EpochsFn, GraphPool, StepCache,
-                                         shape_groups)
+                                         graph_key, shape_groups)
 
 
 # (backend, device type) pairs whose all-to-all takes per-pair split
 # sizes: "auto" resolves to the ragged exchange there (gloo on the card
 # measured on an H100, torch 2.11).
 RAGGED_TRANSPORTS = {("nccl", "cuda"), ("gloo", "cpu"), ("gloo", "cuda")}
+
+
+def mesh_eager_reason(backend: Optional[str], device_type: str,
+                      exchange: Optional[str]) -> Optional[str]:
+    """Why a mesh Runner's train and validation steps run eagerly, or
+    None where they go through its graph caches (CUDA graphs on the
+    card; on the CPU a cache runs each step eagerly). `exchange` is the
+    resolved boundary exchange of a node-sharded mesh (None for other
+    kinds). The rule, and its only cases:
+
+      * gloo ranks on a card: gloo copies CUDA tensors through the host
+        (parallel/mesh.py), so a captured graph cannot hold its
+        collectives;
+      * the ragged exchange: its per-pair split sizes are host integers
+        taken from each batch (parallel/node_shard.py), so every batch
+        would be a graph of its own; JAX's ragged all-to-all takes them
+        on the device, and no torch collective does."""
+    if backend == "gloo" and device_type == "cuda":
+        return ("gloo on a card: gloo copies CUDA tensors through the "
+                "host, which a CUDA graph cannot hold")
+    if exchange in ("ragged", "ragged_emulated"):
+        return ("the ragged exchange: its per-pair split sizes are host "
+                "integers of each batch, a graph a batch")
+    return None
 
 
 def _batch_edge_count(batch) -> float:
@@ -270,7 +306,7 @@ class Runner:
         # the validation step and `predict`'s forward. Apart, because a
         # training and a validation batch can share a shape; one pool,
         # because they replay strictly in turn.
-        graph_pool = GraphPool()
+        self._graph_pool = graph_pool = GraphPool()
         self.train_graphs = StepCache(
             lambda batch: self.train_step(batch), self.device,
             state=[*self.params.parameters(),
@@ -308,6 +344,12 @@ class Runner:
             self._resume_iter = load_iterator_state(restore)
         self.restored = restore is not None
         self._nodeshard_caps = None
+        # How the steps run: "replayed" through the caches, or "eager"
+        # for `reason` (a mesh, `mesh_eager_reason`).
+        self.step_mode = {"mode": "replayed", "reason": None}
+        # predict's collective-free copy of an edge-axis mesh's model,
+        # built at the first prediction.
+        self._free_params = None
         if mesh is not None:
             self._setup_mesh()
 
@@ -347,6 +389,42 @@ class Runner:
         self._mesh_train, self._mesh_eval = make_parallel_steps(
             self.params, self.optimizer, self.config, self.task_ids, mesh,
             batch_kind=kind)
+        reason = mesh_eager_reason(
+            mesh.backend, mesh.device.type,
+            None if self._nodeshard_caps is None
+            else self._resolve_exchange())
+        if reason is not None:
+            self.step_mode = {"mode": "eager", "reason": reason}
+        if mesh.backend == "nccl":
+            # nccl makes a group's communicator at its first collective,
+            # on the host: one eager all-reduce a group here, so that no
+            # step's warm-up or capture makes one.
+            for axis in (mesh.world, mesh.data, mesh.edge):
+                axis.all_reduce(torch.zeros(1, device=self.device))
+        # The mesh steps' caches, made after the type-TP slicing: the
+        # train step's state is the sliced parameters and moments. A
+        # batch is this rank's rows and its graph count ([1], float32),
+        # the key the whole stack's, alike on every rank.
+        self.train_graphs = StepCache(
+            lambda batch: self._mesh_step(batch, True), self.device,
+            state=[*self.params.parameters(),
+                   *self.optimizer.state_tensors()],
+            generators=[self.generator], pool=self._graph_pool,
+            name="mesh train step")
+        self.eval_graphs = StepCache(
+            lambda batch: self._mesh_step(batch, False), self.device,
+            pool=self._graph_pool, name="mesh validation step")
+
+    def _mesh_step(self, batch, is_training: bool):
+        """One mesh step on (rows, graph count) on the device: (loss,
+        MAE, global graph count)."""
+        rows, graphs = batch
+        if is_training:
+            metrics = self._mesh_train(list(rows), self.generator,
+                                       num_graphs=graphs)
+        else:
+            metrics = self._mesh_eval(list(rows), num_graphs=graphs)
+        return metrics["loss"], metrics["accuracies"], metrics["num_graphs"]
 
     def _nodeshard_plan(self, batches, n_shards, margin=None,
                         nodes_local=None):
@@ -449,12 +527,23 @@ class Runner:
         def run_group(group):
             nonlocal processed_edges, total_loss, shown_graphs
             processed_edges += sum(_batch_edge_count(b) for b in group)
-            batches = local_batches(self._mesh_stack(group), mesh,
-                                    self._mesh_kind)
-            if is_training:
-                metrics = self._mesh_train(batches, self.generator)
+            stack = self._mesh_stack(group)
+            if self.step_mode["mode"] == "eager":
+                batches = local_batches(stack, mesh, self._mesh_kind)
+                if is_training:
+                    metrics = self._mesh_train(batches, self.generator)
+                else:
+                    metrics = self._mesh_eval(batches)
             else:
-                metrics = self._mesh_eval(batches)
+                rows = local_rows(stack, mesh, self._mesh_kind)
+                graphs = np.asarray(
+                    [sum(int(b.num_graphs) for b in rows)], np.float32)
+                cache = self.train_graphs if is_training else \
+                    self.eval_graphs
+                loss, accs, count = cache((rows, graphs),
+                                          key=graph_key(tuple(stack)))
+                metrics = {"loss": loss, "accuracies": accs,
+                           "num_graphs": count}
             step_metrics.append(metrics)
             if not self.quiet:
                 graphs = int(metrics["num_graphs"])
@@ -546,11 +635,13 @@ class Runner:
 
     def _predict_step(self, batch) -> torch.Tensor:
         with torch.no_grad():
-            return self._outputs(batch, False)
+            return self._outputs(batch, False, self._free_params)
 
     def graph_counts(self) -> Dict[str, int]:
         """The CUDA graphs captured so far (0 on the CPU): train steps,
-        validation steps, prediction forwards."""
+        validation steps, prediction forwards (a mesh Runner's on this
+        rank; `step_mode` says whether its steps replay, and if not,
+        why)."""
         return {"train": len(self.train_graphs.graphs),
                 "validation": len(self.eval_graphs.graphs),
                 "predict": len(self.predict_graphs.graphs)}
@@ -862,19 +953,14 @@ class Runner:
         saved_drop = getattr(self.adapter, "drop_remainder", None)
         if saved_drop is not None:
             self.adapter.drop_remainder = False
-        params = self._collective_free_params()
+        self._refresh_free_params()
         try:
             processed = self.adapter.preprocess(raw_graphs, False)
             order = self._dense_request_order(processed)
             outputs = []
             with torch.no_grad():
                 for batch in self.adapter.batches(processed, False):
-                    if self.mesh is None:
-                        computed = self.predict_graphs(batch)
-                    else:
-                        # A mesh Runner's steps stay eager.
-                        computed = self._outputs(batch.to(self.device),
-                                                 False, params)
+                    computed = self.predict_graphs(batch)
                     outputs.append(
                         computed.cpu().numpy()[:, :int(batch.num_graphs)])
         finally:
@@ -889,21 +975,26 @@ class Runner:
             return [result]
         return outputs
 
-    def _collective_free_params(self) -> ModelParams:
-        """The Runner's parameters, or on an edge-axis mesh a copy of them,
-        whole, on a model built without the edge axis: a prediction runs
-        no collective."""
+    def _refresh_free_params(self) -> None:
+        """On an edge-axis mesh, the collective-free copy that `predict`
+        runs (`_free_params`: a model built without the edge axis, so a
+        prediction runs no collective), built at the first call, as JAX
+        builds its once per Runner (`ggnn_tpu/training/runner.py:
+        943-966`), and refreshed in place from the whole weights at
+        every call, so that the prediction graphs read the live
+        weights. Elsewhere predict runs the Runner's own parameters."""
         if getattr(self.model, "edge_axis", None) is None:
-            return self.params
-        with self._whole_weights():
-            state = {n: p.detach().clone()
-                     for n, p in self.params.named_parameters()}
-        params = ModelParams(
-            self.adapter.build_model(torch.Generator().manual_seed(0)),
-            init_output_heads(torch.Generator().manual_seed(0),
-                              self.config["hidden_size"], self.task_ids))
-        params.load_state_dict(state, strict=True)
-        return params.to(self.device)
+            return
+        if self._free_params is None:
+            self._free_params = ModelParams(
+                self.adapter.build_model(torch.Generator().manual_seed(0)),
+                init_output_heads(torch.Generator().manual_seed(0),
+                                  self.config["hidden_size"],
+                                  self.task_ids)).to(self.device)
+        free = dict(self._free_params.named_parameters())
+        with self._whole_weights(), torch.no_grad():
+            for name, p in self.params.named_parameters():
+                free[name].copy_(p)
 
     def _dense_request_order(self, processed):
         """Request indices of the packed dense-family graphs in pack

@@ -17,6 +17,7 @@ does, and `graph_key` says which batches one graph can replay.
 """
 
 import dataclasses
+import gc
 import statistics
 import subprocess
 import threading
@@ -371,20 +372,24 @@ class StepCache:
         self.name = name
         self.graphs: Dict = {}
 
-    def __call__(self, batch, read: Optional[Callable] = None):
+    def __call__(self, batch, read: Optional[Callable] = None, key=None):
         device = _device_of(batch, self.device)
         if device.type != "cuda":
             outputs = self.step_fn(_to(batch, device))
             return outputs if read is None else read(outputs)
         with self.pool.lock:
-            outputs = self.replay(batch)
+            outputs = self.replay(batch, key)
             return _clone(outputs) if read is None else read(outputs)
 
-    def replay(self, batch):
+    def replay(self, batch, key=None):
         """The output buffers of one replay for `batch` on the card, its
         key captured first if new; the caller holds the pool's lock
-        where threads share the cache."""
-        key = graph_key(batch)
+        where threads share the cache. `key` (by default the batch's
+        `graph_key`) names the graph: a caller whose batches are one
+        rank's rows of a stack passes the stack's, which every rank
+        computes alike, so that all ranks capture at the same step."""
+        if key is None:
+            key = graph_key(batch)
         if key not in self.graphs:
             self.capture({key: batch})
         return self.graphs[key].replay(batch)
@@ -423,6 +428,12 @@ class StepCache:
             graph.register_generator_state(generator)
         before = launch_counts()
         last = _LastOp()
+        # No garbage collection inside the capture: a collection there
+        # can free an unreachable earlier graph, and destroying a graph
+        # (`cudaGraphExecDestroy`) is refused while this thread captures,
+        # which ends the capture.
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             # Thread-local: another thread's synchronising call (a host
             # read, a packer thread's copy) does not end this capture.
@@ -434,6 +445,9 @@ class StepCache:
         except RuntimeError as err:
             raise RuntimeError(f"the capture of a {self.name} failed at "
                                f"{last.op}: {err}") from err
+        finally:
+            if collecting:
+                gc.enable()
         after = launch_counts()
         return StepGraph(
             graph, static, outputs,

@@ -1707,6 +1707,42 @@ def test_a_step_that_synchronises_raises_and_trains_nothing(cuda):
     assert float(total) == 0.0 and len(calls) == 2
 
 
+def test_no_collection_inside_a_capture_frees_an_earlier_graph(cuda):
+    """Garbage collection is held off while a step is captured: a
+    collection there could free an unreachable earlier graph, and
+    destroying a graph while the thread captures ends the capture. The
+    step drops the last reference to an earlier cache's graph at its
+    capture, with a collection due at every allocation."""
+    import gc
+    from ggnn_tpu_torch.utils.timing import StepCache
+    x = torch.ones(8, device=cuda)
+    earlier = StepCache(lambda batch: batch + 1, cuda)
+    earlier(x)
+    held = {"earlier": earlier}
+    del earlier
+    calls, enabled = [], []
+
+    def step(batch):
+        calls.append(1)
+        enabled.append(gc.isenabled())
+        if len(calls) == 2:           # the capture, after the warm-up
+            cycle = [held.pop("earlier")]
+            cycle.append(cycle)
+            del cycle
+            [[] for _ in range(100)]
+        return batch * 2
+
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        out = StepCache(step, cuda)(x)
+    finally:
+        gc.set_threshold(*thresholds)
+    assert enabled == [True, False] and gc.isenabled()
+    assert torch.equal(out, x * 2)
+    gc.collect()
+
+
 def test_replays_draw_fresh_dropout_masks_from_the_generator(cuda):
     """A registered generator gives each replay new draws, the draws an
     eager step would make from the same state; after the replays the
@@ -2012,6 +2048,39 @@ def test_mesh_step_on_the_card_matches_single_device(cuda, mesh_pool,
     if results[0]["types"] is None:
         for name, got in results[1]["grads"].items():
             np.testing.assert_array_equal(got, results[0]["grads"][name])
+
+
+def test_nccl_mesh_runner_replays_bit_equal_to_eager_and_plain(cuda,
+                                                              tmp_path):
+    """A one-rank nccl mesh Runner replays its train and validation steps
+    (graph counts above 0) and trains 2 epochs bit-equal to its eager
+    twin and to the plain replayed Runner under deterministic
+    algorithms: every epoch's loss and MAE, every parameter."""
+    import os
+    import torch_mesh_replay_ranks as ranks
+    from ggnn_tpu_torch.parallel.launch import RankPool
+    config = resolve_config("sparse", config_json=json.dumps({
+        "hidden_size": 32, "batch_size": 2000, "num_epochs": 2,
+        "edge_weight_dropout_keep_prob": 1.0,
+        "graph_state_dropout_keep_prob": 1.0,
+        "out_layer_dropout_keep_prob": 1.0}))
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with RankPool(1, "nccl", timeout=600, env=env,
+                  python_path=[os.path.dirname(__file__)]) as pool:
+        (out,) = pool.run(ranks.nccl_replay, config,
+                          synthetic_molecules(400, seed=3),
+                          synthetic_molecules(60, seed=4), str(tmp_path))
+    mesh, eager, plain = out["mesh"], out["mesh eager"], out["plain"]
+    assert mesh["step_mode"] == {"mode": "replayed", "reason": None}
+    assert mesh["graph_counts"]["train"] > 0
+    assert mesh["graph_counts"]["validation"] > 0
+    assert eager["graph_counts"] == {"train": 0, "validation": 0,
+                                     "predict": 0}
+    for other in (eager, plain):
+        assert other["log"] == mesh["log"]
+        for name, w in mesh["weights"].items():
+            np.testing.assert_array_equal(other["weights"][name], w,
+                                          err_msg=name)
 
 
 def test_sorted_sums_and_gathers_repeat_bit_for_bit(cuda):

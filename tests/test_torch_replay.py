@@ -4,11 +4,12 @@ forward, the Predictor's and an artifact's forward, and the async model
 with its `recv_base` offsets on the device, on the CPU.
 
 On the CPU a cache runs each step eagerly. To hold its replay path here,
-the `card` fixture stands a fake graph in for each capture: a replay
-runs the step eagerly and writes into the same output buffers every
-time, as a CUDA graph's static outputs are written, so that a caller
-that kept a replay's outputs without a copy would see the next replay's
-values. CUDA graphs themselves are held to eager steps on the card
+the `card` fixture stands a fake graph in for each capture
+(tests/torch_fake_card.py): a replay runs the step eagerly on a copy of
+the batch whose counts are None, as a captured step sees them, and
+writes into the same output buffers every time, as a CUDA graph's
+static outputs are written, so that a caller that kept a replay's
+outputs without a copy would see the next replay's values. CUDA graphs themselves are held to eager steps on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 23).
 
 Tolerances, each with its reason:
@@ -21,7 +22,6 @@ Tolerances, each with its reason:
 import dataclasses
 import json
 import threading
-import time
 
 import jax
 import jax.numpy as jnp
@@ -43,8 +43,9 @@ from ggnn_tpu_torch.training import checkpoint
 from ggnn_tpu_torch.training.config import resolve_config
 from ggnn_tpu_torch.training.runner import Runner
 from ggnn_tpu_torch.training.variants import make_adapter
-from ggnn_tpu_torch.utils import timing
 from ggnn_tpu_torch.utils.timing import StepCache, graph_key
+
+import torch_fake_card
 
 torch.set_num_threads(1)
 
@@ -82,51 +83,14 @@ def _runner(variant, tmp_path, name="run", overrides=None, n_train=60):
                   tensorboard=False, device="cpu")
 
 
-def _copy_into(dst, src):
-    if isinstance(dst, torch.Tensor):
-        dst.copy_(src)
-    else:
-        for d, s in zip(dst, src):
-            _copy_into(d, s)
-
-
-class _FakeGraph:
-    """A captured graph's stand-in on the CPU: each replay runs the step
-    eagerly and writes into the same output buffers, then lingers, so
-    that a replay racing another shows."""
-
-    def __init__(self, cache):
-        self.cache = cache
-        self.outputs = None
-        self.batches = []
-        self.launches = {}
-
-    def replay(self, batch):
-        self.batches.append(batch)
-        out = self.cache.step_fn(timing._to(batch, "cpu"))
-        with torch.no_grad():
-            if self.outputs is None:
-                self.outputs = timing._clone(out)
-            else:
-                _copy_into(self.outputs, out)
-        time.sleep(1e-4)
-        return self.outputs
-
-
 @pytest.fixture
 def card(monkeypatch):
-    """Every cache takes its replay path, with a fake graph a capture;
-    yields the captures, (cache name, key) in order."""
+    """Every cache takes its replay path, with a fake graph a capture
+    (tests/torch_fake_card.py); yields the captures, (cache name, key)
+    in order."""
     captured = []
-
-    def capture(self, new):
-        for key in new:
-            captured.append((self.name, key))
-            self.graphs[key] = _FakeGraph(self)
-
-    monkeypatch.setattr(timing.StepCache, "capture", capture)
-    monkeypatch.setattr(timing, "_device_of",
-                        lambda batch, device=None: torch.device("cuda"))
+    for obj, name, value in torch_fake_card.patches(captured):
+        monkeypatch.setattr(obj, name, value)
     return captured
 
 

@@ -11,25 +11,36 @@ probability 1.0: `sparse` at configs/sparse_tpu.json's 20,000-node budget
 node-sharded at (2,2) under the alltoall, shift and ragged exchanges and
 at (1,4) under ragged, data-parallel at (4,1) and type-TP at (2,2);
 configs/sparse_attention.json node-sharded at (1,4) (shift); `gcn`
-node-sharded at (2,2) (ragged); `async` at (4,1). Each case: one train
-step of `make_parallel_steps` over the step corpus' first batches
-against the single-device step on cuda:0 (loss rtol 1e-5, every gradient
-leaf rtol 2e-4 / atol 1e-6) with the launches each rank's batches
-predict; 2 epochs of `synthetic_molecules(6000, seed=40)` through
-`Runner(mesh=)`: the weights bit-equal across ranks after each epoch, the
-validation loss below the initial weights', each rank's launches equal
-to the prediction. Nothing is staged through the host: nccl moves every
-CUDA tensor, point-to-point sends included.
+node-sharded at (2,2) under alltoall and shift; `dense` (one bucket of
+32) and `async` at (4,1). Each case: one train step of
+`make_parallel_steps` over the step corpus' first batches against the
+single-device step on cuda:0 (loss rtol 1e-5, every gradient leaf rtol
+2e-4 / atol 1e-6) with the launches each rank's batches predict; 2
+epochs of `synthetic_molecules(6000, seed=40)` through `Runner(mesh=)`
+under deterministic algorithms: the weights bit-equal across ranks after
+each epoch, the validation loss below the initial weights', each rank's
+launches equal to the prediction. A Runner whose steps replay (every
+exchange but ragged) holds the same train and validation keys on every
+rank, one graph a shape of the stacks each split stepped (so epoch 2
+adds a key only for a stack shape epoch 1 did not step, as a capacity
+regrow makes; the count is printed), and its weights after each epoch
+equal those of an eager twin (its steps run eagerly) bit for bit; its
+ms a train step replayed and eager, in turns, are printed. A ragged
+case runs its steps eagerly and says why. Nothing is staged
+through the host: nccl moves every CUDA tensor, point-to-point sends
+included.
 
 It prints a line a case and, last, one JSON object with each case's
-kind, exchange, devices, losses and launches and the cards' name and
-power limit (nvidia-smi). It fails without four cards, and on any check.
-It measures agreement across cards, not speed: it reports no step time.
+kind, exchange, devices, step mode, graphs a rank, losses, launches and
+ms a step, and the cards' name and power limit (nvidia-smi). It fails
+without four cards, and on any check. The step times are a record of
+these cards, not a scaling result.
 """
 
 import itertools
 import json
 import os
+import subprocess
 import sys
 import time
 from types import SimpleNamespace
@@ -48,8 +59,10 @@ CASES = [(f"sparse 2x2 {x}", "sparse", {"boundary_exchange": x}, 2, 2)
     ("sparse 4x1", "sparse", {}, 4, 1),
     ("sparse 2x2 type_tp", "sparse", {"edge_parallelism": "type_tp"}, 2, 2),
     ("sparse_attention 1x4", cs.MESH_ATTENTION,
-     {"boundary_exchange": "shift"}, 1, 4),
-    ("gcn 2x2", "gcn", {"boundary_exchange": "ragged"}, 2, 2),
+     {"boundary_exchange": "shift"}, 1, 4)] + [
+    (f"gcn 2x2 {x}", "gcn", {"boundary_exchange": x}, 2, 2)
+    for x in ("alltoall", "shift")] + [
+    ("dense 4x1", "dense", {"dense_bucket_sizes": [32]}, 4, 1),
     ("async 4x1", "async", {}, 4, 1)]
 
 
@@ -70,9 +83,38 @@ def step_rank(*args):
     return cs.mesh_step_rank(*args)
 
 
-def runner_rank(*args):
+def runner_rank(*args, **kwargs):
     cs.rank_mesh = nccl_mesh
-    return cs.mesh_runner_rank(*args)
+    with cs.deterministic_algorithms():
+        return cs.mesh_runner_rank(*args, **kwargs)
+
+
+def check_replay(label, runs, twins):
+    """A replayed case's ranks: the same keys and stack shapes on every
+    rank; one train and one validation graph for each shape of a stack
+    its split stepped, and none more; the weights after each epoch those
+    of the eager twin. Returns (train, validation) graphs after each
+    epoch and the stack shapes epoch 2 stepped that epoch 1 did not (a
+    capacity regrow: each adds one key, epoch 2 none without them)."""
+    first = runs[0]
+    if any(r["keys"] != first["keys"] or r["shapes"] != first["shapes"]
+           for r in runs):
+        raise RuntimeError(f"{label}: the ranks' keys or stack shapes part")
+    seen = {"train": set(), "validation": set()}
+    for split, shapes in first["shapes"]:
+        seen[split].update(shapes)
+    if first["keys"][-1] != [sorted(seen["train"]),
+                             sorted(seen["validation"])]:
+        raise RuntimeError(f"{label}: the graphs are not one a stack shape "
+                           f"({[len(k) for k in first['keys'][-1]]} graphs, "
+                           f"{[len(v) for v in seen.values()]} shapes)")
+    if any(r["digests"] != t["digests"] for r, t in zip(runs, twins)):
+        raise RuntimeError(f"{label}: the replayed weights differ from the "
+                           "eager twin's")
+    trained = [set(shapes) for split, shapes in first["shapes"]
+               if split == "train"]
+    return ([[len(k) for k in keys] for keys in first["keys"]],
+            len(trained[1] - trained[0]))
 
 
 def main() -> int:
@@ -100,7 +142,8 @@ def main() -> int:
     single = torch.device("cuda:0")
     work_dir = os.path.join(REPO, "build", "mesh_nccl")
     cases = {}
-    with RankPool(WORLD, "nccl", timeout=600, python_path=[
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    with RankPool(WORLD, "nccl", timeout=600, env=env, python_path=[
             REPO, os.path.dirname(os.path.abspath(__file__))]) as pool:
         for label, variant, over, n_data, n_edge in CASES:
             t0 = time.perf_counter()
@@ -126,23 +169,41 @@ def main() -> int:
                              batches, n_data, n_edge, kind,
                              config.get("boundary_exchange", "alltoall"))
             worst = cs.check_mesh_step(label, steps, oracle)
+            log_dir = os.path.join(work_dir, label.replace(" ", "_"))
             runs = pool.run(me.runner_rank, variant, config, corpus, n_data,
-                            n_edge,
-                            os.path.join(work_dir, label.replace(" ", "_")))
+                            n_edge, log_dir)
             devices = [f"cuda:{r}" for r in range(WORLD)]
-            cs.check_mesh_runner(label, runs, devices)
+            eager = runs[0]["step_mode"]["mode"] == "eager"
+            if eager != (runs[0]["exchange"] == "ragged"):
+                raise RuntimeError(f"{label}: steps {runs[0]['step_mode']}")
+            cs.check_mesh_runner(label, runs, devices, eager=eager)
+            graphs_by_epoch, new_shapes = None, None
+            if not eager:
+                twins = pool.run(me.runner_rank, variant, config, corpus,
+                                 n_data, n_edge, log_dir, eager=True)
+                graphs_by_epoch, new_shapes = check_replay(label, runs,
+                                                           twins)
             first = runs[0]
             cases[label] = {
                 "kind": kind, "exchange": first["exchange"],
-                "devices": devices, "step_loss": steps[0]["loss"],
+                "devices": devices, "step_mode": first["step_mode"],
+                "graphs_a_rank": first["graph_counts"],
+                "graphs_after_each_epoch": graphs_by_epoch,
+                "stack_shapes_new_in_epoch_2": new_shapes,
+                "bit_equal_to_eager_twin": None if eager else True,
+                "step_loss": steps[0]["loss"],
                 "single_loss": oracle[0], "step_max_rel_grad_err": worst,
                 "launches": [r["launches"] for r in runs],
+                "step_ms": [r["step_ms"] for r in runs],
                 "valid_losses": [first["initial_valid_loss"]]
                 + first["valid_losses"],
                 "weights_equal_across_ranks": True,
                 "seconds": time.perf_counter() - t0}
             print(f"{label}: {json.dumps(cases[label])}", flush=True)
-    print(cs.gpu_name_and_power())
+    # Every card's name and power limit, one line each.
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip())
     print(json.dumps({"cases": cases, "world": WORLD, "backend": "nccl",
                       "seconds": time.perf_counter() - start}))
     return 0
