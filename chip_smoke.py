@@ -300,7 +300,11 @@ prediction (`check_graphs`, `check_forwards`).
      the record only (the ranks share one card: no scaling number).
      These gloo Runners run their steps eagerly, and each says why
      (`step_mode`: gloo copies CUDA tensors through the host, which a
-     CUDA graph cannot hold); no step graph is captured.
+     CUDA graph cannot hold); no step graph is captured. The 4-rank pool
+     also times `all_to_all_single` over gloo on phase 24's first 20k
+     and wide batches (the ragged exchange's library yardstick), each
+     rank's table through `exchange_boundary` bit-equal to the plain
+     version's.
      Then one rank over `nccl` (its collectives on the world's group):
      `sparse` through `Runner(mesh=make_mesh(1, 1))` for 1 epoch of the
      step corpus, its train and validation steps and its `predict`
@@ -333,14 +337,16 @@ prediction (`check_graphs`, `check_forwards`).
      as its twin is;
  23. replayed steps (ROADMAP A20) — for every configuration of phase 20
      (each with its own dropout; `dense` without remainder dropping, so
-     that the step corpus' 50 validation molecules fill a batch), 2
+     that the step corpus' 50 validation molecules fill a batch; the
+     other routes with attention on only), 2
      epochs of `Runner.train()` on the step corpus with a rolling
      checkpoint every 2 steps, every step a replay, against an eager twin
      (`eager_steps`: the same `train()`, `train_step` and `eval_step`
      called directly): every per-step loss and MAE of both splits and
      every parameter bit-equal; the train graphs after epoch 2 those after
      epoch 1, and every graph count printed; the run resumed from the last
-     rolling checkpoint bit-equal; the trained weights served by a
+     rolling checkpoint bit-equal (but for the routes); the
+     trained weights served by a
      replayed `Predictor.from_checkpoint` (512 nodes, 64 graphs) and its
      artifact (exported on the CPU, for the variants and attention; for
      `async` phase 16's artifact, whose export takes half a minute), the 1- and
@@ -355,7 +361,23 @@ prediction (`check_graphs`, `check_forwards`).
      default envelope; 16 server clients for 3 s (requests/s, p99); and
      the launch floor inside a graph: graphs of 1 and of 100
      `ell_spmm.empty_launch` kernels replayed, beside one empty kernel
-     outside a graph.
+     outside a graph;
+ 24. ragged exchange (ROADMAP A22; after phase 21) — the hand-written
+     peer-memory ragged all-to-all (csrc/ragged_exchange.cu) with one
+     process standing in for the S = 4 ranks of an edge axis on this card
+     (S puts then S waits; backward S publishes then S pulls), over the
+     f32 20k `sparse` boundary shapes (configs/sparse_tpu.json, H 100):
+     the first 3 batches of phase 6's corpus with their own cuts and 3
+     wide ones (1 to 600 rows a pair), laid out at one capacity, whose
+     per-pair sizes all differ. Each batch's tables and packs bit-equal to
+     the plain version's, eagerly and through one CUDA graph of the whole
+     exchange and reverse transfer captured once and replayed over all 6;
+     the counters (set to 0 just before) S x 7 a direction (each batch
+     eagerly, and the capture; a replay launches nothing); the µs of
+     a group's forward and backward (`time_ms`, and by the host clock)
+     against their byte bound, the plain version's (host clock: it reads
+     the sizes on the host) and phase 21's gloo `all_to_all_single`, with
+     the NVLink bound four cards would have.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -3885,19 +3907,22 @@ TOL_GRAPH_PARAM = 1e-5
 TOL_GRAPH_LOSS = 1e-5
 
 
-def graph_configs(keep=NO_DROPOUT, routes=True):
+def graph_configs(keep=NO_DROPOUT, routes=True, route_attention=(False,
+                                                                 True)):
     """(label, variant, config) of every configuration phase 23 replays
     through `train()`, every keep probability 1.0 (phase 23: `keep` {},
     each config's own dropout): each variant at its
     phase-6 training config (`dense` at bench.py's buckets [16, 32] and
     256 graphs a batch), configs/sparse_attention.json at 20,000 nodes,
     async at configs/async_tpu.json, each other route of the sparse GGNN
-    with attention off and on (as phase 13 steps them) and
-    configs/sparse_wide_bf16.json on the combined lane and per edge with
-    attention (as phase 17 steps them). Without `routes` (phase 20's
-    `train_on_device` checks, cut in PR 18 to keep the script's time) the
-    other routes and the per-edge bf16 configuration are left out:
-    phase 23 captures the same train steps of them."""
+    with attention as `route_attention` says (phase 13 steps them off and
+    on; phase 23 replays them with attention on, whose steps
+    launch every kernel the route's steps without attention do, and
+    more) and configs/sparse_wide_bf16.json on the combined lane and per
+    edge with attention (as phase 17 steps them). Without `routes`
+    (phase 20's `train_on_device` checks, cut to keep the
+    script's time) the other routes and the per-edge bf16 configuration
+    are left out: phase 23 captures the same train steps of them."""
     configs = [("sparse", "sparse", train_config("sparse", keep)),
                ("dense", "dense", train_config("dense", keep)),
                ("gcn", "gcn", train_config("gcn", keep)),
@@ -3907,7 +3932,7 @@ def graph_configs(keep=NO_DROPOUT, routes=True):
                 train_config("gcn_blocked", keep)),
                ("async", "async", train_config("async", keep))]
     for route, keys in ROUTES.items() if routes else ():
-        for attention in (False, True):
+        for attention in route_attention:
             configs.append((
                 f"sparse ({route}, attention {'on' if attention else 'off'})",
                 "sparse", attention_config({
@@ -4515,7 +4540,7 @@ def params_digest(runner):
 
 
 def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
-                     save_dir=None, eager=False):
+                     save_dir=None, eager=False, after=None):
     """2 epochs through `Runner(mesh=)` on this rank: the validation loss
     of the initial weights and after each epoch, the weights' digest
     after each training epoch, the kernels' counters over `train()` and
@@ -4529,7 +4554,9 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
     eagerly (`step_mode` set so), an eager twin. Given `save_dir`,
     every rank then saves the Runner through `Runner._save` as an Orbax
     directory and as a pickle (rank 0 writes; type-TP gathers first),
-    and returns the ms of each save and the paths this rank wrote."""
+    and returns the ms of each save and the paths this rank wrote.
+    `after(runner, stack)`, where given, runs last, on the Runner and the
+    last training stack; its result is returned as "after"."""
     from ggnn_tpu_torch.training.runner import Runner
     from ggnn_tpu_torch.utils.timing import graph_key
     mesh = rank_mesh(n_data, n_edge)
@@ -4604,6 +4631,7 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
         saved["wrote"] = wrote
     step_ms = step_turns(runner, mesh_train, last["stack"])
     return {"kind": runner._mesh_kind, "saved": saved,
+            "after": None if after is None else after(runner, last["stack"]),
             "step_mode": runner.step_mode,
             "graph_counts": runner.graph_counts(),
             "exchange": (runner._resolve_exchange()
@@ -4838,8 +4866,9 @@ def check_mesh_runner(label, results, devices=None, eager=False):
                            "not fall")
 
 
-def mesh_phase(corpus, step_corpus, work_dir):
-    """Phase 21 (see the module docstring)."""
+def mesh_phase(corpus, step_corpus, work_dir, ragged=()):
+    """Phase 21 (see the module docstring). `ragged`: phase 24's batches
+    whose exchange its 4-rank gloo pool times (`ragged_gloo_rank`)."""
     from ggnn_tpu_torch.data.loader import infer_metadata
     from ggnn_tpu_torch.models.base import ModelParams, init_output_heads
     from ggnn_tpu_torch.parallel.launch import RankPool
@@ -4856,7 +4885,7 @@ def mesh_phase(corpus, step_corpus, work_dir):
         "tensor point to point); all-reduce, all-to-all and all-gather "
         "move CUDA tensors")
     runner_corpus = (corpus[0][:MESH_RUNNER_MOLECULES], corpus[1])
-    cases, worlds = {}, {}
+    cases, worlds, ragged_gloo = {}, {}, None
     for label, variant, over, n_data, n_edge in MESH_CASES:
         worlds.setdefault(n_data * n_edge, []).append(
             (label, variant, over, n_data, n_edge))
@@ -4937,6 +4966,8 @@ def mesh_phase(corpus, step_corpus, work_dir):
                     f"({first['step_mode']['reason']}); ms a step: mesh "
                     f"{rec['mesh_step_ms']:.3f}, single "
                     f"{rec['single_step_ms']:.3f}; {rec['seconds']:.1f} s")
+            if world == RAGGED_SHARDS and ragged:
+                ragged_gloo = pool.run(ranks.ragged_gloo_rank, ragged)
     t0 = time.perf_counter()
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     with RankPool(1, "nccl", python_path=[REPO], timeout=600,
@@ -4962,7 +4993,255 @@ def mesh_phase(corpus, step_corpus, work_dir):
         "; ranks share one card, so no time here is a scaling number")
     return {"cases": cases, "nccl": nccl, "staged": list(MESH_STAGED),
             "spawn_s": spawn_s, "seconds": seconds,
-            "runner_corpus": runner_corpus}
+            "runner_corpus": runner_corpus, "ragged_gloo": ragged_gloo}
+
+
+# --------------------------------- ragged exchange stand-in (A22)
+
+# The stand-in group: S ranks of an edge axis in one process on one card.
+RAGGED_SHARDS = 4
+# Batches of each kind the stand-in phase replays one graph over.
+RAGGED_BATCHES = 3
+# Rows a pair at most in the wide stand-in batches: every pair cut, far
+# past a molecular batch's few rows a pair.
+RAGGED_WIDE_ROWS = 600
+# NVLink between two H100 SXM cards, each way (NVIDIA's data sheet): the
+# bound of the exchange's rows on four cards.
+NVLINK_BYTES_PER_S = 450e9
+
+
+def ragged_pair_rows(spec, s_count):
+    """{(owner, dest): owner's rows} of an [S, ...] ragged layout."""
+    gather, first, sizes = (np.asarray(getattr(spec, f)) for f in (
+        "gather", "input_offsets", "send_sizes"))
+    return {(o, d): gather[o, first[o, d]:first[o, d] + sizes[o, d]].tolist()
+            for o in range(s_count) for d in range(s_count)
+            if o != d and sizes[o, d]}
+
+
+def ragged_batches(corpus):
+    """The stand-in batches of phase 24: (label, [S, ...] ragged layout,
+    node states [S, Nl, H] float32 from seed 91) at configs/
+    sparse_tpu.json's 20,000-node budget over S = 4 shards, H = 100: the
+    first RAGGED_BATCHES batches of phase 6's training corpus with their
+    own cuts, and as many wide ones (random send lists of 1 to
+    RAGGED_WIDE_ROWS rows a pair), all laid out at one pack and table
+    capacity, so that one CUDA graph replays every one."""
+    from ggnn_tpu_torch.data.loader import infer_metadata
+    from ggnn_tpu_torch.parallel import node_shard
+    from ggnn_tpu_torch.training.variants import make_adapter
+    config = train_config("sparse")
+    meta = infer_metadata([corpus[0]], config["tie_fwd_bkwd"])
+    adapter = make_adapter("sparse", config, meta)
+    processed = adapter.preprocess(corpus[0], False)
+    adapter.plan(processed)
+    batches = list(itertools.islice(adapter.batches(processed, False),
+                                    RAGGED_BATCHES))
+    s_count = RAGGED_SHARDS
+    caps = node_shard.plan_node_shard_caps(batches, s_count)
+    nl = caps.nodes_local
+    lists = [(f"20k batch {i}", ragged_pair_rows(node_shard.shard_batch(
+        b, caps, "ragged").send_idx, s_count)) for i, b in enumerate(batches)]
+    rng = np.random.RandomState(91)
+    for i in range(RAGGED_BATCHES):
+        lists.append((f"wide {i}", {
+            (o, d): sorted(rng.choice(nl, rng.randint(1, RAGGED_WIDE_ROWS + 1),
+                                      replace=False).tolist())
+            for o in range(s_count) for d in range(s_count) if o != d}))
+
+    def most(rows, side):
+        totals = np.zeros(s_count, np.int64)
+        for pair, r in rows.items():
+            totals[pair[side]] += len(r)
+        return int(totals.max())
+
+    send_cap = max(most(rows, 0) for _, rows in lists)
+    recv_cap = max(most(rows, 1) for _, rows in lists)
+    return [(label, node_shard.ragged_spec(rows, s_count, send_cap,
+                                           recv_cap),
+             rng.randn(s_count, nl, HIDDEN).astype(np.float32))
+            for label, rows in lists]
+
+
+def ragged_rank_rows(spec, device):
+    """Every rank's rows of an [S, ...] layout on `device`, as each rank's
+    device copy holds them."""
+    from ggnn_tpu_torch.parallel import node_shard
+    return [node_shard._to(node_shard._shard_of(spec, r), device)
+            for r in range(np.asarray(spec.send_sizes).shape[0])]
+
+
+def ragged_gloo_rank(batches, reps=10):
+    """The library yardstick on one rank of 4 gloo ranks sharing the card
+    (the mesh's ragged transport there): for each batch, this rank's table
+    through `exchange_boundary` against the plain version's (bits), and
+    ms a call of the `all_to_all_single` alone on its packed rows with
+    the true split sizes (host clock, synchronised, median of `reps`
+    after 2 warm-ups; every rank makes the same calls)."""
+    from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx
+    from ggnn_tpu_torch.parallel import node_shard
+    mesh = rank_mesh(1, RAGGED_SHARDS)
+    axis, me, dev = mesh.edge, mesh.edge.index, mesh.device
+    out = []
+    for label, spec, states in batches:
+        rows = ragged_rank_rows(spec, "cpu")
+        want = rx.exchange_reference([torch.from_numpy(x) for x in states],
+                                     rows)[me]
+        h = torch.from_numpy(states[me]).to(dev)
+        mine = ragged_rank_rows(spec, dev)[me]
+        got = node_shard.exchange_boundary(h, mine, axis, h.shape[1])
+        sends, recvs = rows[me].send_sizes.tolist(), \
+            rows[me].recv_sizes.tolist()
+        operand = h[mine.gather[:sum(sends)].long()]
+        ms = median_ms(lambda: axis.all_to_all(operand, recvs, sends),
+                       reps=reps)
+        out.append({"label": label, "bit_equal": torch.equal(got.cpu(), want),
+                    "ms": ms})
+    return out
+
+
+def ragged_bounds(spec, row_bytes):
+    """(HBM bytes, NVLink bound ms) of one exchange of the group and of
+    its reverse transfer: each sent row read from h once and written
+    into the tables once (S x recv_cap rows, zeros included), the ids
+    and routing rows read once; backward each slice's cotangent read
+    once and every pack row written once. NVLink: the largest rows a
+    rank sends or receives, over 450 GB/s each way."""
+    sizes = np.asarray(spec.send_sizes)
+    s_count, send_cap = np.asarray(spec.gather).shape
+    sent = int(sizes.sum())
+    routing = 4 * s_count * s_count * 4
+    forward = (sent * (row_bytes + 4) + routing
+               + s_count * spec.recv_cap * row_bytes)
+    backward = sent * row_bytes + routing + s_count * send_cap * row_bytes
+    link = max(int(sizes.sum(1).max()), int(sizes.sum(0).max())) * row_bytes
+    return forward, backward, link / NVLINK_BYTES_PER_S * 1e3
+
+
+def ragged_phase(dev, batches, gloo):
+    """Phase 24 (see the module docstring). `gloo`: phase 21's
+    `ragged_gloo_rank` results of its four ranks, the library yardstick."""
+    from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx
+    start = time.perf_counter()
+    s_count = RAGGED_SHARDS
+    gen = torch.Generator(device=dev).manual_seed(92)
+    cards = []
+    for label, spec, states in batches:
+        cards.append((label, spec,
+                      [torch.from_numpy(x).to(dev) for x in states],
+                      ragged_rank_rows(spec, dev),
+                      [torch.randn(spec.recv_cap, HIDDEN, generator=gen,
+                                   device=dev) for _ in range(s_count)]))
+    sizes = {json.dumps(np.asarray(spec.send_sizes).tolist())
+             for _, spec, _ in batches}
+    if len(sizes) != len(batches):
+        raise RuntimeError("ragged stand-in: batches share per-pair sizes")
+    spec0 = batches[0][1]
+    regions = rx.standin_regions(
+        s_count, rx.buffer_bytes_for(spec0.recv_cap, 4 * HIDDEN), dev)
+
+    def run(hs, rows, gs):
+        return (rx.standin_exchange(hs, rows, regions),
+                rx.standin_backward(gs, rows, regions))
+
+    worst = 0.0
+
+    def same(label, how, got, want):
+        nonlocal worst
+        for kind, a, b in (("table", got[0], want[0]),
+                           ("pack", got[1], want[1])):
+            for rank, (x, y) in enumerate(zip(a, b)):
+                err = float((x - y).abs().max()) if x.numel() else 0.0
+                worst = max(worst, err)
+                if not torch.equal(x, y):
+                    raise RuntimeError(
+                        f"ragged stand-in {label} ({how}): rank {rank}'s "
+                        f"{kind} is {err} from the plain version's")
+
+    rx.launches = rx.backward_launches = 0
+    wants = []
+    for label, spec, hs, rows, gs in cards:
+        want = (rx.exchange_reference(hs, rows),
+                rx.exchange_backward_reference(gs, rows))
+        got = run(hs, rows, gs)
+        torch.cuda.synchronize()
+        same(label, "eager", got, want)
+        wants.append(want)
+    # One graph of the whole group's exchange and reverse transfer,
+    # captured once over copies of the first batch, replayed over every
+    # batch copied into them.
+    fields = ("gather", "input_offsets", "send_sizes", "output_offsets",
+              "recv_sizes")
+    _, _, hs, rows, gs = cards[0]
+    s_hs, s_gs = [h.clone() for h in hs], [g.clone() for g in gs]
+    s_rows = [dataclasses.replace(r, **{f: getattr(r, f).clone()
+                                        for f in fields}) for r in rows]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outputs = run(s_hs, s_rows, s_gs)
+    for (label, _, hs, rows, gs), want in zip(cards, wants):
+        for dst, src in zip(s_hs + s_gs, hs + gs):
+            dst.copy_(src)
+        for dst, src in zip(s_rows, rows):
+            for f in fields:
+                getattr(dst, f).copy_(getattr(src, f))
+        graph.replay()
+        torch.cuda.synchronize()
+        same(label, "replayed", outputs, want)
+    launches = {"forward": rx.launches, "backward": rx.backward_launches}
+    # Eager and capture: 2 x S exchanges of each direction a batch kind.
+    expected = s_count * (len(cards) + 1)
+    if launches != {"forward": expected, "backward": expected}:
+        raise RuntimeError(f"ragged stand-in launched {launches}, not "
+                           f"{expected} of each")
+    shapes = []
+    for label, spec, hs, rows, gs in (cards[0], cards[RAGGED_BATCHES]):
+        fwd_bytes, bwd_bytes, link_ms = ragged_bounds(spec, 4 * HIDDEN)
+        rec = {"shape": label, "shards": s_count,
+               "send_cap": int(np.asarray(spec.gather).shape[1]),
+               "recv_cap": spec.recv_cap, "hidden": HIDDEN,
+               "rows_sent": int(np.asarray(spec.send_sizes).sum()),
+               "max_abs_err": worst, "nvlink_bound_ms": link_ms}
+        for way, call, plain, nbytes in (
+                ("forward", lambda: rx.standin_exchange(hs, rows, regions),
+                 lambda: rx.exchange_reference(hs, rows), fwd_bytes),
+                ("backward", lambda: rx.standin_backward(gs, rows, regions),
+                 lambda: rx.exchange_backward_reference(gs, rows),
+                 bwd_bytes)):
+            ms, host_ms = time_ms(call)
+            rec[way] = {"ms": ms, "host_ms": host_ms,
+                        "wall_ms": median_ms(call, reps=20),
+                        # Its sizes are read on the host (synchronising):
+                        # timed by the host clock.
+                        "plain_ms": median_ms(plain, reps=20),
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                        "bound_by": "bytes", "bytes": nbytes}
+        by_label = [r for rank in gloo for r in rank
+                    if r["label"] == label]
+        if len(by_label) != s_count or not all(r["bit_equal"]
+                                               for r in by_label):
+            raise RuntimeError(f"ragged stand-in {label}: gloo's tables "
+                               f"{by_label} are not the plain version's")
+        rec["library_ms"] = max(r["ms"] for r in by_label)
+        shapes.append(rec)
+        log(f"ragged exchange {label} (S {s_count}, H {HIDDEN}, "
+            f"{rec['rows_sent']} rows sent, recv_cap {rec['recv_cap']}): "
+            + "; ".join(
+                f"{way} {rec[way]['ms'] * 1e3:.3f} us (host clock "
+                f"{rec[way]['wall_ms'] * 1e3:.3f}), bound "
+                f"{rec[way]['bound_ms'] * 1e3:.3f} us, plain "
+                f"{rec[way]['plain_ms'] * 1e3:.3f} us"
+                for way in ("forward", "backward"))
+            + f"; gloo all_to_all_single {rec['library_ms'] * 1e3:.3f} us "
+            f"a rank; NVLink bound on four cards "
+            f"{link_ms * 1e3:.3f} us")
+    seconds = time.perf_counter() - start
+    log(f"ragged stand-in: {len(cards)} batches of {s_count} ranks, eager "
+        f"and one graph replayed over all, tables and packs bit-equal to "
+        f"the plain version; launches {launches}; {seconds:.1f} s")
+    return {"launches": launches, "shapes": shapes, "max_abs_err": worst,
+            "batches": [label for label, *_ in cards],
+            "replays": len(cards), "seconds": seconds}
 
 
 # ------------------------------------------- Orbax checkpoints (A17)
@@ -5277,14 +5556,15 @@ def same_params(a, b) -> bool:
     return all(torch.equal(p, want[n]) for n, p in a.params.named_parameters())
 
 
-def replay_pair(label, variant, config, corpus, log_dir):
+def replay_pair(label, variant, config, corpus, log_dir, resume=True):
     """(a) and (b) of phase 23 for one configuration: 2 epochs of
     `Runner.train()`, every train and validation step a replay, a rolling
     checkpoint every REPLAY_EVERY steps, against an eager twin (the same
     `train()` with `eager_steps`): every per-step loss and MAE of both
     splits and every parameter bit-equal; the train graphs after epoch 2
-    those after epoch 1; the run resumed from the last rolling
-    checkpoint bit-equal to the uninterrupted one."""
+    those after epoch 1; with `resume`, the run resumed from the last
+    rolling checkpoint bit-equal to the uninterrupted one (the routes'
+    configurations skip it: resuming reads no route)."""
     from ggnn_tpu_torch.training.checkpoint import load_iterator_state
     from ggnn_tpu_torch.training.runner import Runner
 
@@ -5313,9 +5593,11 @@ def replay_pair(label, variant, config, corpus, log_dir):
               if a[:2] != b[:2] or not np.array_equal(a[2], b[2])]
     params_equal = same_params(graph, eager)
     it = load_iterator_state(graph.last_model_file)
-    resumed = runner("resumed", restore=graph.last_model_file)
-    resumed.train()
-    resumed_equal = same_params(resumed, graph)
+    resumed_equal = None
+    if resume:
+        resumed = runner("resumed", restore=graph.last_model_file)
+        resumed.train()
+        resumed_equal = same_params(resumed, graph)
     graphs = graph.graph_counts()
     rec = {"steps": len(seen), "train_steps": graph.train_step_id,
            "graphs": graphs, "train_graphs_by_epoch": counts,
@@ -5334,7 +5616,7 @@ def replay_pair(label, variant, config, corpus, log_dir):
         f"{resumed_equal}")
     if (len(seen) != len(want) or parted or not params_equal
             or len(counts) != 2 or counts[0] != counts[1] or not counts[0]
-            or not resumed_equal):
+            or resumed_equal is False):
         raise RuntimeError(f"replay {label}: the replayed train() is not "
                            "its eager twin's")
     return graph, rec
@@ -5601,7 +5883,8 @@ def replay_phase(dev, step_corpus, runners, work_dir, async_artifact):
     start = time.perf_counter()
     card = gpu_name_and_power()
     checks, serving, seconds = {}, {}, {}
-    for label, variant, config in graph_configs(keep={}):
+    for label, variant, config in graph_configs(keep={},
+                                                route_attention=(True,)):
         t0 = time.perf_counter()
         if variant == "dense":
             # The step corpus' 50 validation molecules fill no 256-graph
@@ -5609,7 +5892,8 @@ def replay_phase(dev, step_corpus, runners, work_dir, async_artifact):
             config = {**config, "drop_remainder": False}
         directory = os.path.join(work_dir, label.replace(" ", "_"))
         graph, checks[label] = replay_pair(label, variant, config,
-                                           step_corpus, directory)
+                                           step_corpus, directory,
+                                           resume="(" not in label)
         t1 = time.perf_counter()
         # The artifacts of the variants and of attention; a route's
         # program is its forward's trace, which the live Predictor's
@@ -5650,7 +5934,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
-    sources = ("ell_spmm", "gather_floor", "edge_dot")
+    sources = ("ell_spmm", "gather_floor", "edge_dot", "ragged_exchange")
     start = time.perf_counter()
     # The host packer's g++ build runs beside the kernels' nvcc builds.
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -5808,7 +6092,11 @@ def main() -> int:
          "gcn": gcn_profile["gcn"], "sparse_attention": attention_profile,
          "async": async_profile},
         os.path.join(work_dir, "on_device"))
-    mesh = mesh_phase(corpus, step_corpus, os.path.join(work_dir, "mesh"))
+    ragged_inputs = ragged_batches(corpus)
+    mesh = mesh_phase(corpus, step_corpus, os.path.join(work_dir, "mesh"),
+                      ragged=[ragged_inputs[0],
+                              ragged_inputs[RAGGED_BATCHES]])
+    ragged = ragged_phase(dev, ragged_inputs, mesh["ragged_gloo"])
     orbax = orbax_phase(corpus, mesh, os.path.join(work_dir, "orbax"))
     replayed = replay_phase(
         dev, step_corpus,
@@ -6027,6 +6315,24 @@ def main() -> int:
     ]
     for k in kernels[-5:]:
         k["registers"] = bf16_kernels["registers"]
+    # The ragged exchange: its stand-in run on this card (one process for
+    # S = 4 ranks, eager and replayed), counted from 0 just before it.
+    rx_shape = ragged["shapes"][0]      # the first 20k batch
+    kernels.append({
+        "name": "ragged_exchange",
+        "route": "cuda",
+        "source": "ggnn_tpu_torch/csrc/ragged_exchange.cu",
+        "replaces": "XLA ragged_all_to_all at "
+                    "ggnn_tpu/parallel/node_shard.py:508, no Pallas kernel",
+        "launches": sum(ragged["launches"].values()),
+        "launches_by_direction": ragged["launches"],
+        "max_abs_err": ragged["max_abs_err"],
+        **{k: rx_shape["forward"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
+        "library_ms": rx_shape["library_ms"],
+        "backward": {k: rx_shape["backward"][k]
+                     for k in ("ms", "plain_ms", "bound_ms")},
+        "shapes": ragged["shapes"]})
     for k in kernels:
         if k["launches"] == 0:
             raise RuntimeError(f"{k['name']} launched no time on the main "
@@ -6071,7 +6377,7 @@ def main() -> int:
                     "train_on_device": on_device,
                     "mesh": {k: v for k, v in mesh.items()
                              if k != "runner_corpus"},
-                    "orbax": orbax, "replay": replayed,
+                    "orbax": orbax, "replay": replayed, "ragged": ragged,
                     "zstd_build": zstd}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))

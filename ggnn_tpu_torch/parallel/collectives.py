@@ -13,7 +13,13 @@ transposes so that gradients arrive summed (`ggnn_tpu/parallel/step.py:
     share of the work (type-TP's node states entering the rank's edge
     types). The backward sums the ranks' cotangents.
   * `exchange` / `ring_shift`: rows sent between ranks; the backward
-    sends the cotangents back the way the rows came.
+    sends the cotangents back the way the rows came;
+  * `ragged_exchange`: the gather of a rank's boundary rows and their
+    ragged all-to-all through peer memory (nccl axes on cards,
+    `Axis.ragged_exchange`); the backward pulls each slice's cotangent
+    back from the peer that received it into the pack, and the pack's
+    rows are summed into h's by the gather's transpose, a sorted sum in
+    a fixed order (several pack rows may name one row of h).
 
 A loss never goes through any of these: each rank backpropagates its
 own share and the step sums the gradients (parallel/step.py).
@@ -23,6 +29,7 @@ from typing import Sequence
 
 import torch
 
+from ggnn_tpu_torch.ops import segment
 from ggnn_tpu_torch.parallel.mesh import Axis
 
 
@@ -60,6 +67,22 @@ class _Exchange(torch.autograd.Function):
             None
 
 
+class _RaggedExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, spec, axis):
+        ctx.spec, ctx.axis = spec, axis
+        # The gather's transpose: `spec.gather` sorted once a call, made
+        # only where a gradient will be asked for.
+        ctx.layout = (segment.sorted_segments(spec.gather, h.shape[0])
+                      if ctx.needs_input_grad[0] else None)
+        return axis.ragged_exchange(h.contiguous(), spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        pack = ctx.axis.ragged_exchange_backward(g.contiguous(), ctx.spec)
+        return segment.sorted_segment_sum(pack, ctx.layout), None, None
+
+
 class _RingShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, k):
@@ -90,6 +113,14 @@ def exchange(x: torch.Tensor, axis: Axis, out_splits: Sequence[int],
     """`Axis.all_to_all` of the rows of x, differentiable: the backward is
     the reverse all-to-all."""
     return _Exchange.apply(x, axis, tuple(out_splits), tuple(in_splits))
+
+
+def ragged_exchange(h: torch.Tensor, spec, axis: Axis) -> torch.Tensor:
+    """The table [recv_cap, H] that this rank receives in the ragged
+    exchange of h's rows `h[spec.gather]` (`Axis.ragged_exchange`),
+    differentiable: the backward is the reverse transfer, then the
+    gather's transpose."""
+    return _RaggedExchange.apply(h, spec, axis)
 
 
 def ring_shift(x: torch.Tensor, axis: Axis, k: int) -> torch.Tensor:

@@ -24,14 +24,24 @@ sends (measured on an H100 with torch 2.11: the send fails with "Bad
 address"). `make_mesh(host_staged=("p2p",))` copies those sends through
 host tensors instead; the copy is never chosen silently, a gloo P2P of
 a CUDA tensor without it raises, and the `nccl` backend refuses it.
+
+The ragged boundary exchange of an nccl axis goes through peer memory
+instead (`Axis.ragged_exchange`, the kernels of
+`ops/kernels/ragged_exchange.py`): each rank of the axis allocates one
+region, and the ranks swap its CUDA IPC handle over the axis' group, once
+a group and again when a capacity regrow needs larger buffers
+(`Axis.reserve_peer_buffers`), always outside a CUDA graph's capture.
 """
 
 import dataclasses
+import struct
 from typing import Dict, FrozenSet, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
+from ggnn_tpu_torch.ops.kernels import ragged_exchange
 from ggnn_tpu_torch.utils.device import resolve_device
 
 DATA_AXIS = "data"
@@ -49,7 +59,10 @@ class Axis:
     group (None where the axis has one rank and the world more: its
     collectives are the identity and run nothing), the collectives that
     copy CUDA tensors through the host (of `STAGEABLE`) and the
-    backend."""
+    backend. `peer_buffers` holds the ragged exchange's peer regions
+    (`reserve_peer_buffers`): "regions", the current `PeerRegions`, and
+    "held", every one made, kept for the process's life because CUDA
+    graphs captured over them hold their addresses."""
     name: str
     size: int
     index: int
@@ -57,6 +70,8 @@ class Axis:
     group: Optional[object] = None
     host_staged: FrozenSet[str] = frozenset()
     backend: Optional[str] = None
+    peer_buffers: Dict = dataclasses.field(default_factory=dict, init=False,
+                                           repr=False, compare=False)
 
     def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """`t` reduced in place over the axis (op "sum" or "max")."""
@@ -100,6 +115,65 @@ class Axis:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
         return out if recv is out else out.copy_(recv)
+
+    def reserve_peer_buffers(self, rows: int, row_bytes: int,
+                             device) -> "ragged_exchange.PeerRegions":
+        """The axis' peer regions, grown first where their buffers hold
+        fewer than `rows` rows of `row_bytes`: a collective over the axis
+        that every rank makes at the same call (the whole stack's shape
+        decides it alike on every rank, and the ranks' sizes are checked
+        equal). It refuses to run inside a CUDA graph's capture: the
+        Runner reserves before a new key's warm-up and capture."""
+        held = self.peer_buffers.get("regions")
+        if held is not None and held.fits(rows, row_bytes):
+            return held
+        if self.backend != "nccl":
+            raise ValueError(f"peer buffers need an nccl axis, not "
+                             f"{self.backend}")
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the ragged exchange's peer buffers must grow outside a "
+                "CUDA graph's capture (Axis.reserve_peer_buffers before "
+                "the step)")
+        need = ragged_exchange.buffer_bytes_for(rows, row_bytes)
+        size = max(need, 2 * held.buffer_bytes if held is not None else 0)
+        device = torch.device(device)
+        address, handle = ragged_exchange.allocate(size, device)
+        mine = np.frombuffer(handle + struct.pack("<q", size), np.uint8)
+        parts = [torch.empty(len(mine), dtype=torch.uint8, device=device)
+                 for _ in range(self.size)]
+        dist.all_gather(parts, torch.from_numpy(mine.copy()).to(device),
+                        group=self.group)
+        got = [bytes(p.cpu().numpy()) for p in parts]
+        sizes = [struct.unpack("<q", g[-8:])[0] for g in got]
+        if len(set(sizes)) != 1:
+            raise RuntimeError(f"the ranks of the {self.name} axis grew "
+                               f"their peer buffers to {sizes} bytes: a "
+                               "regrow must happen on every rank alike")
+        addresses = [address if i == self.index
+                     else ragged_exchange.open_peer(g[:-8], device)
+                     for i, g in enumerate(got)]
+        regions = ragged_exchange.regions_of(addresses, size, device)
+        self.peer_buffers["regions"] = regions
+        self.peer_buffers.setdefault("held", []).append(regions)
+        return regions
+
+    def ragged_exchange(self, h: torch.Tensor, spec) -> torch.Tensor:
+        """This rank's received table [recv_cap, H] of the ragged
+        exchange of `h`'s rows (`spec`: this rank's `RaggedSendSpec`
+        rows, int32 on the card), through the axis' peer regions."""
+        regions = self.reserve_peer_buffers(
+            spec.recv_cap, h.shape[1] * h.element_size(), h.device)
+        return ragged_exchange.exchange(h, spec, regions, self.index)
+
+    def ragged_exchange_backward(self, g: torch.Tensor,
+                                 spec) -> torch.Tensor:
+        """The reverse transfer of `ragged_exchange`: this rank's pack
+        cotangent [SEND_CAP, H] from the table cotangents `g`."""
+        regions = self.reserve_peer_buffers(
+            spec.recv_cap, g.shape[1] * g.element_size(), g.device)
+        return ragged_exchange.exchange_backward(g, spec, regions,
+                                                 self.index)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every index's `x` (of one shape) concatenated along dim 0 in

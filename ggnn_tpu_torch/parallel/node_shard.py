@@ -27,11 +27,16 @@ The exchange (`exchange_boundary`) has three layouts, JAX's:
     worst pair; one `all_to_all_single` of equal splits;
   * "shift": a tuple of [S, B_k], one per ring shift k, each padded to
     that shift's worst pair; one P2P send/receive pair a shift;
-  * "ragged": a `RaggedSendSpec` moving the true per-pair sizes; one
-    `all_to_all_single` whose per-pair split sizes are host integers
-    taken from the layout (no device read on the step's path).
+  * "ragged": a `RaggedSendSpec` moving the true per-pair sizes, its
+    routing rows int32 tensors on the device. On an nccl axis on cards
+    one hand-written ragged all-to-all through peer memory
+    (`collectives.ragged_exchange`, csrc/ragged_exchange.cu), which
+    reads the sizes on the card, so a captured step replays every batch
+    of its stack shape; on gloo (the CPU, or ranks sharing a card, whose
+    steps run eagerly) one `all_to_all_single` whose split sizes are
+    read on the host. The choice is the backend's, never a fallback.
     "ragged_emulated", JAX's all_gather stand-in for backends without a
-    ragged collective, lays out the same and runs the same collective.
+    ragged collective, lays out the same and runs the same transport.
 
 The backward of each is the reverse transfer (parallel/collectives.py).
 Host side, these functions build [S, ...] arrays for every shard,
@@ -45,28 +50,33 @@ import numpy as np
 import torch
 
 from ggnn_tpu_torch.graph import GraphBatch
+from ggnn_tpu_torch.ops.segment import sorted_gather
 from ggnn_tpu_torch.parallel import collectives
 from ggnn_tpu_torch.utils.padding import round_up
 
 _RAGGED_DATA_FIELDS = ("gather", "input_offsets", "send_sizes",
                        "output_offsets", "recv_sizes")
-# Routing rows the host reads (split sizes): kept as tuples of python
-# ints on a device copy.
-_RAGGED_HOST_FIELDS = ("input_offsets", "send_sizes", "output_offsets",
-                       "recv_sizes")
 
 
 def _to(value, device):
     if isinstance(value, tuple):
         return tuple(_to(v, device) for v in value)
     if isinstance(value, RaggedSendSpec):
-        moved = {f: tuple(int(x) for x in np.asarray(getattr(value, f)))
-                 for f in _RAGGED_HOST_FIELDS}
-        return dataclasses.replace(value, gather=_to(value.gather, device),
-                                   **moved)
+        return _int32_rows(dataclasses.replace(value, **{
+            f: _to(getattr(value, f), device) for f in _RAGGED_DATA_FIELDS}))
     if isinstance(value, torch.Tensor):
         return value.to(device)
     return torch.from_numpy(np.ascontiguousarray(value)).to(device)
+
+
+def _int32_rows(spec: "RaggedSendSpec") -> "RaggedSendSpec":
+    """`spec` with its routing rows int32 tensors: the host layout's
+    `recv_sizes` are int64, as JAX's are, and a captured step's input
+    buffers keep the host dtype, so the cast runs on the device, in the
+    step."""
+    return dataclasses.replace(spec, **{
+        f: getattr(spec, f).to(torch.int32) for f in _RAGGED_DATA_FIELDS
+        if getattr(spec, f).dtype != torch.int32})
 
 
 def _shard_of(value, s: int):
@@ -96,7 +106,9 @@ class RaggedSendSpec:
     `recv_cap` sizes the receiver table `bnd_src` indexes. `emulate`
     records that the layout was asked for as "ragged_emulated" (JAX
     runs that one through an all_gather; here both run the same
-    collective)."""
+    transport). A shard's view drops the leading axis (rows [S] and
+    [SEND_CAP]); its device copy holds them as int32 tensors, which no
+    graph key and no host read on an nccl mesh's path looks into."""
 
     gather: object
     input_offsets: object
@@ -118,8 +130,8 @@ _GCN_SHARDED_FIELDS = ("node_features", "node_graph_ids",
 
 class _Sharded:
     """`local_view(s)` (shard s's leaves, the shard axis dropped) and
-    `to(device)` (torch tensors; the scalars python ints, the ragged
-    routing rows tuples of them) of a node-sharded batch."""
+    `to(device)` (torch tensors, the ragged routing rows too; the scalars
+    python ints) of a node-sharded batch."""
 
     @property
     def graph_capacity(self) -> int:
@@ -420,6 +432,19 @@ def _materialize_sends(pair_rows, caps: NodeShardCaps, exchange: str):
     return tuple(send_parts), table_row
 
 
+def ragged_spec(pair_rows, n_shards: int, send_cap: int,
+                recv_cap: int) -> RaggedSendSpec:
+    """The ragged layout ([S, ...] numpy rows) of given send lists:
+    `pair_rows` {(owner, dest): [owner's local rows, in slot order]}, the
+    pack and table capacities `send_cap` and `recv_cap` (raises where a
+    shard's total exceeds them), as `shard_batch` lays out a batch's."""
+    caps = NodeShardCaps(n_shards=n_shards, nodes_local=8, edges_local=8,
+                         edges_boundary=8, boundary=8,
+                         boundary_send_total=send_cap,
+                         boundary_recv_total=recv_cap)
+    return _materialize_sends(pair_rows, caps, "ragged")[0]
+
+
 def _shard_node_rows(arr: np.ndarray, s_count: int, nl: int, fill=0):
     """Split [N, ...] node-indexed rows into contiguous [S, Nl, ...]
     ranges, padding with `fill`."""
@@ -471,12 +496,19 @@ def exchange_boundary(h, send_idx, axis, h_dim):
         spec = send_idx
         if axis is None:
             return h.new_zeros((spec.recv_cap, h_dim))
-        # The pack is dest-major from row 0 (input_offsets are the
-        # prefix sums of send_sizes), and the received slices land
-        # owner-major from row 0 (output_offsets likewise).
-        operand = h[spec.gather[:sum(spec.send_sizes)]]
-        got = collectives.exchange(operand, axis, spec.recv_sizes,
-                                   spec.send_sizes)
+        if axis.backend == "nccl":
+            # The sizes stay on the card: a step captured once replays
+            # every batch of its stack shape.
+            return collectives.ragged_exchange(h, _int32_rows(spec), axis)
+        # gloo: its all_to_all_single takes the split sizes on the host
+        # (those steps run eagerly). The pack is dest-major from row 0
+        # (input_offsets are the prefix sums of send_sizes), and the
+        # received slices land owner-major from row 0 (output_offsets
+        # likewise).
+        send_sizes = [int(x) for x in spec.send_sizes.tolist()]
+        recv_sizes = [int(x) for x in spec.recv_sizes.tolist()]
+        operand = sorted_gather(h, spec.gather[:sum(send_sizes)].long())
+        got = collectives.exchange(operand, axis, recv_sizes, send_sizes)
         pad = spec.recv_cap - got.shape[0]
         return torch.cat([got, got.new_zeros((pad, h_dim))])
     if isinstance(send_idx, tuple):

@@ -107,7 +107,9 @@ def local_rows(stack: List, mesh: Mesh, batch_kind: str) -> Tuple:
     """This rank's rows of a stack, on the host: node-sharded batches as
     this rank's shard (`local_view`), type-TP batches with this rank's
     per-type lanes. Their shapes follow from the stack's alone, so ranks
-    whose stacks share their shapes hold rows of one shape."""
+    whose stacks share their shapes hold rows of one shape; the ragged
+    exchange's routing rows are arrays among them, whose values no graph
+    key reads."""
     rows = rows_of(stack, mesh)
     if _node_sharded(batch_kind, mesh):
         return tuple(b.local_view(mesh.edge.index) for b in rows)

@@ -71,13 +71,14 @@ A mesh Runner's train and validation steps, collectives included, go
 through its graph caches as the single-device steps do (JAX jits them,
 `ggnn_tpu/parallel/step.py:191-209`): on the card one CUDA graph a rank
 for each shape of the step's whole stack, so every rank captures the
-same keys at the same step; its prediction forward too. Two meshes run
-their steps eagerly instead, each for a stated reason
-(`mesh_eager_reason`, reported as `step_mode`): gloo ranks on a card
-(gloo copies CUDA tensors through the host, which a graph cannot
-hold), and the ragged boundary exchange (its per-pair split sizes are
-host integers of each batch: a graph a batch). "auto" resolves to the
-ragged exchange on nccl, so such a Runner's steps run eagerly.
+same keys at the same step; its prediction forward too. The ragged
+boundary exchange ("auto" on nccl) replays too: over nccl it is a
+hand-written ragged all-to-all through peer memory that reads its
+per-pair sizes on the card (parallel/node_shard.py), its peer buffers
+reserved before a new key's capture (`_reserve_peer_buffers`). One mesh
+runs its steps eagerly instead, for a stated reason (`mesh_eager_reason`,
+reported as `step_mode`): gloo ranks on a card (gloo copies CUDA tensors
+through the host, which a graph cannot hold).
 """
 
 import contextlib
@@ -101,6 +102,7 @@ from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss, task_rescale)
 from ggnn_tpu_torch.parallel import tp
 from ggnn_tpu_torch.parallel.mesh import DATA_AXIS, EDGE_AXIS
+from ggnn_tpu_torch.parallel.node_shard import RaggedSendSpec
 from ggnn_tpu_torch.parallel.step import (local_batches, local_rows,
                                           make_parallel_steps, plan_caps,
                                           rank_generator, stack_for)
@@ -117,33 +119,25 @@ from ggnn_tpu_torch.utils.timing import (EpochsFn, GraphPool, StepCache,
                                          graph_key, shape_groups)
 
 
-# (backend, device type) pairs whose all-to-all takes per-pair split
-# sizes: "auto" resolves to the ragged exchange there (gloo on the card
-# measured on an H100, torch 2.11).
+# (backend, device type) pairs with a ragged transport: "auto" resolves
+# to the ragged exchange there. nccl on cards runs the hand-written peer
+# memory exchange, gloo its all_to_all_single with host split sizes
+# (gloo on the card measured on an H100, torch 2.11).
 RAGGED_TRANSPORTS = {("nccl", "cuda"), ("gloo", "cpu"), ("gloo", "cuda")}
 
 
-def mesh_eager_reason(backend: Optional[str], device_type: str,
-                      exchange: Optional[str]) -> Optional[str]:
+def mesh_eager_reason(backend: Optional[str],
+                      device_type: str) -> Optional[str]:
     """Why a mesh Runner's train and validation steps run eagerly, or
     None where they go through its graph caches (CUDA graphs on the
-    card; on the CPU a cache runs each step eagerly). `exchange` is the
-    resolved boundary exchange of a node-sharded mesh (None for other
-    kinds). The rule, and its only cases:
-
-      * gloo ranks on a card: gloo copies CUDA tensors through the host
-        (parallel/mesh.py), so a captured graph cannot hold its
-        collectives;
-      * the ragged exchange: its per-pair split sizes are host integers
-        taken from each batch (parallel/node_shard.py), so every batch
-        would be a graph of its own; JAX's ragged all-to-all takes them
-        on the device, and no torch collective does."""
+    card; on the CPU a cache runs each step eagerly). The rule's only
+    case: gloo ranks on a card, since gloo copies CUDA tensors through
+    the host (parallel/mesh.py), which a captured graph cannot hold.
+    Every boundary exchange replays over nccl, the ragged one included
+    (its split sizes stay on the card)."""
     if backend == "gloo" and device_type == "cuda":
         return ("gloo on a card: gloo copies CUDA tensors through the "
                 "host, which a CUDA graph cannot hold")
-    if exchange in ("ragged", "ragged_emulated"):
-        return ("the ragged exchange: its per-pair split sizes are host "
-                "integers of each batch, a graph a batch")
     return None
 
 
@@ -389,10 +383,7 @@ class Runner:
         self._mesh_train, self._mesh_eval = make_parallel_steps(
             self.params, self.optimizer, self.config, self.task_ids, mesh,
             batch_kind=kind)
-        reason = mesh_eager_reason(
-            mesh.backend, mesh.device.type,
-            None if self._nodeshard_caps is None
-            else self._resolve_exchange())
+        reason = mesh_eager_reason(mesh.backend, mesh.device.type)
         if reason is not None:
             self.step_mode = {"mode": "eager", "reason": reason}
         if mesh.backend == "nccl":
@@ -441,13 +432,28 @@ class Runner:
     def _resolve_exchange(self) -> str:
         """`boundary_exchange` ("alltoall" by default); "auto" picks from
         the mesh's backend and device, as JAX picks from the platform:
-        "ragged" where the backend's all-to-all takes per-pair split
-        sizes on that device (`RAGGED_TRANSPORTS`), "shift" elsewhere."""
+        "ragged" where the backend has a ragged transport on that device
+        (`RAGGED_TRANSPORTS`), "shift" elsewhere."""
         exchange = self.config.get("boundary_exchange", "alltoall")
         if exchange == "auto":
             return ("ragged" if (self.mesh.backend, self.mesh.device.type)
                     in RAGGED_TRANSPORTS else "shift")
         return exchange
+
+    def _reserve_peer_buffers(self, stack) -> None:
+        """Grow the edge axis' peer buffers (the ragged exchange over
+        nccl) to this stack's receive table, rows of the widest state
+        the model exchanges in f32, before its step: a new key's warm-up
+        and capture must not grow them (it is collective and reads the
+        host). All ranks hold the same stack, so all grow at once."""
+        spec = getattr(stack[0], "send_idx", None)
+        if not isinstance(spec, RaggedSendSpec) or \
+                self.mesh.backend != "nccl":
+            return
+        width = max(int(stack[0].node_features.shape[-1]),
+                    int(self.config["hidden_size"]))
+        self.mesh.edge.reserve_peer_buffers(spec.recv_cap, 4 * width,
+                                            self.device)
 
     @staticmethod
     def _merge_grown_caps(old, grown):
@@ -540,6 +546,7 @@ class Runner:
                     [sum(int(b.num_graphs) for b in rows)], np.float32)
                 cache = self.train_graphs if is_training else \
                     self.eval_graphs
+                self._reserve_peer_buffers(stack)
                 loss, accs, count = cache((rows, graphs),
                                           key=graph_key(tuple(stack)))
                 metrics = {"loss": loss, "accuracies": accs,

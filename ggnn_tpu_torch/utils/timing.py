@@ -192,8 +192,9 @@ def graph_key(batch):
     batch and its device copy share a key) and every other host value
     but the counts (`_UNREAD`). Batches with equal keys replay one graph.
     A packed batch holds no other host value (the async `recv_base`
-    offsets are arrays), so the batches of one JAX group
-    (`shape_groups`) share a key."""
+    offsets and a node shard's ragged routing rows are arrays), so the
+    batches of one JAX group (`shape_groups`) share a key, and so do
+    node-sharded stacks of one shape whatever their per-pair sizes."""
     if _is_array(batch):
         return (tuple(batch.shape), _torch_dtype(batch))
     if dataclasses.is_dataclass(batch):

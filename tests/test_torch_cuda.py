@@ -15,7 +15,10 @@ skewed lane, lanes whose b repeats, alternates or is all pads.
 `train_on_device`'s CUDA graphs are held to the same steps run eagerly
 (sparse, gcn, async; dense with dropout), with the launches they hold,
 the B1/B2 scratch a graph keeps across a larger capture, the refusal of
-a step that synchronises, and fresh dropout draws each replay. Every test
+a step that synchronises, and fresh dropout draws each replay. The ragged
+exchange's peer-memory kernels (csrc/ragged_exchange.cu) with one process
+standing in for four ranks, eager and replayed, f32 and bf16 rows, bit
+for bit, and a wait whose peer never arrives, which traps. Every test
 here needs an NVIDIA GPU and skips without one. The file
 imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -2109,3 +2112,128 @@ def test_sorted_sums_and_gathers_repeat_bit_for_bit(cuda):
     for a, b, c in zip(first, second, cpu):
         assert torch.equal(a, b)
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------ ragged exchange (A22)
+
+def _ragged_inputs(device, dtype, h_dim, seeds, n_shards=4, nl=64,
+                   most=40):
+    """Stand-in batches, one a seed: every rank's node rows, its routing
+    rows on the card and a table cotangent, from random send lists of 0
+    to `most` rows a pair, all laid out at one pack and table capacity
+    (the largest totals, and 3 rows)."""
+    from ggnn_tpu_torch.parallel import node_shard
+    pairs = []
+    for seed in seeds:
+        rng = np.random.RandomState(seed)
+        pairs.append({(o, d): sorted(rng.choice(
+            nl, rng.randint(0, most + 1), replace=False).tolist())
+            for o in range(n_shards) for d in range(n_shards) if o != d})
+    sizes = np.zeros((len(seeds), n_shards, n_shards), np.int64)
+    for i, p in enumerate(pairs):
+        for (o, d), r in p.items():
+            sizes[i, o, d] = len(r)
+    send_cap = int(sizes.sum(2).max()) + 3
+    recv_cap = int(sizes.sum(1).max()) + 3
+    batches = []
+    for seed, p in zip(seeds, pairs):
+        spec = node_shard.ragged_spec(p, n_shards, send_cap, recv_cap)
+        rows = [node_shard._to(node_shard._shard_of(spec, r), device)
+                for r in range(n_shards)]
+        gen = torch.Generator().manual_seed(seed)
+        hs = [torch.randn(nl, h_dim, generator=gen).to(device, dtype)
+              for _ in range(n_shards)]
+        gs = [torch.randn(recv_cap, h_dim, generator=gen).to(device, dtype)
+              for _ in range(n_shards)]
+        batches.append((spec, hs, rows, gs))
+    return batches
+
+
+@pytest.mark.parametrize("dtype,h_dim", [(torch.float32, 100),
+                                         (torch.float32, 37),
+                                         (torch.bfloat16, 64),
+                                         (torch.bfloat16, 37)])
+def test_ragged_exchange_standin_equals_plain_eager_and_replayed(
+        cuda, dtype, h_dim):
+    """The peer-memory ragged all-to-all with one process standing in for
+    4 ranks (S puts then S waits; S publishes then S pulls) equals the
+    plain version bit for bit: every table (its zero tail included) and
+    every pack, eagerly for 3 batches whose per-pair sizes differ, then
+    through one CUDA graph captured once and replayed over all 3; rows of
+    16-, 4- and 2-byte copy units. The counters count each rank's
+    exchange at its launch (eagerly and at the capture), none a
+    replay."""
+    from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx
+    batches = _ragged_inputs(cuda, dtype, h_dim, (1, 2, 3))
+    sizes = {str(np.asarray(spec.send_sizes).tolist())
+             for spec, *_ in batches}
+    assert len(sizes) == 3
+    regions = rx.standin_regions(
+        4, rx.buffer_bytes_for(batches[0][0].recv_cap, h_dim * 4), cuda)
+    rx.launches = rx.backward_launches = 0
+    wants = []
+    for _, hs, rows, gs in batches:
+        want = (rx.exchange_reference(hs, rows),
+                rx.exchange_backward_reference(gs, rows))
+        got = (rx.standin_exchange(hs, rows, regions),
+               rx.standin_backward(gs, rows, regions))
+        torch.cuda.synchronize()
+        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(a, b)
+        wants.append(want)
+    fields = ("gather", "input_offsets", "send_sizes", "output_offsets",
+              "recv_sizes")
+    _, hs, rows, gs = batches[0]
+    s_hs, s_gs = [h.clone() for h in hs], [g.clone() for g in gs]
+    s_rows = [dataclasses.replace(r, **{f: getattr(r, f).clone()
+                                        for f in fields}) for r in rows]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        tables = rx.standin_exchange(s_hs, s_rows, regions)
+        packs = rx.standin_backward(s_gs, s_rows, regions)
+    for (_, hs, rows, gs), want in zip(batches[::-1], wants[::-1]):
+        for dst, src in zip(s_hs + s_gs, hs + gs):
+            dst.copy_(src)
+        for dst, src in zip(s_rows, rows):
+            for f in fields:
+                getattr(dst, f).copy_(getattr(src, f))
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(tables + packs, want[0] + want[1]):
+            assert torch.equal(a, b)
+    assert (rx.launches, rx.backward_launches) == (16, 16)
+    assert rx.status() == 0
+
+
+def test_ragged_exchange_wait_without_its_peer_is_an_error(cuda, tmp_path):
+    """A rank whose peer never puts does not hang: its wait reports the
+    channel, itself and the peer in the status word and traps once its
+    budget (0.5 s here) is spent, and the next synchronise raises (in a
+    process of its own: a trap ends the CUDA context)."""
+    import os
+    import subprocess
+    import sys
+    script = tmp_path / "lonely_wait.py"
+    script.write_text(
+        "import sys, torch\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
+        f"sys.path.insert(0, {os.path.dirname(os.path.abspath(__file__))!r})\n"
+        "from test_torch_cuda import _ragged_inputs\n"
+        "from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx\n"
+        "rx.WAIT_SECONDS = 0.5\n"
+        "dev = torch.device('cuda')\n"
+        "((spec, hs, rows, gs),) = _ragged_inputs(dev, torch.float32, 8, "
+        "(1,), 2)\n"
+        "regions = rx.standin_regions(2, 1 << 16, dev)\n"
+        "rx.put(hs[0], rows[0], regions, 0)\n"
+        "rx.wait(hs[0], rows[0], regions, 0)\n"
+        "try:\n"
+        "    torch.cuda.synchronize()\n"
+        "    print('no error')\n"
+        "except RuntimeError as err:\n"
+        "    print('raised', type(err).__name__)\n"
+        "print('status', rx.status())\n")
+    out = subprocess.run([sys.executable, str(script)], capture_output=True,
+                         text=True, timeout=300).stdout
+    assert "raised" in out, out
+    assert f"status {(1 << 16) | (0 << 8) | (0 << 4) | 1}" in out, out

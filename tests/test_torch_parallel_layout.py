@@ -215,7 +215,8 @@ def test_gcn_node_shard_layout_matches_jax(gcn, exchange):
 
 def test_local_view_and_device_copy(giant):
     """A shard's view drops the shard axis; on a device copy the ragged
-    routing rows are host integers, the rows to gather a tensor."""
+    routing rows, like the rows to gather, are int32 tensors (the split
+    sizes stay on the device)."""
     _, _, batches = giant
     caps = node_shard.plan_node_shard_caps(batches, 4)
     sharded = node_shard.shard_batch(batches[0], caps, "ragged")
@@ -223,10 +224,12 @@ def test_local_view_and_device_copy(giant):
     assert view.node_features.shape == (caps.nodes_local,
                                         batches[0].node_features.shape[1])
     spec = view.send_idx
-    assert isinstance(spec.send_sizes, tuple)
-    assert all(isinstance(x, int) for x in spec.recv_sizes)
-    assert spec.send_sizes == tuple(
-        int(x) for x in np.asarray(sharded.send_idx.send_sizes)[2])
+    for name in ("input_offsets", "send_sizes", "output_offsets",
+                 "recv_sizes"):
+        row = getattr(spec, name)
+        assert isinstance(row, torch.Tensor) and row.dtype == torch.int32
+        np.testing.assert_array_equal(
+            row.numpy(), np.asarray(getattr(sharded.send_idx, name))[2])
     assert isinstance(spec.gather, torch.Tensor)
     assert node_shard.table_rows(spec) == caps.boundary_recv_total
     assert isinstance(view.num_graphs, int)

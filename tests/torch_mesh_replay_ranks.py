@@ -136,12 +136,14 @@ def regrown(config, train, valid, n_data, n_edge, log_dir):
 
 def eager_by_rule(variant, config, train, valid, n_data, n_edge, log_dir):
     """A mesh Runner under fake graphs trained by `train()`: its step
-    mode, its graph counts and what it captured."""
+    mode, its resolved exchange, its graph counts and what it
+    captured."""
     with torch_fake_card.fake_card() as captured:
         runner = _runner(variant, config, train, valid, n_data, n_edge,
                          log_dir)
         log = runner.train()
     return {"step_mode": runner.step_mode,
+            "exchange": runner._resolve_exchange(),
             "graph_counts": runner.graph_counts(), "captured": len(captured),
             "loss": log[-1]["train_results"][0]}
 
