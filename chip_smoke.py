@@ -363,21 +363,26 @@ prediction (`check_graphs`, `check_forwards`).
      `ell_spmm.empty_launch` kernels replayed, beside one empty kernel
      outside a graph;
  24. ragged exchange (ROADMAP A22; after phase 21) — the hand-written
-     peer-memory ragged all-to-all (csrc/ragged_exchange.cu) with one
-     process standing in for the S = 4 ranks of an edge axis on this card
-     (S puts then S waits; backward S publishes then S pulls), over the
-     f32 20k `sparse` boundary shapes (configs/sparse_tpu.json, H 100):
-     the first 3 batches of phase 6's corpus with their own cuts and 3
-     wide ones (1 to 600 rows a pair), laid out at one capacity, whose
-     per-pair sizes all differ. Each batch's tables and packs bit-equal to
-     the plain version's, eagerly and through one CUDA graph of the whole
-     exchange and reverse transfer captured once and replayed over all 6;
-     the counters (set to 0 just before) S x 7 a direction (each batch
-     eagerly, and the capture; a replay launches nothing); the µs of
-     a group's forward and backward (`time_ms`, and by the host clock)
-     against their byte bound, the plain version's (host clock: it reads
-     the sizes on the host) and phase 21's gloo `all_to_all_single`, with
-     the NVLink bound four cards would have.
+     peer-memory ragged all-to-all (csrc/ragged_exchange.cu, one kernel
+     a direction) with one process standing in for the S = 4 ranks of an
+     edge axis on this card (one launch whose grid holds every rank),
+     over the 20k `sparse` boundary shapes (configs/sparse_tpu.json, H
+     100): the first 3 batches of phase 6's corpus with their own cuts
+     and 3 wide ones (1 to 600 rows a pair), laid out at one capacity,
+     whose per-pair sizes all differ. In f32 and in bf16, each batch's
+     tables and packs bit-equal to the plain version's, eagerly (each
+     forward returning the routes its owners sent), with all 6 forwards
+     run before their reverse transfers (in the reverse order), and
+     through one CUDA graph of the whole exchange and reverse transfer
+     captured once and replayed over all 6; the counters (set to 0 just
+     before) 2 x 13 a direction (each batch eagerly twice, and the
+     capture; a replay launches nothing); the kernel nodes of a graph of one
+     exchange a direction (RAGGED_KERNELS, read by the CUDA driver); the
+     µs of a group's
+     forward and backward (`time_ms`, inside a graph of 20, and by the
+     host clock) against their byte bound, the plain version's (host
+     clock: it reads the sizes on the host) and phase 21's gloo
+     `all_to_all_single`, with the NVLink bound four cards would have.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -5118,6 +5123,66 @@ def ragged_bounds(spec, row_bytes):
     return forward, backward, link / NVLINK_BYTES_PER_S * 1e3
 
 
+# Kernel launches of one exchange a direction in this design: a group's
+# stand-in is one grid, a rank's exchange on a mesh one kernel.
+RAGGED_KERNELS = 1
+# Exchanges one graph holds when timing the stand-in inside a graph.
+RAGGED_GRAPH_CALLS = 20
+
+
+def replayed_ms(call, calls=RAGGED_GRAPH_CALLS, reps=10):
+    """ms a call of `call` inside a CUDA graph: `calls` calls captured
+    once, the graph replayed `reps` times between CUDA events after one
+    warm replay, the median over the count."""
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            call()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def graph_kernels(call):
+    """Kernel nodes of a CUDA graph that holds one `call`, read from the
+    captured graph by the CUDA driver (`cuGraphGetNodes`,
+    `cuGraphNodeGetType`): the kernels one call launches, counted on the
+    card."""
+    import ctypes
+    driver = ctypes.CDLL("libcuda.so.1")
+    driver.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_size_t)]
+    driver.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_int)]
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        call()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(raw, None, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * count.value)()
+    if driver.cuGraphGetNodes(raw, nodes, ctypes.byref(count)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if driver.cuGraphNodeGetType(node, ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    return {"kernels": kinds.count(0), "nodes": len(kinds)}   # 0: kernel
+
+
 def ragged_phase(dev, batches, gloo):
     """Phase 24 (see the module docstring). `gloo`: phase 21's
     `ragged_gloo_rank` results of its four ranks, the library yardstick."""
@@ -5125,24 +5190,29 @@ def ragged_phase(dev, batches, gloo):
     start = time.perf_counter()
     s_count = RAGGED_SHARDS
     gen = torch.Generator(device=dev).manual_seed(92)
-    cards = []
-    for label, spec, states in batches:
-        cards.append((label, spec,
-                      [torch.from_numpy(x).to(dev) for x in states],
-                      ragged_rank_rows(spec, dev),
-                      [torch.randn(spec.recv_cap, HIDDEN, generator=gen,
-                                   device=dev) for _ in range(s_count)]))
     sizes = {json.dumps(np.asarray(spec.send_sizes).tolist())
              for _, spec, _ in batches}
     if len(sizes) != len(batches):
         raise RuntimeError("ragged stand-in: batches share per-pair sizes")
+    cards = {torch.float32: []}
+    for label, spec, states in batches:
+        cards[torch.float32].append((
+            label, spec, [torch.from_numpy(x).to(dev) for x in states],
+            ragged_rank_rows(spec, dev),
+            [torch.randn(spec.recv_cap, HIDDEN, generator=gen, device=dev)
+             for _ in range(s_count)]))
+    # bf16 rows: the same rows rounded (200 bytes a row).
+    cards[torch.bfloat16] = [
+        (label, spec, [h.bfloat16() for h in hs], rows,
+         [g.bfloat16() for g in gs])
+        for label, spec, hs, rows, gs in cards[torch.float32]]
     spec0 = batches[0][1]
-    regions = rx.standin_regions(
-        s_count, rx.buffer_bytes_for(spec0.recv_cap, 4 * HIDDEN), dev)
+    regions = rx.standin_regions(s_count, rx.buffer_bytes_for(
+        rx.buffer_rows(ragged_rank_rows(spec0, "cpu")[0]), 4 * HIDDEN), dev)
 
     def run(hs, rows, gs):
-        return (rx.standin_exchange(hs, rows, regions),
-                rx.standin_backward(gs, rows, regions))
+        tables, received = rx.standin_exchange(hs, rows, regions)
+        return tables, rx.standin_backward(gs, rows, received, regions)
 
     worst = 0.0
 
@@ -5151,65 +5221,107 @@ def ragged_phase(dev, batches, gloo):
         for kind, a, b in (("table", got[0], want[0]),
                            ("pack", got[1], want[1])):
             for rank, (x, y) in enumerate(zip(a, b)):
-                err = float((x - y).abs().max()) if x.numel() else 0.0
+                err = float((x.float() - y.float()).abs().max()) \
+                    if x.numel() else 0.0
                 worst = max(worst, err)
                 if not torch.equal(x, y):
                     raise RuntimeError(
                         f"ragged stand-in {label} ({how}): rank {rank}'s "
                         f"{kind} is {err} from the plain version's")
 
-    rx.launches = rx.backward_launches = 0
-    wants = []
-    for label, spec, hs, rows, gs in cards:
-        want = (rx.exchange_reference(hs, rows),
-                rx.exchange_backward_reference(gs, rows))
-        got = run(hs, rows, gs)
-        torch.cuda.synchronize()
-        same(label, "eager", got, want)
-        wants.append(want)
-    # One graph of the whole group's exchange and reverse transfer,
-    # captured once over copies of the first batch, replayed over every
-    # batch copied into them.
     fields = ("gather", "input_offsets", "send_sizes", "output_offsets",
               "recv_sizes")
-    _, _, hs, rows, gs = cards[0]
-    s_hs, s_gs = [h.clone() for h in hs], [g.clone() for g in gs]
-    s_rows = [dataclasses.replace(r, **{f: getattr(r, f).clone()
-                                        for f in fields}) for r in rows]
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        outputs = run(s_hs, s_rows, s_gs)
-    for (label, _, hs, rows, gs), want in zip(cards, wants):
-        for dst, src in zip(s_hs + s_gs, hs + gs):
-            dst.copy_(src)
-        for dst, src in zip(s_rows, rows):
-            for f in fields:
-                getattr(dst, f).copy_(getattr(src, f))
-        graph.replay()
-        torch.cuda.synchronize()
-        same(label, "replayed", outputs, want)
+    rx.launches = rx.backward_launches = 0
+    for dtype, runs in cards.items():
+        how = str(dtype).split(".")[-1]
+        wants = []
+        for label, spec, hs, rows, gs in runs:
+            want = (rx.exchange_reference(hs, rows),
+                    rx.exchange_backward_reference(gs, rows))
+            tables, received = rx.standin_exchange(hs, rows, regions)
+            routes = rx.routes(rows)
+            for rank, got in enumerate(received):
+                if not np.array_equal(got.cpu().numpy(), routes[rank]):
+                    raise RuntimeError(
+                        f"ragged stand-in {label} ({how}): rank {rank} "
+                        f"received routes {got.tolist()}, not its owners' "
+                        f"{routes[rank].tolist()}")
+            packs = rx.standin_backward(gs, rows, received, regions)
+            torch.cuda.synchronize()
+            same(label, f"{how} eager", (tables, packs), want)
+            wants.append(want)
+        # Every forward before the reverse transfers, which run in the
+        # reverse order, as autograd may run a step of several batches.
+        forwards = [rx.standin_exchange(hs, rows, regions)
+                    for _, _, hs, rows, _ in runs]
+        for (label, _, _, rows, gs), (tables, received), want in list(
+                zip(runs, forwards, wants))[::-1]:
+            packs = rx.standin_backward(gs, rows, received, regions)
+            torch.cuda.synchronize()
+            same(label, f"{how} forwards first", (tables, packs), want)
+        # One graph of the whole group's exchange and reverse transfer,
+        # captured once over copies of the first batch, replayed over
+        # every batch copied into them.
+        _, _, hs, rows, gs = runs[0]
+        s_hs, s_gs = [h.clone() for h in hs], [g.clone() for g in gs]
+        s_rows = [dataclasses.replace(r, **{f: getattr(r, f).clone()
+                                            for f in fields}) for r in rows]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outputs = run(s_hs, s_rows, s_gs)
+        for (label, _, hs, rows, gs), want in zip(runs, wants):
+            for dst, src in zip(s_hs + s_gs, hs + gs):
+                dst.copy_(src)
+            for dst, src in zip(s_rows, rows):
+                for f in fields:
+                    getattr(dst, f).copy_(getattr(src, f))
+            graph.replay()
+            torch.cuda.synchronize()
+            same(label, f"{how} replayed", outputs, want)
     launches = {"forward": rx.launches, "backward": rx.backward_launches}
-    # Eager and capture: 2 x S exchanges of each direction a batch kind.
-    expected = s_count * (len(cards) + 1)
+    # Each dtype: each batch eagerly twice and the capture, one kernel a
+    # group's exchange a direction.
+    expected = len(cards) * (2 * len(batches) + 1) * RAGGED_KERNELS
     if launches != {"forward": expected, "backward": expected}:
         raise RuntimeError(f"ragged stand-in launched {launches}, not "
                            f"{expected} of each")
+    if rx.status() != 0:
+        raise RuntimeError(f"ragged stand-in: status {rx.status()}")
+    checks_s = time.perf_counter() - start
+    # The kernels one exchange launches, as its graph holds them.
+    _, _, hs, rows, gs = cards[torch.float32][0]
+    _, received = rx.standin_exchange(hs, rows, regions)
+    traced = {way: graph_kernels(call) for way, call in (
+        ("forward", lambda: rx.standin_exchange(hs, rows, regions)),
+        ("backward", lambda: rx.standin_backward(gs, rows, received,
+                                                 regions)))}
+    for way, nodes in traced.items():
+        if nodes["kernels"] != RAGGED_KERNELS:
+            raise RuntimeError(f"ragged stand-in: a {way} exchange's graph "
+                               f"holds {nodes}, not {RAGGED_KERNELS} "
+                               "kernel")
+    traced_s = time.perf_counter() - start - checks_s
     shapes = []
-    for label, spec, hs, rows, gs in (cards[0], cards[RAGGED_BATCHES]):
+    for label, spec, hs, rows, gs in (cards[torch.float32][0],
+                                      cards[torch.float32][RAGGED_BATCHES]):
         fwd_bytes, bwd_bytes, link_ms = ragged_bounds(spec, 4 * HIDDEN)
         rec = {"shape": label, "shards": s_count,
                "send_cap": int(np.asarray(spec.gather).shape[1]),
                "recv_cap": spec.recv_cap, "hidden": HIDDEN,
                "rows_sent": int(np.asarray(spec.send_sizes).sum()),
-               "max_abs_err": worst, "nvlink_bound_ms": link_ms}
+               "max_abs_err": worst, "nvlink_bound_ms": link_ms,
+               "kernels_an_exchange": RAGGED_KERNELS}
+        _, received = rx.standin_exchange(hs, rows, regions)
         for way, call, plain, nbytes in (
                 ("forward", lambda: rx.standin_exchange(hs, rows, regions),
                  lambda: rx.exchange_reference(hs, rows), fwd_bytes),
-                ("backward", lambda: rx.standin_backward(gs, rows, regions),
+                ("backward", lambda: rx.standin_backward(
+                    gs, rows, received, regions),
                  lambda: rx.exchange_backward_reference(gs, rows),
                  bwd_bytes)):
             ms, host_ms = time_ms(call)
             rec[way] = {"ms": ms, "host_ms": host_ms,
+                        "graph_ms": replayed_ms(call),
                         "wall_ms": median_ms(call, reps=20),
                         # Its sizes are read on the host (synchronising):
                         # timed by the host clock.
@@ -5225,9 +5337,11 @@ def ragged_phase(dev, batches, gloo):
         rec["library_ms"] = max(r["ms"] for r in by_label)
         shapes.append(rec)
         log(f"ragged exchange {label} (S {s_count}, H {HIDDEN}, "
-            f"{rec['rows_sent']} rows sent, recv_cap {rec['recv_cap']}): "
+            f"{rec['rows_sent']} rows sent, recv_cap {rec['recv_cap']}; "
+            f"{RAGGED_KERNELS} kernel a group's exchange a direction): "
             + "; ".join(
-                f"{way} {rec[way]['ms'] * 1e3:.3f} us (host clock "
+                f"{way} {rec[way]['ms'] * 1e3:.3f} us (in a graph "
+                f"{rec[way]['graph_ms'] * 1e3:.3f}, host clock "
                 f"{rec[way]['wall_ms'] * 1e3:.3f}), bound "
                 f"{rec[way]['bound_ms'] * 1e3:.3f} us, plain "
                 f"{rec[way]['plain_ms'] * 1e3:.3f} us"
@@ -5236,12 +5350,17 @@ def ragged_phase(dev, batches, gloo):
             f"a rank; NVLink bound on four cards "
             f"{link_ms * 1e3:.3f} us")
     seconds = time.perf_counter() - start
-    log(f"ragged stand-in: {len(cards)} batches of {s_count} ranks, eager "
-        f"and one graph replayed over all, tables and packs bit-equal to "
-        f"the plain version; launches {launches}; {seconds:.1f} s")
+    log(f"ragged stand-in: {len(batches)} batches of {s_count} ranks, f32 "
+        f"and bf16, eager, forwards first and one graph replayed over all, "
+        f"tables and packs bit-equal to the plain version, routes those of "
+        f"the owners; launches {launches}; one exchange's graph "
+        f"{traced}; {seconds:.1f} s (checks {checks_s:.1f}, graph count "
+        f"{traced_s:.1f})")
     return {"launches": launches, "shapes": shapes, "max_abs_err": worst,
-            "batches": [label for label, *_ in cards],
-            "replays": len(cards), "seconds": seconds}
+            "batches": [label for label, *_ in batches],
+            "dtypes": [str(d) for d in cards], "traced": traced,
+            "replays": len(batches), "seconds": seconds,
+            "checks_s": checks_s, "trace_s": traced_s}
 
 
 # ------------------------------------------- Orbax checkpoints (A17)
@@ -6316,7 +6435,8 @@ def main() -> int:
     for k in kernels[-5:]:
         k["registers"] = bf16_kernels["registers"]
     # The ragged exchange: its stand-in run on this card (one process for
-    # S = 4 ranks, eager and replayed), counted from 0 just before it.
+    # S = 4 ranks, eager and replayed, f32 and bf16), counted from 0 just
+    # before it.
     rx_shape = ragged["shapes"][0]      # the first 20k batch
     kernels.append({
         "name": "ragged_exchange",
@@ -6328,10 +6448,11 @@ def main() -> int:
         "launches_by_direction": ragged["launches"],
         "max_abs_err": ragged["max_abs_err"],
         **{k: rx_shape["forward"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by")},
+                                               "bound_by", "graph_ms")},
         "library_ms": rx_shape["library_ms"],
+        "kernels_an_exchange": RAGGED_KERNELS,
         "backward": {k: rx_shape["backward"][k]
-                     for k in ("ms", "plain_ms", "bound_ms")},
+                     for k in ("ms", "plain_ms", "bound_ms", "graph_ms")},
         "shapes": ragged["shapes"]})
     for k in kernels:
         if k["launches"] == 0:

@@ -47,16 +47,21 @@ def _nvcc() -> str:
         "kernels of ggnn_tpu_torch are compiled on first use")
 
 
-def library_path(name: str) -> Path:
-    source = CSRC / f"{name}.cu"
+def _source(name: str, source=None) -> Path:
+    return Path(source) if source is not None else CSRC / f"{name}.cu"
+
+
+def library_path(name: str, source=None) -> Path:
+    source = _source(name, source)
     digest = hashlib.sha256(source.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless its library is already built."""
-    target = library_path(name)
+def build(name: str, source=None) -> Path:
+    """Compile `csrc/<name>.cu` (or `source`, another tree's copy of it)
+    unless its library is already built."""
+    target = library_path(name, source)
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -64,7 +69,7 @@ def build(name: str) -> Path:
     # loads a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_source(name, source))]
     start = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - start
@@ -74,7 +79,8 @@ def build(name: str) -> Path:
             f"nvcc failed to build {name}.cu (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, target)
-    build_info[name] = (seconds, proc.stdout + proc.stderr)
+    build_info[name if source is None else str(source)] = (
+        seconds, proc.stdout + proc.stderr)
     return target
 
 
@@ -86,11 +92,13 @@ def build_all(names: Sequence[str]) -> None:
         list(pool.map(build, names))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built if needed."""
+def load(name: str, source=None) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu` (or of `source`), built if
+    needed."""
+    key = str(_source(name, source))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _libs[name] = lib
+            lib = ctypes.CDLL(str(build(name, source)))
+            _libs[key] = lib
         return lib

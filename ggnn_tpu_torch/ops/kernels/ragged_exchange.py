@@ -20,27 +20,34 @@ its card):
 The split sizes stay on the card, so a CUDA graph of a step replays any
 batch of its stack shape. Each rank owns a region of peer memory
 (`allocate`, shared with its peers through CUDA IPC handles by
-`parallel/mesh.py`); a `PeerRegions` is the S regions of a group as one
-process sees them. `exchange` (a put and a wait kernel) and
-`exchange_backward` (a publish and a pull kernel) run one rank's side and
-raise on a tensor that is not on a card: a collective has no
-single-rank plain version. `standin_exchange` and `standin_backward` run
-all S ranks of a group in one process (S puts then S waits, on one card),
-or on CPU tensors the plain version `exchange_reference` /
+`parallel/mesh.py`), its buffers sized by `buffer_rows`; a `PeerRegions`
+is the S regions of a group as one process sees them. `exchange` and
+`exchange_backward` launch one kernel each for one rank's side, which
+pushes its rows into its peers' buffers as flagged lines and copies its
+own buffer out as the peers' lines arrive. The forward also returns the
+routes its peers sent (`routes`: int32 [MAX_RANKS, 3] on the card, where
+each owner's rows for this rank sit in its pack and in this table),
+which the backward of the same exchange takes and pushes by. They raise
+on a tensor that is not on a card: a collective has no single-rank plain
+version. `standin_exchange` and `standin_backward` run all S ranks of a
+group in one process, as one launch whose grid holds every rank (on one
+card), or on CPU tensors the plain version `exchange_reference` /
 `exchange_backward_reference`, which is the oracle of the tests.
+`launch_plan` sizes a launch's grid from the caps.
 
 Not a `torch.library` op: a call writes into its peers' memory and bumps
 round counters on the card, effects that an op's schema cannot state,
 and no exported program holds a mesh step.
 
-`launches` counts forward exchanges (a put and a wait of one rank; a
-stand-in call counts S), `backward_launches` reverse transfers.
+`launches` counts forward kernel launches (one a rank's exchange, one a
+stand-in group's), `backward_launches` reverse transfers'.
 """
 
 import ctypes
 import dataclasses
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ggnn_tpu_torch.ops.kernels import _build
@@ -53,34 +60,40 @@ MAX_RANKS = 8
 WAIT_SECONDS = 120.0
 # Buffer sizes round up to this, so that every buffer starts aligned.
 _ALIGN = 256
+# Threads a block (csrc kThreads); copy units a thread the launch plan
+# aims at, and blocks a rank at most.
+THREADS = 256
+UNITS_A_THREAD = 4
+MAX_BLOCKS = 64
+# A buffer line (csrc Line): 8 data bytes, each 4 beside the round's
+# flag; each buffer starts with MAX_RANKS x ROUTE_LINES route lines.
+LINE_BYTES = 16
+ROUTE_LINES = 2
 
 launches = 0
 backward_launches = 0
 
 _entries = {}
+_resident = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_PP = ctypes.POINTER(_P)
 _ARGTYPES = {
     # (buffer_bytes, device, *ptr, handle)
-    "rx_region_alloc": [ctypes.c_size_t, _I, ctypes.POINTER(_P), _P],
+    "rx_region_alloc": [ctypes.c_size_t, _I, _PP, _P],
     # (handle, device, *ptr)
-    "rx_region_open": [_P, _I, ctypes.POINTER(_P)],
+    "rx_region_open": [_P, _I, _PP],
     "rx_handle_bytes": [],
     "rx_status": [],
-    # (h, gather, in_off, send, out_off, peers, me, S, row_bytes,
-    #  buffer_bytes, device, stream)
-    "rx_put": [_P] * 6 + [_I] * 3 + [ctypes.c_size_t, _I, _P],
-    # (out, recv_sizes, recv_cap, peers, me, S, row_bytes, buffer_bytes,
-    #  seconds, device, stream)
-    "rx_wait": [_P, _P, _I, _P, _I, _I, _I, ctypes.c_size_t,
-                ctypes.c_double, _I, _P],
-    # (g, recv_sizes, peers, me, S, row_bytes, buffer_bytes, device,
-    #  stream)
-    "rx_publish": [_P, _P, _P, _I, _I, _I, ctypes.c_size_t, _I, _P],
-    # (pack, send_cap, in_off, send, out_off, peers, me, S, row_bytes,
+    # (unit, device, *out)
+    "rx_resident_blocks": [_I, _I, ctypes.POINTER(_I)],
+    # (src[], out[], gather[], in_off[], send[], out_off[], recv[],
+    #  routes[], peers, me0, ranks, S, row_bytes, unit, blocks, cap,
     #  buffer_bytes, seconds, device, stream)
-    "rx_pull": [_P, _I, _P, _P, _P, _P, _I, _I, _I, ctypes.c_size_t,
-                ctypes.c_double, _I, _P],
+    "rx_forward": [_PP] * 8 + [_P] + [_I] * 7 + [ctypes.c_size_t,
+                                                  ctypes.c_double, _I, _P],
+    "rx_backward": [_PP] * 8 + [_P] + [_I] * 7 + [ctypes.c_size_t,
+                                                   ctypes.c_double, _I, _P],
 }
 
 
@@ -102,8 +115,10 @@ def _ok(rc: int, what: str) -> None:
 
 
 def buffer_bytes_for(rows: int, row_bytes: int) -> int:
-    """The bytes of one exchange buffer for `rows` rows of `row_bytes`."""
-    need = max(int(rows) * int(row_bytes), 1)
+    """The bytes of one exchange buffer for `rows` rows of `row_bytes`:
+    the route lines, then a line for each 8 bytes of a row."""
+    need = LINE_BYTES * (MAX_RANKS * ROUTE_LINES
+                         + int(rows) * -(-int(row_bytes) // 8))
     return -(-need // _ALIGN) * _ALIGN
 
 
@@ -138,9 +153,10 @@ def open_peer(handle: bytes, device: torch.device) -> int:
 
 
 def status() -> int:
-    """The code a timed-out wait left, 0 when none: 1 << 16 | channel
-    (0 forward, 1 backward) << 8 | the waiting rank << 4 | the peer it
-    waited for."""
+    """The code a failed kernel left, 0 when none: 1 << 16 (a wait timed
+    out) or 2 << 16 (a peer's backward pushed by another route than this
+    rank's rows: the route of a forward of other rows) | channel (0
+    forward, 1 backward) << 8 | the rank << 4 | the peer."""
     return _kernel("rx_status")()
 
 
@@ -202,6 +218,70 @@ def _check_rows(spec, size: int, device) -> None:
                              f"for a group of {size}")
 
 
+def buffer_rows(spec) -> int:
+    """Rows a region's buffers must hold for a rank's `spec`: the table's
+    recv_cap forward, the pack's SEND_CAP backward (the backward pushes
+    at the rows of the owner's pack)."""
+    return max(int(spec.recv_cap), int(spec.gather.shape[-1]))
+
+
+def copy_unit(row_bytes: int, pointers: Sequence[int]) -> int:
+    """The unit in bytes the kernels read and write rows in: 8 (a line's
+    data) where the row length and every row start allow it, else 4,
+    else 2."""
+    for unit in (8, 4):
+        if row_bytes % unit == 0 and all(p % unit == 0 for p in pointers):
+            return unit
+    return 2
+
+
+def launch_plan(send_cap: int, recv_cap: int, row_bytes: int, unit: int,
+                ranks: int, resident: int) -> int:
+    """Blocks a rank of one launch over `ranks` grid rows: enough that a
+    thread copies about UNITS_A_THREAD units of the larger buffer (the
+    put and the copy-out are block-stride loops over the flattened rows),
+    at most MAX_BLOCKS, within the `resident` blocks the card holds at
+    once (every block of a launch must be resident: each waits for the
+    puts of all). From the caps alone, so one graph replays every batch
+    of a stack shape."""
+    units = max(int(send_cap), int(recv_cap)) * (row_bytes // unit)
+    want = -(-units // (THREADS * UNITS_A_THREAD))
+    fits = resident // ranks
+    if fits < 1:
+        raise ValueError(f"{ranks} ranks of the ragged exchange do not fit "
+                         f"the {resident} blocks the card holds at once")
+    return max(1, min(want, MAX_BLOCKS, fits))
+
+
+def resident_blocks(unit: int, device) -> int:
+    """Blocks of the unit's kernels the card holds at once (the
+    occupancy API), read once a card."""
+    key = (unit, _index(device))
+    got = _resident.get(key)
+    if got is None:
+        out = _I()
+        _ok(_kernel("rx_resident_blocks")(unit, key[1], ctypes.byref(out)),
+            "the ragged exchange's occupancy query")
+        got = _resident[key] = out.value
+    return got
+
+
+def routes(specs: Sequence) -> np.ndarray:
+    """[S, MAX_RANKS, 3] int32: the routes each rank's forward returns,
+    given every rank's rows (`specs[o]`, host or device): route[d, o] =
+    (input_offsets[o, d], send_sizes[o, d], output_offsets[o, d]) for
+    each owner o but d, zeros elsewhere."""
+    size = len(specs)
+    out = np.zeros((size, MAX_RANKS, 3), np.int32)
+    for o, spec in enumerate(specs):
+        rows = [np.asarray(torch.as_tensor(getattr(spec, f)).cpu()) for f in
+                ("input_offsets", "send_sizes", "output_offsets")]
+        for d in range(size):
+            if d != o:
+                out[d, o] = [int(r[d]) for r in rows]
+    return out
+
+
 def _check_rank(x: torch.Tensor, spec, regions: PeerRegions,
                 me: int) -> None:
     if x.device.type != "cuda":
@@ -221,85 +301,83 @@ def _check_rank(x: torch.Tensor, spec, regions: PeerRegions,
                          f"rows on {x.device}")
     _check_rows(spec, regions.size, x.device)
     row_bytes = x.shape[1] * x.element_size()
-    if not regions.fits(spec.recv_cap, row_bytes):
-        raise ValueError(f"{spec.recv_cap} rows of {row_bytes} bytes do not "
-                         f"fit the peer buffers of {regions.buffer_bytes} "
-                         "bytes")
+    if not regions.fits(buffer_rows(spec), row_bytes):
+        raise ValueError(f"{buffer_rows(spec)} rows of {row_bytes} bytes do "
+                         f"not fit the peer buffers of "
+                         f"{regions.buffer_bytes} bytes")
 
 
-def put(h: torch.Tensor, spec, regions: PeerRegions, me: int) -> None:
-    """Rank `me`'s rows for every peer into the peer's buffer, and its
-    signal to each (the forward's first kernel)."""
-    _check_rank(h, spec, regions, me)
-    _ok(_kernel("rx_put")(
-        h.data_ptr(), spec.gather.data_ptr(), spec.input_offsets.data_ptr(),
-        spec.send_sizes.data_ptr(), spec.output_offsets.data_ptr(),
-        regions.table.data_ptr(), me, regions.size,
-        h.shape[1] * h.element_size(), regions.buffer_bytes,
-        _index(h.device), _stream(h.device)), "rx_put kernel launch")
+def _launch(entry: str, xs: Sequence[torch.Tensor], specs: Sequence,
+            regions: PeerRegions, me0: int, routes=None):
+    """One kernel for ranks me0 .. me0 + len(xs) - 1 (their rows `xs`
+    and `specs`): forward, their tables and the routes each received;
+    backward (given the routes of their forward), their packs."""
+    backward = routes is not None
+    for i, (x, spec) in enumerate(zip(xs, specs)):
+        _check_rank(x, spec, regions, me0 + i)
+        if backward and x.shape[0] != spec.recv_cap:
+            raise ValueError(f"the table's cotangent has {x.shape[0]} "
+                             f"rows, not recv_cap {spec.recv_cap}")
+    first = xs[0]
+    if any(x.shape[1] != first.shape[1] or x.dtype != first.dtype or
+           x.device != first.device for x in xs):
+        raise ValueError("a launch's ranks hold rows of one width, dtype "
+                         "and card")
+    caps = {(int(s.gather.shape[0]), int(s.recv_cap)) for s in specs}
+    if len(caps) != 1:
+        raise ValueError(f"a launch's ranks share their caps, got {caps}")
+    (send_cap, recv_cap), = caps
+    if backward:
+        if len(routes) != len(xs) or any(
+                r.dtype != torch.int32 or r.device != first.device or
+                tuple(r.shape) != (MAX_RANKS, 3) or not r.is_contiguous()
+                for r in routes):
+            raise ValueError("a reverse transfer takes the routes its "
+                             "forward returned: int32 [MAX_RANKS, 3] on "
+                             "the card, one a rank")
+    else:
+        routes = [first.new_empty((MAX_RANKS, 3), dtype=torch.int32)
+                  for _ in xs]
+    outs = [x.new_empty((send_cap if backward else recv_cap, x.shape[1]))
+            for x in xs]
+    row_bytes = first.shape[1] * first.element_size()
+    unit = copy_unit(row_bytes, [t.data_ptr() for t in list(xs) + outs])
+    blocks = launch_plan(send_cap, recv_cap, row_bytes, unit, len(xs),
+                         resident_blocks(unit, first.device))
 
+    def pointers(ts):
+        return (_P * len(ts))(*[t.data_ptr() for t in ts])
 
-def wait(h: torch.Tensor, spec, regions: PeerRegions,
-         me: int) -> torch.Tensor:
-    """Rank `me`'s table [recv_cap, H] of h's dtype, once every peer's put
-    of the round arrived (the forward's second kernel)."""
-    _check_rank(h, spec, regions, me)
-    out = h.new_empty((spec.recv_cap, h.shape[1]))
-    _ok(_kernel("rx_wait")(
-        out.data_ptr(), spec.recv_sizes.data_ptr(), spec.recv_cap,
-        regions.table.data_ptr(), me, regions.size,
-        h.shape[1] * h.element_size(), regions.buffer_bytes, WAIT_SECONDS,
-        _index(h.device), _stream(h.device)), "rx_wait kernel launch")
-    return out
-
-
-def publish(g: torch.Tensor, spec, regions: PeerRegions, me: int) -> None:
-    """Rank `me`'s table cotangent into its own backward buffer, and its
-    signal to every peer (the backward's first kernel)."""
-    _check_rank(g, spec, regions, me)
-    if g.shape[0] != spec.recv_cap:
-        raise ValueError(f"the table's cotangent has {g.shape[0]} rows, "
-                         f"not recv_cap {spec.recv_cap}")
-    _ok(_kernel("rx_publish")(
-        g.data_ptr(), spec.recv_sizes.data_ptr(), regions.table.data_ptr(),
-        me, regions.size, g.shape[1] * g.element_size(),
-        regions.buffer_bytes, _index(g.device), _stream(g.device)),
-        "rx_publish kernel launch")
-
-
-def pull(g: torch.Tensor, spec, regions: PeerRegions,
-         me: int) -> torch.Tensor:
-    """Rank `me`'s pack cotangent [SEND_CAP, H] of g's dtype, pulled from
-    its peers' backward buffers once all published (the backward's second
-    kernel)."""
-    _check_rank(g, spec, regions, me)
-    send_cap = spec.gather.shape[0]
-    pack = g.new_empty((send_cap, g.shape[1]))
-    _ok(_kernel("rx_pull")(
-        pack.data_ptr(), send_cap, spec.input_offsets.data_ptr(),
-        spec.send_sizes.data_ptr(), spec.output_offsets.data_ptr(),
-        regions.table.data_ptr(), me, regions.size,
-        g.shape[1] * g.element_size(), regions.buffer_bytes, WAIT_SECONDS,
-        _index(g.device), _stream(g.device)), "rx_pull kernel launch")
-    return pack
+    fields = [pointers(xs), pointers(outs)] + [
+        pointers([getattr(s, f) for s in specs]) for f in (
+            "gather", "input_offsets", "send_sizes", "output_offsets",
+            "recv_sizes")] + [pointers(routes)]
+    _ok(_kernel(entry)(
+        *fields, regions.table.data_ptr(), me0, len(xs), regions.size,
+        row_bytes, unit, blocks, send_cap if backward else recv_cap,
+        regions.buffer_bytes, WAIT_SECONDS, _index(first.device),
+        _stream(first.device)), f"{entry} kernel launch")
+    return outs if backward else (outs, routes)
 
 
 def exchange(h: torch.Tensor, spec, regions: PeerRegions,
-             me: int) -> torch.Tensor:
-    """One rank's forward exchange: its table [recv_cap, H]."""
+             me: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One rank's forward exchange, one kernel: its table [recv_cap, H]
+    and the routes it received (int32 [MAX_RANKS, 3]), for the backward
+    of this exchange."""
     global launches
-    put(h, spec, regions, me)
-    out = wait(h, spec, regions, me)
+    (table,), (route,) = _launch("rx_forward", [h], [spec], regions, me)
     launches += 1
-    return out
+    return table, route
 
 
-def exchange_backward(g: torch.Tensor, spec, regions: PeerRegions,
-                      me: int) -> torch.Tensor:
-    """One rank's reverse transfer: its pack cotangent [SEND_CAP, H]."""
+def exchange_backward(g: torch.Tensor, spec, routes: torch.Tensor,
+                      regions: PeerRegions, me: int) -> torch.Tensor:
+    """One rank's reverse transfer, one kernel: its pack cotangent
+    [SEND_CAP, H], pushed by the `routes` its forward returned (another
+    exchange's routes trap)."""
     global backward_launches
-    publish(g, spec, regions, me)
-    pack = pull(g, spec, regions, me)
+    (pack,) = _launch("rx_backward", [g], [spec], regions, me, [routes])
     backward_launches += 1
     return pack
 
@@ -344,31 +422,29 @@ def exchange_backward_reference(gs: Sequence[torch.Tensor],
 
 
 def standin_exchange(hs: Sequence[torch.Tensor], specs: Sequence,
-                     regions: PeerRegions = None) -> List[torch.Tensor]:
+                     regions: PeerRegions = None):
     """The group's forward with one process standing in for its S ranks:
-    on the card S puts, then S waits, over `regions` (`standin_regions`);
-    on CPU tensors the plain version."""
-    if hs[0].device.type != "cuda":
-        return exchange_reference(hs, specs)
-    for me, (h, spec) in enumerate(zip(hs, specs)):
-        put(h, spec, regions, me)
-    tables = [wait(h, spec, regions, me)
-              for me, (h, spec) in enumerate(zip(hs, specs))]
+    (their tables, the routes each received). On the card one kernel
+    whose grid holds every rank, over `regions` (`standin_regions`); on
+    CPU tensors the plain version and the routes of `routes`."""
     global launches
-    launches += len(hs)
-    return tables
+    if hs[0].device.type != "cuda":
+        return exchange_reference(hs, specs), [
+            torch.from_numpy(r) for r in routes(specs)]
+    tables, received = _launch("rx_forward", hs, specs, regions, 0)
+    launches += 1
+    return tables, received
 
 
 def standin_backward(gs: Sequence[torch.Tensor], specs: Sequence,
+                     received: Sequence[torch.Tensor],
                      regions: PeerRegions = None) -> List[torch.Tensor]:
-    """The group's reverse transfer, standing in for its S ranks: S
-    publishes, then S pulls; on CPU tensors the plain version."""
+    """The group's reverse transfer, standing in for its S ranks, pushed
+    by the routes its forward returned (one kernel); on CPU tensors the
+    plain version."""
+    global backward_launches
     if gs[0].device.type != "cuda":
         return exchange_backward_reference(gs, specs)
-    for me, (g, spec) in enumerate(zip(gs, specs)):
-        publish(g, spec, regions, me)
-    packs = [pull(g, spec, regions, me)
-             for me, (g, spec) in enumerate(zip(gs, specs))]
-    global backward_launches
-    backward_launches += len(gs)
+    packs = _launch("rx_backward", gs, specs, regions, 0, list(received))
+    backward_launches += 1
     return packs

@@ -75,11 +75,15 @@ class _RaggedExchange(torch.autograd.Function):
         # only where a gradient will be asked for.
         ctx.layout = (segment.sorted_segments(spec.gather, h.shape[0])
                       if ctx.needs_input_grad[0] else None)
-        return axis.ragged_exchange(h.contiguous(), spec)
+        table, ctx.routes = axis.ragged_exchange(h.contiguous(), spec)
+        return table
 
     @staticmethod
     def backward(ctx, g):
-        pack = ctx.axis.ragged_exchange_backward(g.contiguous(), ctx.spec)
+        # Pushed by the routes this forward received: a step runs the
+        # forwards of several batches before their backwards.
+        pack = ctx.axis.ragged_exchange_backward(g.contiguous(), ctx.spec,
+                                                 ctx.routes)
         return segment.sorted_segment_sum(pack, ctx.layout), None, None
 
 

@@ -119,11 +119,13 @@ class Axis:
     def reserve_peer_buffers(self, rows: int, row_bytes: int,
                              device) -> "ragged_exchange.PeerRegions":
         """The axis' peer regions, grown first where their buffers hold
-        fewer than `rows` rows of `row_bytes`: a collective over the axis
-        that every rank makes at the same call (the whole stack's shape
-        decides it alike on every rank, and the ranks' sizes are checked
-        equal). It refuses to run inside a CUDA graph's capture: the
-        Runner reserves before a new key's warm-up and capture."""
+        fewer than `rows` rows of `row_bytes` (`ragged_exchange.
+        buffer_rows`: the larger of recv_cap and SEND_CAP): a collective
+        over the axis that every rank makes at the same call (the whole
+        stack's shape decides it alike on every rank, and the ranks'
+        sizes are checked equal). It refuses to run inside a CUDA graph's
+        capture: the Runner reserves before a new key's warm-up and
+        capture."""
         held = self.peer_buffers.get("regions")
         if held is not None and held.fits(rows, row_bytes):
             return held
@@ -158,21 +160,26 @@ class Axis:
         self.peer_buffers.setdefault("held", []).append(regions)
         return regions
 
-    def ragged_exchange(self, h: torch.Tensor, spec) -> torch.Tensor:
+    def ragged_exchange(self, h: torch.Tensor, spec):
         """This rank's received table [recv_cap, H] of the ragged
         exchange of `h`'s rows (`spec`: this rank's `RaggedSendSpec`
-        rows, int32 on the card), through the axis' peer regions."""
+        rows, int32 on the card), through the axis' peer regions, and
+        the routes it received, which the exchange's reverse transfer
+        takes."""
         regions = self.reserve_peer_buffers(
-            spec.recv_cap, h.shape[1] * h.element_size(), h.device)
+            ragged_exchange.buffer_rows(spec),
+            h.shape[1] * h.element_size(), h.device)
         return ragged_exchange.exchange(h, spec, regions, self.index)
 
-    def ragged_exchange_backward(self, g: torch.Tensor,
-                                 spec) -> torch.Tensor:
-        """The reverse transfer of `ragged_exchange`: this rank's pack
-        cotangent [SEND_CAP, H] from the table cotangents `g`."""
+    def ragged_exchange_backward(self, g: torch.Tensor, spec,
+                                 routes: torch.Tensor) -> torch.Tensor:
+        """The reverse transfer of a `ragged_exchange` (`routes`, what it
+        returned beside its table): this rank's pack cotangent [SEND_CAP,
+        H] from the table cotangents `g`."""
         regions = self.reserve_peer_buffers(
-            spec.recv_cap, g.shape[1] * g.element_size(), g.device)
-        return ragged_exchange.exchange_backward(g, spec, regions,
+            ragged_exchange.buffer_rows(spec),
+            g.shape[1] * g.element_size(), g.device)
+        return ragged_exchange.exchange_backward(g, spec, routes, regions,
                                                  self.index)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:

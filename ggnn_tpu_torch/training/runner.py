@@ -100,6 +100,7 @@ from ggnn_tpu_torch.graph import (AsyncGraphBatch, DenseGraphBatch,
                                   GCNGraphBatch)
 from ggnn_tpu_torch.models.base import (ModelParams, init_output_heads,
                                         masked_regression_loss, task_rescale)
+from ggnn_tpu_torch.ops.kernels import ragged_exchange
 from ggnn_tpu_torch.parallel import tp
 from ggnn_tpu_torch.parallel.mesh import DATA_AXIS, EDGE_AXIS
 from ggnn_tpu_torch.parallel.node_shard import RaggedSendSpec
@@ -442,7 +443,8 @@ class Runner:
 
     def _reserve_peer_buffers(self, stack) -> None:
         """Grow the edge axis' peer buffers (the ragged exchange over
-        nccl) to this stack's receive table, rows of the widest state
+        nccl) to this stack's receive table and send pack
+        (`ragged_exchange.buffer_rows`), rows of the widest state
         the model exchanges in f32, before its step: a new key's warm-up
         and capture must not grow them (it is collective and reads the
         host). All ranks hold the same stack, so all grow at once."""
@@ -452,8 +454,8 @@ class Runner:
             return
         width = max(int(stack[0].node_features.shape[-1]),
                     int(self.config["hidden_size"]))
-        self.mesh.edge.reserve_peer_buffers(spec.recv_cap, 4 * width,
-                                            self.device)
+        self.mesh.edge.reserve_peer_buffers(
+            ragged_exchange.buffer_rows(spec), 4 * width, self.device)
 
     @staticmethod
     def _merge_grown_caps(old, grown):

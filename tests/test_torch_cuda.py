@@ -16,9 +16,12 @@ skewed lane, lanes whose b repeats, alternates or is all pads.
 (sparse, gcn, async; dense with dropout), with the launches they hold,
 the B1/B2 scratch a graph keeps across a larger capture, the refusal of
 a step that synchronises, and fresh dropout draws each replay. The ragged
-exchange's peer-memory kernels (csrc/ragged_exchange.cu) with one process
-standing in for four ranks, eager and replayed, f32 and bf16 rows, bit
-for bit, and a wait whose peer never arrives, which traps. Every test
+exchange's peer-memory kernels (csrc/ragged_exchange.cu, one kernel a
+direction) with one process standing in for four ranks as one grid,
+eager and replayed, f32 and bf16 rows, bit for bit, the routes the
+forward returns, forwards run before their reverse transfers, a wait
+whose peer never arrives and a backward of other rows than its
+forward's, each of which traps. Every test
 here needs an NVIDIA GPU and skips without one. The file
 imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -2156,31 +2159,50 @@ def _ragged_inputs(device, dtype, h_dim, seeds, n_shards=4, nl=64,
 def test_ragged_exchange_standin_equals_plain_eager_and_replayed(
         cuda, dtype, h_dim):
     """The peer-memory ragged all-to-all with one process standing in for
-    4 ranks (S puts then S waits; S publishes then S pulls) equals the
-    plain version bit for bit: every table (its zero tail included) and
-    every pack, eagerly for 3 batches whose per-pair sizes differ, then
-    through one CUDA graph captured once and replayed over all 3; rows of
-    16-, 4- and 2-byte copy units. The counters count each rank's
-    exchange at its launch (eagerly and at the capture), none a
-    replay."""
+    4 ranks (one kernel a direction, its grid holding every rank) equals
+    the plain version bit for bit: every table (its zero tail included)
+    and every pack, eagerly for 3 batches whose per-pair sizes differ,
+    then with all 3 forwards run before their reverse transfers (in the
+    reverse order, as autograd may run a step of several batches), then
+    through one CUDA graph captured once and replayed over all 3; rows
+    of 8-, 4- and 2-byte units. Each forward returns the routes its
+    owners sent. The counters count each launch (one a group's exchange,
+    eagerly and at the capture), none a replay."""
     from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx
     batches = _ragged_inputs(cuda, dtype, h_dim, (1, 2, 3))
     sizes = {str(np.asarray(spec.send_sizes).tolist())
              for spec, *_ in batches}
     assert len(sizes) == 3
-    regions = rx.standin_regions(
-        4, rx.buffer_bytes_for(batches[0][0].recv_cap, h_dim * 4), cuda)
+    row_bytes = h_dim * torch.finfo(dtype).bits // 8
+    assert {rx.copy_unit(row_bytes, [0])} == {
+        (torch.float32, 100): {8}, (torch.float32, 37): {4},
+        (torch.bfloat16, 64): {8}, (torch.bfloat16, 37): {2}}[
+            (dtype, h_dim)]
+    regions = rx.standin_regions(4, rx.buffer_bytes_for(
+        rx.buffer_rows(batches[0][2][0]), row_bytes), cuda)
     rx.launches = rx.backward_launches = 0
     wants = []
     for _, hs, rows, gs in batches:
         want = (rx.exchange_reference(hs, rows),
                 rx.exchange_backward_reference(gs, rows))
-        got = (rx.standin_exchange(hs, rows, regions),
-               rx.standin_backward(gs, rows, regions))
+        tables, received = rx.standin_exchange(hs, rows, regions)
+        routes = rx.routes(rows)
+        for rank in range(4):
+            np.testing.assert_array_equal(received[rank].cpu().numpy(),
+                                          routes[rank])
+        packs = rx.standin_backward(gs, rows, received, regions)
         torch.cuda.synchronize()
-        for a, b in zip(got[0] + got[1], want[0] + want[1]):
+        for a, b in zip(tables + packs, want[0] + want[1]):
             assert torch.equal(a, b)
         wants.append(want)
+    forwards = [rx.standin_exchange(hs, rows, regions)
+                for _, hs, rows, gs in batches]
+    for (_, hs, rows, gs), (tables, received), want in list(
+            zip(batches, forwards, wants))[::-1]:
+        packs = rx.standin_backward(gs, rows, received, regions)
+        torch.cuda.synchronize()
+        for a, b in zip(tables + packs, want[0] + want[1]):
+            assert torch.equal(a, b)
     fields = ("gather", "input_offsets", "send_sizes", "output_offsets",
               "recv_sizes")
     _, hs, rows, gs = batches[0]
@@ -2189,8 +2211,8 @@ def test_ragged_exchange_standin_equals_plain_eager_and_replayed(
                                         for f in fields}) for r in rows]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        tables = rx.standin_exchange(s_hs, s_rows, regions)
-        packs = rx.standin_backward(s_gs, s_rows, regions)
+        tables, received = rx.standin_exchange(s_hs, s_rows, regions)
+        packs = rx.standin_backward(s_gs, s_rows, received, regions)
     for (_, hs, rows, gs), want in zip(batches[::-1], wants[::-1]):
         for dst, src in zip(s_hs + s_gs, hs + gs):
             dst.copy_(src)
@@ -2201,19 +2223,30 @@ def test_ragged_exchange_standin_equals_plain_eager_and_replayed(
         torch.cuda.synchronize()
         for a, b in zip(tables + packs, want[0] + want[1]):
             assert torch.equal(a, b)
-    assert (rx.launches, rx.backward_launches) == (16, 16)
+    assert (rx.launches, rx.backward_launches) == (7, 7)
     assert rx.status() == 0
 
 
-def test_ragged_exchange_wait_without_its_peer_is_an_error(cuda, tmp_path):
-    """A rank whose peer never puts does not hang: its wait reports the
-    channel, itself and the peer in the status word and traps once its
-    budget (0.5 s here) is spent, and the next synchronise raises (in a
-    process of its own: a trap ends the CUDA context)."""
+def test_ragged_exchange_launch_plan_fits_the_card(cuda):
+    """The launch plan of the stand-in's widest grid (8 ranks of
+    MAX_BLOCKS) fits what the card holds at once, for every copy unit."""
+    from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx
+    for unit in (8, 4, 2):
+        resident = rx.resident_blocks(unit, cuda)
+        assert resident >= rx.MAX_RANKS * rx.MAX_BLOCKS, (unit, resident)
+        assert rx.launch_plan(10**6, 10**6, 400, unit, rx.MAX_RANKS,
+                              resident) == rx.MAX_BLOCKS
+
+
+def _ragged_trap(tmp_path, body):
+    """Run `body` (lines after the stand-in's set-up: `rx`, `dev`,
+    `batches` of 2 ranks and 2 seeds, `regions`; waits budgeted 0.5 s)
+    in a process of its own (a trap ends the CUDA context): whether the
+    next synchronise raised, and the status word."""
     import os
     import subprocess
     import sys
-    script = tmp_path / "lonely_wait.py"
+    script = tmp_path / "ragged_trap.py"
     script.write_text(
         "import sys, torch\n"
         f"sys.path.insert(0, {os.path.dirname(os.path.dirname(os.path.abspath(__file__)))!r})\n"
@@ -2222,18 +2255,38 @@ def test_ragged_exchange_wait_without_its_peer_is_an_error(cuda, tmp_path):
         "from ggnn_tpu_torch.ops.kernels import ragged_exchange as rx\n"
         "rx.WAIT_SECONDS = 0.5\n"
         "dev = torch.device('cuda')\n"
-        "((spec, hs, rows, gs),) = _ragged_inputs(dev, torch.float32, 8, "
-        "(1,), 2)\n"
+        "batches = _ragged_inputs(dev, torch.float32, 8, (1, 2), 2)\n"
         "regions = rx.standin_regions(2, 1 << 16, dev)\n"
-        "rx.put(hs[0], rows[0], regions, 0)\n"
-        "rx.wait(hs[0], rows[0], regions, 0)\n"
+        + body +
         "try:\n"
         "    torch.cuda.synchronize()\n"
         "    print('no error')\n"
         "except RuntimeError as err:\n"
         "    print('raised', type(err).__name__)\n"
         "print('status', rx.status())\n")
-    out = subprocess.run([sys.executable, str(script)], capture_output=True,
-                         text=True, timeout=300).stdout
+    return subprocess.run([sys.executable, str(script)], capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def test_ragged_exchange_wait_without_its_peer_is_an_error(cuda, tmp_path):
+    """A rank whose peer never runs its kernel does not hang: its fused
+    kernel's wait reports the channel, itself and the peer in the status
+    word and traps once its budget (0.5 s here) is spent, and the next
+    synchronise raises."""
+    out = _ragged_trap(tmp_path, "((spec, hs, rows, gs), _) = batches\n"
+                       "rx.exchange(hs[0], rows[0], regions, 0)\n")
     assert "raised" in out, out
     assert f"status {(1 << 16) | (0 << 8) | (0 << 4) | 1}" in out, out
+
+
+def test_ragged_exchange_backward_of_other_rows_is_an_error(cuda, tmp_path):
+    """A reverse transfer of other rows than its forward's (whose routes
+    the peers push by) traps with a stale-route code naming the backward
+    channel, never returns a wrong pack."""
+    out = _ragged_trap(tmp_path, "(_, hs, rows, gs), (_, _, other, _) = "
+                       "batches\n"
+                       "_, received = rx.standin_exchange(hs, rows, regions)\n"
+                       "rx.standin_backward(gs, other, received, regions)\n")
+    assert "raised" in out, out
+    code = int(out.split("status")[-1])
+    assert code >> 8 == (2 << 8) | 1, out

@@ -22,7 +22,8 @@ def _port_files():
              os.path.join(ROOT, "tools", "torch_serving_profile.py"),
              os.path.join(ROOT, "tools", "torch_op_host_cost.py"),
              os.path.join(ROOT, "tools", "torch_kernel_compare.py"),
-             os.path.join(ROOT, "tools", "torch_mesh_nccl.py")]
+             os.path.join(ROOT, "tools", "torch_mesh_nccl.py"),
+             os.path.join(ROOT, "tools", "torch_ragged_compare.py")]
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ggnn_tpu_torch")):
         files += [os.path.join(dirpath, n) for n in names
                   if n.endswith(".py")]

@@ -6,8 +6,14 @@ JAX package's ragged exchange (`exchange_boundary` of a
 "ragged_emulated" layout, `_ragged_emulated`, under `jax.shard_map` on
 the virtual CPU devices of tests/conftest.py); the reverse transfer and
 the gather's transpose against autograd of the plain version and JAX's
-VJP; the zero tail of a table; the device copy's routing rows; and one
-graph key for stacks of one shape whose per-pair sizes differ.
+VJP; the zero tail of a table; the device copy's routing rows; one
+graph key for stacks of one shape whose per-pair sizes differ; and the
+host side of the one-kernel design: the launch plan from the caps, the
+copy unit, the routes a forward returns for its backward, the buffers'
+lines, the reverse
+transfer pushed by those routes (an emulation of the kernels' data
+movement) against the plain version and JAX's VJP, a stale route caught
+by the owner, and the buffers sized by max(recv_cap, SEND_CAP).
 
 Tolerances: the tables and the packs exactly (copies of rows); h's
 gradient at 1e-6 (several pack rows that name one row of h are summed,
@@ -15,6 +21,7 @@ in another order than JAX's).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -110,7 +117,7 @@ def test_plain_version_matches_jax_ragged_exchange(n_shards):
     for s in range(n_shards):
         np.testing.assert_array_equal(got[s].numpy(), want[s])
     # A stand-in for the group on CPU tensors is the plain version.
-    again = ragged_exchange.standin_exchange(
+    again, _ = ragged_exchange.standin_exchange(
         [torch.from_numpy(h) for h in states], _rank_rows(spec, n_shards))
     for a, b in zip(again, got):
         assert torch.equal(a, b)
@@ -265,9 +272,11 @@ class _ThreadAxis:
         return out
 
     def ragged_exchange(self, h, spec):
-        return self._group(ragged_exchange.exchange_reference, h, spec)
+        table = self._group(ragged_exchange.exchange_reference, h, spec)
+        return table, ("routes of", spec)
 
-    def ragged_exchange_backward(self, g, spec):
+    def ragged_exchange_backward(self, g, spec, routes):
+        assert routes == ("routes of", spec)   # its own forward's
         return self._group(ragged_exchange.exchange_backward_reference, g,
                            spec)
 
@@ -324,3 +333,199 @@ def test_nccl_branch_gradient_with_threads_for_ranks(n_shards):
         np.testing.assert_allclose(grads[r].numpy(),
                                    np.asarray(want_grad[r]), rtol=0,
                                    atol=1e-6)
+
+
+# ------------------------------------------------ the one-kernel design
+
+@pytest.mark.parametrize("send_cap,recv_cap,row_bytes,unit,ranks,resident,"
+                         "blocks", [
+                             # the 20k stand-in's caps, f32 H 100: 64,450
+                             # 8-byte units over 1,024 a block
+                             (1241, 1289, 400, 8, 4, 792, 63),
+                             (1241, 1289, 400, 8, 1, 792, 63),
+                             # bf16 H 100: 32,225 units
+                             (1241, 1289, 200, 8, 4, 792, 32),
+                             # bf16 of odd width at 2-byte units
+                             (1241, 1289, 74, 2, 4, 792, 47),
+                             # a molecular layout at 1x4: one block
+                             (16, 16, 400, 8, 1, 792, 1),
+                             # empty caps still launch (the route lines)
+                             (0, 0, 400, 8, 2, 792, 1),
+                             # many units: MAX_BLOCKS a rank
+                             (100000, 10, 2048, 8, 1, 792, 64),
+                             # what the card holds at once bounds a grid
+                             (100000, 10, 2048, 8, 8, 300, 37),
+                         ])
+def test_launch_plan_from_the_caps(send_cap, recv_cap, row_bytes, unit,
+                                   ranks, resident, blocks):
+    """Blocks a rank: about UNITS_A_THREAD units a thread of the larger
+    buffer, at least 1, at most MAX_BLOCKS and what the card holds at
+    once over the grid's ranks; from the caps alone."""
+    got = ragged_exchange.launch_plan(send_cap, recv_cap, row_bytes, unit,
+                                      ranks, resident)
+    assert got == blocks
+    assert got * ranks <= resident
+
+
+def test_launch_plan_refuses_a_grid_the_card_cannot_hold():
+    """Every block of a launch must be resident (each waits for the puts
+    of all): a grid of more ranks than resident blocks raises."""
+    with pytest.raises(ValueError, match="do not fit"):
+        ragged_exchange.launch_plan(8, 8, 32, 16, 8, 7)
+
+
+@pytest.mark.parametrize("row_bytes,pointers,unit", [
+    (400, [0, 256, 4096], 8), (148, [0, 256], 4), (400, [0, 4], 4),
+    (74, [0, 256], 2), (200, [0, 16], 8), (128, [0, 2], 2)])
+def test_copy_unit(row_bytes, pointers, unit):
+    """8 bytes (a line's data) where the row and every row start allow
+    it, else 4, else 2: f32 and bf16 rows of any width."""
+    assert ragged_exchange.copy_unit(row_bytes, pointers) == unit
+
+
+@pytest.mark.parametrize("n_shards", SIZES)
+def test_forward_returns_each_owners_route(n_shards):
+    """The routes a rank's forward returns for its backward: int32
+    [MAX_RANKS, 3], row o = (input_offsets[o, me], send_sizes[o, me],
+    output_offsets[o, me]) of each owner o, zero for itself and past S;
+    the stand-in on CPU tensors returns them beside the plain tables."""
+    spec = _spec(n_shards, seed=100 + n_shards)
+    rows = _rank_rows(spec, n_shards)
+    got = ragged_exchange.routes(rows)
+    assert got.shape == (n_shards, ragged_exchange.MAX_RANKS, 3)
+    assert got.dtype == np.int32
+    for me in range(n_shards):
+        for o in range(ragged_exchange.MAX_RANKS):
+            want = ([int(np.asarray(getattr(spec, f))[o, me]) for f in (
+                "input_offsets", "send_sizes", "output_offsets")]
+                if o < n_shards and o != me else [0, 0, 0])
+            assert got[me, o].tolist() == want
+    _, received = ragged_exchange.standin_exchange(
+        [torch.from_numpy(h) for h in _states(n_shards, 8, 3)], rows)
+    for me, r in enumerate(received):
+        assert r.dtype == torch.int32
+        np.testing.assert_array_equal(r.numpy(), got[me])
+
+
+@pytest.mark.parametrize("rows,row_bytes,lines", [
+    (1289, 400, 1289 * 50), (1241, 200, 1241 * 25), (16, 74, 16 * 10),
+    (0, 400, 0)])
+def test_buffer_holds_route_lines_then_a_line_a_row_chunk(rows, row_bytes,
+                                                          lines):
+    """A buffer holds MAX_RANKS x ROUTE_LINES route lines, then a
+    16-byte line for each 8 bytes of each row (a bf16 row of odd width
+    padded to its last line), rounded up to keep buffers aligned."""
+    got = ragged_exchange.buffer_bytes_for(rows, row_bytes)
+    need = ragged_exchange.LINE_BYTES * (
+        ragged_exchange.MAX_RANKS * ragged_exchange.ROUTE_LINES + lines)
+    assert need <= got < need + 256
+    assert got % 256 == 0
+
+
+def _pushed_backward(gs, rows, forward_rows):
+    """The kernels' reverse transfer emulated on the host: each rank
+    pushes its table cotangent's slice of each owner into the owner's
+    backward buffer (max(recv_cap, SEND_CAP) rows) by the routes the
+    forward of `forward_rows` returned, after that route (its route
+    lines); each owner copies its rows of the buffer into its pack, zero
+    elsewhere. Returns (packs, the owners to whom a pusher's route
+    differs from their own rows)."""
+    size = len(rows)
+    routes = ragged_exchange.routes(forward_rows)
+    cap = ragged_exchange.buffer_rows(rows[0])
+    buffers = [gs[0].new_full((cap, gs[0].shape[1]), float("nan"))
+               for _ in range(size)]
+    pushed = np.zeros((size, ragged_exchange.MAX_RANKS, 3), np.int32)
+    for me in range(size):
+        for o in range(size):
+            if o == me:
+                continue
+            first, count, at = routes[me, o].tolist()
+            pushed[o, me] = routes[me, o]
+            buffers[o][first:first + count] = gs[me][at:at + count]
+    packs, stale = [], []
+    for me, spec in enumerate(rows):
+        own = np.stack([spec.input_offsets.numpy(), spec.send_sizes.numpy(),
+                        spec.output_offsets.numpy()], 1)
+        if any(not np.array_equal(pushed[me, d], own[d])
+               for d in range(size) if d != me):
+            stale.append(me)
+        pack = torch.zeros(spec.gather.shape[0], gs[me].shape[1])
+        for d in range(size):
+            first, count = own[d, 0], own[d, 1]
+            if d != me:
+                pack[first:first + count] = buffers[me][first:first + count]
+        packs.append(pack)
+    return packs, stale
+
+
+@pytest.mark.parametrize("n_shards", SIZES)
+def test_pushed_reverse_transfer_equals_the_plain_version(n_shards):
+    """Pushed by the routes of the forward of the same rows (one more
+    pack row than the table has, so the buffers need SEND_CAP), the
+    reverse transfer's packs are the plain version's bit for bit, no
+    buffer row a pack takes is left unwritten, and every pusher's route
+    is the owner's."""
+    spec = _spec(n_shards, seed=110 + n_shards)
+    spec = dataclasses.replace(
+        spec, gather=np.pad(np.asarray(spec.gather),
+                            ((0, 0), (0, spec.recv_cap + 1
+                                      - np.asarray(spec.gather).shape[1]))))
+    rows = _rank_rows(spec, n_shards)
+    assert ragged_exchange.buffer_rows(rows[0]) == spec.recv_cap + 1
+    cot = np.random.RandomState(120).randn(
+        n_shards, spec.recv_cap, 8).astype(np.float32)
+    gs = [torch.from_numpy(g) for g in cot]
+    packs, stale = _pushed_backward(gs, rows, rows)
+    assert stale == []
+    for got, want in zip(packs,
+                         ragged_exchange.exchange_backward_reference(gs,
+                                                                     rows)):
+        assert not torch.isnan(got).any()
+        assert torch.equal(got, want)
+    routes = ragged_exchange.routes(rows)
+    sizes = np.asarray(spec.send_sizes)
+    for d in range(n_shards):
+        assert routes[d, d].tolist() == [0, 0, 0]
+        assert routes[d, :n_shards, 1].tolist() == [
+            0 if o == d else int(sizes[o, d]) for o in range(n_shards)]
+
+
+@pytest.mark.parametrize("n_shards", SIZES)
+def test_a_stale_route_is_caught_by_the_owner(n_shards):
+    """A reverse transfer of other rows than its forward's (the routes of
+    another exchange) pushes by routes that differ from the owners' own
+    rows (the kernel traps there, code 2 << 16)."""
+    rows = _rank_rows(_spec(n_shards, seed=130 + n_shards), n_shards)
+    other = _rank_rows(_spec(n_shards, seed=140 + n_shards), n_shards)
+    gs = [torch.zeros(rows[0].recv_cap, 4) for _ in rows]
+    _, stale = _pushed_backward(gs, rows, other)
+    assert stale, "no owner saw the stale route"
+
+
+def test_buffers_hold_the_larger_of_table_and_pack():
+    """A region's buffers hold max(recv_cap, SEND_CAP) rows, the pack's
+    when it is the larger: the rank check refuses buffers of recv_cap
+    rows alone, and the Runner reserves by `buffer_rows` before a new
+    key's capture."""
+    from ggnn_tpu_torch.training.runner import Runner
+    spec = _spec(2, seed=150)
+    wide = dataclasses.replace(spec, gather=np.zeros(
+        (2, spec.recv_cap + 9), np.int32))
+    rows = _rank_rows(wide, 2)
+    need = ragged_exchange.buffer_rows(rows[0])
+    assert need == spec.recv_cap + 9
+    assert ragged_exchange.buffer_rows(wide) == need   # the host layout
+    small = ragged_exchange.PeerRegions(
+        torch.zeros(2, dtype=torch.int64),
+        ragged_exchange.buffer_bytes_for(spec.recv_cap, 32), 2)
+    assert not small.fits(need, 32)
+    asked = []
+    edge = SimpleNamespace(reserve_peer_buffers=lambda *a: asked.append(a))
+    runner = SimpleNamespace(
+        mesh=SimpleNamespace(backend="nccl", edge=edge),
+        config={"hidden_size": 8}, device="cpu")
+    stack = [SimpleNamespace(send_idx=wide,
+                             node_features=np.zeros((2, 4, 5)))]
+    Runner._reserve_peer_buffers(runner, stack)
+    assert asked == [(need, 32, "cpu")]
