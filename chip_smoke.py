@@ -383,6 +383,26 @@ prediction (`check_graphs`, `check_forwards`).
      host clock) against their byte bound, the plain version's (host
      clock: it reads the sizes on the host) and phase 21's gloo
      `all_to_all_single`, with the NVLink bound four cards would have.
+ 25. blocked-ELL batches (after phase 23) — one training epoch of phase
+     6's corpus at configs/sparse_tpu.json (6 batches of 20,000 nodes,
+     T 4, H 100), packed without the ELL layout, then with `ell_block`
+     256 (JAX's default block, NP 20,224, NB 79) and the `ell_k` that
+     `plan_ell_k` gives over the plain epoch, by the native packer (4
+     workers) and the numpy packer from one RandomState: every batch an
+     ELLGraphBatch, native and numpy bit-equal, its GraphBatch fields
+     the plain pack's, its real slots its edges; `ell_k` 8 raises the
+     replan ValueError in both. Over each batch `ell_aggregate_by_type`
+     (1e-5), its gradient through B2 (1e-4) and `ell_scatter_sum` (1e-5)
+     against their plain versions, one B1 or B2 launch a call; B1 and B2
+     as those ops launch them on the first batch (the layout already
+     converted), timed with their byte bounds and `torch.sparse.mm`;
+     both ops as callers run them, the layout's conversion and its
+     host syncs included, wall ms a call of a synchronised loop beside
+     their plain versions' by the same loop; the packers' seconds with
+     and without the layout; phase 6's `sparse` model on an ELL batch and on
+     its plain twin, one forward and one eager train step each,
+     bit-equal. No adapter passes `ell_block` (as in JAX), so these
+     launches are not on the main paths.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -392,6 +412,7 @@ the repository, the script fails and prints no result.
 
 import contextlib
 import dataclasses
+import functools
 import glob
 import itertools
 import json
@@ -6035,6 +6056,290 @@ def replay_phase(dev, step_corpus, runners, work_dir, async_artifact):
             "card": card, "config_seconds": seconds,
             "seconds": time.perf_counter() - start}
 
+# ------------------------------------------------------- ELL batches
+
+# JAX's default ELL block (`block_nodes` of ggnn_tpu/ops/pallas/
+# ell_spmm.py:160): NP 20,224 and NB 79 at the 20k-node budget.
+ELL_BLOCK = 256
+# An ell_k that every 20k training batch overflows.
+ELL_OVERFLOW_K = 8
+ELL_FIELDS = ("ell_fwd_src", "ell_fwd_tgt", "ell_bwd_tgt", "ell_bwd_src")
+
+
+def ell_stream(native_on, processed, meta, config, caps, **ell):
+    """One training epoch of the sparse packer, native (4 workers) or
+    numpy, shuffled from RandomState(1); `ell` is `ell_block`/`ell_k`."""
+    from ggnn_tpu_torch.data import native_pack, packing
+
+    rng = np.random.RandomState(1)
+    if native_on:
+        return native_pack.pack_sparse_batches_native(
+            processed, meta.num_edge_types, config["tie_fwd_bkwd"],
+            config["batch_size"], caps, config["hidden_size"],
+            meta.annotation_size, True, rng, **ell)
+    return packing.pack_sparse_batches(
+        processed, meta.num_edge_types, config["batch_size"], caps,
+        config["hidden_size"], meta.annotation_size, True, rng, **ell)
+
+
+def ell_kernel_checks(dev, batches, t_dim, np_total):
+    """Over each packed ELL batch: `ell_aggregate_by_type` (one B1
+    launch), its gradient through B2 (one B2 launch) and `ell_scatter_sum`
+    (one B2 launch) against their plain versions; the largest errors."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    errors = {"b1": 0.0, "b1_gradient": 0.0, "b2": 0.0}
+
+    def counted(call, want, what):
+        before = launch_counts()[:2]
+        out = call()
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(launch_counts()[:2], before))
+        if moved != want:
+            raise RuntimeError(f"ELL {what} moved the B1/B2 counters by "
+                               f"{moved}, not {want}")
+        return out
+
+    for i, b in enumerate(batches):
+        layout = [torch.from_numpy(getattr(b, n)).to(dev) for n in ELL_FIELDS]
+        h = torch.randn(np_total, HIDDEN, generator=gen, device=dev,
+                        requires_grad=True)
+        g = torch.randn(t_dim, np_total, HIDDEN, generator=gen, device=dev)
+        out = counted(lambda: ell_spmm.ell_aggregate_by_type(h, *layout),
+                      (1, 0), "aggregation")
+        (dh,) = counted(lambda: torch.autograd.grad(out, h, g), (0, 1),
+                        "aggregation's gradient")
+        dg = counted(lambda: ell_spmm.ell_scatter_sum(g, *layout[2:]),
+                     (0, 1), "scatter sum")
+        want = ell_spmm.ell_aggregate_by_type_reference(h, *layout[:2])
+        (want_dh,) = torch.autograd.grad(want, h, g)
+        want_dg = ell_spmm.ell_scatter_sum_reference(g, *layout[2:])
+        torch.testing.assert_close(out, want, rtol=TOL_KERNEL,
+                                   atol=TOL_KERNEL)
+        torch.testing.assert_close(dh, want_dh, rtol=TOL_STEP_GRAD,
+                                   atol=TOL_STEP_GRAD)
+        torch.testing.assert_close(dg, want_dg, rtol=TOL_KERNEL,
+                                   atol=TOL_KERNEL)
+        for key, (a, w) in {"b1": (out, want), "b1_gradient": (dh, want_dh),
+                            "b2": (dg, want_dg)}.items():
+            errors[key] = max(errors[key],
+                              float((a - w).detach().abs().max()))
+    return errors
+
+
+def synced_wall_ms(fn, iters=50, warmup=5):
+    """Wall ms a call of a synchronised loop: the host's work, its syncs
+    and the device's. For calls that sync the host midway, which
+    `time_ms`'s device timing cannot queue behind its sleep."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def ell_kernel_timing(dev, batch, t_dim, np_total):
+    """B1 and B2 as `ell_aggregate_by_type` and `ell_scatter_sum` launch
+    them over one packed ELL batch, on the layout already converted (the
+    pads dropped, the types merged: `check_kernel`'s records), and each
+    op's plain version timed on the same layout. Then both ops as callers
+    run them, the conversion included (`op_wall_ms`), beside their plain
+    versions by the same synchronised loop (`plain_wall_ms`)."""
+    from ggnn_tpu_torch.ops.kernels import ell_spmm
+    from ggnn_tpu_torch.ops.segment import segment_offsets
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    fwd_src, fwd_tgt, bwd_tgt, bwd_src = [
+        torch.from_numpy(getattr(batch, n)).to(dev) for n in ELL_FIELDS]
+    targets, sources, types = ell_spmm._real_slots(fwd_tgt, fwd_src,
+                                                   np_total)
+    segments = t_dim * np_total
+    offsets = segment_offsets(types * np_total + targets, segments)
+    h = torch.randn(np_total, HIDDEN, generator=gen, device=dev)
+    label = (f"packed ELL batch (T {t_dim}, NP {np_total}, NB "
+             f"{fwd_src.shape[1]}, KE {fwd_src.shape[2]})")
+    b1 = check_kernel(ell_spmm, "gather_segment_sum", label, h,
+                      sources.to(torch.int32), offsets, segments)
+    b1_plain = functools.partial(ell_spmm.ell_aggregate_by_type_reference,
+                                 h, fwd_src, fwd_tgt)
+    b1["ell_plain_ms"] = time_ms(b1_plain)[0]
+    b1["op_wall_ms"] = synced_wall_ms(
+        lambda: ell_spmm.ell_aggregate_by_type(h, fwd_src, fwd_tgt))
+    b1["plain_wall_ms"] = synced_wall_ms(b1_plain)
+    bgather, boff = ell_spmm.ell_transpose_layout(bwd_tgt, bwd_src, np_total)
+    g = torch.randn(segments, HIDDEN, generator=gen, device=dev)
+    b2 = check_kernel(ell_spmm, "segment_scatter_sum",
+                      f"backward of the {label}", g, bgather, boff, np_total)
+    g3 = g.view(t_dim, np_total, HIDDEN)
+    b2_plain = functools.partial(ell_spmm.ell_scatter_sum_reference, g3,
+                                 bwd_tgt, bwd_src)
+    b2["ell_plain_ms"] = time_ms(b2_plain)[0]
+    b2["op_wall_ms"] = synced_wall_ms(
+        lambda: ell_spmm.ell_scatter_sum(g3, bwd_tgt, bwd_src))
+    b2["plain_wall_ms"] = synced_wall_ms(b2_plain)
+    return b1, b2
+
+
+def ell_model_checks(dev, runner, ell_batch, plain_batch):
+    """Phase 6's `sparse` model on an ELL batch and on its plain twin:
+    one forward and one eager train step each, from the same weights,
+    Adam state and dropout seed; both bit-equal. The Runner's state is
+    put back after."""
+    tensors = ([p for _, p in runner.params.named_parameters()]
+               + runner.optimizer.state_tensors())
+    saved = [t.detach().clone() for t in tensors]
+    generator = runner.generator
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(tensors, saved):
+                t.copy_(s)
+
+    forwards, steps = [], []
+    try:
+        for batch in (plain_batch, ell_batch):
+            on_card = batch.to(dev)
+            with torch.no_grad():
+                forwards.append(runner.params.graph(on_card))
+            runner.generator = torch.Generator(device=dev).manual_seed(27)
+            loss, accs = runner.train_step(on_card)
+            torch.cuda.synchronize()
+            steps.append((loss.clone(), accs.clone(),
+                          [t.detach().clone() for t in tensors]))
+            restore()
+    finally:
+        runner.generator = generator
+        restore()
+    forward_equal = torch.equal(forwards[0], forwards[1])
+    (loss_a, accs_a, after_a), (loss_b, accs_b, after_b) = steps
+    step_equal = (torch.equal(loss_a, loss_b) and torch.equal(accs_a, accs_b)
+                  and all(torch.equal(a, b) for a, b in zip(after_a,
+                                                            after_b)))
+    log(f"ELL batch against its plain twin ({type(ell_batch).__name__}, "
+        f"{int(plain_batch.num_nodes)} nodes): forward bit-equal "
+        f"{forward_equal}, train step (loss, MAE, {len(tensors)} weights "
+        f"and Adam tensors) bit-equal {step_equal}")
+    if not (forward_equal and step_equal):
+        raise RuntimeError("the model gives an ELL batch other bits than "
+                           "its plain twin")
+    return {"forward_bit_equal": forward_equal,
+            "train_step_bit_equal": step_equal,
+            "loss": float(loss_a)}
+
+
+def ell_packing_phase(dev, corpus, runner):
+    """Phase 25 (see the module docstring)."""
+    from ggnn_tpu_torch.data.ell import padded_node_count, plan_ell_k
+    from ggnn_tpu_torch.data.loader import infer_metadata
+    from ggnn_tpu_torch.graph import ELLGraphBatch, GraphBatch
+    from ggnn_tpu_torch.training.variants import make_adapter
+
+    start = time.perf_counter()
+    card = gpu_name_and_power()
+    train = corpus[0]
+    config = train_config("sparse", {"num_epochs": 1})
+    meta = infer_metadata([train], config["tie_fwd_bkwd"])
+    processed, caps = {}, {}
+    for on in (True, False):
+        adapter = make_adapter("sparse", {**config, "native_pack": on}, meta)
+        processed[on] = adapter.preprocess(train, True,
+                                           np.random.RandomState(0))
+        caps[on] = adapter.plan(processed[on])
+    if caps[True] != caps[False]:
+        raise RuntimeError(f"native and numpy plans differ: {caps}")
+    caps = caps[True]
+    names = {True: "native", False: "numpy"}
+    pack_s, plain, packed = {}, {}, {}
+
+    def pack(on, kind, **ell):
+        t0 = time.perf_counter()
+        batches = list(ell_stream(on, processed[on], meta, config, caps,
+                                  **ell))
+        pack_s[f"{kind}_{names[on]}"] = time.perf_counter() - t0
+        return batches
+
+    for on in (True, False):
+        plain[on] = pack(on, "plain")
+    check_stream("plain epoch, native against numpy", plain[True],
+                 plain[False])
+    ell_k = max(plan_ell_k(b.edge_targets, b.edge_mask, ELL_BLOCK,
+                           edge_sources=b.edge_sources) for b in plain[True])
+    np_total = padded_node_count(caps.nodes, ELL_BLOCK)
+    t_dim = meta.num_edge_types
+    for on in (True, False):
+        packed[on] = pack(on, "ell", ell_block=ELL_BLOCK, ell_k=ell_k)
+    count = check_stream("ELL epoch, native against numpy", packed[True],
+                         packed[False])
+    shape = (t_dim, np_total // ELL_BLOCK, ell_k)
+    for i, (b, p) in enumerate(zip(packed[True], plain[True])):
+        if type(b) is not ELLGraphBatch:
+            raise RuntimeError(f"ELL batch {i} is a {type(b).__name__}")
+        base = GraphBatch(**{f.name: getattr(b, f.name)
+                             for f in dataclasses.fields(GraphBatch)})
+        if not same_batch(base, p):
+            raise RuntimeError(f"ELL batch {i}'s GraphBatch fields differ "
+                               "from the plain pack's")
+        real = int(b.edge_mask.sum())
+        slots = [int((getattr(b, n) < np_total).sum())
+                 for n in ("ell_fwd_tgt", "ell_bwd_src")]
+        shapes = {getattr(b, n).shape for n in ELL_FIELDS}
+        if slots != [real, real] or shapes != {shape}:
+            raise RuntimeError(f"ELL batch {i}: real slots {slots} for "
+                               f"{real} edges, shapes {shapes} not {shape}")
+    overflow = {}
+    for on in (True, False):
+        try:
+            list(ell_stream(on, processed[on], meta, config, caps,
+                            ell_block=ELL_BLOCK, ell_k=ELL_OVERFLOW_K))
+        except ValueError as err:
+            overflow[names[on]] = str(err)
+            if "replan ell_k over this epoch" not in str(err):
+                raise
+        else:
+            raise RuntimeError(f"the {names[on]} packer took ell_k "
+                               f"{ELL_OVERFLOW_K} without an overflow")
+    log(f"ELL packing: {count} batches of {caps.nodes} nodes, ell_block "
+        f"{ELL_BLOCK}, ell_k {ell_k} (planned over the plain epoch), "
+        f"[T, NB, KE] {list(shape)}: native and numpy bit-equal, each "
+        "batch's GraphBatch fields the plain pack's, its real slots its "
+        f"edges; ell_k {ELL_OVERFLOW_K} raises in both: "
+        f"{overflow['native']!r}")
+    log("ELL packing: seconds to pack the training epoch "
+        + ", ".join(f"{k} {v:.4f}" for k, v in pack_s.items())
+        + f" (one pass each); {card}")
+    zero_launch_counts()
+    errors = ell_kernel_checks(dev, packed[True], t_dim, np_total)
+    launches = launch_counts()[:2]
+    log(f"ELL ops over the {count} packed batches against their plain "
+        f"versions: max abs error B1 {errors['b1']:.3e}, its gradient "
+        f"through B2 {errors['b1_gradient']:.3e}, ell_scatter_sum "
+        f"{errors['b2']:.3e}; launches B1/B2 {launches} (one a call)")
+    b1, b2 = ell_kernel_timing(dev, packed[True][0], t_dim, np_total)
+    log(f"ELL B1 / B2 on the first packed batch: {b1['ms'] * 1e3:.3f} / "
+        f"{b2['ms'] * 1e3:.3f} us, bound {b1['bound_ms'] * 1e3:.3f} / "
+        f"{b2['bound_ms'] * 1e3:.3f}, torch.sparse.mm "
+        f"{b1['library_ms'] * 1e3:.3f} / {b2['library_ms'] * 1e3:.3f}, the "
+        f"ELL ops' plain versions {b1['ell_plain_ms'] * 1e3:.3f} / "
+        f"{b2['ell_plain_ms'] * 1e3:.3f}; {card}")
+    log(f"ELL ops as called (the layout's conversion and its host syncs "
+        f"included), wall us a call of a synchronised loop: "
+        f"ell_aggregate_by_type {b1['op_wall_ms'] * 1e3:.3f}, plain "
+        f"{b1['plain_wall_ms'] * 1e3:.3f}; ell_scatter_sum "
+        f"{b2['op_wall_ms'] * 1e3:.3f}, plain "
+        f"{b2['plain_wall_ms'] * 1e3:.3f}; {card}")
+    model = ell_model_checks(dev, runner, packed[True][0], plain[True][0])
+    seconds = time.perf_counter() - start
+    log(f"ELL phase: {seconds:.1f} s; {card}")
+    return {"batches": count, "ell_block": ELL_BLOCK, "ell_k": ell_k,
+            "layout_shape": list(shape), "pack_seconds": pack_s,
+            "overflow": overflow, "max_abs_err": errors,
+            "launches": list(launches), "b1": b1, "b2": b2, "model": model,
+            "card": card, "seconds": seconds}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -6223,6 +6528,7 @@ def main() -> int:
          "gcn": gcn_runners["gcn"], "sparse_attention": attention_runner,
          "async": async_runner}, os.path.join(work_dir, "replay"),
         os.path.join(work_dir, "export", "async.ggnnx"))
+    ell_phase = ell_packing_phase(dev, corpus, runner)
 
     # Each kernel's `launches` sums the main paths' runs, each counted
     # from 0 just before it: every variant's serving requests and
@@ -6290,6 +6596,16 @@ def main() -> int:
         return {"shape": rec["shape"], **shape_numbers(rec),
                 "max_abs_err": rec["max_abs_err"]}
 
+    def ell_entry(rec, counter, errors):
+        """Phase 25's packed-ELL shape with the phase's own launches
+        (the main paths' are in `launches_by_path`)."""
+        return {**short(rec),
+                **{k: rec[k] for k in ("ell_plain_ms", "op_wall_ms",
+                                       "plain_wall_ms")},
+                "launches_in_phase": ell_phase["launches"][counter],
+                "max_abs_err_over_epoch": {
+                    k: ell_phase["max_abs_err"][k] for k in errors}}
+
     b1_paths, b2_paths = by_path(0), by_path(1)
     b3_paths = {"probe": probe["launches"], **by_path(2)}
     w_paths, dot_paths = by_path(3, 4), by_path(5)
@@ -6307,6 +6623,7 @@ def main() -> int:
         "launches": sum(b1_paths.values()),
         "launches_by_path": b1_paths,
         "max_abs_err": max([r["max_abs_err"] for r in records] + [ell_err]
+                           + [ell_phase["max_abs_err"]["b1"]]
                            + [async_kernels[k]["max_abs_err"]
                               for k in ("b1", "b1_serving")]
                            + [r["max_abs_err"]
@@ -6315,6 +6632,7 @@ def main() -> int:
                          for k in ("b1", "b1_serving")],
         "per_type_shapes": [short(r)
                             for r in attention_kernels["per_type_b1"]],
+        "ell_packed": ell_entry(ell_phase["b1"], 0, ("b1",)),
         **shape_numbers(records[0]),
         "registers": registers,
     }, {
@@ -6325,8 +6643,11 @@ def main() -> int:
         "launches": sum(b2_paths.values()),
         "launches_by_path": b2_paths,
         "max_abs_err": max([r["max_abs_err"] for r in b2_records]
-                           + [b2_ell_err, async_kernels["b2"]["max_abs_err"]]),
+                           + [b2_ell_err, async_kernels["b2"]["max_abs_err"],
+                              ell_phase["max_abs_err"]["b2"],
+                              ell_phase["max_abs_err"]["b1_gradient"]]),
         "async_shapes": [short(async_kernels["b2"])],
+        "ell_packed": ell_entry(ell_phase["b2"], 1, ("b2", "b1_gradient")),
         **shape_numbers(b2_shape),
         "registers": registers,
     }, {
@@ -6499,6 +6820,7 @@ def main() -> int:
                     "mesh": {k: v for k, v in mesh.items()
                              if k != "runner_corpus"},
                     "orbax": orbax, "replay": replayed, "ragged": ragged,
+                    "ell_packing": ell_phase,
                     "zstd_build": zstd}))
     log(device_line)
     log(json.dumps({"kernels": kernels}))

@@ -7,11 +7,16 @@ transpose — and packed into fixed KE slots per (type, block). Padded
 slots carry gather index 0 (any valid row) and key index NP (out of
 every block's range). `ops/kernels/ell_spmm.py:ell_aggregate_by_type`
 takes the forward layout and, for its gradient, the backward one.
+The packers (`data/packing.py`, `data/native_pack.py`) attach both to
+each batch as an `ELLGraphBatch` when given `ell_block`.
 """
 
 import dataclasses
+import logging
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,6 +54,11 @@ def plan_ell_k(edge_targets, edge_mask, block_nodes: int,
     return -(-ke // 8) * 8
 
 
+class ELLOverflowError(ValueError):
+    """A batch's per-(type, node-block) edge count exceeds the planned
+    ell_k: the only error `try_build_ell_layout` swallows."""
+
+
 def _pack_one(key_idx, other_idx, nb_count, ell_k, np_total):
     """(key, other) edge lists -> block-major [NB, KE] arrays."""
     key_out = np.full((nb_count, ell_k), np_total, dtype=np.int32)
@@ -62,7 +72,7 @@ def _pack_one(key_idx, other_idx, nb_count, ell_k, np_total):
     first = np.searchsorted(blocks, blocks, side="left")
     slots = np.arange(len(blocks)) - first
     if slots.max() >= ell_k:
-        raise ValueError(
+        raise ELLOverflowError(
             f"ELL overflow: block needs {slots.max() + 1} slots > "
             f"ell_k={ell_k}")
     key_out[blocks, slots] = key_idx
@@ -99,3 +109,22 @@ def build_ell_layout(edge_sources, edge_targets, edge_mask,
                                            np_total)
     return ELLLayout(fwd_src=fwd_src, fwd_tgt=fwd_tgt,
                      bwd_tgt=bwd_tgt, bwd_src=bwd_src)
+
+
+def try_build_ell_layout(edge_sources, edge_targets, edge_mask,
+                         node_capacity: int, block_nodes: int, ell_k):
+    """`build_ell_layout`, or None where a batch overflows the planned
+    `ell_k` (a shuffle that puts more edges in a block than the plan
+    saw). Only `ELLOverflowError` is swallowed, with a warning: a
+    mis-shaped input or any other error propagates. The packers call
+    `build_ell_layout` and raise a ValueError that names the remedy
+    instead, so a stream never changes its batch class midway."""
+    try:
+        return build_ell_layout(edge_sources, edge_targets, edge_mask,
+                                node_capacity, block_nodes, ell_k)
+    except ELLOverflowError as e:
+        # The JAX package's words, so a log reads the same from either.
+        logger.warning(
+            "ELL layout overflow (%s); falling back to the XLA path for "
+            "this batch", e)
+        return None

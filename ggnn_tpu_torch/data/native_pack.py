@@ -22,6 +22,7 @@ import torch
 
 from ggnn_tpu_torch.data.packing import (DENSE_BUCKET_SIZES, PackCapacities,
                                          build_combined_lane,
+                                         ell_graph_batch,
                                          plan_capacities_from_walk,
                                          plan_gcn_capacities_from_walk)
 from ggnn_tpu_torch.graph import DenseGraphBatch, GCNGraphBatch, GraphBatch
@@ -439,12 +440,10 @@ def pack_sparse_batches_native(processed: SparseProcessed,
                                ell_k: Optional[int] = None,
                                workers: int = 4
                                ) -> Iterator[GraphBatch]:
-    if ell_block:
-        # The JAX packer's blocked-ELL layout (an ELLGraphBatch) serves
-        # only that package's archived ELL kernel; no adapter passes it.
-        raise NotImplementedError(
-            "ell_block: the blocked-ELL batch layout of the JAX native "
-            "packer is not ported (ROADMAP A12)")
+    """The native counterpart of `packing.pack_sparse_batches`, equal
+    to it leaf for leaf: the composition walk here, each batch
+    assembled by the C packer on one of `workers` threads (with
+    `ell_block`, its blocked-ELL layouts built there too)."""
     lib = require_lib()
     corpus = processed.corpus
     # Same pack-time re-validation as the dense path: preprocess may have run under a different num_edge_types /
@@ -532,6 +531,8 @@ def pack_sparse_batches_native(processed: SparseProcessed,
         common.update(build_combined_lane(
             edge_sources, edge_targets, edge_mask, caps.edges_all,
             caps.nodes))
+        if ell_block:
+            return ell_graph_batch(common, caps.nodes, ell_block, ell_k)
         return GraphBatch(**common)
 
     yield from _map_ordered(assemble, compositions, workers)

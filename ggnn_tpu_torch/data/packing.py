@@ -32,7 +32,9 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from ggnn_tpu_torch.graph import DenseGraphBatch, GCNGraphBatch, GraphBatch
+from ggnn_tpu_torch.data.ell import ELLOverflowError, build_ell_layout
+from ggnn_tpu_torch.graph import (DenseGraphBatch, ELLGraphBatch,
+                                  GCNGraphBatch, GraphBatch)
 from ggnn_tpu_torch.utils.padding import pad_to, round_up
 
 DENSE_BUCKET_SIZES = np.array(list(range(4, 28, 2)) + [29])
@@ -263,13 +265,40 @@ def build_combined_lane(edge_sources, edge_targets, edge_mask,
             "edge_targets_all": out_tgt, "edge_mask_all": out_mask}
 
 
+def ell_graph_batch(fields: Dict[str, Any], node_capacity: int,
+                    ell_block: int, ell_k: Optional[int]) -> ELLGraphBatch:
+    """The packed batch `fields` (a GraphBatch's) with the blocked-ELL
+    layouts of its per-type lanes. An `ell_k` that one of its blocks
+    overflows raises: a stream must not turn into plain GraphBatches
+    midway, since its consumers were built for one batch class."""
+    try:
+        layout = build_ell_layout(
+            fields["edge_sources"], fields["edge_targets"],
+            fields["edge_mask"], node_capacity, ell_block, ell_k)
+    except ELLOverflowError as e:
+        raise ValueError(
+            f"blocked-ELL layout overflow (ell_k={ell_k}, "
+            f"block={ell_block}) — replan ell_k over this epoch "
+            "or disable the ELL layout") from e
+    return ELLGraphBatch(
+        **fields, ell_fwd_src=layout.fwd_src, ell_fwd_tgt=layout.fwd_tgt,
+        ell_bwd_tgt=layout.bwd_tgt, ell_bwd_src=layout.bwd_src)
+
+
 def pack_sparse_batches(processed: List[dict], num_edge_types: int,
                         node_budget: int, caps: PackCapacities,
                         hidden_size: int, annotation_size: int,
                         is_training: bool,
-                        rng: Optional[np.random.RandomState] = None
+                        rng: Optional[np.random.RandomState] = None,
+                        ell_block: int = 0,
+                        ell_k: Optional[int] = None
                         ) -> Iterator[GraphBatch]:
-    """Pack graphs into padded disconnected super-graph batches."""
+    """Pack graphs into padded disconnected super-graph batches.
+
+    With `ell_block > 0` every batch also carries the blocked-ELL
+    layouts of its edges (an ELLGraphBatch, `ell_graph_batch`); `ell_k`
+    fixes the slots a (type, block) across batches, one shape for every
+    batch. When None it is sized per batch (tests only)."""
     if is_training and rng is not None:
         # Shuffle a COPY: the caller's order must survive for replay.
         processed = list(processed)
@@ -346,7 +375,7 @@ def pack_sparse_batches(processed: List[dict], num_edge_types: int,
         target_mask = pad_to(np.asarray(masks, dtype=np.float32).T.reshape(
             num_tasks, graphs_in_batch), caps.graphs, axis=1)
 
-        yield GraphBatch(
+        fields = dict(
             node_features=node_features,
             node_graph_ids=node_graph_ids,
             edge_sources=edge_sources,
@@ -360,6 +389,10 @@ def pack_sparse_batches(processed: List[dict], num_edge_types: int,
             **build_combined_lane(edge_sources, edge_targets, edge_mask,
                                   caps.edges_all, caps.nodes),
         )
+        if ell_block:
+            yield ell_graph_batch(fields, caps.nodes, ell_block, ell_k)
+        else:
+            yield GraphBatch(**fields)
 
 
 # --------------------------------------------------------------------

@@ -2,8 +2,8 @@
 (bucketed adjacency stacks), GCN (one weighted COO list) and async
 (scheduled propagation, with its segments).
 
-The packers emit a `GraphBatch`, `DenseGraphBatch`, `GCNGraphBatch` or
-`AsyncGraphBatch` of numpy arrays;
+The packers emit a `GraphBatch` (an `ELLGraphBatch` with `ell_block`),
+`DenseGraphBatch`, `GCNGraphBatch` or `AsyncGraphBatch` of numpy arrays;
 `.to(device)` turns it into torch tensors on the device the model runs
 on. Fields, shapes and padding conventions are those of
 `ggnn_tpu/graph.py`, so a batch from either package's packer compares
@@ -112,6 +112,28 @@ class GraphBatch:
     def to(self, device) -> "GraphBatch":
         """The same batch as torch tensors on `device`."""
         return _to_device(self, device)
+
+
+@dataclasses.dataclass(frozen=True)
+class ELLGraphBatch(GraphBatch):
+    """A GraphBatch plus blocked-ELL layouts of its per-type edges
+    (`data/ell.py:build_ell_layout`), the input of
+    `ops/kernels/ell_spmm.py:ell_aggregate_by_type` and
+    `ell_scatter_sum`. The edge lists stay as they are: the ELL arrays
+    are a second layout of the same edges, keyed by target block (fwd)
+    and by source block (bwd). The models read the GraphBatch fields
+    only.
+
+    Shapes [T, NB, KE], int32: NB = the padded node count over the ELL
+    block, KE = the planned slots a (type, block).
+      ell_fwd_src / ell_bwd_tgt — gather indices, pads 0
+      ell_fwd_tgt / ell_bwd_src — key indices, pads NB * block
+    """
+
+    ell_fwd_src: Any = None
+    ell_fwd_tgt: Any = None
+    ell_bwd_tgt: Any = None
+    ell_bwd_src: Any = None
 
 
 @dataclasses.dataclass(frozen=True)

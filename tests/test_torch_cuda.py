@@ -142,6 +142,48 @@ def test_ell_aggregate_by_type_kernel_matches_plain(cuda):
                                **TOL)
 
 
+@pytest.mark.parametrize("block", [64, 256])
+def test_ell_ops_over_packed_ell_batches_match_plain(cuda, block):
+    """B1 and B2 through `ell_aggregate_by_type` (its gradient too) and
+    `ell_scatter_sum` over the layouts the packer attaches with
+    `ell_block`, each call one launch."""
+    from ggnn_tpu_torch.data.ell import plan_ell_k
+
+    proc = packing.preprocess_sparse(synthetic_molecules(400, seed=9), 4,
+                                     True, [0], {}, False)
+    caps = packing.plan_capacities(proc, 4, 2000)
+    plain = list(packing.pack_sparse_batches(proc, 4, 2000, caps, 100, 5,
+                                             False, None))
+    ell_k = max(plan_ell_k(b.edge_targets, b.edge_mask, block,
+                           edge_sources=b.edge_sources) for b in plain)
+    batches = list(packing.pack_sparse_batches(
+        proc, 4, 2000, caps, 100, 5, False, None, ell_block=block,
+        ell_k=ell_k))
+    assert len(batches) == len(plain) > 1
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for b in batches:
+        layout = [torch.from_numpy(getattr(b, n)).to(cuda) for n in (
+            "ell_fwd_src", "ell_fwd_tgt", "ell_bwd_tgt", "ell_bwd_src")]
+        np_total = layout[0].shape[1] * block
+        h = torch.randn(np_total, 100, generator=gen, device=cuda,
+                        requires_grad=True)
+        g = torch.randn(4, np_total, 100, generator=gen, device=cuda)
+        before = (ell_spmm.launches, ell_spmm.scatter_launches)
+        out = ell_spmm.ell_aggregate_by_type(h, *layout)
+        (got_dh,) = torch.autograd.grad(out, h, g)
+        got_scatter = ell_spmm.ell_scatter_sum(g, *layout[2:])
+        torch.cuda.synchronize()
+        assert (ell_spmm.launches, ell_spmm.scatter_launches) == (
+            before[0] + 1, before[1] + 2)
+        want = ell_spmm.ell_aggregate_by_type_reference(h, *layout[:2])
+        (want_dh,) = torch.autograd.grad(want, h, g)
+        torch.testing.assert_close(out, want, **TOL)
+        torch.testing.assert_close(got_dh, want_dh, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(
+            got_scatter, ell_spmm.ell_scatter_sum_reference(g, *layout[2:]),
+            **TOL)
+
+
 def test_mixed_devices_raise(cuda):
     h = torch.randn(4, 8, device=cuda)
     src = torch.zeros(2, dtype=torch.int32)
