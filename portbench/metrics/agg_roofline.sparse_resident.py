@@ -1,0 +1,5 @@
+"""Roofline share of the aggregation kernels B1/B2 in a window of the
+sparse GGNN's resident training, as portbench/readers.py computes it.
+Moves `train_graphs_per_s.sparse_resident`."""
+
+from portbench.readers import agg_roofline as read  # noqa: F401

@@ -1,0 +1,4 @@
+"""Device idle share in a window of streamed training, as
+portbench/readers.py computes it. Moves `train_graphs_per_s.stream`."""
+
+from portbench.readers import device_idle as read  # noqa: F401
