@@ -22,8 +22,13 @@ The port of the single-device path of `ggnn_tpu/training/runner.py`
   * TensorBoard scalars (training/summaries.py), written after the
     epoch's one device-to-host copy;
   * `profile_dir`: a `torch.profiler` Chrome trace of epoch 1's
-    training epoch;
-  * `predict` and `example_evaluation` (sparse.py:364-376).
+    training epoch, the port's spans (utils/spans.py) in it;
+  * `predict` and `example_evaluation` (sparse.py:364-376);
+  * spans of its host work (utils/spans.py, off by default):
+    `ggnn.preprocess` (both splits, in the constructor), and in
+    `run_epoch` a `ggnn.prefetch.wait` and a `ggnn.step` a batch, `step`
+    its index, and `ggnn.epoch.read` (the epoch's one device-to-host
+    copy).
 
 It runs on the GPU unless the caller passes `device="cpu"`, and without
 CUDA it raises. The numpy stream is the JAX Runner's:
@@ -113,9 +118,11 @@ from ggnn_tpu_torch.training.checkpoint import (load_iterator_state,
 from ggnn_tpu_torch.training.optimizer import TFAdam
 from ggnn_tpu_torch.training.summaries import SummarySink
 from ggnn_tpu_torch.training.variants import make_adapter
+from ggnn_tpu_torch.utils import spans
 from ggnn_tpu_torch.utils.constants import CHEMICAL_ACCURACIES
 from ggnn_tpu_torch.utils.device import resolve_device
 from ggnn_tpu_torch.utils.prefetch import ThreadedIterator
+from ggnn_tpu_torch.utils.spans import pulls, span
 from ggnn_tpu_torch.utils.timing import (EpochsFn, GraphPool, StepCache,
                                          graph_key, shape_groups)
 
@@ -259,10 +266,12 @@ class Runner:
         self.meta = infer_metadata([train_data, valid_data],
                                    config["tie_fwd_bkwd"])
         self.adapter = make_adapter(variant, config, self.meta)
-        self.train_processed = self.adapter.preprocess(
-            train_data, True, self.np_rng)
-        self.valid_processed = self.adapter.preprocess(valid_data, False)
-        self.adapter.plan(self.train_processed, self.valid_processed)
+        with span("ggnn.preprocess"):
+            self.train_processed = self.adapter.preprocess(
+                train_data, True, self.np_rng)
+            self.valid_processed = self.adapter.preprocess(valid_data,
+                                                           False)
+            self.adapter.plan(self.train_processed, self.valid_processed)
 
         self._mesh_kind = (None if mesh is None else mesh_kind(
             variant, config, mesh, self.meta.num_edge_types))
@@ -688,13 +697,14 @@ class Runner:
         skip_steps = 0
         if is_training:
             skip_steps, self._skip_steps = self._skip_steps, 0
-        for step, batch in enumerate(batch_iter):
+        for step, batch in pulls(batch_iter, "ggnn.prefetch.wait"):
             if step < skip_steps:
                 continue
             num_graphs = int(batch.num_graphs)
             processed_graphs += num_graphs
             processed_edges += _batch_edge_count(batch)
-            loss, accs = step_fn(batch)
+            with span("ggnn.step", step=step):
+                loss, accs = step_fn(batch)
             step_metrics.append((loss, accs))
             graph_counts.append(num_graphs)
             if not self.quiet:
@@ -724,8 +734,10 @@ class Runner:
                         "process all).")
             raise RuntimeError(
                 f"{epoch_name}: no batches produced — {hint}")
-        losses = torch.stack([m[0] for m in step_metrics]).cpu().numpy()
-        accs_all = torch.stack([m[1] for m in step_metrics]).cpu().numpy()
+        with span("ggnn.epoch.read"):
+            losses = torch.stack([m[0] for m in step_metrics]).cpu().numpy()
+            accs_all = torch.stack(
+                [m[1] for m in step_metrics]).cpu().numpy()
         for i, (loss, accs) in enumerate(zip(losses, accs_all)):
             self.summaries.add_batch(split, step_base + i, float(loss), accs,
                                      self.task_ids)
@@ -815,13 +827,20 @@ class Runner:
 
     def _profiled_train_epoch(self, name: str):
         """`run_epoch` of the training split under `torch.profiler` (CPU,
-        and CUDA on the card), its Chrome trace written into
-        `profile_dir`."""
+        and CUDA on the card), with the port's spans on, its Chrome trace
+        written into `profile_dir`."""
         acts = [torch.profiler.ProfilerActivity.CPU]
         if self.device.type == "cuda":
             acts.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=acts) as prof:
-            result = self.run_epoch(name, self.train_processed, True)
+        were_on = spans.on(True)
+        try:
+            with torch.profiler.profile(activities=acts) as prof:
+                result = self.run_epoch(name, self.train_processed, True)
+        finally:
+            spans.on(were_on)
+            if not were_on:
+                # They were on for the trace alone.
+                spans.drain()
         if not self.is_chief:
             return result
         os.makedirs(self.profile_dir, exist_ok=True)

@@ -10,12 +10,16 @@ exception in the consuming loop) does not leak a blocked worker thread:
 unblocks and retires the worker; and the worker starts LAZILY on first
 iteration, so a constructed-but-never-iterated instance holds no
 spinning thread. The iterator is single-use: a second
-`iter()` raises instead of hanging on the drained queue.
+`iter()` raises instead of hanging on the drained queue. Each pull of an
+element from the source is the span `ggnn.pack.batch` (utils/spans.py),
+its `step` the element's index.
 """
 
 import queue
 import threading
 from typing import Any, Iterable
+
+from ggnn_tpu_torch.utils.spans import pulls
 
 
 class ThreadedIterator:
@@ -44,7 +48,7 @@ class ThreadedIterator:
 
     def _worker(self):
         try:
-            for element in self._source:
+            for _, element in pulls(self._source, "ggnn.pack.batch"):
                 if element is None:
                     # Explicit raise, not assert: python -O strips
                     # asserts, and a None element reaching the queue

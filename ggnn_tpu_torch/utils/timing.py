@@ -14,6 +14,12 @@ device through one; `time_epochs` times it by differencing two run
 lengths, as the JAX harness does. `shape_groups` groups batches by the
 shapes of their leaves, as `ggnn_tpu/training/runner.py:train_on_device`
 does, and `graph_key` says which batches one graph can replay.
+
+The spans (`utils/spans.py`, off by default): `ggnn.epochs` an epochs
+call, `ggnn.epochs.keys` its key walk before the first replay,
+`ggnn.replay` a replay (`ggnn.replay.fill` its input copy), and
+`ggnn.capture` a capture (`ggnn.capture.warm` and `ggnn.capture.graph`
+each key's warm-up and graph).
 """
 
 import dataclasses
@@ -29,6 +35,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ggnn_tpu_torch.ops.kernels import launch_counts
+from ggnn_tpu_torch.utils.spans import span
 
 _SLEEP_CYCLES_PER_MS = None
 
@@ -317,8 +324,10 @@ class StepGraph:
     def replay(self, batch):
         """Copy `batch`'s arrays into the input buffers, replay, and
         return the output buffers."""
-        _fill(self._buffers, batch)
-        self.graph.replay()
+        with span("ggnn.replay"):
+            with span("ggnn.replay.fill"):
+                _fill(self._buffers, batch)
+            self.graph.replay()
         return self.outputs
 
 
@@ -399,28 +408,32 @@ class StepCache:
         """Warm up, then capture, a graph of the step for each key of
         `new` ({key: batch}) on the side stream, the state and the
         generators restored after each phase and after a failure."""
-        device = _device_of(next(iter(new.values())), self.device)
-        self.pool.ready(device)
-        saved = [t.detach().clone() for t in self.state]
-        saved_generators = [g.get_state() for g in self.generators]
-        statics = {key: _static_copy(batch, device)
-                   for key, batch in new.items()}
-        stream = self.pool.stream
-        stream.wait_stream(torch.cuda.current_stream(device))
-        try:
-            with torch.cuda.stream(stream):
-                for static in statics.values():
-                    self._warm(static)
+        with span("ggnn.capture"):
+            device = _device_of(next(iter(new.values())), self.device)
+            self.pool.ready(device)
+            saved = [t.detach().clone() for t in self.state]
+            saved_generators = [g.get_state() for g in self.generators]
+            statics = {key: _static_copy(batch, device)
+                       for key, batch in new.items()}
+            stream = self.pool.stream
+            stream.wait_stream(torch.cuda.current_stream(device))
+            try:
+                with torch.cuda.stream(stream):
+                    for static in statics.values():
+                        with span("ggnn.capture.warm"):
+                            self._warm(static)
+                    self._restore(saved, saved_generators)
+                    for key, static in statics.items():
+                        with span("ggnn.capture.graph"):
+                            self.graphs[key] = self._capture_one(static,
+                                                                 device)
+                    self._restore(saved, saved_generators)
+            except BaseException:
+                # No update of a failed warm-up or capture stays.
                 self._restore(saved, saved_generators)
-                for key, static in statics.items():
-                    self.graphs[key] = self._capture_one(static, device)
-                self._restore(saved, saved_generators)
-        except BaseException:
-            # No update of a failed warm-up or capture stays.
-            self._restore(saved, saved_generators)
-            raise
-        finally:
-            torch.cuda.current_stream(device).wait_stream(stream)
+                raise
+            finally:
+                torch.cuda.current_stream(device).wait_stream(stream)
 
     def _capture_one(self, static, device: torch.device) -> StepGraph:
         from ggnn_tpu_torch.ops.kernels import ell_spmm
@@ -494,31 +507,33 @@ class EpochsFn:
         return self.steps.graphs
 
     def __call__(self, groups: Sequence[Sequence], n_epochs: int):
-        steps = [batch for group in groups for batch in group]
-        if not steps:
-            raise ValueError("no batch groups to run")
-        device = _device_of(steps[0], self.steps.device)
-        if device.type != "cuda":
-            loss = torch.zeros((), device=device)
-            for _ in range(n_epochs):
-                for batch in steps:
-                    loss = _first(self.steps(batch))
-            return loss
-        keys = [graph_key(batch) for batch in steps]
-        new = {}
-        for key, batch in zip(keys, steps):
-            if key not in self.graphs:
-                new.setdefault(key, batch)
-        with self.steps.pool.lock:
-            if new:
-                self.steps.capture(new)
-            loss = None
-            for _ in range(n_epochs):
+        with span("ggnn.epochs"):
+            steps = [batch for group in groups for batch in group]
+            if not steps:
+                raise ValueError("no batch groups to run")
+            device = _device_of(steps[0], self.steps.device)
+            if device.type != "cuda":
+                loss = torch.zeros((), device=device)
+                for _ in range(n_epochs):
+                    for batch in steps:
+                        loss = _first(self.steps(batch))
+                return loss
+            with span("ggnn.epochs.keys"):
+                keys = [graph_key(batch) for batch in steps]
+                new = {}
                 for key, batch in zip(keys, steps):
-                    loss = _first(self.graphs[key].replay(batch))
-            if loss is None:
-                return torch.zeros((), device=device)
-            return loss.clone()
+                    if key not in self.graphs:
+                        new.setdefault(key, batch)
+            with self.steps.pool.lock:
+                if new:
+                    self.steps.capture(new)
+                loss = None
+                for _ in range(n_epochs):
+                    for key, batch in zip(keys, steps):
+                        loss = _first(self.graphs[key].replay(batch))
+                if loss is None:
+                    return torch.zeros((), device=device)
+                return loss.clone()
 
     def step_launches(self, groups: Sequence[Sequence]) -> List[Dict]:
         """{"module.counter": launches} a replay of each step of an epoch

@@ -15,7 +15,8 @@ skewed lane, lanes whose b repeats, alternates or is all pads.
 `train_on_device`'s CUDA graphs are held to the same steps run eagerly
 (sparse, gcn, async; dense with dropout), with the launches they hold,
 the B1/B2 scratch a graph keeps across a larger capture, the refusal of
-a step that synchronises, and fresh dropout draws each replay. The ragged
+a step that synchronises, fresh dropout draws each replay, and the
+spans of its captures and replays. The ragged
 exchange's peer-memory kernels (csrc/ragged_exchange.cu, one kernel a
 direction) with one process standing in for four ranks as one grid,
 eager and replayed, f32 and bf16 rows, bit for bit, the routes the
@@ -33,6 +34,7 @@ a model forward or a gradient, which chain 8 GRU steps of f32 products
 in another order.
 """
 
+import collections
 import dataclasses
 import json
 
@@ -1835,6 +1837,51 @@ def test_dense_dropout_replays_match_eager_steps(cuda, tmp_path):
     wants = dict(eager.params.named_parameters())
     for name, p in graph.params.named_parameters():
         torch.testing.assert_close(p, wants[name], rtol=0, atol=1e-5)
+
+
+def test_train_on_device_spans_a_capture_once_a_key_and_a_replay_a_step(
+        cuda, tmp_path):
+    """With the port's spans on (utils/spans.py), `train_on_device(2)` of
+    `dense` (several bucket shapes, so several keys) records one
+    `ggnn.epochs` with its key walk, one `ggnn.capture` holding a warm-up
+    and a graph a key, and a `ggnn.replay` with its input copy a step;
+    the next call captures nothing and replays each step once."""
+    from ggnn_tpu_torch.utils import spans
+    config = resolve_config("dense", config_json=json.dumps(
+        {"batch_size": 16}))
+    runner = Runner("dense", dict(config),
+                    train_data=synthetic_molecules(240, seed=7),
+                    valid_data=synthetic_molecules(20, seed=8),
+                    log_dir=str(tmp_path), quiet=True, tensorboard=False,
+                    device="cuda")
+    spans.drain()
+    were_on = spans.on(True)
+    try:
+        runner.train_on_device(2)
+        first, counters = spans.drain()
+        runner.train_on_device(1)
+        second, _ = spans.drain()
+    finally:
+        spans.on(were_on)
+        spans.drain()
+    keys = len(runner.train_graphs.graphs)
+    steps = len(runner.replay_launches)
+    assert keys > 1 and counters == {"spans_dropped": 0}
+    names = collections.Counter(r.name for r in first)
+    assert names["ggnn.epochs"] == names["ggnn.epochs.keys"] == 1
+    assert names["ggnn.capture"] == 1
+    assert names["ggnn.capture.warm"] == names["ggnn.capture.graph"] == keys
+    assert names["ggnn.replay"] == names["ggnn.replay.fill"] == 2 * steps
+    (epochs,) = [r for r in first if r.name == "ggnn.epochs"]
+    (capture,) = [r for r in first if r.name == "ggnn.capture"]
+    assert capture.parent == epochs.id
+    assert all(r.parent == capture.id for r in first
+               if r.name in ("ggnn.capture.warm", "ggnn.capture.graph"))
+    assert all(r.parent == epochs.id for r in first
+               if r.name == "ggnn.replay")
+    names = collections.Counter(r.name for r in second)
+    assert "ggnn.capture" not in names
+    assert names["ggnn.replay"] == steps
 
 
 # ------------------------------------------ replayed steps (A20)

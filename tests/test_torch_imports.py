@@ -53,6 +53,7 @@ def test_the_scan_sees_the_whole_port():
     for path in (("ops", "kernels", "ell_spmm.py"),
                  ("ops", "kernels", "gather_floor.py"),
                  ("probes", "gather_floor.py"), ("utils", "timing.py"),
+                 ("utils", "spans.py"),
                  ("server.py",), ("export.py",), ("compat", "tf1.py"),
                  ("training", "summaries.py"), ("data", "smiles.py"),
                  ("data", "qm9.py"), ("data", "native_pack.py"),

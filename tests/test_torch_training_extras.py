@@ -42,6 +42,7 @@ from ggnn_tpu_torch.training.checkpoint import params_from_jax_weights
 from ggnn_tpu_torch.training.config import resolve_config
 from ggnn_tpu_torch.training.runner import Runner
 from ggnn_tpu_torch.training.summaries import SummarySink
+from ggnn_tpu_torch.utils import spans as span_recorder
 
 torch.set_num_threads(1)
 
@@ -378,6 +379,14 @@ def test_profile_writes_one_chrome_trace_of_epoch_one(monkeypatch,
     assert ops == {"ggnn_tpu_torch::gather_segment_sum": prop_steps * epoch1,
                    "ggnn_tpu_torch::segment_scatter_sum":
                        (prop_steps - 1) * epoch1}
+    # The port's spans are in it, a step each (utils/spans.py), and off
+    # again after it, nothing of them kept.
+    spans = collections.Counter(e["name"] for e in events
+                                if e["name"].startswith("ggnn."))
+    assert spans["ggnn.step"] == epoch1
+    assert spans["ggnn.prefetch.wait"] == epoch1 + 1
+    assert not span_recorder.on(False)
+    assert span_recorder.drain() == ([], {"spans_dropped": 0})
 
 
 # ------------------------------------------------------------- evaluation
