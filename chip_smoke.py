@@ -403,6 +403,17 @@ prediction (`check_graphs`, `check_forwards`).
      its plain twin, one forward and one eager train step each,
      bit-equal. No adapter passes `ell_block` (as in JAX), so these
      launches are not on the main paths.
+ 26. GRU kernels (run after phase 13's kernels) — K1-K4 of
+     csrc/gru.cu at the sparse cell's 100,000 rows and the dense cell's
+     7,424 and 1,024, H 100, each against its plain version (1e-5; the
+     partials' sum, the biases' gradient, within 1e-5 of each column's
+     sum of |terms|), with its time, byte bound and plain time; a whole
+     GRU step forward and backward through `FusedGRU` against the eager
+     step under autograd at d_in 100 (and 300 at 100k rows): h' (1e-5)
+     and every gradient (relative L2 1e-4) compared, both timed, 2 + 2
+     launches. Every run above that counts the six counters also reads
+     the GRU's two (`gru_launch_counts`), so the kernels line gives K1-K4
+     `launches_by_path` over the same runs.
 
 The last three lines of standard output are the card's name and power
 limit (nvidia-smi), one JSON object with the kernels' numbers, and
@@ -941,6 +952,13 @@ def launch_counts():
             ell_spmm.weighted_scatter_launches, edge_dot.launches)
 
 
+def gru_launch_counts():
+    """The GRU kernels' two counters (`ops/kernels/gru.py`): K1 and K2's
+    launches, then K3 and K4's. Each run reads them beside the six."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    return [gru.launches, gru.backward_launches]
+
+
 def bf16_launch_counts():
     """The same six counters of the kernels' bf16 instances alone."""
     from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
@@ -950,7 +968,11 @@ def bf16_launch_counts():
 
 
 def zero_launch_counts():
-    from ggnn_tpu_torch.ops.kernels import edge_dot, ell_spmm, gather_floor
+    """Every counter of `ggnn_tpu_torch.ops.kernels.launch_counts` to 0:
+    the six-tuples' kernels, their bf16 instances' and the GRU's."""
+    from ggnn_tpu_torch.ops.kernels import (edge_dot, ell_spmm,
+                                            gather_floor, gru)
+    gru.launches = gru.backward_launches = 0
     ell_spmm.launches = ell_spmm.scatter_launches = gather_floor.launches = 0
     ell_spmm.weighted_launches = ell_spmm.weighted_scatter_launches = 0
     edge_dot.launches = 0
@@ -1082,10 +1104,11 @@ def served_launches(variant, config):
 
 
 def counted_request(predictor, request, counts=launch_counts):
-    """(answer, launches, forward calls, new graphs) of one request, the
-    kernels' counters set to 0 just before it and `counts()` read just
-    after, held to 2 x the launches of the graphs it captured (their
-    six-tuples, the last item)."""
+    """(answer, launches, forward calls, new graphs, GRU launches) of one
+    request, the kernels' counters set to 0 just before it and `counts()`
+    and `gru_launch_counts()` read just after, the first held to 2 x the
+    launches of the graphs it captured (their six-tuples, the fourth
+    item)."""
     captures = Captures(predictor._graphs)
     forward_calls = 0
     forward = predictor._forward
@@ -1100,12 +1123,12 @@ def counted_request(predictor, request, counts=launch_counts):
         zero_launch_counts()
         answer = predictor(request)
         torch.cuda.synchronize()
-        launched = counts()
+        launched, gru_launched = counts(), gru_launch_counts()
     finally:
         del predictor._forward
     (new,) = captures.check(f"{predictor.variant} request of "
                             f"{len(request)} graphs", launched, counts)
-    return answer, launched, forward_calls, new
+    return answer, launched, forward_calls, new, gru_launched
 
 
 def check_forwards(label, new, per_forward):
@@ -1229,10 +1252,11 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
     if predictor.device.type != "cuda":
         raise RuntimeError(f"default device is {predictor.device}")
     cpu_predictor = Predictor.from_checkpoint(path, variant, device="cpu")
-    answers, counted, captured, calls = {}, [], [], 0
+    answers, counted, captured, calls, gru_counted = {}, [], [], 0, []
     for n, req in requests.items():
-        answers[n], launched, forward_calls, new = counted_request(
-            predictor, req, counts)
+        answers[n], launched, forward_calls, new, gru_launched = \
+            counted_request(predictor, req, counts)
+        gru_counted.append(gru_launched)
         check_forwards(f"{variant}{tag} serving of {n} graphs", new,
                        want(1))
         counted.append(launched)
@@ -1248,6 +1272,7 @@ def counted_serving(variant, ckpt_dir, want, overrides=None,
             "graphs_captured_by_request": captured,
             "graphs": predictor.graph_count(),
             "launches": [sum(c) for c in zip(*counted)],
+            "gru_launches": [sum(c) for c in zip(*gru_counted)],
             **check_and_time_answers(f"{variant}{tag} serving", predictor,
                                      cpu_predictor, requests, answers,
                                      cpu_sizes, tol)}
@@ -1379,7 +1404,7 @@ def train_run(variant, epochs, corpus, log_dir, config=None,
     history = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launched = counts()
+    launched, gru_launched = counts(), gru_launch_counts()
     b1, b2, b3, w_fwd, w_bwd, dots = launched
     runner.train_graphs = caches[0]
     del runner.run_epoch
@@ -1448,7 +1473,7 @@ def train_run(variant, epochs, corpus, log_dir, config=None,
     return runner, {
         "launches_b1": b1, "launches_b2": b2, "launches_b3": b3,
         "launches_weighted": w_fwd, "launches_weighted_transpose": w_bwd,
-        "launches_edge_dot": dots,
+        "launches_edge_dot": dots, "gru_launches": gru_launched,
         "pack_seconds_per_epoch": pack_s, "packer": packer,
         "train_epoch_seconds_median": epoch_s,
         "train_steps": runner.train_step_id,
@@ -1803,7 +1828,7 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir, config=None,
         out[dev] = runner.loss_and_grads(batch.to(runner.device))
         if dev == "cuda":
             torch.cuda.synchronize()
-            launches = counts()
+            launches, gru_launched = counts(), gru_launch_counts()
         log(f"card vs CPU: {label} {dev} step (first call) "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     loss_gpu, _, grads_gpu = out["cuda"]
@@ -1843,7 +1868,8 @@ def card_vs_cpu_phase(variant, corpus, pick, log_dir, config=None,
                            f"{launches}, expected {want}")
     result = {"loss_relative_error": loss_err,
               "worst_grad_relative_l2": worst, "worst_grad": worst_name,
-              "launches": list(launches), "parameters": sorted(grads_cpu)}
+              "launches": list(launches), "gru_launches": gru_launched,
+              "parameters": sorted(grads_cpu)}
     if repeat_forward:
         model = runners["cuda"].params.graph
         on_card = batch.to(runners["cuda"].device)
@@ -2142,6 +2168,185 @@ def check_gather(label, h, src):
     return rec
 
 
+# The GRU cell's kernels (csrc/gru.cu): the rows of the sparse cell's
+# batch and of the dense cell's largest and smallest buckets (256
+# molecules x 29 and x 4 atoms), H 100, each with the d_in of the steps
+# timed there: the sparse residual layer's widest input besides H. The
+# kernels' shapes do not depend on d_in; the step's products do.
+GRU_SHAPES = (("sparse 100k", 100_000, (100, 300)),
+              ("dense 7,424", 7_424, (100,)), ("dense 1,024", 1_024, (100,)))
+# Tensors of [N, H] f32 each kernel reads and writes once: K1 5 + 3,
+# K2 4 + 2, K3 4 + 3, K4 4 + 2 (PERF.md's bound, besides the partials).
+GRU_UNITS = {"K1 gru_gates": 8, "K2 gru_update": 6, "K3 gru_update_bwd": 7,
+             "K4 gru_gates_bwd": 6}
+# A fused step against the eager one on the card: h' at most this far
+# off, each gradient at most this relative L2 error.
+GRU_STEP_TOL = 1e-5
+GRU_STEP_GRAD_TOL = 1e-4
+
+
+def gru_registers():
+    """{kernel instance: registers a thread} from nvcc's -Xptxas=-v
+    output of csrc/gru.cu (empty when the library was built earlier)."""
+    import re
+    from ggnn_tpu_torch.ops.kernels import _build
+    text = _build.build_info.get("gru", (0.0, ""))[1]
+    regs, name = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+        used = re.search(r"Used (\d+) registers", line)
+        if used and name:
+            regs[name] = int(used.group(1))
+            name = None
+    return regs
+
+
+def gru_step_phase(dev, gen, rows, d_in, code):
+    """A whole GRU step over `rows` x `d_in`, forward and backward,
+    products included, through `FusedGRU` against the eager op-by-op step
+    under autograd (the yardstick: what the port ran before): h' and
+    every gradient compared (GRU_STEP_TOL, GRU_STEP_GRAD_TOL), both timed,
+    and the fused step's launches of K1-K4."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    h_dim = HIDDEN
+    args = [(0.5 * torch.randn(*shape, generator=gen, device=dev)
+             ).requires_grad_() for shape in (
+                (rows, d_in), (rows, h_dim), (d_in + h_dim, 2 * h_dim),
+                (2 * h_dim,), (d_in + h_dim, h_dim), (h_dim,))]
+    weight = torch.randn(rows, h_dim, generator=gen, device=dev)
+
+    def fused():
+        out = gru.gru_step(*args, code)
+        return out, torch.autograd.grad((out * weight).sum(), args)
+
+    def eager():
+        x, hh, w_g, bg, w_c, bc = args
+        xs = torch.matmul(x, torch.cat([w_g[:d_in], w_c[:d_in]], dim=1))
+        gates = torch.sigmoid(xs[:, :2 * h_dim]
+                              + torch.matmul(hh, w_g[d_in:]) + bg)
+        r, u = gates.chunk(2, dim=-1)
+        c = torch.tanh(xs[:, 2 * h_dim:]
+                       + torch.matmul(r * hh, w_c[d_in:]) + bc)
+        out = u * hh + (1.0 - u) * c
+        return out, torch.autograd.grad((out * weight).sum(), args)
+
+    gru.launches = gru.backward_launches = 0
+    out, grads = fused()
+    torch.cuda.synchronize()
+    launched = gru_launch_counts()
+    if launched != [2, 2]:
+        raise RuntimeError(f"a GRU step of {rows} x {d_in} launched "
+                           f"{launched} of K1/K2 and K3/K4, not [2, 2]")
+    want, want_grads = eager()
+    out_err = float((out - want).detach().abs().max())
+    grad_errs = [float((g - w).norm() / w.norm().clamp_min(1e-30))
+                 for g, w in zip(grads, want_grads)]
+    if out_err > GRU_STEP_TOL or max(grad_errs) > GRU_STEP_GRAD_TOL:
+        raise RuntimeError(
+            f"a fused GRU step of {rows} x {d_in} against the eager one: "
+            f"h' max abs error {out_err:.3e} (limit {GRU_STEP_TOL}), "
+            f"gradients' relative L2 errors {grad_errs} (limit "
+            f"{GRU_STEP_GRAD_TOL})")
+    return {"d_in": d_in, "fused_step_us": time_ms(fused)[0] * 1e3,
+            "eager_step_us": time_ms(eager)[0] * 1e3,
+            "max_abs_error_vs_eager": out_err,
+            "grad_relative_l2_vs_eager": grad_errs,
+            "step_launches": launched}
+
+
+def gru_phase(dev):
+    """K1-K4 at the sparse and dense shapes: each against its plain
+    version (max abs error 1e-5; the partials' sum, the biases' gradient,
+    within 1e-5 of each column's sum of |dxs| over the rows), its device
+    us (`time_ms`), its bound (the [N, H] tensors it reads and writes
+    once, and its partials, over 3.35 TB/s) and the plain version's us;
+    then `gru_step_phase` at each d_in of the shape."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    gen = torch.Generator(device=dev).manual_seed(25)
+    code = gru.ACTIVATIONS["tanh"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    records = []
+    for label, rows, d_ins in GRU_SHAPES:
+        h_dim = HIDDEN
+        xs = torch.randn(rows, 3 * h_dim, generator=gen, device=dev)
+        hg = torch.randn(rows, 2 * h_dim, generator=gen, device=dev)
+        hc, h, dn, drh = (torch.randn(rows, h_dim, generator=gen, device=dev)
+                          for _ in range(4))
+        b_g = torch.randn(2 * h_dim, generator=gen, device=dev)
+        b_c = torch.randn(h_dim, generator=gen, device=dev)
+        g, rh = gru.gru_gates(xs, hg, b_g, h)
+        c, h_new = gru.gru_update(xs, hc, b_c, g, h, code)
+        dxs, dh, partials = gru.gru_update_bwd(dn, g, h, c, code)
+        dh0 = dh.clone()
+        gru.gru_gates_bwd(drh, h, g, dxs, dh, partials)
+        want_g, want_rh = gru.gates_reference(xs, hg, b_g, h)
+        want_c, want_h = gru.update_reference(xs, hc, b_c, want_g, h, code)
+        want_dxs, want_dh, want_p = gru.update_bwd_reference(
+            dn, want_g, h, want_c, code)
+        gru.gates_bwd_reference(drh, h, want_g, want_dxs, want_dh, want_p)
+        err = max(float((a - b).abs().max()) for a, b in (
+            (g, want_g), (rh, want_rh), (c, want_c), (h_new, want_h),
+            (dxs, want_dxs), (dh, want_dh)))
+        # The biases' gradient: the partials summed in their fixed order
+        # against the plain column sums, as a share of the sum of |terms|.
+        bias_err = float(((partials.sum(0) - want_p.sum(0)).abs()
+                          / want_dxs.abs().sum(0).clamp_min(1e-30)).max())
+        if err > 1e-5 or bias_err > 1e-5:
+            raise RuntimeError(f"GRU kernels at {label}: max abs error "
+                               f"{err:.3e}, the bias gradient's relative "
+                               f"error {bias_err:.3e}, against the plain "
+                               "versions")
+        unit = rows * h_dim * 4
+        blocks = gru.row_blocks(rows, sms)
+        partial_bytes = {"K3 gru_update_bwd": blocks * 2 * h_dim * 4,
+                         "K4 gru_gates_bwd": blocks * h_dim * 4}
+        calls = {
+            "K1 gru_gates": (lambda: gru.gru_gates(xs, hg, b_g, h),
+                             lambda: gru.gates_reference(xs, hg, b_g, h)),
+            "K2 gru_update": (
+                lambda: gru.gru_update(xs, hc, b_c, g, h, code),
+                lambda: gru.update_reference(xs, hc, b_c, g, h, code)),
+            "K3 gru_update_bwd": (
+                lambda: gru.gru_update_bwd(dn, g, h, c, code),
+                lambda: gru.update_bwd_reference(dn, g, h, c, code)),
+            # In place: the repeats rewrite dxs' r columns and add into dh.
+            "K4 gru_gates_bwd": (
+                lambda: gru.gru_gates_bwd(drh, h, g, dxs, dh0, partials),
+                lambda: gru.gates_bwd_reference(drh, h, g, want_dxs,
+                                                want_dh, want_p))}
+        kernels = {}
+        for name, (kernel, plain) in calls.items():
+            nbytes = GRU_UNITS[name] * unit + partial_bytes.get(name, 0)
+            kernels[name] = {
+                "us": time_ms(kernel)[0] * 1e3,
+                "bound_us": nbytes / HBM_BYTES_PER_S * 1e6,
+                "plain_us": time_ms(plain)[0] * 1e3}
+        steps = [gru_step_phase(dev, gen, rows, d_in, code)
+                 for d_in in d_ins]
+        record = {"label": label, "rows": rows, "hidden": h_dim,
+                  "vec": gru.vector_width(h_dim, xs, h),
+                  "plan": gru.launch_plan(rows, h_dim, 4, sms)._asdict(),
+                  "max_abs_error": err, "bias_grad_relative_error": bias_err,
+                  "kernels": kernels, "steps": steps}
+        records.append(record)
+        log(f"GRU {label}: " + ", ".join(
+            f"{k} {v['us']:.3f} us (bound {v['bound_us']:.3f}, plain "
+            f"{v['plain_us']:.3f})" for k, v in kernels.items())
+            + f"; max abs error {err:.2e}, bias gradient {bias_err:.2e}; "
+            + "; ".join(
+                f"a step at d_in {st['d_in']} forward + backward "
+                f"{st['fused_step_us']:.1f} us fused, "
+                f"{st['eager_step_us']:.1f} us eager (h' "
+                f"{st['max_abs_error_vs_eager']:.2e}, gradients "
+                f"{max(st['grad_relative_l2_vs_eager']):.2e} off)"
+                for st in steps))
+    registers = gru_registers()
+    log(f"GRU kernels' registers a thread: {registers}")
+    return {"shapes": records, "registers": registers}
+
+
 def attention_kernel_phase(dev, gen, batches):
     """At the serving envelope and the 20k-node budget, each kernel of
     the new paths against its plain version: edge_dot for the scores
@@ -2332,7 +2537,7 @@ def tf1_phase(ckpt_dir):
         valid = synthetic_molecules(corpus["n_valid"],
                                     seed=corpus["seed"] + 1,
                                     num_targets=corpus["num_targets"])
-        got, counts, calls, new = counted_request(card, valid)
+        got, counts, calls, new, gru_counts = counted_request(card, valid)
         check_forwards(f"TF1 {case}", new, served_launches(variant,
                                                            card.config))
         want = cpu(valid)
@@ -2357,7 +2562,7 @@ def tf1_phase(ckpt_dir):
                                    atol=TOL_SERVING)
         results[case] = {
             "variant": variant, "graphs": len(valid), "launches": counts,
-            "forward_calls": calls, "graphs_captured": len(new),
+            "gru_launches": gru_counts, "forward_calls": calls, "graphs_captured": len(new),
             "max_abs_err_vs_cpu": err_cpu,
             "max_abs_err_vs_fixture": err_ref,
             "fixture_holds": "outputs" if ref_out.size else "valid MAE"}
@@ -2469,7 +2674,7 @@ def server_phase(ckpt_dir):
         zero_launch_counts()
         server.warmup()
         torch.cuda.synchronize()
-        warm_counts = launch_counts()
+        warm_counts, gru_counts = launch_counts(), gru_launch_counts()
         (new,) = captures.check(f"{label} server warm-up", warm_counts)
         check_forwards(f"{label} server warm-up", new, per_forward)
         if len(new) != 1:
@@ -2488,6 +2693,8 @@ def server_phase(ckpt_dir):
                                                     - want[:, i]).max()))
             torch.cuda.synchronize()
             seq_counts = launch_counts()
+            gru_counts = [a + b for a, b in zip(gru_counts,
+                                                gru_launch_counts())]
             if seq_counts != NO_LAUNCH:
                 raise RuntimeError(f"{label} server: 20 sequential requests "
                                    f"launched {seq_counts}: not replays")
@@ -2496,6 +2703,8 @@ def server_phase(ckpt_dir):
             load = load_clients(base, pool, want, SERVER_SECONDS)
             torch.cuda.synchronize()
             counts = launch_counts()
+            gru_counts = [a + b for a, b in zip(gru_counts,
+                                                gru_launch_counts())]
             after = http_health(base)
         finally:
             server.shutdown()
@@ -2521,7 +2730,9 @@ def server_phase(ckpt_dir):
             "sequential_launches": seq_counts, **load,
             "device_calls": calls, "coalesced_requests": coalesced,
             "graphs_per_device_call": load["requests"] / calls,
-            "launches": counts, "max_abs_err_vs_predictor": worst}
+            "launches": counts, "max_abs_err_vs_predictor": worst,
+            # The warm-up's, the sequential requests' and the load's.
+            "gru_launches": gru_counts}
         log(f"{label} server: 1 client p50 "
             f"{results[label]['sequential_p50_ms']:.3f} ms; "
             f"{SERVER_CLIENTS} clients {load['requests']} requests in "
@@ -2635,9 +2846,10 @@ def export_phase(ckpt_dir):
         rec = {"export_s": export_s, "load_s": load_s,
                "bytes": os.path.getsize(artifact), "requests": {}}
         for n in (1, 300):
-            got, counts, calls, new = counted_request(card, requests[n])
-            want, live_counts, _, live_new = counted_request(live,
-                                                             requests[n])
+            got, counts, calls, new, gru_counts = counted_request(
+                card, requests[n])
+            want, live_counts, _, live_new, _ = counted_request(
+                live, requests[n])
             check_forwards(f"{label} artifact, {n} graphs", new,
                            per_forward)
             if counts != live_counts or len(new) != len(live_new):
@@ -2656,6 +2868,7 @@ def export_phase(ckpt_dir):
                 np.testing.assert_allclose(got, cpu_want, rtol=TOL_SERVING,
                                            atol=TOL_SERVING)
             rec["requests"][n] = {"launches": counts, "forward_calls": calls,
+                                  "gru_launches": gru_counts,
                                   "graphs_captured": len(new),
                                   "max_abs_err_vs_live": err_live,
                                   "bit_equal_to_live": err_live == 0.0,
@@ -3078,10 +3291,10 @@ def bf16_export_phase(ckpt_dir):
     rec = {"export_s": export_s, "bytes": os.path.getsize(artifact),
            "requests": {}}
     for n in (1, 300):
-        got, counts, calls, new = counted_request(card, requests[n],
-                                                  bf16_launch_counts)
-        want, live_counts, _, _ = counted_request(live, requests[n],
-                                                  bf16_launch_counts)
+        got, counts, calls, new, gru_counts = counted_request(
+            card, requests[n], bf16_launch_counts)
+        want, live_counts, _, _, _ = counted_request(live, requests[n],
+                                                     bf16_launch_counts)
         steps = sum(live.config["layer_timesteps"])
         check_forwards(f"bf16 artifact, {n} graphs", new,
                        (steps, 0, 0, 0, 0, 0))
@@ -3096,6 +3309,7 @@ def bf16_export_phase(ckpt_dir):
         np.testing.assert_allclose(got, cpu_want, rtol=TOL_BF16_SERVING,
                                    atol=TOL_BF16_SERVING)
         rec["requests"][n] = {"launches": counts, "forward_calls": calls,
+                              "gru_launches": gru_counts,
                               "max_abs_err_vs_live": err_live,
                               "max_abs_err_vs_cpu_artifact": err_cpu}
     log(f"sparse_wide_bf16 artifact: exported on the CPU in {export_s:.2f}"
@@ -3138,7 +3352,7 @@ def counted_sparse_train(label, runner, counts=launch_counts):
     history = runner.train()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launched = counts()
+    launched, gru_launched = counts(), gru_launch_counts()
     new = captures.check(label, launched, counts)
     steps = sum(runner.config["layer_timesteps"])
     check_runner_graphs(label, runner,
@@ -3148,14 +3362,14 @@ def counted_sparse_train(label, runner, counts=launch_counts):
     log(f"{label}: {len(history)} epochs in {seconds:.2f} s, "
         f"{[len(n) for n in new]} train and validation graphs captured; "
         f"launches {COUNTER_NAMES} {launched}")
-    return history, launched, seconds
+    return history, launched, seconds, gru_launched
 
 
 def counted_train(label, runner, base_steps=(0, 0)):
     """`counted_sparse_train` of `runner` over the steps and validation
     batches the run adds to `base_steps`; every loss finite."""
-    history, launched, seconds = counted_sparse_train(f"extras {label}",
-                                                      runner)
+    history, launched, seconds, gru_launched = counted_sparse_train(
+        f"extras {label}", runner)
     train_steps = runner.train_step_id - base_steps[0]
     valid_batches = runner.valid_step_id - base_steps[1]
     log(f"extras {label}: {train_steps} train steps, {valid_batches} "
@@ -3165,8 +3379,8 @@ def counted_train(label, runner, base_steps=(0, 0)):
         if not np.isfinite([entry["train_results"][0],
                             entry["valid_results"][0]]).all():
             raise RuntimeError(f"extras {label}: non-finite loss")
-    return {"launches": list(launched), "seconds": seconds,
-            "train_steps": train_steps, "valid_batches": valid_batches,
+    return {"launches": list(launched), "gru_launches": gru_launched,
+            "seconds": seconds, "train_steps": train_steps, "valid_batches": valid_batches,
             "train_graphs_per_s": [e["train_results"][3] for e in history],
             "epochs": [e["epoch"] for e in history]}
 
@@ -3310,6 +3524,7 @@ def profile_cli_phase(work_dir):
     share it) are the warm-up step's, attributed to their ops, and each
     replay's, which the graph launches."""
     from ggnn_tpu_torch import cli
+    from ggnn_tpu_torch.ops.kernels import gru
     from ggnn_tpu_torch.training.runner import Runner
 
     profile_dir = os.path.join(work_dir, "profile")
@@ -3318,13 +3533,16 @@ def profile_cli_phase(work_dir):
 
     def counted(self, name, processed, is_training):
         before = launch_counts()
+        gru_before = (gru.launches, gru.backward_launches)
         captures = Captures(self.train_graphs)
         result = run_epoch(self, name, processed, is_training)
         torch.cuda.synchronize()
         (new,) = captures.new()
         by_epoch[name] = (tuple(a - b for a, b in
                                 zip(launch_counts(), before)), result[4],
-                          [held(g.launches) for g in new])
+                          [held(g.launches) for g in new],
+                          (gru.launches - gru_before[0],
+                           gru.backward_launches - gru_before[1]))
         return result
 
     Runner.run_epoch = counted
@@ -3337,13 +3555,14 @@ def profile_cli_phase(work_dir):
                        "--log_dir", work_dir, "--profile", profile_dir,
                        "--quiet"])
         seconds = time.perf_counter() - t0
-        launched = launch_counts()
+        launched, gru_launched = launch_counts(), gru_launch_counts()
     finally:
         Runner.run_epoch = run_epoch
     traces = os.listdir(profile_dir)
     if rc != 0 or len(traces) != 1:
         raise RuntimeError(f"cli --profile returned {rc}, wrote {traces}")
-    (b1, b2, *others), steps, new = by_epoch["epoch 1 (training)"]
+    (b1, b2, *others), steps, new, (gru_fwd, gru_bwd) = by_epoch[
+        "epoch 1 (training)"]
     ops, kernels, attributed = trace_counts(os.path.join(profile_dir,
                                                          traces[0]))
     # Every step of the epoch replays the one graph its first step
@@ -3361,9 +3580,16 @@ def profile_cli_phase(work_dir):
     # recorder (`utils/timing.py:_LastOp`), a dispatch mode: each op the
     # step dispatches is recorded once as called and once as the mode
     # calls it on.
+    # The GRU's counters count K1 and K2 (K3 and K4) together, so each of
+    # its ops is recorded as often as its counter moved.
     want_ops = {"ggnn_tpu_torch::gather_segment_sum": 2 * b1,
-                "ggnn_tpu_torch::segment_scatter_sum": 2 * b2}
+                "ggnn_tpu_torch::segment_scatter_sum": 2 * b2,
+                "ggnn_tpu_torch::gru_gates": gru_fwd,
+                "ggnn_tpu_torch::gru_update": gru_fwd,
+                "ggnn_tpu_torch::gru_update_bwd": gru_bwd,
+                "ggnn_tpu_torch::gru_gates_bwd": gru_bwd}
     if (len(new) != 1 or b1 == 0 or b2 == 0 or any(others)
+            or gru_fwd != 2 * b1 or gru_bwd != 2 * b1
             or (b1, b2) != (2 * new[0][0], 2 * new[0][1])
             or ops != want_ops
             or kernels["segment_sum_kernel"] != (b1 + b2) // 2 + replayed):
@@ -3376,7 +3602,7 @@ def profile_cli_phase(work_dir):
             "unattributed": replayed}:
         raise RuntimeError(f"the trace attributes {attributed} kernels")
     return {"seconds": seconds, "launches": list(launched),
-            "epoch_steps": steps, "epoch_b1": b1, "epoch_b2": b2,
+            "gru_launches": gru_launched, "epoch_steps": steps, "epoch_b1": b1, "epoch_b2": b2,
             "epoch_graphs": new, "trace_replayed_kernels": replayed,
             "trace_ops": dict(ops),
             "trace_segment_sum_kernels": kernels["segment_sum_kernel"],
@@ -3409,7 +3635,7 @@ def evaluate_phase(best, corpus, log_dir):
     t0 = time.perf_counter()
     got = np.concatenate(card.predict(valid), axis=1)
     seconds = time.perf_counter() - t0
-    launched = launch_counts()
+    launched, gru_launched = launch_counts(), gru_launch_counts()
     captures.check("extras Runner.predict", launched)
     batches = sum(1 for _ in card.adapter.batches(
         card.adapter.preprocess(valid, False), False))
@@ -3443,7 +3669,7 @@ def evaluate_phase(best, corpus, log_dir):
                        "--restore", best, "--evaluate", "--log_dir",
                        os.path.join(log_dir, "cli"), "--quiet"])
     torch.cuda.synchronize()
-    cli_launched = launch_counts()
+    cli_launched, gru_cli = launch_counts(), gru_launch_counts()
     if rc != 0 or cli_launched[0] == 0:
         raise RuntimeError(f"cli --evaluate returned {rc}")
     cli_graphs = check_cli_graphs("extras cli --restore --evaluate", made,
@@ -3451,6 +3677,7 @@ def evaluate_phase(best, corpus, log_dir):
     log(f"extras evaluate: cli.main --restore --evaluate returned {rc}, "
         f"launches {cli_launched}, graphs {cli_graphs}")
     return {"launches": list(launched), "cli_launches": list(cli_launched),
+            "gru_launches": gru_launched, "gru_cli_launches": gru_cli,
             "launches_a_replay": forward,
             "cli_graphs": cli_graphs,
             "batches": batches, "predict_ms": seconds * 1e3,
@@ -3509,7 +3736,7 @@ def ingestion_phase(work_dir):
                        json.dumps({"num_epochs": 1}), "--log_dir", log_dir,
                        "--checkpoint-every-steps", "1", "--quiet"])
     torch.cuda.synchronize()
-    launched = launch_counts()
+    launched, gru_launched = launch_counts(), gru_launch_counts()
     graphs = check_cli_graphs("extras cli --data_dir "
                               "--checkpoint-every-steps 1", made, launched,
                               "train_graphs")
@@ -3528,7 +3755,8 @@ def ingestion_phase(work_dir):
             or len(rolling) != 1):
         raise RuntimeError("the QM9 tarball did not train to a finite loss")
     return {"molecules": sizes, "extract_seconds": extract_s,
-            "losses": losses, "launches": list(launched), "graphs": graphs}
+            "losses": losses, "launches": list(launched),
+            "gru_launches": gru_launched, "graphs": graphs}
 
 
 def extras_phase(corpus, work_dir):
@@ -4639,7 +4867,7 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
     log_rec = runner.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = list(launch_counts())
+    launches, gru_launched = list(launch_counts()), gru_launch_counts()
     saved = {}
     if save_dir is not None:
         from ggnn_tpu_torch.training import runner as runner_mod
@@ -4669,6 +4897,7 @@ def mesh_runner_rank(variant, config, corpus, n_data, n_edge, log_dir,
             "train_steps": runner.train_step_id,
             "valid_steps": runner.valid_step_id,
             "digests": digests, "launches": launches, "want": want,
+            "gru_launches": gru_launched,
             "keys": keys, "shapes": [(split, sorted(seen))
                                      for split, seen in shapes],
             "step_ms": step_ms, "device": str(mesh.device)}
@@ -4742,18 +4971,20 @@ def nccl_rank(config, corpus, log_dir):
             zero_launch_counts()
             log_rec = runner.train()
             torch.cuda.synchronize()
-            launches = list(launch_counts())
-            predicted, predict_launches = None, None
+            launches = list(launch_counts()), gru_launch_counts()
+            predicted, predict_launches = None, (None, None)
             if label != "mesh eager":
                 zero_launch_counts()
                 predicted = np.concatenate(runner.predict(mols), axis=1)
-                predict_launches = list(launch_counts())
+                predict_launches = (list(launch_counts()),
+                                    gru_launch_counts())
             runs[label] = (runner, log_rec, launches, predicted,
                            predict_launches)
     meshed = dict(runs["mesh"][0].params.named_parameters())
 
     def record(label):
-        runner, log_rec, launches, predicted, predict_launches = runs[label]
+        runner, log_rec, (launches, gru_launched), predicted, (
+            predict_launches, gru_predicted) = runs[label]
         diffs = [float((p.detach() - meshed[n].detach()).abs().max())
                  for n, p in runner.params.named_parameters()]
         return {
@@ -4761,6 +4992,7 @@ def nccl_rank(config, corpus, log_dir):
             "train_loss": log_rec[0]["train_results"][0],
             "valid_loss": log_rec[0]["valid_results"][0],
             "launches": launches, "predict_launches": predict_launches,
+            "gru_launches": gru_launched, "gru_predict_launches": gru_predicted,
             "predicted": predicted,
             "graphs": {name: [held(g.launches) for g in cache.graphs.values()]
                        for name, cache in (
@@ -4964,6 +5196,7 @@ def mesh_phase(corpus, step_corpus, work_dir, ragged=()):
                     "step_max_rel_grad_err": worst,
                     "step_launches": [s["launches"] for s in steps],
                     "runner_launches": [r["launches"] for r in runs],
+                    "gru_runner_launches": [r["gru_launches"] for r in runs],
                     "train_steps": first["train_steps"],
                     "valid_steps": first["valid_steps"],
                     "initial_valid_loss": first["initial_valid_loss"],
@@ -5462,10 +5695,10 @@ def orbax_pair(label, config, corpus, work_dir, bf16=False):
                 rec["save_ms"][fmt] = (time.perf_counter() - t0) * 1e3
 
     def counted(name, runner):
-        history, launched, _ = counted_sparse_train(
+        history, launched, _, gru_launched = counted_sparse_train(
             f"orbax {label} {name}", runner, counts)
         rec["runs"][name] = {
-            "launches": list(launched),
+            "launches": list(launched), "gru_launches": gru_launched,
             "epochs": [e["epoch"] for e in history],
             "losses": [[e["train_results"][0], e["valid_results"][0]]
                        for e in history]}
@@ -5509,11 +5742,12 @@ def orbax_pair(label, config, corpus, work_dir, bf16=False):
                                f"{[e['epoch'] for e in history]}")
         resumed[fmt] = runner_state(runner)
         predictor = Predictor.from_checkpoint(path, "sparse")
-        answer, launched, _, new = counted_request(predictor, request,
-                                                   counts)
+        answer, launched, _, new, gru_launched = counted_request(
+            predictor, request, counts)
         check_forwards(f"orbax {label} {fmt} serving", new,
                        served_launches("sparse", config))
-        rec["runs"][f"serving from the {fmt}"] = {"launches": list(launched)}
+        rec["runs"][f"serving from the {fmt}"] = {
+            "launches": list(launched), "gru_launches": gru_launched}
         answers[fmt] = np.asarray(answer)
     checks = {
         "restored_bit_equal": same_state(states["directory"],
@@ -5608,11 +5842,12 @@ def orbax_fixture_check():
     counters_equal = (payload["train_step"], payload["valid_step"]) == (
         twin["train_step"], twin["valid_step"])
     request = serving_requests()[300]
-    answers, launches = {}, {}
+    answers, launches, gru_launches = {}, {}, {}
     for fmt, path in (("directory", ORBAX_FIXTURE),
                       ("pickle", ORBAX_FIXTURE + ".pickle")):
         predictor = Predictor.from_checkpoint(path, "sparse")
-        answer, launched, _, _ = counted_request(predictor, request)
+        answer, launched, _, _, gru_launches[fmt] = counted_request(
+            predictor, request)
         answers[fmt], launches[fmt] = np.asarray(answer), list(launched)
     served_equal = bool(np.array_equal(answers["directory"],
                                        answers["pickle"]))
@@ -5626,7 +5861,9 @@ def orbax_fixture_check():
                            "its pickle twin")
     return {"arrays": len(got), "read_ms": read_ms,
             "launches": launches["directory"],
-            "pickle_launches": launches["pickle"]}
+            "pickle_launches": launches["pickle"],
+            "gru_launches": gru_launches["directory"],
+            "gru_pickle_launches": gru_launches["pickle"]}
 
 
 def orbax_phase(corpus, mesh, work_dir):
@@ -6358,7 +6595,8 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     log("tf32: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
-    sources = ("ell_spmm", "gather_floor", "edge_dot", "ragged_exchange")
+    sources = ("ell_spmm", "gather_floor", "edge_dot", "ragged_exchange",
+               "gru")
     start = time.perf_counter()
     # The host packer's g++ build runs beside the kernels' nvcc builds.
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -6414,6 +6652,7 @@ def main() -> int:
             h20k, lane20k.edge_sources_all, off20k, n20k * t20k))
     async_kernels = async_kernel_phase(dev, gen, *async_batches())
     attention_kernels = attention_kernel_phase(dev, gen, batches)
+    gru_kernels = gru_phase(dev)
     work_dir = os.path.join(REPO, "build", "chip_smoke")
     serving = serving_phase(work_dir)
     dense_serving = dense_serving_phase(work_dir)
@@ -6755,6 +6994,89 @@ def main() -> int:
     ]
     for k in kernels[-5:]:
         k["registers"] = bf16_kernels["registers"]
+    # The GRU kernels' launches on every run above, f32 and bf16 configs
+    # alike (the cell is f32 in both), read beside each run's six
+    # (`gru_launch_counts`): [K1 and K2, K3 and K4].
+    def gru_sum(*counts):
+        return [sum(c) for c in zip(*counts)]
+
+    gru_runs = {
+        "sparse serving": serving["gru_launches"],
+        "sparse training": training["gru_launches"],
+        "sparse_attention serving": attention_serving["gru_launches"],
+        "sparse_attention training": attention_training["gru_launches"],
+        "async serving": async_serving["gru_launches"],
+        "async training": async_training["gru_launches"],
+        "sparse_wide_bf16 serving": bf16_serving["bf16"]["gru_launches"],
+        "sparse_wide_bf16 training": bf16_training["gru_launches"],
+        "sparse_wide_bf16 artifact serving": gru_sum(*(
+            r["gru_launches"] for r in bf16_export["requests"].values())),
+        "extras cli --profile": extras["profile"]["gru_launches"],
+        "extras Runner.predict": extras["evaluate"]["gru_launches"],
+        "extras cli --evaluate": extras["evaluate"]["gru_cli_launches"],
+        "extras QM9 cli": extras["ingestion"]["gru_launches"],
+        "orbax JAX fixture serving": gru_sum(
+            orbax["fixture"]["gru_launches"],
+            orbax["fixture"]["gru_pickle_launches"])}
+    for variant in DENSE_VARIANTS + GCN_VARIANTS:
+        served = (dense_serving if variant in DENSE_VARIANTS
+                  else gcn_serving)[variant]
+        trained = (dense_training if variant in DENSE_VARIANTS
+                   else gcn_training)[variant]
+        gru_runs[f"{variant} serving"] = served["gru_launches"]
+        gru_runs[f"{variant} training"] = trained["gru_launches"]
+    for prefix, by_route in (("sparse", routes),
+                             ("sparse_wide_bf16", bf16_routes)):
+        for label, rec in by_route.items():
+            if "serving" in rec:
+                gru_runs[f"{prefix} ({label}) serving"] = \
+                    rec["serving"]["gru_launches"]
+            gru_runs[f"{prefix} ({label}) train step"] = \
+                rec["train_step"]["gru_launches"]
+    for case, rec in tf1.items():
+        gru_runs[f"TF1 {case} serving"] = rec["gru_launches"]
+    for label in ("sparse", "sparse_attention"):
+        gru_runs[f"{label} server"] = server[label]["gru_launches"]
+    for label in EXPORTED:
+        gru_runs[f"{label} artifact serving"] = gru_sum(*(
+            r["gru_launches"] for r in exported[label]["requests"].values()))
+    for label, rec in extras["resume"]["runs"].items():
+        gru_runs[f"extras {label} training"] = rec["gru_launches"]
+    for label, rec in mesh["cases"].items():
+        gru_runs[f"mesh {label} training"] = gru_sum(
+            *rec["gru_runner_launches"])
+    for label, rec in mesh["nccl"]["runs"].items():
+        gru_runs[f"mesh nccl 1x1 {label} training"] = rec["gru_launches"]
+        if rec["gru_predict_launches"] is not None:
+            gru_runs[f"mesh nccl 1x1 {label} predict"] = \
+                rec["gru_predict_launches"]
+    for config in ("sparse", "sparse_wide_bf16"):
+        for name, rec in orbax[config]["runs"].items():
+            gru_runs[f"orbax {config} {name}"] = rec["gru_launches"]
+    # Each counter counts two kernels that a step launches in pairs: K1
+    # then K2, K3 then K4. An odd count is a step that launched one alone.
+    odd = {path: c for path, c in gru_runs.items() if c[0] % 2 or c[1] % 2}
+    if odd:
+        raise RuntimeError(f"GRU launches not in pairs on {odd}")
+    gru_sparse = gru_kernels["shapes"][0]     # the sparse cell's 100k rows
+    for name, counter in (("K1 gru_gates", 0), ("K2 gru_update", 0),
+                          ("K3 gru_update_bwd", 1), ("K4 gru_gates_bwd", 1)):
+        paths = {path: c[counter] // 2 for path, c in gru_runs.items()}
+        timed = gru_sparse["kernels"][name]
+        kernels.append({
+            "name": name.split()[1],
+            "route": "cuda",
+            "source": "ggnn_tpu_torch/csrc/gru.cu",
+            "replaces": "XLA-fused GRU math at ggnn_tpu/ops/cells.py:"
+                        "gru_apply, no Pallas kernel",
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": max(r["max_abs_error"]
+                               for r in gru_kernels["shapes"]),
+            "ms": timed["us"] / 1e3, "plain_ms": timed["plain_us"] / 1e3,
+            "bound_ms": timed["bound_us"] / 1e3, "bound_by": "bytes",
+            "shapes": [{"label": r["label"], **r["kernels"][name]}
+                       for r in gru_kernels["shapes"]],
+            "registers": gru_kernels["registers"]})
     # The ragged exchange: its stand-in run on this card (one process for
     # S = 4 ranks, eager and replayed, f32 and bf16), counted from 0 just
     # before it.
@@ -6802,6 +7124,7 @@ def main() -> int:
                     "async_card_vs_cpu": async_card_vs_cpu,
                     "async_profile": async_profile,
                     "attention_kernels": attention_kernels,
+                    "gru_kernels": gru_kernels,
                     "attention_serving": attention_serving,
                     "attention_training": attention_training,
                     "attention_card_vs_cpu": attention_card_vs_cpu,

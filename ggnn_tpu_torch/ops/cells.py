@@ -18,7 +18,11 @@ BasicRNNCell:
     h' = act([x, h] @ W + b)                     b initialised to 0.0
 
 The [x; h] @ W products run as split-K partial products (no concat),
-which rounds differently from one product at ~1e-7. In training the new
+which rounds differently from one product at ~1e-7; GRUCell's two
+x-side products run as ONE [*, 3H] product. GRUCell's gate and update
+math, forward and backward, runs in four hand-written kernels around its
+products (`ops/kernels/gru.py:FusedGRU`; on the CPU their plain
+versions, the same arithmetic). In training the new
 state goes through TF1 dropout with `state_keep_prob`
 (`DropoutWrapper(state_keep_prob)`, ggnn_tpu/ops/cells.py:161-167).
 """
@@ -29,6 +33,7 @@ import torch
 from torch import nn
 
 from ggnn_tpu_torch.ops.dropout import dropout
+from ggnn_tpu_torch.ops.kernels.gru import activation_code, gru_step
 from ggnn_tpu_torch.utils.init import glorot_init, ones_init, zeros_init
 
 
@@ -52,6 +57,7 @@ class GRUCell(_Cell):
                  generator: torch.Generator, activation: Callable = torch.tanh,
                  state_keep_prob: float = 1.0):
         super().__init__(activation, state_keep_prob)
+        self.activation_code = activation_code(activation)
         d, hd = input_size + hidden_size, hidden_size
         self.gates_kernel = nn.Parameter(glorot_init(generator, (d, 2 * hd)))
         self.gates_bias = nn.Parameter(ones_init(generator, (2 * hd,)))
@@ -59,18 +65,9 @@ class GRUCell(_Cell):
         self.candidate_bias = nn.Parameter(zeros_init(generator, (hd,)))
 
     def step(self, x, h):
-        d_in = x.shape[-1]
-        hdim = h.shape[-1]
-        w_g, w_c = self.gates_kernel, self.candidate_kernel
-        # The two x-side products as ONE [*, 3H] product.
-        xs = torch.matmul(x, torch.cat([w_g[:d_in], w_c[:d_in]], dim=1))
-        gates = torch.sigmoid(xs[..., :2 * hdim]
-                              + torch.matmul(h, w_g[d_in:]) + self.gates_bias)
-        r, u = gates.chunk(2, dim=-1)
-        c = self.activation(xs[..., 2 * hdim:]
-                            + torch.matmul(r * h, w_c[d_in:])
-                            + self.candidate_bias)
-        return u * h + (1.0 - u) * c
+        return gru_step(x, h, self.gates_kernel, self.gates_bias,
+                        self.candidate_kernel, self.candidate_bias,
+                        self.activation_code)
 
 
 class CudnnCompatibleGRUCell(_Cell):

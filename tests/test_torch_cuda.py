@@ -22,7 +22,10 @@ direction) with one process standing in for four ranks as one grid,
 eager and replayed, f32 and bf16 rows, bit for bit, the routes the
 forward returns, forwards run before their reverse transfers, a wait
 whose peer never arrives and a backward of other rows than its
-forward's, each of which traps. Every test
+forward's, each of which traps. The GRU cell's kernels (csrc/gru.cu,
+K1-K4) against their plain versions at the sparse and dense shapes and
+on the scalar path, bit-equal repeats, a graph replay, and their
+launches in a sparse and a dense train step. Every test
 here needs an NVIDIA GPU and skips without one. The file
 imports nothing of JAX, so it runs where JAX is not installed:
 
@@ -1248,7 +1251,9 @@ def test_exported_sparse_forward_launches_b1_on_the_card(cuda, tmp_path):
         np.testing.assert_allclose(got, cpu(batch_request), rtol=1e-4,
                                    atol=1e-4)
     (graph,) = exported._graphs.graphs.values()
-    assert graph.launches == {"ell_spmm.launches": steps}
+    # The GRU's K1 and K2 once a propagation step each.
+    assert graph.launches == {"ell_spmm.launches": steps,
+                              "gru.launches": 2 * steps}
 
 
 # ------------------------------------------------ bf16 instances (A16)
@@ -2379,3 +2384,188 @@ def test_ragged_exchange_backward_of_other_rows_is_an_error(cuda, tmp_path):
     assert "raised" in out, out
     code = int(out.split("status")[-1])
     assert code >> 8 == (2 << 8) | 1, out
+
+
+# ------------------------------------------ the GRU cell's kernels (K1-K4)
+
+def _gru_inputs(device, rows, d_in, h_dim, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return (0.5 * torch.randn(*shape, generator=gen, device=device)
+                ).requires_grad_(True)
+
+    return [rand(rows, d_in), rand(rows, h_dim), rand(d_in + h_dim, 2 * h_dim),
+            rand(2 * h_dim), rand(d_in + h_dim, h_dim), rand(h_dim)]
+
+
+def _gru_grads(out, args, seed=1):
+    gen = torch.Generator(device=out.device).manual_seed(seed)
+    weight = torch.randn(out.shape, generator=gen, device=out.device)
+    return torch.autograd.grad((out * weight).sum(), args)
+
+
+def _gru_eager(x, h, w_g, b_g, w_c, b_c, act):
+    """The cell's step as eager PyTorch ran it before the kernels."""
+    d_in, hdim = x.shape[-1], h.shape[-1]
+    xs = torch.matmul(x, torch.cat([w_g[:d_in], w_c[:d_in]], dim=1))
+    gates = torch.sigmoid(xs[..., :2 * hdim] + torch.matmul(h, w_g[d_in:])
+                          + b_g)
+    r, u = gates.chunk(2, dim=-1)
+    c = act(xs[..., 2 * hdim:] + torch.matmul(r * h, w_c[d_in:]) + b_c)
+    return u * h + (1.0 - u) * c
+
+
+GRU_SHAPES = [(100_000, 100, 100), (100_000, 200, 100), (100_000, 300, 100),
+              (7_424, 100, 100), (1_024, 100, 100), (5_000, 37, 37)]
+
+
+@pytest.mark.parametrize("act", ["tanh", "relu"])
+@pytest.mark.parametrize("rows,d_in,h_dim", GRU_SHAPES)
+def test_gru_kernels_match_plain(cuda, rows, d_in, h_dim, act):
+    """K1-K4 one by one against their plain versions on the card at the
+    sparse batch (d_in 100/200/300, the residual layers), the dense
+    buckets' extremes and the scalar path (H = 37), 1e-5; then the
+    FusedGRU step's output and gradients against autograd of the eager
+    formula, 1e-4. One launch a kernel."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    code = gru.ACTIVATIONS[act]
+    gen = torch.Generator(device=cuda).manual_seed(rows + d_in)
+    xs = torch.randn(rows, 3 * h_dim, generator=gen, device=cuda)
+    hg = torch.randn(rows, 2 * h_dim, generator=gen, device=cuda)
+    hc, h, dn, drh = (torch.randn(rows, h_dim, generator=gen, device=cuda)
+                      for _ in range(4))
+    b_g = torch.randn(2 * h_dim, generator=gen, device=cuda)
+    b_c = torch.randn(h_dim, generator=gen, device=cuda)
+    assert gru.vector_width(h_dim, xs, h) == (4 if h_dim % 4 == 0 else 1)
+    before = (gru.launches, gru.backward_launches)
+    g, rh = gru.gru_gates(xs, hg, b_g, h)
+    c, h_new = gru.gru_update(xs, hc, b_c, g, h, code)
+    dxs, dh, partials = gru.gru_update_bwd(dn, g, h, c, code)
+    gru.gru_gates_bwd(drh, h, g, dxs, dh, partials)
+    torch.cuda.synchronize()
+    assert (gru.launches, gru.backward_launches) == (before[0] + 2,
+                                                     before[1] + 2)
+    want_g, want_rh = gru.gates_reference(xs, hg, b_g, h)
+    want_c, want_h = gru.update_reference(xs, hc, b_c, want_g, h, code)
+    want_dxs, want_dh, want_p = gru.update_bwd_reference(dn, want_g, h,
+                                                         want_c, code)
+    gru.gates_bwd_reference(drh, h, want_g, want_dxs, want_dh, want_p)
+    for got, want in ((g, want_g), (rh, want_rh), (c, want_c),
+                      (h_new, want_h), (dxs, want_dxs), (dh, want_dh)):
+        torch.testing.assert_close(got, want, **TOL)
+    assert partials.shape == (gru.row_blocks(
+        rows, torch.cuda.get_device_properties(0).multi_processor_count),
+        3 * h_dim)
+    torch.testing.assert_close(partials.sum(0), want_p.sum(0), rtol=1e-5,
+                               atol=1e-3)
+    args = _gru_inputs(cuda, rows, d_in, h_dim, seed=rows)
+    out = gru.gru_step(*args, code)
+    want = _gru_eager(*args, {"tanh": torch.tanh, "relu": torch.relu}[act])
+    torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-4)
+    for got, want_grad in zip(_gru_grads(out, args), _gru_grads(want, args)):
+        rel = float((got - want_grad).norm()
+                    / want_grad.norm().clamp_min(1e-30))
+        assert rel <= 1e-4
+
+
+def test_gru_kernels_take_unaligned_views_and_empty_rows(cuda):
+    """A row view off 16-byte alignment takes the scalar instance; zero
+    rows launch nothing."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    flat = torch.randn(1 + 300 * 100, generator=gen, device=cuda)
+    h = flat[1:].view(300, 100)
+    xs = torch.randn(300, 300, generator=gen, device=cuda)
+    hg = torch.randn(300, 200, generator=gen, device=cuda)
+    b_g = torch.randn(200, generator=gen, device=cuda)
+    assert gru.vector_width(100, xs, h) == 1
+    g, rh = gru.gru_gates(xs, hg, b_g, h)
+    want_g, want_rh = gru.gates_reference(xs, hg, b_g, h)
+    torch.testing.assert_close(g, want_g, **TOL)
+    torch.testing.assert_close(rh, want_rh, **TOL)
+    before = (gru.launches, gru.backward_launches)
+    args = [a[:0].detach().requires_grad_() if i < 2 else a
+            for i, a in enumerate(_gru_inputs(cuda, 4, 100, 100))]
+    out = gru.gru_step(*args, gru.ACTIVATIONS["tanh"])
+    grads = torch.autograd.grad(out.sum(), args)
+    torch.cuda.synchronize()
+    assert out.shape == (0, 100)
+    assert (gru.launches, gru.backward_launches) == before
+    assert all(float(gr.abs().sum()) == 0 for gr in grads)
+
+
+def test_gru_step_repeats_bit_for_bit_and_replays_in_a_graph(cuda):
+    """Two FusedGRU steps at the sparse batch's shape give the same bits,
+    the biases' gradients included (no atomics); the step captured in a
+    CUDA graph and replayed on new inputs equals the eager step."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    code = gru.ACTIVATIONS["tanh"]
+    args = _gru_inputs(cuda, 100_000, 300, 100, seed=5)
+    runs = []
+    for _ in range(2):
+        out = gru.gru_step(*args, code)
+        runs.append([out.detach()] + list(_gru_grads(out, args)))
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+    static = [a.detach().clone().requires_grad_(a.requires_grad)
+              for a in _gru_inputs(cuda, 7_424, 100, 100, seed=6)]
+    weight = torch.randn(7_424, 100, device=cuda)
+
+    def step():
+        out = gru.gru_step(*static, code)
+        return [out.detach()] + list(torch.autograd.grad(
+            (out * weight).sum(), static))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (gru.launches, gru.backward_launches)
+    with torch.cuda.graph(graph):
+        outputs = step()
+    assert (gru.launches - before[0], gru.backward_launches - before[1]) \
+        == (2, 2)
+    fresh = _gru_inputs(cuda, 7_424, 100, 100, seed=7)
+    with torch.no_grad():
+        for s, f in zip(static, fresh):
+            s.copy_(f)
+    graph.replay()
+    replayed = [t.clone() for t in outputs]
+    want = step()
+    torch.cuda.synchronize()
+    assert (gru.launches - before[0], gru.backward_launches - before[1]) \
+        == (4, 4)
+    for got, w in zip(replayed, want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("variant,want", [("sparse", 16), ("dense", 8)])
+def test_gru_launches_of_a_train_step(cuda, variant, want, tmp_path):
+    """One Runner train step launches K1 and K2 once a propagation step
+    and K3 and K4 once: 8 steps sparse (`layer_timesteps` [2,2,1,2,1]),
+    4 dense."""
+    from ggnn_tpu_torch.ops.kernels import gru
+    if variant == "sparse":
+        config = resolve_config("sparse", config_json=json.dumps({
+            "batch_size": 2000}))
+        train = synthetic_molecules(120, seed=7)
+        batch = None
+    else:
+        config, batch = _dense_batch(variant)
+        config.update({"dense_bucket_sizes": [16, 32]})
+        train = synthetic_molecules(40, seed=7)
+    runner = Runner(variant, dict(config), train_data=train,
+                    valid_data=synthetic_molecules(20, seed=8),
+                    log_dir=str(tmp_path), quiet=True, device="cuda")
+    if batch is None:
+        batch = next(iter(runner.adapter.batches(runner.train_processed,
+                                                 False)))
+    before = (gru.launches, gru.backward_launches)
+    runner.loss_and_grads(batch.to("cuda"))
+    torch.cuda.synchronize()
+    assert (gru.launches - before[0],
+            gru.backward_launches - before[1]) == (want, want)

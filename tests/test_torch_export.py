@@ -151,7 +151,30 @@ def _expected_kernel_calls(name, config):
     propagation step (sparse, rgcn) or an async substep, B3 and B1 once a
     step on the per-edge route, `edge_dot` and
     the weighted instance once a step with attention, the weighted
-    instance once a GCN layer; none on the dense family."""
+    instance once a GCN layer, and the GRU's K1 and K2 once a step of a
+    GRU cell (every variant but rgcn's RNN cell and the GCNs)."""
+    calls = _aggregation_calls(name, config)
+    cell_steps = _gru_steps(name, config)
+    if cell_steps:
+        calls.update({"ggnn_tpu_torch.gru_gates.default": cell_steps,
+                      "ggnn_tpu_torch.gru_update.default": cell_steps})
+    return calls
+
+
+def _gru_steps(name, config):
+    """The GRU steps of a forward of VARIANTS[name]: none for rgcn's RNN
+    cell and the GCNs; `dense`'s reference mode hard-codes a GRU of
+    `num_timesteps` steps, `blocked` runs the sparse layers' steps."""
+    if name in ("rgcn", "gcn", "gcn_blocked"):
+        return 0
+    if name == "dense":
+        return config["num_timesteps"]
+    if name == "async":
+        return config["propagation_rounds"] * config["propagation_substeps"]
+    return sum(config["layer_timesteps"])
+
+
+def _aggregation_calls(name, config):
     ops = "ggnn_tpu_torch."
     if name in ("sparse", "rgcn", "sparse_per_type"):
         return {ops + "gather_segment_sum.default":

@@ -376,9 +376,13 @@ def test_profile_writes_one_chrome_trace_of_epoch_one(monkeypatch,
     epoch1 = dict(steps)["epoch 1 (training)"]
     prop_steps = sum(SMALL["layer_timesteps"])
     # Epoch 1's training steps alone: not its validation, not epoch 2.
+    # The GRU's K1/K2 forward and K3/K4 backward once a propagation step.
     assert ops == {"ggnn_tpu_torch::gather_segment_sum": prop_steps * epoch1,
                    "ggnn_tpu_torch::segment_scatter_sum":
-                       (prop_steps - 1) * epoch1}
+                       (prop_steps - 1) * epoch1,
+                   **{f"ggnn_tpu_torch::{op}": prop_steps * epoch1
+                      for op in ("gru_gates", "gru_update", "gru_update_bwd",
+                                 "gru_gates_bwd")}}
     # The port's spans are in it, a step each (utils/spans.py), and off
     # again after it, nothing of them kept.
     spans = collections.Counter(e["name"] for e in events
